@@ -24,7 +24,27 @@ failure:
                under torch.profiler: the device-busy share and the kernels
                by device time per tick;
   4. check  — the reduced llama3.2-1b on the card against the same model on
-               the CPU (plain versions), prefill and decode logits.
+               the CPU (plain versions), prefill and decode logits;
+  5a. stochastic_round — bit-equal to its plain version on the reference's
+               example shapes and a 32x224x224x64 activation, timed;
+  5b. backward — masked_matmul_dx / _dw at VGG-19's c0_1, c3_0 and fc6
+               backward shapes at batch 32 against the plain fp32 product
+               (within 2K 2^-24 (|a|@|b|)), bit-identical across two calls,
+               timed beside torch.matmul; exact on {0, 2^-8} operands at
+               c0_1; a block-pruned case whose skip flags equal the plain
+               version's; split-K forward with SR and the split-K reduce,
+               exact;
+  5c. train  — full-width VGG-19 at 224x224, batch 32, quant_sparse with SR,
+               the sparse backward and the memstash stash policy, sgdm with
+               Q4.16 SR weights, 3 steps through
+               ``repro_torch.launch.train.run_arm``; counters zeroed just before
+               and read just after; every loss finite, every parameter on the
+               grid after each step, every training kernel launched; s/step,
+               images/s, peak memory, activation density and tile skip; then
+               one step under torch.profiler;
+  5d. check  — tiny_cnn, one nearest-rounding step on the card against the CPU;
+  5e. arms   — the example's fp32 / SR / nearest arms on tiny_cnn, 150 steps,
+               gaps printed (not gated).
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and, last, the ``{"ok": true, "device": ...}`` line.
@@ -67,13 +87,44 @@ def bound(nbytes: float, flops: float) -> tuple:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def timed(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` on the card: CUDA events around ``iters``
+    calls after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_time_by_kernel(prof, per: int = 1) -> list:
+    """(name, device ms, calls) of the device-side events of a profile,
+    divided by ``per``, busiest first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: a CPU op's device time repeats its kernels'
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            rows.append((ev.key, ev.self_device_time_total / 1e3 / per, ev.count // per))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def profile_decode(dev, ticks: int = 4) -> dict:
     """Where a decode tick's time goes: the same full-width engine, all
     slots admitted first, then ``ticks`` pooled decode ticks under
     torch.profiler.  Prints the device-busy share of the window and the
     kernels by device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
@@ -94,12 +145,7 @@ def profile_decode(dev, ticks: int = 4) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only: a CPU op's device time repeats its kernels'
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            rows.append((ev.key, ev.self_device_time_total / 1e3 / ticks, ev.count // ticks))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_time_by_kernel(prof, ticks)
     busy_ms = sum(r[1] for r in rows)
     tick_ms = wall_ms / ticks
     if busy_ms == 0:
@@ -113,6 +159,333 @@ def profile_decode(dev, ticks: int = 4) -> dict:
     return {"tick_ms": tick_ms, "device_busy_ms": busy_ms,
             "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
                         for n, ms, c in rows[:40]]}
+
+
+# -- slice 2: CNN training ------------------------------------------------------
+
+# VGG-19 at 224 x 224, the paper's training batch (CNNDef.train_batch)
+VGG_HW, VGG_BATCH, VGG_STEPS = 224, 32, 3
+# backward GEMMs of three VGG-19 layers at batch 32: conv c0_1 (224 x 224,
+# 64 -> 64), conv c3_0 (28 x 28, 256 -> 512) and fc6 (25088 -> 4096)
+BWD_LAYERS = {"c0_1": ("conv", 224, 64, 64), "c3_0": ("conv", 28, 256, 512),
+              "fc6": ("fc", 25088, 4096)}
+SERVE_KERNELS = ("masked_matmul", "tile_occupancy", "mask_pack")
+TRAIN_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "tile_occupancy",
+                 "splitk_reduce", "stochastic_round")
+
+
+def phase_stochastic_round(dev, gen) -> dict:
+    """(a) the SR kernel bit-equal to its plain version on the reference's
+    example shapes and on a 32 x 224 x 224 x 64 activation, then timed."""
+    import torch
+
+    from repro_torch.kernels.stochastic_round.ops import sr_reference, stochastic_round
+
+    cases = [((128,), 4, 16), ((333, 17), 4, 16), ((8, 1024), 4, 16), ((3, 5, 9), 4, 16),
+             ((256, 64), 2, 6), ((VGG_BATCH, VGG_HW, VGG_HW, 64), 4, 16)]
+    err = 0.0  # max |kernel - plain| over every case
+    for shape, il, fl in cases:
+        x = (torch.randn(shape, generator=gen) * 3).to(dev)
+        got, want = stochastic_round(x, 9, il=il, fl=fl), sr_reference(x, 9, il=il, fl=fl)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            fail(f"stochastic_round {shape} Q{il}.{fl} differs from its plain version")
+        del got, want
+    print("[stochastic_round] bit-equal to its plain version on the example shapes "
+          f"and on {tuple(x.shape)}: ok", flush=True)
+    ms = timed(lambda: stochastic_round(x, 9), 20)
+    plain_ms = timed(lambda: sr_reference(x, 9), 3, warmup=1)
+    b_ms, b_by = bound(8.0 * x.numel(), 10.0 * x.numel())
+    print(f"[stochastic_round] {tuple(x.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "shape": list(x.shape)}
+
+
+def _relu_sparse(gen, shape, dev):
+    import torch
+
+    return torch.relu(torch.randn(shape, generator=gen)).to(dev)
+
+
+def _coarse01(gen, shape, dev):
+    """Values in {0, 2^-8}, half of them zero: every product is 0 or
+    2^-16, so a sum of fewer than 2^24 of them is exact in fp32 in any
+    order and the kernel must equal the plain product bit for bit."""
+    import torch
+
+    return ((torch.rand(shape, generator=gen) < 0.5).to(torch.float32) * 2.0**-8).to(dev)
+
+
+def phase_backward(dev, gen) -> dict:
+    """(b) dx / dw at VGG-19's backward shapes, each operand laid out as the
+    training path passes it (conv dW reads the im2col patches transposed,
+    conv dX the row-major rot180 weights, fc dX the weights transposed),
+    against the plain fp32 product (within 2 K 2^-24 (|a| @ |b|)
+    elementwise), bit-identical across two calls, timed beside the plain
+    version and torch.matmul; exact on {0, 2^-8} operands at c0_1, where
+    a dropped K chunk would show; a block-pruned case whose skip flags must
+    equal the plain version's; a split-K forward with SR and the split-K
+    reduce, exact on coarse-grid operands."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul import ops as mm
+    from repro_torch.kernels.masked_matmul.backward import (
+        masked_matmul_dw, masked_matmul_dw_reference, masked_matmul_dx,
+        masked_matmul_dx_reference)
+
+    rows, err_max = [], {"dx": 0.0, "dw": 0.0}
+    for layer, spec in BWD_LAYERS.items():
+        if spec[0] == "conv":
+            _, hw, cin, cout = spec
+            m = VGG_BATCH * hw * hw
+            # dW = patches^T @ g: patches (m, cin*9) of a ReLU-sparse input;
+            # dX = cotangent patches (m, cout*9) @ rot180 weights wt, which
+            # _ConvSparseBackward passes as wt.T (masked_matmul_dx(g, w)
+            # computes g @ w.T, so the kernel reads wt row-major)
+            dw_ops = (_relu_sparse(gen, (m, cin * 9), dev), _relu_sparse(gen, (m, cout), dev))
+            dx_ops = (_relu_sparse(gen, (m, cout * 9), dev),
+                      torch.randn(cout * 9, cin, generator=gen).to(dev).T)
+        else:
+            _, k, n = spec
+            dw_ops = (_relu_sparse(gen, (VGG_BATCH, k), dev),
+                      _relu_sparse(gen, (VGG_BATCH, n), dev))
+            dx_ops = (_relu_sparse(gen, (VGG_BATCH, n), dev),
+                      torch.randn(k, n, generator=gen).to(dev))
+        for op, (a, b), fn, ref in (
+                ("dw", dw_ops, masked_matmul_dw, masked_matmul_dw_reference),
+                ("dx", dx_ops, masked_matmul_dx, masked_matmul_dx_reference)):
+            # the product's operands as the kernel reads them: (M, K) @ (K, N)
+            lhs, rhs = (a.T, b) if op == "dw" else (a, b.T)
+            mm_m, mm_k = lhs.shape
+            mm_n = rhs.shape[1]
+            got, again = fn(a, b), fn(a, b)
+            want = ref(a, b)
+            tol = 2 * mm_k * 2.0**-24 * (lhs.abs() @ rhs.abs())
+            err = (got - want).abs()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"masked_matmul_{op} at {layer} is not deterministic")
+            if not bool((err <= tol).all()):
+                fail(f"masked_matmul_{op} at {layer} off by {float(err.max()):.3g}")
+            del tol, want
+            err_max[op] = max(err_max[op], float(err.max()))
+            iters = 3 if mm_m * mm_n * mm_k > 1e10 else 20
+            ms = timed(lambda: fn(a, b), iters, warmup=1)
+            plain_ms = timed(lambda: ref(a, b), iters, warmup=1)
+            lib_ms = timed(lambda: torch.matmul(lhs, rhs), iters, warmup=1)
+            skip = mm.tile_skip_fraction(lhs, rhs, mm.KERNEL_TILES)
+            b_ms, b_by = bound(4.0 * (mm_m * mm_k + mm_k * mm_n + mm_m * mm_n),
+                               2.0 * mm_m * mm_n * mm_k * (1 - skip))
+            chunks = mm.split_k(mm_k)[1]
+            rows.append({"op": op, "layer": layer, "shape": [mm_m, mm_k, mm_n],
+                         "chunks": chunks, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "skip": skip, "max_abs_err": float(err.max())})
+            print(f"[backward] {op} {layer} ({mm_m},{mm_k})@({mm_k},{mm_n}) split {chunks}: "
+                  f"err={float(err.max()):.3g}, deterministic; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
+                  f"({b_by}), {ms / lib_ms:.2f}x torch.matmul", flush=True)
+            del got, again, err
+        del dw_ops, dx_ops, a, b, lhs, rhs
+    torch.cuda.empty_cache()
+
+    # exact at c0_1 on {0, 2^-8} operands: dw sums K = 1.6 M products over
+    # 196 split-K chunks, dx reads the row-major rot180 weights
+    m, cin, cout = VGG_BATCH * 224 * 224, 64, 64
+    exact_ops = (("dw", masked_matmul_dw, masked_matmul_dw_reference,
+                  _coarse01(gen, (m, cin * 9), dev), _coarse01(gen, (m, cout), dev)),
+                 ("dx", masked_matmul_dx, masked_matmul_dx_reference,
+                  _coarse01(gen, (m, cout * 9), dev), _coarse01(gen, (cout * 9, cin), dev).T))
+    for op, fn, ref, a, b in exact_ops:
+        got, want = fn(a, b), ref(a, b)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err_max[op] = max(err_max[op], e)
+        if not torch.equal(got, want):
+            fail(f"masked_matmul_{op} at c0_1 on {{0, 2^-8}} operands is off by {e:.3g}")
+        print(f"[backward] {op} c0_1 on {{0, 2^-8}} operands: bit-equal to the plain product",
+              flush=True)
+        del got, want
+    del exact_ops, a, b
+    torch.cuda.empty_cache()
+
+    # block-pruned: whole 64-row tiles of x (dw reads x^T) and of the
+    # cotangent are zero; the kernel's flags of the transposed operand must
+    # equal the plain flags of the transpose, and tiles must be skipped
+    tm, tn, tk = mm.KERNEL_TILES
+    x = _relu_sparse(gen, (4096, 576), dev)
+    g = _relu_sparse(gen, (4096, 64), dev)
+    x[: 4096 // 2] = 0.0
+    g[1024:1536] = 0.0
+    flags = mm.tile_occupancy(x, tk, tm).t()
+    if not torch.equal(flags, mm.tile_occupancy_reference(x.T, tm, tk)):
+        fail("masked_matmul_dw: transposed-operand skip flags differ from the plain version's")
+    with mm.record_tile_skip() as rec:
+        got = masked_matmul_dw(x, g)
+    skip = 1.0 - rec["masked_matmul_dw"][0] / rec["masked_matmul_dw"][1]
+    want_skip = mm.tile_skip_fraction(x.T, g, mm.KERNEL_TILES)
+    err = float((got - masked_matmul_dw_reference(x, g)).abs().max())
+    print(f"[backward] block-pruned dw (576,4096)@(4096,64): flags equal to the plain "
+          f"version's, skip {skip:.3f} (plain {want_skip:.3f}), err {err:.3g}", flush=True)
+    if skip <= 0.0 or abs(skip - want_skip) > 1e-12:
+        fail("masked_matmul_dw on block-pruned operands: skipped tiles disagree")
+
+    # split-K forward with the SR epilogue (fc6 at batch 32): exact on the
+    # 2^-8 grid, where every sum is exact whatever its order
+    xs = torch.round(torch.randn(VGG_BATCH, 25088, generator=gen) * 2**2) / 2**8
+    ws = torch.round(torch.randn(25088, 64, generator=gen) * 2**2) / 2**8
+    xs, ws = xs.to(dev), ws.to(dev)
+    got, want = mm.masked_matmul(xs, ws, 5), mm.masked_matmul_reference(xs, ws, 5)
+    red_err = float((got - want).abs().max())  # max |kernel - plain| over every reduce
+    if not torch.equal(got, want):
+        fail("masked_matmul split-K forward with SR differs from its plain version")
+    part = torch.randn(196, 576, 64, generator=gen).to(dev)
+    for sr in (False, True):
+        got = mm.splitk_reduce(part, 3, apply_sr=sr)
+        want = mm.splitk_reduce_reference(part, 3, apply_sr=sr)
+        red_err = max(red_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            fail("splitk_reduce differs from its plain version")
+    red_ms = timed(lambda: mm.splitk_reduce(part), 20)
+    red_plain_ms = timed(lambda: mm.splitk_reduce_reference(part), 3, warmup=1)
+    red_b, red_by = bound(4.0 * (part.numel() + part[0].numel()), part.numel())
+    print(f"[backward] split-K forward with SR (32,25088)@(25088,64) exact; splitk_reduce "
+          f"(196,576,64) exact, kernel {red_ms:.4f} ms, plain {red_plain_ms:.4f} ms, bound "
+          f"{red_b:.4f} ms ({red_by})", flush=True)
+    return {"rows": rows, "err": err_max,
+            "reduce": {"ms": red_ms, "plain_ms": red_plain_ms, "bound_ms": red_b,
+                       "bound_by": red_by, "max_abs_err": red_err,
+                       "shape": "c0_1 dw partial sums (196, 576, 64)"}}
+
+
+def profile_train_step(dev, params, memstash) -> dict:
+    """One VGG-19 train step under torch.profiler: device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.fixedpoint import SPRING_FORMAT
+    from repro_torch.core.spring_ops import QUANT_SPARSE
+    from repro_torch.data.pipeline import DataConfig, SyntheticImageTask
+    from repro_torch.launch.train import MODELS
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.train import StepConfig, init_train_state, make_cnn_train_step
+
+    step_cfg = StepConfig(spring=QUANT_SPARSE, memstash=memstash,
+                          optimizer=OptimizerConfig(kind="sgdm", lr=0.05, momentum=0.9,
+                                                    weight_format=SPRING_FORMAT))
+    step = make_cnn_train_step(MODELS["vgg19"].fn, step_cfg)
+    state = init_train_state(params, step_cfg, seed=1)
+    x, y = SyntheticImageTask(DataConfig(seed=1, global_batch=VGG_BATCH), hw=VGG_HW,
+                              device=dev).batch(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    rows = device_time_by_kernel(prof)
+    busy = sum(r[1] for r in rows)
+    if busy == 0:
+        print(f"[train-profile] step {wall_ms:.1f} ms wall; device time not measured", flush=True)
+    else:
+        print(f"[train-profile] step {wall_ms:.1f} ms wall (profiled), device busy "
+              f"{busy:.1f} ms = {busy / wall_ms:.1%}; top kernels:", flush=True)
+        for name, ms, n in rows[:14]:
+            print(f"[train-profile]   {ms:9.2f} ms  x{n:<5d} {name[:90]}", flush=True)
+    return {"step_ms": wall_ms, "device_busy_ms": busy,
+            "kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:40]]}
+
+
+def phase_train(dev) -> dict:
+    """(c) full-width VGG-19, quant_sparse, SR, sparse backward, the stash
+    policy, sgdm with Q4.16 SR weights, through repro_torch.launch.train;
+    the kernels' launch counters are zeroed just before and read just
+    after; then one profiled step."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.train import run_arm
+    from repro_torch.memstash.config import STASH_ALL
+
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = run_arm("vgg19", "vgg19", "quant_sparse", True, VGG_STEPS, VGG_HW, VGG_BATCH, dev,
+                  STASH_ALL, seed=0, probe_step=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    probe = out["probe"]
+    print(f"[train] vgg19 {VGG_HW}x{VGG_HW} batch {VGG_BATCH} quant_sparse SR stash: losses "
+          f"{[round(v, 4) for v in out['losses']]}, on grid {out['on_grid']}, "
+          f"{out['s_per_step']:.3f} s/step, {out['images_per_s']:.2f} images/s, peak "
+          f"{out['peak_mem_bytes'] / 2**30:.2f} GiB, wall {wall:.1f}s", flush=True)
+    print(f"[train] activation density {probe['stash']['mean_density']:.3f} over "
+          f"{probe['stash']['stash_points']} stash points; tile skip "
+          f"{ {k: round(v, 4) for k, v in probe['tile_skip'].items()} }; launches {launches}",
+          flush=True)
+    if not (out["finite"] and all(out["on_grid"]) and len(out["on_grid"]) == VGG_STEPS):
+        fail("train phase: a loss is not finite or a parameter left the Q4.16 grid")
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
+            fail(f"train phase never launched the {name} kernel")
+    prof = profile_train_step(dev, out.pop("params"), STASH_ALL)
+    return {"run": out, "launches": launches, "wall_s": wall, "profile": prof}
+
+
+def phase_cnn_card_vs_cpu(dev) -> dict:
+    """(d) the reduced CNN (the example's tiny_cnn) one train step on the
+    card against the same step on the CPU: quant_sparse, nearest rounding,
+    fp32 weights, stash.  Tolerance: the CPU parity tests' gradient
+    contract (rtol 1e-5, floor 1e-5 x max), since the conv and the products
+    sum in another order and a rounding can move one 2^-16 step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.spring_ops import QUANT_SPARSE
+    from repro_torch.data.pipeline import DataConfig, SyntheticImageTask
+    from repro_torch.launch.train import MODELS, tiny_cnn
+    from repro_torch.models.cnn import cnn_init
+    from repro_torch.memstash.config import STASH_ALL
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.train import StepConfig, init_train_state, make_cnn_train_step
+
+    step_cfg = StepConfig(spring=dataclasses.replace(QUANT_SPARSE, stochastic=False),
+                          memstash=STASH_ALL,
+                          optimizer=OptimizerConfig(kind="sgdm", lr=0.05, momentum=0.9))
+    params = cnn_init(0, MODELS["tiny_cnn"], 16)
+    x, y = SyntheticImageTask(DataConfig(seed=0, global_batch=8), hw=16).batch(0)
+    res = {}
+    for d in ("cpu", dev):
+        state = init_train_state({k: v.to(d) for k, v in params.items()}, step_cfg, 0)
+        state, m = make_cnn_train_step(tiny_cnn, step_cfg)(state, x.to(d), y.to(d))
+        res[str(d)] = (float(m["loss"]), {k: v.cpu() for k, v in state.params.items()})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = res["cpu"], res[str(dev)]
+    worst = 0.0
+    for k in p_cpu:
+        tol = 1e-5 * (float(p_cpu[k].abs().max()) + 1.0) + 1e-5 * p_cpu[k].abs()
+        diff = (p_gpu[k] - p_cpu[k]).abs()
+        worst = max(worst, float(diff.max()))
+        if not bool((diff <= tol).all()):
+            fail(f"tiny_cnn step on the card disagrees with the CPU at {k}")
+    print(f"[check] tiny_cnn one step card vs CPU: loss {l_gpu:.6f} vs {l_cpu:.6f}, params "
+          f"max_abs_err {worst:.3g} (rtol 1e-5, floor 1e-5 x max)", flush=True)
+    if abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
+        fail("tiny_cnn loss on the card disagrees with the CPU")
+    return {"loss_card": l_gpu, "loss_cpu": l_cpu, "params_max_abs_err": worst}
+
+
+def phase_arms(dev) -> dict:
+    """(e) the example's three arms on tiny_cnn; printed, not gated."""
+    from repro_torch.launch.train import parity_arms
+
+    out = parity_arms(steps=150, device=dev)
+    print(f"[arms] tiny_cnn 150 steps tail loss: fp32 {out['fp32']['tail']:.4f}, SR "
+          f"{out['sr']['tail']:.4f}, nearest {out['nearest']['tail']:.4f}; SR gap "
+          f"{out['sr_gap']:+.4f}, nearest gap {out['nearest_gap']:+.4f}", flush=True)
+    return out
 
 
 def main() -> None:
@@ -133,7 +506,7 @@ def main() -> None:
     from repro_torch.kernels import cuda
     from repro_torch.kernels.mask_compress.ops import mask_pack, mask_pack_reference
     from repro_torch.kernels.masked_matmul.ops import (
-        kernel_tiles, masked_matmul, masked_matmul_reference, tile_occupancy,
+        KERNEL_TILES, masked_matmul, masked_matmul_reference, tile_occupancy,
         tile_occupancy_reference, tile_skip_fraction)
 
     # -- 1. build -------------------------------------------------------------
@@ -146,20 +519,7 @@ def main() -> None:
     print(f"[build] {sorted(built) or 'already built'} from {cuda.CSRC} in {build_s:.1f}s "
           f"(nvcc {cuda.nvcc_path()})", flush=True)
     report["build_s"] = build_s
-    tiles = kernel_tiles()
-
-    def timed(fn, iters: int) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+    tiles = KERNEL_TILES
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -330,8 +690,8 @@ def main() -> None:
     report["launches"] = launches
     if len(done) != REQUESTS or not out["finite"]:
         fail("serve phase: not every request finished with finite logits")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
             fail(f"serve phase never launched the {name} kernel")
     report["decode_profile"] = profile_decode(dev)
 
@@ -369,13 +729,42 @@ def main() -> None:
     if not (e_pre <= 1e-3 and e_dec <= 1e-3):
         fail("the reduced model on the card disagrees with the CPU plain versions")
 
+    # -- 5. slice 2: CNN training ----------------------------------------------
+    report["stochastic_round"] = sr = phase_stochastic_round(dev, gen)
+    report["backward"] = bwd = phase_backward(dev, gen)
+    report["train"] = train = phase_train(dev)
+    report["cnn_card_vs_cpu"] = phase_cnn_card_vs_cpu(dev)
+    report["arms"] = phase_arms(dev)
+
     # -- kernel line, card, result -------------------------------------------
+    # launches: the serve run's plus the train run's, each zeroed just before
+    # its run and read just after (the comparisons above count in neither)
+    by_path = {name: {"serve": launches[name], "train": train["launches"][name]}
+               for name in launches}
+    total = {name: sum(v.values()) for name, v in by_path.items()}
+
+    def bwd_entry(op: str) -> dict:
+        rows = [r for r in bwd["rows"] if r["op"] == op]
+        return {"name": f"masked_matmul_{op}", "route": "cuda",
+                "source": "src/repro_torch/csrc/masked_matmul.cu",
+                "replaces": "src/repro/kernels/masked_matmul/backward.py:85",
+                "launches": total[f"masked_matmul_{op}"], "max_abs_err": bwd["err"][op],
+                "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                # the kind that bounds most of the summed bound
+                "bound_by": max(("operations", "bytes"), key=lambda by: sum(
+                    r["bound_ms"] for r in rows if r["bound_by"] == by)),
+                "library_ms": sum(r["library_ms"] for r in rows),
+                "shape": f"VGG-19 batch {VGG_BATCH} backward {op} of c0_1 + c3_0 + fc6 "
+                         "(per-layer rows in chip_smoke.json)",
+                "launches_by_path": by_path[f"masked_matmul_{op}"]}
+
     decode_rows = [r for r in mm_rows if r["shape"][0] == DECODE_M]
     line = {"kernels": [
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
-         "launches": launches["masked_matmul"], "max_abs_err": mm_err,
+         "launches": total["masked_matmul"], "max_abs_err": mm_err,
          "ms": sum(r["ms"] for r in decode_rows),
          "plain_ms": sum(r["plain_ms"] for r in decode_rows),
          "bound_ms": sum(r["bound_ms"] for r in decode_rows),
@@ -383,11 +772,12 @@ def main() -> None:
          else "operations",
          "library_ms": sum(r["library_ms"] for r in decode_rows),
          "shape": "one decode layer: q,k,v,o,gate,up,down at M=4, cold weights; "
-                  "the wrapper's time, its occupancy pre-pass included"},
+                  "the wrapper's time, its occupancy pre-pass included",
+         "launches_by_path": by_path["masked_matmul"]},
         {"name": "tile_occupancy", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/ops.py:43",
-         "launches": launches["tile_occupancy"], "max_abs_err": float(occ_err),
+         "launches": total["tile_occupancy"], "max_abs_err": float(occ_err),
          "ms": sum(r["occ_ms"] for r in decode_rows),
          "plain_ms": sum(r["occ_plain_ms"] for r in decode_rows),
          "bound_ms": sum(r["occ_bound_ms"] for r in decode_rows),
@@ -396,14 +786,30 @@ def main() -> None:
          "library_ms": None,
          "shape": "one decode layer: x and w flags of the 7 projections at M=4, cold weights",
          "note": "masked_matmul's occupancy pre-pass (the jnp _occupancy ahead of "
-                 "masked_matmul_pallas), two launches per masked_matmul launch"},
+                 "masked_matmul_pallas), two launches per product (forward, dx or dw)",
+         "launches_by_path": by_path["tile_occupancy"]},
         {"name": "mask_pack", "route": "cuda",
          "source": "src/repro_torch/csrc/mask_pack.cu",
          "replaces": "src/repro/kernels/mask_compress/mc_kernel.py:36",
-         "launches": launches["mask_pack"], "max_abs_err": float(mp_err),
+         "launches": total["mask_pack"], "max_abs_err": float(mp_err),
          "ms": mp_ms, "plain_ms": mp_plain_ms, "bound_ms": mp_bound, "bound_by": mp_by,
          "library_ms": None,
-         "shape": f"one decode-tick KV leaf ({16 * SLOTS},{block}) bf16"},
+         "shape": f"one decode-tick KV leaf ({16 * SLOTS},{block}) bf16",
+         "launches_by_path": by_path["mask_pack"]},
+        bwd_entry("dx"),
+        bwd_entry("dw"),
+        {"name": "splitk_reduce", "route": "cuda",
+         "source": "src/repro_torch/csrc/masked_matmul.cu",
+         "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
+         "launches": total["splitk_reduce"], **bwd["reduce"], "library_ms": None,
+         "note": "masked_matmul's split-K reduce, one launch per product with K > 8192; "
+                 "the Pallas kernel carries its K sum across the sequential grid axis",
+         "launches_by_path": by_path["splitk_reduce"]},
+        {"name": "stochastic_round", "route": "cuda",
+         "source": "src/repro_torch/csrc/stochastic_round.cu",
+         "replaces": "src/repro/kernels/stochastic_round/sr_kernel.py:51",
+         "launches": total["stochastic_round"], **sr, "library_ms": None,
+         "launches_by_path": by_path["stochastic_round"]},
     ]}
     report["kernels"] = line["kernels"]
     try:

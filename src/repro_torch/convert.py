@@ -1,6 +1,7 @@
-"""Carry the reference's parameters across: ``lm_init`` tree -> port params.
+"""Carry the reference's parameters across: ``lm_init`` tree or CNN
+``ParamStore.params`` -> port params.
 
-The reference stacks the layers of each scanned unit position along a
+For the LMs, the reference stacks the layers of each scanned unit position along a
 leading axis (``unit_0/...`` leaves of shape ``(n_units, ...)``); the port
 keeps a list of per-layer dicts.  Dense kernels are ``(K, N)`` on both
 sides, so every other leaf maps one to one.
@@ -34,3 +35,10 @@ def params_from_jax(tree: dict, cfg, *, device="cpu") -> dict:
     if "lm_head" in tree:
         params["lm_head"] = _to_torch(tree["lm_head"], device)
     return params
+
+
+def cnn_params_from_jax(params: dict, *, device="cpu") -> dict:
+    """The reference's CNN ``ParamStore.params`` (name -> array, conv
+    weights HWIO) as the port's parameter dict on ``device``: the same
+    names and layouts, so both packages compute the same thing."""
+    return {name: _to_torch(a, device) for name, a in params.items()}

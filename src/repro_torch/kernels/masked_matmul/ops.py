@@ -7,6 +7,13 @@ then the tile-gated product with its SR epilogue) or raise; CPU tensors
 run the plain version in ``ref.py``.  There is no availability-based
 pick: a CUDA tensor never falls back to the plain version.
 
+The kernel reads each operand row-major or column-major in place, so the
+backward GEMMs (``backward.py``) pass ``w.T`` and ``x.T`` as views.  It
+splits K into chunks of :data:`SPLIT_K` when K is longer than that (a
+split that depends on K alone, reduced in a fixed order by a second
+kernel, :func:`splitk_reduce`).  ``backward=`` routes the call through
+the sparsity-aware autograd Function of ``backward.py``.
+
 The kernel tiles at 64 x 64 x 32; :func:`tile_skip_fraction` keeps
 reporting at the reference's 128 granularity so the two packages'
 numbers compare.
@@ -14,6 +21,7 @@ numbers compare.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -26,13 +34,20 @@ from repro_torch.kernels.masked_matmul.ref import (
     BN,
     masked_matmul_reference,
     padded_dims,
+    splitk_reduce_reference,
 )
 
 __all__ = ["masked_matmul", "masked_matmul_reference", "padded_dims",
-           "tile_skip_fraction", "tile_occupancy",
-           "tile_occupancy_reference", "kernel_tiles", "BM", "BN", "BK"]
+           "tile_skip_fraction", "tile_occupancy", "tile_occupancy_reference",
+           "splitk_reduce", "splitk_reduce_reference", "split_k",
+           "record_tile_skip", "KERNEL_TILES", "SPLIT_K", "BM", "BN", "BK"]
 
-_c_int, _c_float, _c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+_c_int, _c_float, _c_ptr, _c_ll = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong
+
+#: (BM, BN, BK) the CUDA kernel is built with (checked against the library)
+KERNEL_TILES = (64, 64, 32)
+#: K longer than this is split into chunks of this length (a multiple of BK)
+SPLIT_K = 8192
 
 
 @functools.cache
@@ -42,20 +57,33 @@ def _lib() -> ctypes.CDLL:
                                           _c_ptr, _c_ptr]
     lib.tile_occupancy_launch.restype = _c_int
     lib.masked_matmul_launch.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,
-        ctypes.c_uint, _c_int, _c_float, _c_float, _c_float, _c_float, _c_ptr]
+        _c_ptr, _c_ll, _c_int, _c_ptr, _c_ll, _c_int,      # a, lda, a_col, b, ldb, b_col
+        _c_ptr, _c_ll, _c_ll, _c_ptr, _c_ll, _c_ll,        # a_occ + strides, b_occ + strides
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,  # out, partial, m n k, chunks
+        _c_int, ctypes.c_uint, _c_int, _c_float, _c_float, _c_float, _c_float, _c_ptr]
     lib.masked_matmul_launch.restype = _c_int
+    lib.splitk_reduce_launch.argtypes = [
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, ctypes.c_uint, _c_int,
+        _c_float, _c_float, _c_float, _c_float, _c_ptr]
+    lib.splitk_reduce_launch.restype = _c_int
     lib.masked_matmul_tiles.argtypes = [ctypes.POINTER(_c_int)]
     lib.masked_matmul_tiles.restype = None
+    tiles = (_c_int * 3)()
+    lib.masked_matmul_tiles(tiles)
+    if tuple(tiles) != KERNEL_TILES:
+        raise cuda.KernelBuildError(f"masked_matmul built with tiles {tuple(tiles)}, "
+                                    f"the wrapper expects {KERNEL_TILES}")
     return lib
 
 
-@functools.cache
-def kernel_tiles() -> tuple[int, int, int]:
-    """(BM, BN, BK) of the built CUDA kernel."""
-    out = (_c_int * 3)()
-    _lib().masked_matmul_tiles(out)
-    return out[0], out[1], out[2]
+def split_k(k: int) -> tuple[int, int]:
+    """(K-tiles per chunk, chunks) for a reduction of length ``k``: one
+    chunk up to :data:`SPLIT_K`, else chunks of :data:`SPLIT_K`.  A
+    function of K alone, so a row's sums never depend on M or N."""
+    bk = KERNEL_TILES[2]
+    if k <= SPLIT_K:
+        return -(-k // bk), 1
+    return SPLIT_K // bk, -(-k // SPLIT_K)
 
 
 def _occupancy(a: torch.Tensor, tm: int, tn: int) -> torch.Tensor:
@@ -86,6 +114,8 @@ def tile_occupancy(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Ten
     rows, cols = a.shape
     occ = torch.empty((-(-rows // tile_rows), -(-cols // tile_cols)), dtype=torch.int32,
                       device=a.device)
+    if occ.shape[1] > 65535:
+        raise ValueError(f"tile_occupancy: {occ.shape[1]} column tiles exceed the grid")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     cuda.check(_lib().tile_occupancy_launch(a.data_ptr(), rows, cols, tile_rows, tile_cols,
                                             occ.data_ptr(), stream), "tile_occupancy")
@@ -93,7 +123,7 @@ def tile_occupancy(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Ten
     return occ
 
 
-#: kernel launches made by this wrapper (two per ``masked_matmul`` launch)
+#: kernel launches made by this wrapper (two per matmul launch)
 tile_occupancy.launches = 0
 
 
@@ -109,30 +139,116 @@ def tile_skip_fraction(x: torch.Tensor, w: torch.Tensor,
     return 1.0 - issued / total
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, seed: int, il: int, fl: int,
-            apply_sr: bool) -> torch.Tensor:
-    if w.device != x.device:
-        raise ValueError(f"masked_matmul: x on {x.device}, w on {w.device}")
-    x = x.to(torch.float32).contiguous()
-    w = w.to(torch.float32).contiguous()
-    m, k = x.shape
-    n = w.shape[1]
-    if min(m, n, k) == 0 or max(m, n, k) >= 2**31:
-        raise ValueError(f"masked_matmul: unsupported shape ({m},{k}) @ ({k},{n})")
-    lib = _lib()
-    tm, tn, tk = kernel_tiles()
+# -- tile-skip recording ------------------------------------------------------
+
+_SKIP: dict | None = None
+
+
+@contextlib.contextmanager
+def record_tile_skip():
+    """Inside the block, every product (forward, dx, dw) adds its issued
+    and total (i, j, k) tile steps at the kernel's tiles to the yielded
+    ``{op: [issued, total]}``.  Each record costs a small product of the
+    occupancy flags and a host sync, so it is off unless asked for."""
+    global _SKIP
+    prev, _SKIP = _SKIP, {}
+    try:
+        yield _SKIP
+    finally:
+        _SKIP = prev
+
+
+def _note_skip(op: str, a_occ: torch.Tensor, b_occ: torch.Tensor) -> None:
+    issued = float((a_occ.to(torch.float32) @ b_occ.to(torch.float32)).sum())
+    row = _SKIP.setdefault(op, [0.0, 0.0])
+    row[0] += issued
+    row[1] += a_occ.shape[0] * a_occ.shape[1] * b_occ.shape[1]
+
+
+def note_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Record the tile steps of a plain-version product ``a @ b`` at the
+    kernel's tiles, when :func:`record_tile_skip` is active."""
+    if _SKIP is not None:
+        tm, tn, tk = KERNEL_TILES
+        _note_skip(op, tile_occupancy_reference(a, tm, tk), tile_occupancy_reference(b, tk, tn))
+
+
+# -- the kernel ---------------------------------------------------------------
+
+
+def _operand(a: torch.Tensor, tile_rows: int, tile_cols: int):
+    """(tensor, leading dim, column-major?, occupancy flags) of one
+    operand, read in place when it is row- or column-major."""
+    if a.dtype != torch.float32:
+        a = a.to(torch.float32)
+    if not a.is_contiguous() and a.t().is_contiguous():
+        # a transposed operand: the transposed flags of its untransposed self
+        return a, a.shape[0], 1, tile_occupancy(a.t(), tile_cols, tile_rows).t()
+    a = a.contiguous()
+    return a, a.shape[1], 0, tile_occupancy(a, tile_rows, tile_cols)
+
+
+def splitk_reduce(partial: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int = 16,
+                  apply_sr: bool = False) -> torch.Tensor:
+    """(chunks, M, N) partial sums -> (M, N): chunks added in order, then
+    the SR epilogue when ``apply_sr``.  A CUDA tensor launches
+    ``splitk_reduce_kernel`` (and counts one launch); a CPU tensor runs
+    :func:`splitk_reduce_reference`."""
+    if not partial.is_cuda:
+        return splitk_reduce_reference(partial, seed, il=il, fl=fl, apply_sr=apply_sr)
+    if not (partial.dtype == torch.float32 and partial.ndim == 3 and partial.is_contiguous()):
+        raise ValueError("splitk_reduce: needs a contiguous (chunks, M, N) fp32 tensor")
+    chunks, m, n = partial.shape
+    _, n_pad, _ = padded_dims(m, n, 1)
+    out = torch.empty((m, n), dtype=torch.float32, device=partial.device)
+    eps = 2.0**-fl
+    stream = torch.cuda.current_stream(partial.device).cuda_stream
+    cuda.check(_lib().splitk_reduce_launch(
+        partial.data_ptr(), out.data_ptr(), m, n, chunks, n_pad, int(seed) & 0xFFFFFFFF,
+        int(apply_sr), 2.0**fl, eps, -(2.0**il), 2.0**il - eps, stream), "splitk_reduce")
+    splitk_reduce.launches += 1
+    return out
+
+
+#: kernel launches made by this wrapper
+splitk_reduce.launches = 0
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, seed: int, il: int, fl: int, apply_sr: bool,
+           op: str = "masked_matmul") -> torch.Tensor:
+    """``a @ b`` on the card through ``masked_mm_kernel``: each operand
+    row-major or column-major (read in place), K split per
+    :func:`split_k`, SR epilogue when ``apply_sr``.  ``op`` names the
+    caller for :func:`record_tile_skip`."""
+    if b.device != a.device:
+        raise ValueError(f"{op}: a on {a.device}, b on {b.device}")
+    m, k = a.shape
+    n = b.shape[1]
+    tm, tn, tk = KERNEL_TILES
+    chunk_tiles, chunks = split_k(k)
+    if min(m, n, k) == 0 or max(m, n, k) >= 2**31 or -(-n // tn) > 65535 \
+            or chunks > 65535 or chunks * m * n >= 2**62:
+        raise ValueError(f"{op}: unsupported shape ({m},{k}) @ ({k},{n})")
     _, n_pad, _ = padded_dims(m, n, k)
-    with torch.cuda.device(x.device):
-        x_occ = tile_occupancy(x, tm, tk)
-        w_occ = tile_occupancy(w, tk, tn)
-        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        eps = 2.0**-fl
-        cuda.check(lib.masked_matmul_launch(
-            x.data_ptr(), w.data_ptr(), x_occ.data_ptr(), w_occ.data_ptr(),
-            out.data_ptr(), m, n, k, n_pad, int(seed) & 0xFFFFFFFF, int(apply_sr),
-            2.0**fl, eps, -(2.0**il), 2.0**il - eps, stream), "masked_matmul")
-    masked_matmul.launches += 1
+    eps = 2.0**-fl
+    with torch.cuda.device(a.device):
+        a, lda, a_col, a_occ = _operand(a, tm, tk)
+        b, ldb, b_col, b_occ = _operand(b, tk, tn)
+        if _SKIP is not None:
+            _note_skip(op, a_occ, b_occ)
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        partial = (torch.empty((chunks, m, n), dtype=torch.float32, device=a.device)
+                   if chunks > 1 else None)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        cuda.check(_lib().masked_matmul_launch(
+            a.data_ptr(), lda, a_col, b.data_ptr(), ldb, b_col,
+            a_occ.data_ptr(), a_occ.stride(0), a_occ.stride(1),
+            b_occ.data_ptr(), b_occ.stride(0), b_occ.stride(1),
+            out.data_ptr(), 0 if partial is None else partial.data_ptr(), m, n, k,
+            chunk_tiles, chunks, n_pad, int(seed) & 0xFFFFFFFF, int(apply_sr), 2.0**fl, eps,
+            -(2.0**il), 2.0**il - eps, stream), op)
+        if partial is not None:
+            out = splitk_reduce(partial, seed, il=il, fl=fl, apply_sr=apply_sr)
     return out
 
 
@@ -144,17 +260,45 @@ def masked_matmul(
     il: int = 4,
     fl: int = 16,
     apply_sr: bool = True,
+    backward: str | None = None,
 ) -> torch.Tensor:
     """Sparsity-aware ``x @ w`` on the Q(il,fl) grid with SR epilogue.
 
     x: (M, K) grid values (zeros are skippable); w: (K, N).  CUDA operands
     launch the kernel (and count one launch); CPU operands run
     :func:`masked_matmul_reference`.
+
+    ``backward``: None/"none" gives the forward alone (the plain version
+    differentiates densely; the kernel has no gradient, so on the card it
+    raises when autograd would need one); "auto" wraps the call in the
+    autograd Function whose dL/dx and dL/dw are ``masked_matmul_dx`` /
+    ``masked_matmul_dw`` (``backward.py``).  The port has no impl ladder,
+    so these are the only choices.
     """
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"masked_matmul: bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if backward == "auto":
+        # imported here: backward.py imports this module
+        from repro_torch.kernels.masked_matmul.backward import MaskedMatmulFn
+
+        return MaskedMatmulFn.apply(x, w, seed, il, fl, apply_sr)
+    if backward not in (None, "none"):
+        raise ValueError(f"masked_matmul: backward={backward!r}; choose None, 'none' or 'auto'")
+    return forward(x, w, seed, il=il, fl=fl, apply_sr=apply_sr)
+
+
+def forward(x: torch.Tensor, w: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int = 16,
+            apply_sr: bool = True) -> torch.Tensor:
+    """The forward product alone: the kernel on CUDA tensors (one counted
+    ``masked_matmul`` launch), the plain version on CPU tensors."""
     if x.is_cuda:
-        return _launch(x, w, seed, il, fl, apply_sr)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise ValueError("masked_matmul: the kernel forward has no gradient; "
+                             "pass backward='auto' to train through it")
+        out = launch(x, w, seed, il, fl, apply_sr)
+        masked_matmul.launches += 1
+        return out
+    note_plain("masked_matmul", x, w)
     return masked_matmul_reference(x, w, seed, il=il, fl=fl, apply_sr=apply_sr)
 
 

@@ -25,21 +25,13 @@ def padded_dims(m: int, n: int, k: int) -> tuple[int, int, int]:
     return up(m, BM), up(n, BN), up(k, BK)
 
 
-def masked_matmul_reference(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    seed: int = 0,
-    *,
-    il: int = 4,
-    fl: int = 16,
-    apply_sr: bool = True,
-) -> torch.Tensor:
-    m, k = x.shape
-    _, n = w.shape
-    _, n_pad, _ = padded_dims(m, n, k)
-    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-    if not apply_sr:
-        return y
+def sr_epilogue(y: torch.Tensor, seed: int, *, il: int = 4, fl: int = 16,
+                n_pad: int | None = None) -> torch.Tensor:
+    """The kernel's SR epilogue on an (M, N) fp32 product: counter
+    ``row * n_pad + col``, ``n_pad`` defaulting to N rounded up to 128."""
+    m, n = y.shape
+    if n_pad is None:
+        _, n_pad, _ = padded_dims(m, n, 1)
     eps = 2.0**-fl
     min_v, max_v = -(2.0**il), 2.0**il - eps
     xc = torch.clamp(y, min_v, max_v)
@@ -52,3 +44,29 @@ def masked_matmul_reference(
     u = uniform_from_bits(hash_uint32(counter, seed))
     rounded = lo + (u < frac).to(torch.float32)
     return torch.clamp(rounded * eps, min_v, max_v)
+
+
+def masked_matmul_reference(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    seed: int = 0,
+    *,
+    il: int = 4,
+    fl: int = 16,
+    apply_sr: bool = True,
+) -> torch.Tensor:
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if not apply_sr:
+        return y
+    return sr_epilogue(y, seed, il=il, fl=fl)
+
+
+def splitk_reduce_reference(partial: torch.Tensor, seed: int = 0, *, il: int = 4,
+                            fl: int = 16, apply_sr: bool = False) -> torch.Tensor:
+    """Plain version of the split-K reduce: (chunks, M, N) partial sums ->
+    (M, N), added in chunk order (the kernel's order, so the two agree
+    bit for bit), then the SR epilogue when ``apply_sr``."""
+    y = partial[0].clone()
+    for c in range(1, partial.shape[0]):
+        y += partial[c]
+    return sr_epilogue(y, seed, il=il, fl=fl) if apply_sr else y

@@ -40,3 +40,13 @@ def hash_uint32(counter: torch.Tensor, seed: int | torch.Tensor) -> torch.Tensor
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """uint32 values (in int64) -> float32 uniform in [0, 1), 24-bit."""
     return (bits.to(torch.int64) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 32-bit seed from ``seed`` and an integer ``data``: the same
+    finalizer on host integers (the port's stand-in for
+    ``jax.random.fold_in``, whose threefry stream it does not reproduce)."""
+    z = ((int(data) & _M32) + (int(seed) & _M32) * 0x9E3779B9) & _M32
+    z = ((z ^ (z >> 16)) * 0x7FEB352D) & _M32
+    z = ((z ^ (z >> 15)) * 0x846CA68B) & _M32
+    return z ^ (z >> 16)

@@ -14,26 +14,36 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.spring_ops import DENSE, DENSE_DTYPE, SpringConfig, spring_matmul
+from repro_torch.core.spring_ops import DENSE, DENSE_DTYPE, KeyGen, SpringConfig, spring_matmul
+from repro_torch.memstash.config import MemstashConfig
 
 
 @dataclasses.dataclass
 class SpringContext:
     """Per-call numerics context threaded through every layer.
 
-    ``keys`` stands where the reference threads its SR key stream; the port
-    serves with nearest rounding, so it stays None.  Magnitude pruning and
-    the int8 KV cache are not ported: both must stay at their defaults.
+    ``keys`` is the SR generator stream (a :class:`KeyGen`; None rounds to
+    nearest); ``memstash`` the compressed-activation-stash policy of the
+    conv/fc stash points (None: every point resolves to "none").
+    Magnitude pruning and the int8 KV cache are not ported: both must stay
+    at their defaults.
     """
 
     cfg: SpringConfig = DENSE
-    keys: Optional[object] = None
+    keys: Optional[KeyGen] = None
     prune_ratio: float = 0.0
     int8_cache: bool = False
+    memstash: Optional[MemstashConfig] = None
 
     def __post_init__(self):
         if self.prune_ratio != 0.0 or self.int8_cache:
             raise NotImplementedError("prune_ratio and int8_cache are not ported")
+
+    def stash_policy(self, elems: Optional[int] = None) -> str:
+        """Resolve the checkpoint policy for a stash point of ``elems``."""
+        if self.memstash is None:
+            return "none"
+        return self.memstash.policy_for(elems)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device=None,

@@ -23,6 +23,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -105,3 +106,93 @@ def test_engine_on_the_card_runs_the_kernels(card):
     assert out["finite"] and all(r["n_tokens"] == 4 for r in out["per_request"])
     assert counts["masked_matmul"] > 0 and counts["mask_pack"] > 0
     assert counts["tile_occupancy"] == 2 * counts["masked_matmul"]
+
+
+# -- slice 2: the training kernels ----------------------------------------------
+
+
+@pytest.mark.parametrize("shape,il,fl", [((333, 17), 4, 16), ((3, 5, 9), 4, 16),
+                                         ((256, 64), 2, 6), ((4, 224, 224, 16), 4, 16)])
+def test_stochastic_round_kernel_bit_equal_to_plain(card, shape, il, fl):
+    from repro_torch.kernels.stochastic_round.ops import sr_reference, stochastic_round
+
+    gen = torch.Generator().manual_seed(len(shape))
+    x = (torch.randn(shape, generator=gen) * 3).to(card)
+    before = stochastic_round.launches
+    got = stochastic_round(x, 9, il=il, fl=fl)
+    want = sr_reference(x, 9, il=il, fl=fl)
+    torch.cuda.synchronize()
+    assert stochastic_round.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("which,m,k,n", [("dx", 300, 576, 64), ("dw", 576, 20000, 64),
+                                         ("dw", 100, 70, 50), ("dx", 33, 4096, 513)])
+def test_backward_kernels_match_plain_and_repeat(card, which, m, k, n):
+    """dx reads w.T and dw reads x.T in place; dw at K = 20000 splits K in
+    three chunks.  Within 2K 2^-24 (|a| @ |b|) of the plain fp32 product,
+    and bit-identical across two calls."""
+    from repro_torch.kernels.masked_matmul.backward import (
+        masked_matmul_dw, masked_matmul_dw_reference, masked_matmul_dx,
+        masked_matmul_dx_reference)
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    if which == "dx":  # g (m, k) @ w.T, w (n, k): out (m, n)
+        a = torch.relu(torch.randn(m, k, generator=gen)).to(card)
+        b = torch.randn(n, k, generator=gen).to(card)
+        fn, ref, absprod = masked_matmul_dx, masked_matmul_dx_reference, a.abs() @ b.abs().T
+    else:  # x.T @ g, x (k, m), g (k, n): out (m, n)
+        a = torch.relu(torch.randn(k, m, generator=gen)).to(card)
+        b = torch.randn(k, n, generator=gen).to(card)
+        fn, ref, absprod = masked_matmul_dw, masked_matmul_dw_reference, a.abs().T @ b.abs()
+    got, again = fn(a, b), fn(a, b)
+    want = ref(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 2 * k * 2.0**-24 * absprod).all())
+
+
+def test_splitk_reduce_kernel_matches_plain(card):
+    from repro_torch.kernels.masked_matmul.ops import splitk_reduce, splitk_reduce_reference
+
+    gen = torch.Generator().manual_seed(3)
+    part = torch.randn(5, 70, 130, generator=gen).to(card)
+    for sr in (False, True):
+        assert torch.equal(splitk_reduce(part, 11, apply_sr=sr),
+                           splitk_reduce_reference(part, 11, apply_sr=sr))
+
+
+def test_tiny_cnn_trains_on_the_card_through_the_kernels(card):
+    from repro_torch import kernels
+    from repro_torch.launch.train import run_arm
+    from repro_torch.memstash.config import MemstashConfig
+
+    kernels.reset_launch_counts()
+    out = run_arm("t", "tiny_cnn", "quant_sparse", True, 2, 16, 8, card,
+                  MemstashConfig(policy="stash"), verbose=False)
+    counts = kernels.launch_counts()
+    assert out["finite"] and all(out["on_grid"])
+    for name in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "stochastic_round"):
+        assert counts[name] > 0, counts
+
+
+def test_spring_matmul_runs_the_kernel_without_the_sparse_backward(card):
+    """quant_sparse with backward_sparsity="none" still takes its 2-D
+    products on the kernel; the kernel forward has no gradient, so asking
+    for one raises instead of falling back to torch.matmul."""
+    import dataclasses
+
+    from repro_torch.core.spring_ops import QUANT_SPARSE, spring_matmul
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+
+    cfg = dataclasses.replace(QUANT_SPARSE, stochastic=False, backward_sparsity="none")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.relu(torch.randn(64, 300, generator=gen)).to(card)
+    w = (torch.randn(300, 40, generator=gen) / 300**0.5).to(card)
+    before = masked_matmul.launches
+    y = spring_matmul(x, w, cfg)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches == before + 1
+    assert torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="no gradient"):
+        spring_matmul(x, w.clone().requires_grad_(True), cfg)

@@ -142,8 +142,9 @@ def test_masked_matmul_plain_matches_reference_and_interpret(case):
     want_int = np.asarray(registry.impls("masked_matmul")["interpret"].fn(x, w, seed, **kw))
     kernels.reset_launch_counts()
     got = tmm.masked_matmul(to_torch(x), to_torch(w), int(seed), **kw).numpy()
-    assert kernels.launch_counts() == {"masked_matmul": 0, "tile_occupancy": 0,
-                                       "mask_pack": 0}
+    counts = kernels.launch_counts()
+    assert {"masked_matmul", "tile_occupancy", "mask_pack"} <= set(counts)
+    assert not any(counts.values()), counts
     np.testing.assert_array_equal(got, want_ref)
     np.testing.assert_array_equal(got, want_int)
     assert tmm.tile_skip_fraction(to_torch(x), to_torch(w)) == pytest.approx(

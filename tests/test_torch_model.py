@@ -103,8 +103,14 @@ def test_spring_matmul_sr_epilogue_matches_tpu_path():
 
 
 def test_model_level_sr_is_refused():
-    with pytest.raises(NotImplementedError, match="threefry"):
+    """Model-level SR draws from torch.Generator seeds through a KeyGen; any
+    other key (such as the reference's threefry keys) is refused, and a
+    KeyGen gives outputs on the grid."""
+    with pytest.raises(TypeError, match="threefry"):
         tops.spring_matmul(torch.zeros(2, 3), torch.zeros(3, 4), tops.QUANT, keys=object())
+    y = tops.spring_matmul(torch.randn(2, 3), torch.randn(3, 4), tops.QUANT,
+                           keys=tops.KeyGen(0))
+    assert torch.equal(y, torch.round(y * 2**16) / 2**16)
 
 
 # -- slice end to end: prefill / decode logits and the served tokens ----------
