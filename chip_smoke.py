@@ -44,7 +44,29 @@ failure:
                one step under torch.profiler;
   5d. check  — tiny_cnn, one nearest-rounding step on the card against the CPU;
   5e. arms   — the example's fp32 / SR / nearest arms on tiny_cnn, 150 steps,
-               gaps printed (not gated).
+               gaps printed (not gated);
+  6a. flash_attention — the kernel against its plain version on the
+               reference registry's five examples (fp32 atol 2e-5, bf16 2e-2),
+               a non-causal ragged case, and llama3.2-1b's prefill shapes at
+               S 512 / 4096 / 8192 (q/k/v as the model passes them), timed
+               beside the plain version, fp32 scaled_dot_product_attention and
+               the bound;
+  6b. ssd_scan — y and the final state against the chunked plain version
+               (rel 1e-4) on the registry's three examples and at mamba2-780m's
+               prefill shape (x (1, 2000, 48, 64), b/c (1, 2000, 1, 128), read as
+               views of one projection as the model does), timed;
+  6c. serve_long — full-width llama3.2-1b, quant_sparse, 4 slots, 4 requests,
+               prompt 4096, gen 16, counters zeroed just before and read just
+               after: flash_attention, masked_matmul, tile_occupancy and
+               mask_pack must launch; prefill s per request, tokens/s, peak
+               memory;
+  6d. serve_mamba2 — full-width mamba2-780m, quant_sparse, 4 slots, 6
+               requests, prompt 2000, gen 16: ssd_scan, masked_matmul and
+               tile_occupancy must launch;
+  6e. check  — the reduced mamba2-780m and llama3.2-1b on the card against the
+               CPU at a 300-token prompt, prefill and decode logits (atol 1e-3);
+  6f. profile — one 4096-token llama3.2-1b prefill and one 2000-token
+               mamba2-780m prefill under torch.profiler: device time by kernel.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and, last, the ``{"ok": true, "device": ...}`` line.
@@ -169,7 +191,7 @@ VGG_HW, VGG_BATCH, VGG_STEPS = 224, 32, 3
 # 64 -> 64), conv c3_0 (28 x 28, 256 -> 512) and fc6 (25088 -> 4096)
 BWD_LAYERS = {"c0_1": ("conv", 224, 64, 64), "c3_0": ("conv", 28, 256, 512),
               "fc6": ("fc", 25088, 4096)}
-SERVE_KERNELS = ("masked_matmul", "tile_occupancy", "mask_pack")
+SERVE_KERNELS = ("masked_matmul", "tile_occupancy", "mask_pack", "flash_attention")
 TRAIN_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "tile_occupancy",
                  "splitk_reduce", "stochastic_round")
 
@@ -488,6 +510,276 @@ def phase_arms(dev) -> dict:
     return out
 
 
+# -- slice 3: long-prompt prefill and Mamba-2 serving -----------------------------
+
+# llama3.2-1b's attention (H 32, HKV 8, D 64) at prefill lengths; the long
+# serve; mamba2-780m's SSD (H 48, P 64, N 128, G 1) and its serve
+FA_HEADS, FA_KV_HEADS, FA_DIM, FA_SEQS = 32, 8, 64, (512, 4096, 8192)
+LONG_SLOTS, LONG_REQUESTS, LONG_PROMPT = 4, 4, 4096
+SSD_HEADS, SSD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 128
+MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_PROMPT = 4, 6, 2000
+CHECK_PROMPT = 300
+LONG_KERNELS = ("flash_attention", "masked_matmul", "tile_occupancy", "mask_pack")
+MAMBA_KERNELS = ("ssd_scan", "masked_matmul", "tile_occupancy")
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_flash_attention(dev, gen) -> dict:
+    """(6a) flash_attention against its plain version on the reference
+    registry's examples (``flash_attention/ops.py:39-55``, its compare:
+    fp32 atol 2e-5, bf16 atol 2e-2) and a non-causal ragged case, then at
+    llama3.2-1b's prefill shapes, q/k/v as ``gqa_apply`` passes them
+    (transposed (B, S, H, D) projections), timed beside the plain version,
+    fp32 scaled_dot_product_attention and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+
+    def qkv(b, h, hkv, s, d, dtype=torch.float32):
+        return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                     for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+    cases = [("causal (2,4,2,256,64)", qkv(2, 4, 2, 256, 64), {"causal": True}, 2e-5),
+             ("ragged (1,4,1,300,64)", qkv(1, 4, 1, 300, 64), {"causal": True}, 2e-5),
+             ("window 128 (2,2,2,256,64)", qkv(2, 2, 2, 256, 64),
+              {"causal": True, "window": 128}, 2e-5),
+             ("non-causal (1,8,4,384,128)", qkv(1, 8, 4, 384, 128), {"causal": False}, 2e-5),
+             ("bf16 (1,2,2,128,64)", qkv(1, 2, 2, 128, 64, torch.bfloat16), {}, 2e-2),
+             ("non-causal ragged (1,4,2,200,64)", qkv(1, 4, 2, 200, 64), {"causal": False}, 2e-5)]
+    err, case_errs = 0.0, {}
+    for name, (q, k, v), kw, atol in cases:
+        e = _max_err(flash_attention(q, k, v, **kw), attention_reference(q, k, v, **kw))
+        err, case_errs[name] = max(err, e), e
+        print(f"[flash_attention] {name} {kw}: max_abs_err {e:.3g} (atol {atol:g})", flush=True)
+        if not e <= atol:
+            fail(f"flash_attention {name} disagrees with its plain version")
+    rows = []
+    for s in FA_SEQS:
+        q = torch.randn(1, s, FA_HEADS, FA_DIM, generator=gen).to(dev).transpose(1, 2)
+        k, v = (torch.randn(1, s, FA_KV_HEADS, FA_DIM, generator=gen).to(dev).transpose(1, 2)
+                for _ in range(2))
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        got, want = flash_attention(q, k, v), attention_reference(q, k, v)
+        e, lib_e = _max_err(got, want), _max_err(lib(), want)
+        del got, want
+        err, case_errs[f"llama prefill S={s}"] = max(err, e), e
+        if not e <= 2e-5:
+            fail(f"flash_attention at S={s} off by {e:.3g}")
+        iters = 20 if s <= 4096 else 5
+        ms = timed(lambda: flash_attention(q, k, v), iters)
+        plain_ms = timed(lambda: attention_reference(q, k, v), 2, warmup=1)
+        lib_ms = timed(lib, iters)
+        torch.cuda.empty_cache()
+        pairs = s * (s + 1) / 2  # live (query, key) pairs under the causal mask
+        b_ms, b_by = bound(4.0 * 2 * s * FA_DIM * (FA_HEADS + FA_KV_HEADS),
+                           4.0 * FA_HEADS * pairs * FA_DIM)
+        rows.append({"seq": s, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": e,
+                     "library_max_abs_err": lib_e,
+                     "tflops": 4.0 * FA_HEADS * pairs * FA_DIM / ms / 1e9})
+        print(f"[flash_attention] llama prefill B1 H{FA_HEADS} HKV{FA_KV_HEADS} D{FA_DIM} S{s} "
+              f"causal fp32: err {e:.3g}; kernel {ms:.4f} ms ({rows[-1]['tflops']:.2f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (err {lib_e:.3g}), bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del q, k, v
+    return {"rows": rows, "err": err, "case_errs": case_errs}
+
+
+def phase_ssd_scan(dev, gen) -> dict:
+    """(6b) ssd_scan against its chunked plain version (y and the final
+    state, rel 1e-4: the registry's compare, ``ssd_scan/ops.py:126-127``)
+    on the registry's three examples (``ops.py:112-123``) and at
+    mamba2-780m's prefill shape, x / b / c read as views of one projection
+    as ``ssm_apply`` splits them, timed beside the plain version and the
+    bound.  No single PyTorch call computes the scan."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked
+
+    def rel(got, want) -> float:
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    def check(name, args) -> float:
+        (y, st), (wy, wst) = (ssd_scan(*args, return_state=True),
+                              ssd_scan_chunked(*args, return_state=True))
+        r = max(rel(y, wy), rel(st, wst))
+        e = max(_max_err(y, wy), _max_err(st, wst))
+        print(f"[ssd_scan] {name}: y and state rel err {r:.3g} (rel 1e-4), max_abs_err "
+              f"{e:.3g}", flush=True)
+        if not r <= 1e-4:
+            fail(f"ssd_scan {name} disagrees with its plain version")
+        return e
+
+    def decay_inputs(bsz, s, h):
+        dt = F.softplus(torch.randn(bsz, s, h, generator=gen))
+        return dt.to(dev), (-torch.exp(torch.randn(h, generator=gen) * 0.5)).to(dev)
+
+    err = 0.0
+    for bsz, s, h, p, g, n in ((2, 320, 4, 64, 2, 32), (1, 128, 2, 32, 1, 16),
+                               (1, 96, 2, 32, 1, 16)):
+        x = torch.randn(bsz, s, h, p, generator=gen).to(dev)
+        dt, a = decay_inputs(bsz, s, h)
+        b, c = ((torch.randn(bsz, s, g, n, generator=gen) / n**0.5).to(dev) for _ in range(2))
+        err = max(err, check(f"({bsz},{s},{h},{p}) g{g} n{n}", (x, dt, a, b, c)))
+    s, h, p, n = MAMBA_PROMPT, SSD_HEADS, SSD_DIM, SSD_STATE
+    xbc = torch.randn(1, s, h * p + 2 * n, generator=gen)
+    xbc[..., h * p:] /= n**0.5
+    xbc = xbc.to(dev)
+    x = xbc[..., :h * p].reshape(1, s, h, p)
+    b = xbc[..., h * p:h * p + n].reshape(1, s, 1, n)
+    c = xbc[..., h * p + n:].reshape(1, s, 1, n)
+    dt, a = decay_inputs(1, s, h)
+    args = (x, dt, a, b, c)
+    err = max(err, check(f"mamba2-780m prefill x {tuple(x.shape)} b/c {tuple(b.shape)}", args))
+    # the model's own decays: ssm_init's a = -linspace(1, 16) and dt =
+    # softplus(dt_raw + 0), so cumulative log decays reach about -2000 per chunk
+    model_dt = F.softplus(torch.randn(1, s, h, generator=gen)).to(dev)
+    model_a = -torch.linspace(1.0, 16.0, h, device=dev)
+    err = max(err, check("mamba2-780m prefill, the model's decays a = -linspace(1, 16)",
+                         (x, model_dt, model_a, b, c)))
+    ms = timed(lambda: ssd_scan(*args, return_state=True), 20)
+    plain_ms = timed(lambda: ssd_scan_chunked(*args, return_state=True), 5, warmup=1)
+    nc = -(-s // SSD_CHUNK)
+    # live (t, j <= t) pairs over the S real steps; C·B^T once for the one
+    # group, and per head the masked scores @ x, the chunk state and C @ h_prev
+    pairs = sum(l * (l + 1) / 2 for l in (min(SSD_CHUNK, s - i) for i in range(0, s, SSD_CHUNK)))
+    flops = 2.0 * (pairs * n + h * (pairs * p + 2 * s * n * p))
+    nbytes = 4.0 * (2 * s * h * p + 2 * s * n + s * h + h + h * n * p)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[ssd_scan] mamba2-780m prefill: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "shape": f"x {tuple(x.shape)}, b/c {tuple(b.shape)}, "
+            f"{nc} chunks, with the final state"}
+
+
+def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: tuple,
+                tag: str) -> dict:
+    """(6c/6d) full-width ``arch`` served in quant_sparse through
+    ``serve_session``, gen GEN; the counters are zeroed just before and
+    read just after, and every kernel in ``needed`` must have launched."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import serve_session
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = serve_session(arch, reduced=False, mode="quant_sparse", slots=slots, queue=requests,
+                        prompt_len=prompt, gen=GEN, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    done = [r for r in out["per_request"] if r["n_tokens"] == GEN]
+    print(f"[{tag}] {arch} quant_sparse {slots} slots, prompt {prompt}: {len(done)}/{requests} "
+          f"requests with {GEN} tokens, finite={out['finite']}, prefill "
+          f"{out['prefill_s'] / requests:.3f} s per request, tokens_per_s="
+          f"{out['tokens_per_s']:.2f}, decode_s={out['decode_s']:.3f}, decode_steps="
+          f"{out['decode_steps']}, peak {peak / 2**30:.2f} GiB, wall {wall:.1f}s", flush=True)
+    print(f"[{tag}] launches {launches}", flush=True)
+    if len(done) != requests or not out["finite"]:
+        fail(f"{tag} phase: not every request finished with finite logits")
+    for name in needed:
+        if launches[name] <= 0:
+            fail(f"{tag} phase never launched the {name} kernel")
+    res = {k: v for k, v in out.items() if k != "per_request"}
+    res.update(tokens=[r["tokens"] for r in out["per_request"]], launches=launches,
+               peak_mem_bytes=peak, wall_s=wall,
+               prefill_s_per_request=out["prefill_s"] / requests)
+    return res
+
+
+def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int) -> dict:
+    """The reduced ``arch`` on the card against the same model on the CPU
+    (plain versions): prefill logits of two rows, then one decode step.
+    Logits of a 3-4 layer model: the fp32 sums of kernel and plain version
+    differ in order, which moves a quantized activation by one 2**-16 step
+    at most, far below 1e-3 at the logits."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_decode_step, lm_init, lm_prefill, pad_cache
+
+    cfg = get_arch(arch).resolve(reduced=True)
+    ctx = SpringContext(cfg=serving_config("quant_sparse"))
+    p_cpu = lm_init(cfg, 0, device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    toks = torch.randint(0, cfg.vocab, (2, prompt_len), generator=gen)
+    lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx)
+    lg_gpu, c_gpu = lm_prefill(to(p_cpu, dev), cfg, toks.to(dev), ctx)
+    nxt = lg_cpu.argmax(-1)
+    d_cpu, _ = lm_decode_step(p_cpu, cfg, nxt, pad_cache(c_cpu, 1), ctx)
+    d_gpu, _ = lm_decode_step(to(p_cpu, dev), cfg, nxt.to(dev), pad_cache(c_gpu, 1), ctx)
+    e_pre = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    e_dec = float((d_gpu.cpu() - d_cpu).abs().max())
+    print(f"[check] reduced {arch} card vs CPU, prompt {prompt_len}: prefill logits "
+          f"max_abs_err={e_pre:.3g}, decode {e_dec:.3g} (atol 1e-3), argmax equal "
+          f"{bool(torch.equal(lg_gpu.argmax(-1).cpu(), nxt))}", flush=True)
+    if not (e_pre <= 1e-3 and e_dec <= 1e-3):
+        fail(f"the reduced {arch} on the card disagrees with the CPU plain versions")
+    return {"prefill_max_abs_err": e_pre, "decode_max_abs_err": e_dec}
+
+
+def profile_prefill(dev, arch: str, prompt: int) -> dict:
+    """(6f) one full-width ``arch`` prefill of ``prompt`` tokens under
+    torch.profiler, after one warm-up prefill: device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_init, lm_prefill
+
+    torch.cuda.empty_cache()
+    cfg = get_arch(arch).resolve(False)
+    params = lm_init(cfg, 0, device=dev)
+    ctx = SpringContext(cfg=serving_config("quant_sparse"))
+    toks = torch.randint(0, cfg.vocab, (1, prompt),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    lm_prefill(params, cfg, toks, ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        lm_prefill(params, cfg, toks, ctx)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    rows = device_time_by_kernel(prof)
+    busy = sum(r[1] for r in rows)
+    tag = f"prefill-profile {arch} {prompt}"
+    if busy == 0:
+        print(f"[{tag}] {wall_ms:.1f} ms wall; device time not measured", flush=True)
+    else:
+        print(f"[{tag}] {wall_ms:.1f} ms wall (profiled), device busy {busy:.1f} ms = "
+              f"{busy / wall_ms:.1%}; top kernels:", flush=True)
+        for name, ms, n in rows[:12]:
+            print(f"[{tag}]   {ms:9.2f} ms  x{n:<5d} {name[:90]}", flush=True)
+    del params
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:40]]}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are not next to this script ({SRC / 'repro_torch'})")
@@ -696,38 +988,7 @@ def main() -> None:
     report["decode_profile"] = profile_decode(dev)
 
     # -- 4. check: reduced model on the card vs the CPU plain versions --------
-    from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config
-    from repro_torch.models.layers import SpringContext
-    from repro_torch.models.lm import lm_decode_step, lm_init, lm_prefill, pad_cache
-
-    cfg = get_arch("llama3.2-1b").resolve(reduced=True)
-    ctx = SpringContext(cfg=serving_config("quant_sparse"))
-    p_cpu = lm_init(cfg, 0, device="cpu")
-
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
-    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
-    lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx)
-    lg_gpu, c_gpu = lm_prefill(to(p_cpu, dev), cfg, toks.to(dev), ctx)
-    nxt = lg_cpu.argmax(-1)
-    d_cpu, _ = lm_decode_step(p_cpu, cfg, nxt, pad_cache(c_cpu, 1), ctx)
-    d_gpu, _ = lm_decode_step(to(p_cpu, dev), cfg, nxt.to(dev), pad_cache(c_gpu, 1), ctx)
-    # logits of a 3-layer model: the fp32 sums of kernel and plain version
-    # differ in order, which moves a quantized activation by one 2**-16 step
-    # at most, far below 1e-3 at the logits
-    e_pre = float((lg_gpu.cpu() - lg_cpu).abs().max())
-    e_dec = float((d_gpu.cpu() - d_cpu).abs().max())
-    print(f"[check] reduced llama3.2-1b card vs CPU: prefill logits max_abs_err={e_pre:.3g}, "
-          f"decode {e_dec:.3g} (atol 1e-3), argmax equal "
-          f"{bool(torch.equal(lg_gpu.argmax(-1).cpu(), nxt))}", flush=True)
-    if not (e_pre <= 1e-3 and e_dec <= 1e-3):
-        fail("the reduced model on the card disagrees with the CPU plain versions")
+    report["check"] = check_lm_card_vs_cpu(dev, gen, "llama3.2-1b", 12)
 
     # -- 5. slice 2: CNN training ----------------------------------------------
     report["stochastic_round"] = sr = phase_stochastic_round(dev, gen)
@@ -736,10 +997,27 @@ def main() -> None:
     report["cnn_card_vs_cpu"] = phase_cnn_card_vs_cpu(dev)
     report["arms"] = phase_arms(dev)
 
+    # -- 6. slice 3: long-prompt prefill, Mamba-2 ------------------------------
+    report["flash_attention"] = fa = phase_flash_attention(dev, gen)
+    report["ssd_scan"] = ssd = phase_ssd_scan(dev, gen)
+    report["serve_long"] = serve_long = phase_serve(
+        dev, "llama3.2-1b", LONG_SLOTS, LONG_REQUESTS, LONG_PROMPT, LONG_KERNELS, "serve_long")
+    report["serve_mamba2"] = serve_mamba2 = phase_serve(
+        dev, "mamba2-780m", MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_PROMPT, MAMBA_KERNELS,
+        "serve_mamba2")
+    report["check_long"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT)
+                            for arch in ("mamba2-780m", "llama3.2-1b")}
+    report["prefill_profile"] = {
+        "llama3.2-1b": profile_prefill(dev, "llama3.2-1b", LONG_PROMPT),
+        "mamba2-780m": profile_prefill(dev, "mamba2-780m", MAMBA_PROMPT)}
+
     # -- kernel line, card, result -------------------------------------------
-    # launches: the serve run's plus the train run's, each zeroed just before
-    # its run and read just after (the comparisons above count in neither)
-    by_path = {name: {"serve": launches[name], "train": train["launches"][name]}
+    # launches: the sum over the main paths' runs (serve, train, serve_long,
+    # serve_mamba2), each zeroed just before its run and read just after (the
+    # comparisons above count in none)
+    by_path = {name: {"serve": launches[name], "serve_long": serve_long["launches"][name],
+                      "serve_mamba2": serve_mamba2["launches"][name],
+                      "train": train["launches"][name]}
                for name in launches}
     total = {name: sum(v.values()) for name, v in by_path.items()}
 
@@ -760,6 +1038,7 @@ def main() -> None:
                 "launches_by_path": by_path[f"masked_matmul_{op}"]}
 
     decode_rows = [r for r in mm_rows if r["shape"][0] == DECODE_M]
+    fa_main = next(r for r in fa["rows"] if r["seq"] == LONG_PROMPT)
     line = {"kernels": [
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
@@ -810,6 +1089,20 @@ def main() -> None:
          "replaces": "src/repro/kernels/stochastic_round/sr_kernel.py:51",
          "launches": total["stochastic_round"], **sr, "library_ms": None,
          "launches_by_path": by_path["stochastic_round"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:99",
+         "launches": total["flash_attention"], "max_abs_err": fa["err"],
+         **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "
+                  f"D {FA_DIM}, S {LONG_PROMPT}, causal, fp32; library: fp32 "
+                  "scaled_dot_product_attention (enable_gqa, is_causal)",
+         "launches_by_path": by_path["flash_attention"]},
+        {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_kernel.py:71",
+         "launches": total["ssd_scan"], **ssd, "library_ms": None,
+         "note": "one counted launch per call runs three kernels: chunk, state scan, inter-chunk",
+         "launches_by_path": by_path["ssd_scan"]},
     ]}
     report["kernels"] = line["kernels"]
     try:

@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import llama3_2_1b, mamba2_780m
 from repro_torch.configs.base import ArchDef
 
-ARCHS: dict[str, ArchDef] = {llama3_2_1b.ARCH.arch_id: llama3_2_1b.ARCH}
+ARCHS: dict[str, ArchDef] = {a.arch_id: a for a in (llama3_2_1b.ARCH, mamba2_780m.ARCH)}
 
 
 def get_arch(arch_id: str) -> ArchDef:

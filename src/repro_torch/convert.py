@@ -4,7 +4,9 @@
 For the LMs, the reference stacks the layers of each scanned unit position along a
 leading axis (``unit_0/...`` leaves of shape ``(n_units, ...)``); the port
 keeps a list of per-layer dicts.  Dense kernels are ``(K, N)`` on both
-sides, so every other leaf maps one to one.
+sides, so every other leaf maps one to one: attention blocks and Mamba-2
+blocks (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
+``d_skip``, ``norm``, ``out_proj``) alike.
 """
 
 from __future__ import annotations

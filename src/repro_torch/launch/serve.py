@@ -2,7 +2,13 @@
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --mode quant_sparse \
       --slots 4 --queue 6 --prompt-len 32 --gen 16            # GPU, full width
+  python -m repro_torch.launch.serve --arch llama3.2-1b --queue 4 \
+      --prompt-len 4096 --gen 16                              # long prompts
+  python -m repro_torch.launch.serve --arch mamba2-780m --queue 6 \
+      --prompt-len 2000 --gen 16                              # Mamba-2
   python -m repro_torch.launch.serve --reduced --device cpu   # CPU, plain versions
+
+The pool's ``max_len`` follows ``--prompt-len`` + ``--gen``.
 
 Each flag stands for the RunSpec field named in its help; the RunSpec API
 itself is not ported yet.  Weights are random, made from ``--seed``, and

@@ -2,17 +2,20 @@
 
 Two regimes, as in the reference:
 
-  * prefill — full-sequence attention in plain torch, in query chunks of
-    ``Q_CHUNK`` (``_chunked_attention``); the serving cache it emits is
-    bf16, like the reference's (``attention.py:200-201``);
+  * prefill — full-sequence attention through the ``flash_attention``
+    wrapper on every device (the reference's route when the kernel is
+    pinned, ``attention.py:169-176``): the CUDA kernel on the card, reading
+    the (B, S, H, D) projections in place through strides, its plain
+    version on the CPU; the serving cache it emits is bf16, like the
+    reference's (``attention.py:200-201``);
   * decode — one new token per row against the cache, each row at its own
     position (a per-slot ``(B,)`` vector, or a scalar broadcast to it).  The
     new k/v row is written into the bf16 cache first and attended from
     there, so the current token's key is bf16-rounded exactly as in the
     reference (``_row_update``, ``attention.py:41-45``).
 
-MLA, sliding windows and the int8 cache are not ported yet.  The flash
-attention Pallas kernel is off the serving path (it only runs when pinned).
+Decode attention stays plain torch, as in the reference.  MLA, sliding
+windows, the qkv bias and the int8 cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,9 +25,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import SpringContext, dense_apply, dense_init, rope_apply
-
-Q_CHUNK = 1024
 
 
 def _pos_vec(pos, b: int, device) -> torch.Tensor:
@@ -64,32 +66,6 @@ def gqa_init(gen: torch.Generator, d: int, spec: AttnSpec, *, device=None) -> di
     }
 
 
-def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool, q_chunk: int = Q_CHUNK) -> torch.Tensor:
-    """Dense-math attention over query chunks; q (B,S,H,D), k/v (B,S,KV,D)."""
-    b, s, h, d = q.shape
-    skv, kv_heads, dv = k.shape[1], k.shape[2], v.shape[-1]
-    group = h // kv_heads
-    scale = 1.0 / (d**0.5)
-    qc = q_chunk if s % q_chunk == 0 else s
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
-    k_idx = torch.arange(skv, device=q.device)
-    outs = []
-    for ci in range(s // qc):
-        q_blk = q[:, ci * qc:(ci + 1) * qc].to(torch.float32)
-        q_idx = ci * qc + torch.arange(qc, device=q.device)
-        qh = q_blk.reshape(b, qc, kv_heads, group, d)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qh, kf) * scale
-        if causal:
-            mask = q_idx[:, None] >= k_idx[None, :]
-            scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))
-        p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
-        outs.append(out.reshape(b, qc, h, dv).to(q.dtype))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-
-
 def gqa_apply(
     params: dict,
     x: torch.Tensor,
@@ -111,7 +87,10 @@ def gqa_apply(
     k = rope_apply(k, positions, spec.rope_theta)
 
     if cache is None:
-        out = _chunked_attention(q, k, v, causal=spec.causal)
+        # (B,S,H,D) -> (B,H,S,D) views; the output comes back in q's layout,
+        # so the transpose back is contiguous again
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=spec.causal).transpose(1, 2)
         new_cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
                      if return_cache else None)
     else:

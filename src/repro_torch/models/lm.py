@@ -1,11 +1,13 @@
 """Decoder-LM stack for serving (port of ``repro/models/lm.py``).
 
-Covers the ``("attn", "swiglu")`` pattern (the llama family); other mixers
-and FFNs raise ``NotImplementedError``.  The reference scans a stacked
-``unit_0`` parameter tree; here the layers are a Python list of per-layer
-dicts, walked in order.  Caches keep the reference's stacked layout,
-``{"pos", "unit_0": {"k", "v"}}`` with leaves ``(n_units, B, S, KV, D)``,
-so the packed slot pool is laid out exactly as the reference's.
+Covers two block kinds: ``("attn", "swiglu")`` (the llama family) and
+``("ssm", "none")`` (Mamba-2, no FFN); other mixers and FFNs raise
+``NotImplementedError``.  The reference scans a stacked ``unit_0``
+parameter tree; here the layers are a Python list of per-layer dicts,
+walked in order.  Caches keep the reference's stacked layout,
+``{"pos", "unit_0": {...}}`` with leaves ``(n_units, B, ...)``: attention
+``{"k", "v"}`` of ``(n_units, B, S, KV, D)``, so the packed slot pool is
+laid out exactly as the reference's, and SSM ``{"conv", "ssm"}`` states.
 
 The tied-embedding logits product stays ``torch.matmul`` in fp32: the
 reference computes it outside any kernel too (``lm.py:412-415``).
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.layers import (
     SpringContext,
@@ -30,8 +33,9 @@ from repro_torch.models.layers import (
     swiglu_apply,
     swiglu_init,
 )
+from repro_torch.models.ssm import SSMSpec
 
-SUPPORTED_KIND = ("attn", "swiglu")
+SUPPORTED_KINDS = (("attn", "swiglu"), ("ssm", "none"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +49,7 @@ class LMConfig:
     prefix: tuple = ()
     suffix: tuple = ()
     attn: Optional[AttnSpec] = None
+    ssm: Optional[SSMSpec] = None
     d_ff: int = 0
     norm: str = "rms"
     tie_embeddings: bool = False
@@ -56,12 +61,12 @@ class LMConfig:
             raise ValueError(f"{self.name}: pattern covers {n} != {self.n_layers} layers")
 
     def check_supported(self) -> None:
-        kinds = set(self.pattern_unit) | set(self.prefix) | set(self.suffix)
-        if (kinds != {SUPPORTED_KIND} or self.prefix or self.suffix
+        kinds = set(self.pattern_unit)
+        if (not kinds <= set(SUPPORTED_KINDS) or self.prefix or self.suffix
                 or self.norm != "rms" or self.n_units < 1):
             raise NotImplementedError(
-                f"{self.name}: only a repeated {SUPPORTED_KIND} unit with rms norm "
-                f"is ported (got pattern {self.pattern_unit}, prefix {self.prefix}, "
+                f"{self.name}: only a repeated unit of {SUPPORTED_KINDS} blocks with rms "
+                f"norm is ported (got pattern {self.pattern_unit}, prefix {self.prefix}, "
                 f"suffix {self.suffix}, norm {self.norm})")
 
     @property
@@ -70,26 +75,42 @@ class LMConfig:
         return [(i, u) for i in range(self.n_units) for u in range(len(self.pattern_unit))]
 
 
-def block_init(gen: torch.Generator, cfg: LMConfig, *, device=None) -> dict:
-    return {
-        "norm1": rmsnorm_init(cfg.d_model, device=device),
-        "mixer": attn_mod.gqa_init(gen, cfg.d_model, cfg.attn, device=device),
-        "norm2": rmsnorm_init(cfg.d_model, device=device),
-        "ffn": swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device),
-    }
+def block_init(gen: torch.Generator, cfg: LMConfig, kind: tuple, *, device=None) -> dict:
+    mixer, ffn = kind
+    p = {"norm1": rmsnorm_init(cfg.d_model, device=device)}
+    if mixer == "attn":
+        p["mixer"] = attn_mod.gqa_init(gen, cfg.d_model, cfg.attn, device=device)
+    else:
+        p["mixer"] = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm, device=device)
+    if ffn != "none":
+        p["norm2"] = rmsnorm_init(cfg.d_model, device=device)
+        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device)
+    return p
 
 
 def block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, cfg: LMConfig,
-                positions: torch.Tensor, cache: Optional[dict] = None, pos=None,
+                kind: tuple, positions: torch.Tensor, cache: Optional[dict] = None, pos=None,
                 return_cache: bool = False):
     """Pre-norm residual block.  Returns (x, new_cache)."""
+    mixer, ffn = kind
     h = rmsnorm_apply(params["norm1"], x)
-    out, new_cache = attn_mod.gqa_apply(params["mixer"], h, ctx, cfg.attn, positions,
-                                        cache, pos, return_cache)
+    if mixer == "attn":
+        out, new_cache = attn_mod.gqa_apply(params["mixer"], h, ctx, cfg.attn, positions,
+                                            cache, pos, return_cache)
+    else:
+        out, new_cache = ssm_mod.ssm_apply(params["mixer"], h, ctx, cfg.ssm, cache)
     x = (x + out).to(x.dtype)
-    h = rmsnorm_apply(params["norm2"], x)
-    x = (x + swiglu_apply(params["ffn"], h, ctx)).to(x.dtype)
+    if ffn != "none":
+        h = rmsnorm_apply(params["norm2"], x)
+        x = (x + swiglu_apply(params["ffn"], h, ctx)).to(x.dtype)
     return x, new_cache
+
+
+def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
+                     dtype=torch.bfloat16, *, device=None) -> dict:
+    if kind[0] == "attn":
+        return attn_mod.gqa_init_cache(batch, cfg.attn, max_len, dtype, device=device)
+    return ssm_mod.ssm_init_cache(batch, cfg.ssm, dtype, device=device)
 
 
 def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
@@ -102,7 +123,8 @@ def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
     params: dict = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, device=device),
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
-        "layers": [block_init(gen, cfg, device=device) for _ in cfg.layer_kinds],
+        "layers": [block_init(gen, cfg, cfg.pattern_unit[u], device=device)
+                   for _, u in cfg.layer_kinds],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=device)
@@ -119,8 +141,8 @@ def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   *, device=None) -> dict:
     cfg.check_supported()
     cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=device)}
-    for u in range(len(cfg.pattern_unit)):
-        one = attn_mod.gqa_init_cache(batch, cfg.attn, max_len, dtype, device=device)
+    for u, kind in enumerate(cfg.pattern_unit):
+        one = block_init_cache(cfg, kind, batch, max_len, dtype, device=device)
         cache[f"unit_{u}"] = {name: leaf[None].repeat(cfg.n_units, *([1] * leaf.ndim))
                               for name, leaf in one.items()}
     return cache
@@ -128,13 +150,15 @@ def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def pad_cache(cache: dict, extra: int) -> dict:
     """Grow the k/v caches by ``extra`` decode positions (prefill builds
-    caches sized to the prompt; decoding needs headroom)."""
+    caches sized to the prompt; decoding needs headroom).  The O(1) SSM
+    state leaves pass through."""
     if extra <= 0:
         return cache
     out = dict(cache)
     for unit in (name for name in cache if name.startswith("unit_")):
-        # leaves (n_units, B, S, KV, D): pad the seq axis, third from the end
-        out[unit] = {name: torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, extra))
+        # k/v leaves (n_units, B, S, KV, D): pad the seq axis, third from the end
+        out[unit] = {name: (torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, extra))
+                            if name in ("k", "v") else leaf)
                      for name, leaf in cache[unit].items()}
     return out
 
@@ -149,7 +173,7 @@ def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     positions = torch.arange(s, device=x.device).expand(b, s)
     per_unit: dict = {u: [] for u in range(len(cfg.pattern_unit))}
     for (_, u), p in zip(cfg.layer_kinds, params["layers"]):
-        x, c = block_apply(p, x, ctx, cfg, positions, return_cache=True)
+        x, c = block_apply(p, x, ctx, cfg, cfg.pattern_unit[u], positions, return_cache=True)
         per_unit[u].append(c)
     cache: dict = {"pos": torch.tensor(s, dtype=torch.int64, device=x.device)}
     for u, cs in per_unit.items():
@@ -170,7 +194,7 @@ def lm_decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor, cache: dic
     per_unit: dict = {u: [] for u in range(len(cfg.pattern_unit))}
     for (i, u), p in zip(cfg.layer_kinds, params["layers"]):
         layer_cache = {name: leaf[i] for name, leaf in cache[f"unit_{u}"].items()}
-        x, c = block_apply(p, x, ctx, cfg, positions, layer_cache, pos)
+        x, c = block_apply(p, x, ctx, cfg, cfg.pattern_unit[u], positions, layer_cache, pos)
         per_unit[u].append(c)
     new_cache: dict = {"pos": pos + 1}
     for u, cs in per_unit.items():

@@ -6,8 +6,11 @@ join and retire) and a packed :mod:`kvpool`.  Each tick admits queued
 requests into free slots (batch-1 prefill, then the slot's KV is packed
 into the pool) and runs one pooled decode step: unpack the pool, decode
 every slot, keep the updates of active slots, repack.  On the card every
-projection is a ``masked_matmul`` kernel launch and every pack a
-``mask_pack`` launch.
+projection is a ``masked_matmul`` kernel launch, every pack a
+``mask_pack`` launch, every prefill attention a ``flash_attention``
+launch and every prefill SSM mixer an ``ssd_scan`` launch.  The models are
+llama3.2-1b (attention, packed k/v) and mamba2-780m (SSM, whose O(1) state
+leaves the pool keeps dense).
 
 Serving numerics: quantized modes round to nearest, so a request's tokens
 are a function of the request alone, never of its batch co-tenants.

@@ -11,9 +11,15 @@ words come from one ``mask_pack`` kernel launch.  Unpack and pack
 round-trip bit-exactly, so decoding against the unpacked pool is
 numerically identical to decoding against the dense cache.
 
+The O(1) SSM state leaves (``conv``, ``ssm``) and the per-slot position
+vector pass through dense, as in the reference (``kvpool.py:1-18``):
+installed per slot, merged per active row, never packed.  Every cache leaf
+sits under a ``unit_*`` key with the layers stacked in front, so its slot
+axis is axis 1.
+
 Slot surgery (install, release) writes the pool in place; the reference's
-versions are pure functions inside jitted programs.  Sliding-window rings,
-MLA latents and O(1) state leaves are not ported yet.
+versions are pure functions inside jitted programs.  Sliding-window rings
+and MLA latents are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,10 +70,12 @@ def pack_leaf(leaf: torch.Tensor, name: str) -> PackedKV:
 
 
 def pack_cache(cache: dict) -> dict:
-    """Dense cache tree (with (S,) ``pos``) -> pool tree of PackedKV leaves."""
+    """Dense cache tree (with (S,) ``pos``) -> pool tree: k/v leaves become
+    PackedKV, state leaves pass through."""
     pool = {"pos": cache["pos"]}
     for unit in _units(cache):
-        pool[unit] = {name: pack_leaf(leaf, name) for name, leaf in cache[unit].items()}
+        pool[unit] = {name: pack_leaf(leaf, name) if name in PACKED_SEQ_AXIS else leaf
+                      for name, leaf in cache[unit].items()}
     return pool
 
 
@@ -76,8 +84,9 @@ def unpack_cache(pool: dict) -> dict:
     cache = {"pos": pool["pos"]}
     for unit in _units(pool):
         cache[unit] = {
-            name: kv_unpack(leaf.values, leaf.mask, leaf.block_len)
-            .reshape(leaf.shape).to(leaf.dtype)
+            name: (kv_unpack(leaf.values, leaf.mask, leaf.block_len)
+                   .reshape(leaf.shape).to(leaf.dtype)
+                   if isinstance(leaf, PackedKV) else leaf)
             for name, leaf in pool[unit].items()}
     return cache
 
@@ -96,20 +105,18 @@ def init_pool(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, *,
 # -- mid-flight slot surgery (in place) ---------------------------------------
 
 
-def _slot_index(name: str, leaf: PackedKV) -> tuple:
-    slot_ax = len(leaf.shape) + PACKED_SEQ_AXIS[name] - 1
-    return (slice(None),) * slot_ax
-
-
 def install_packed(pool: dict, prefill_cache: dict, slot: int, prompt_len: int) -> dict:
     """Write one prefilled request (batch-1 cache) into ``slot`` of the
     packed pool: only the new slot's blocks are packed (one ``kv_pack`` per
     leaf) and written; the other slots' packed state is untouched.  The
     whole slot row is overwritten (seq tail zero-padded), so a reused slot
-    keeps nothing of its previous tenant."""
+    keeps nothing of its previous tenant.  State leaves are copied in."""
     pool["pos"][slot] = prompt_len
     for unit in _units(pool):
         for name, leaf in pool[unit].items():
+            if not isinstance(leaf, PackedKV):
+                leaf[:, slot] = prefill_cache[unit][name][:, 0].to(leaf.dtype)
+                continue
             row = prefill_cache[unit][name].to(leaf.dtype)
             ax_seq = row.ndim + PACKED_SEQ_AXIS[name]
             extra = leaf.shape[ax_seq] - row.shape[ax_seq]
@@ -119,11 +126,10 @@ def install_packed(pool: dict, prefill_cache: dict, slot: int, prompt_len: int) 
             if extra:
                 pad = [0, 0] * (row.ndim - ax_seq - 1) + [0, extra]
                 row = torch.nn.functional.pad(row, pad)
-            packed = pack_leaf(row, name)  # lead (..., 1) with the slot axis last
-            idx = _slot_index(name, leaf) + (slot,)
-            leaf.values[idx] = packed.values[..., 0, :]
-            leaf.mask.view(torch.int32)[idx] = packed.mask.view(torch.int32)[..., 0, :]
-            leaf.nnz[idx] = packed.nnz[..., 0]
+            packed = pack_leaf(row, name)  # lead (n_units, 1)
+            leaf.values[:, slot] = packed.values[:, 0]
+            leaf.mask.view(torch.int32)[:, slot] = packed.mask.view(torch.int32)[:, 0]
+            leaf.nnz[:, slot] = packed.nnz[:, 0]
     return pool
 
 
@@ -132,11 +138,13 @@ def release_packed(pool: dict, slot: int) -> dict:
     request stops counting toward density and wire accounting."""
     pool["pos"][slot] = 0
     for unit in _units(pool):
-        for name, leaf in pool[unit].items():
-            idx = _slot_index(name, leaf) + (slot,)
-            leaf.values[idx] = 0
-            leaf.mask.view(torch.int32)[idx] = 0
-            leaf.nnz[idx] = 0
+        for leaf in pool[unit].values():
+            if not isinstance(leaf, PackedKV):
+                leaf[:, slot] = 0
+                continue
+            leaf.values[:, slot] = 0
+            leaf.mask.view(torch.int32)[:, slot] = 0
+            leaf.nnz[:, slot] = 0
     return pool
 
 
@@ -148,7 +156,7 @@ def merge_active(new_cache: dict, old_cache: dict, active: torch.Tensor) -> dict
         out[unit] = {}
         for name, new in new_cache[unit].items():
             shape = [1] * new.ndim
-            shape[new.ndim + PACKED_SEQ_AXIS[name] - 1] = active.shape[0]
+            shape[1] = active.shape[0]  # the slot axis
             out[unit][name] = torch.where(active.reshape(shape), new, old_cache[unit][name])
     return out
 
@@ -204,6 +212,8 @@ def pool_wire_stats(pool: dict, value_bits: int = KV_VALUE_BITS) -> dict:
     nnz_parts = []
     for unit in _units(pool):
         for leaf in pool[unit].values():
+            if not isinstance(leaf, PackedKV):
+                continue
             n = leaf.n_blocks * leaf.block_len
             nnz_parts.append(leaf.nnz.sum(dtype=torch.int64))
             mask_bits += leaf.n_blocks * _n_words(leaf.block_len) * MASK_WORD_BITS

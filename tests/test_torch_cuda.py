@@ -196,3 +196,104 @@ def test_spring_matmul_runs_the_kernel_without_the_sparse_backward(card):
     assert torch.isfinite(y).all()
     with pytest.raises(ValueError, match="no gradient"):
         spring_matmul(x, w.clone().requires_grad_(True), cfg)
+
+
+# -- slice 3: flash_attention and ssd_scan ----------------------------------------
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", [
+    (1, 32, 8, 512, 64, True, None, "float32"), (1, 4, 2, 300, 128, False, None, "float32"),
+    (2, 2, 2, 256, 64, True, 128, "float32"), (1, 2, 2, 200, 16, True, None, "bfloat16")])
+def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, d, causal, window, dtype):
+    """Against the plain version at the registry's compare: atol 2e-5 for
+    fp32, 2e-2 for bf16; q/k/v as the model passes them, transposed
+    (B,S,H,D) projections read through strides."""
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+
+    gen = torch.Generator().manual_seed(s)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, h, d, generator=gen).to(card, dt).transpose(1, 2)
+    k = torch.randn(b, s, hkv, d, generator=gen).to(card, dt).transpose(1, 2)
+    v = torch.randn(b, s, hkv, d, generator=gen).to(card, dt).transpose(1, 2)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_reference(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+def test_flash_attention_wrapper_raises_on_the_card(card):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.zeros(1, 2, 8, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 48, device=card)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :, :32], q)
+
+
+@pytest.mark.parametrize("bsz,s,h,p,g,n,dtype", [
+    (1, 2000, 48, 64, 1, 128, "float32"), (2, 320, 4, 64, 2, 32, "float32"),
+    (1, 300, 4, 32, 1, 16, "bfloat16")])
+def test_ssd_scan_kernel_matches_plain(card, bsz, s, h, p, g, n, dtype):
+    """y and the final state against the chunked plain version at rel 1e-4
+    (the registry's compare; bf16 inputs are up-cast alike, and y is held
+    after its one bf16 rounding at rel 1e-2)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked
+
+    gen = torch.Generator().manual_seed(s)
+    dt_ = getattr(torch, dtype)
+    x = torch.randn(bsz, s, h, p, generator=gen).to(card, dt_)
+    dt = torch.nn.functional.softplus(torch.randn(bsz, s, h, generator=gen)).to(card)
+    a = -torch.exp(torch.randn(h, generator=gen) * 0.5).to(card)
+    b = (torch.randn(bsz, s, g, n, generator=gen) / n**0.5).to(card, dt_)
+    c = (torch.randn(bsz, s, g, n, generator=gen) / n**0.5).to(card, dt_)
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, dt, a, b, c, return_state=True)
+    wy, wstate = ssd_scan_chunked(x, dt, a, b, c, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dt_ and state.dtype == torch.float32
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    assert rel(y, wy) <= (1e-2 if dtype == "bfloat16" else 1e-4)
+    assert rel(state, wstate) <= 1e-4
+
+
+def test_ssd_scan_wrapper_raises_on_the_card(card):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    x = torch.zeros(1, 8, 4, 32, device=card, dtype=torch.float16)
+    dt, a = torch.zeros(1, 8, 4, device=card), torch.zeros(4, device=card)
+    b = torch.zeros(1, 8, 1, 16, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt, a, b, b)
+    x, b = torch.zeros(1, 8, 4, 48, device=card), torch.zeros(1, 8, 1, 16, device=card)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, a, b, b)
+    with pytest.raises(TypeError):
+        ssd_scan(torch.zeros(1, 8, 4, 32, device=card), dt.double(), a, b, b)
+
+
+@pytest.mark.parametrize("arch,kernel", [("llama3.2-1b", "flash_attention"),
+                                         ("mamba2-780m", "ssd_scan")])
+def test_engine_on_the_card_runs_the_new_kernels(card, arch, kernel):
+    from repro_torch import kernels
+    from repro_torch.launch.serve import serve_session
+
+    kernels.reset_launch_counts()
+    out = serve_session(arch, reduced=True, mode="quant_sparse", slots=2, queue=3,
+                        prompt_len=140, gen=4, device=card)
+    counts = kernels.launch_counts()
+    assert out["finite"] and all(r["n_tokens"] == 4 for r in out["per_request"])
+    n_layers = 3 if arch == "llama3.2-1b" else 4
+    assert counts[kernel] == 3 * n_layers  # one per layer of each request's prefill
+    assert counts["masked_matmul"] > 0

@@ -245,8 +245,10 @@ def test_port_imports_neither_jax_nor_reference():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "new = {'repro_torch.kernels.flash_attention.ops', 'repro_torch.kernels.ssd_scan.ops',\n"
+        "       'repro_torch.models.ssm', 'repro_torch.configs.mamba2_780m'}\n"
+        "print(len(names), bad, sorted(new - set(names)))\n"
+        "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
     env = {**os.environ, "PYTHONPATH": src}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
