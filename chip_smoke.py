@@ -66,7 +66,18 @@ failure:
   6e. check  — the reduced mamba2-780m and llama3.2-1b on the card against the
                CPU at a 300-token prompt, prefill and decode logits (atol 1e-3);
   6f. profile — one 4096-token llama3.2-1b prefill and one 2000-token
-               mamba2-780m prefill under torch.profiler: device time by kernel.
+               mamba2-780m prefill under torch.profiler: device time by kernel;
+  7a. dangling_filter — bit-equal to its plain version on the registry's
+               examples, -0.0 / NaN / inf entries at a length with a scalar
+               tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
+               beside the plain version and the bound;
+  7b. sweep  — ``repro_torch.benchmarks.bench_kernels.smoke_rows`` on the card:
+               every op's kernel against its plain version on the reference's
+               examples under the op's compare; counters zeroed just before and
+               read just after, every kernel of the sweep must launch;
+  7c. paper  — ``sparsity_probe(density=0.5, size=512)`` on the card's kernels,
+               then Table 1 and the Figs. 11-16 geomeans of the model with and
+               without the measured tile-skip fractions, beside the paper's.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and, last, the ``{"ok": true, "device": ...}`` line.
@@ -372,12 +383,14 @@ def phase_backward(dev, gen) -> dict:
             fail("splitk_reduce differs from its plain version")
     red_ms = timed(lambda: mm.splitk_reduce(part), 20)
     red_plain_ms = timed(lambda: mm.splitk_reduce_reference(part), 3, warmup=1)
+    red_lib_ms = timed(lambda: torch.sum(part, 0), 20)
     red_b, red_by = bound(4.0 * (part.numel() + part[0].numel()), part.numel())
     print(f"[backward] split-K forward with SR (32,25088)@(25088,64) exact; splitk_reduce "
-          f"(196,576,64) exact, kernel {red_ms:.4f} ms, plain {red_plain_ms:.4f} ms, bound "
-          f"{red_b:.4f} ms ({red_by})", flush=True)
+          f"(196,576,64) exact, kernel {red_ms:.4f} ms, plain {red_plain_ms:.4f} ms, torch.sum "
+          f"{red_lib_ms:.4f} ms, bound {red_b:.4f} ms ({red_by})", flush=True)
     return {"rows": rows, "err": err_max,
-            "reduce": {"ms": red_ms, "plain_ms": red_plain_ms, "bound_ms": red_b,
+            "reduce": {"ms": red_ms, "plain_ms": red_plain_ms, "library_ms": red_lib_ms,
+                       "bound_ms": red_b,
                        "bound_by": red_by, "max_abs_err": red_err,
                        "shape": "c0_1 dw partial sums (196, 576, 64)"}}
 
@@ -780,6 +793,152 @@ def profile_prefill(dev, arch: str, prompt: int) -> dict:
             "kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:40]]}
 
 
+# -- slice 4: the kernel sweep and the paper evaluation ----------------------------
+
+# the dangling filter at VGG-19's first activation at batch 32 (the size
+# stochastic_round is timed at)
+DF_SHAPE = (VGG_BATCH, VGG_HW, VGG_HW, 64)
+SWEEP_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "tile_occupancy",
+                 "mask_pack", "dangling_filter", "stochastic_round", "flash_attention",
+                 "ssd_scan")
+PAPER_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw")
+
+
+def phase_dangling_filter(dev, gen) -> dict:
+    """(7a) dangling_filter bit for bit against its plain version on the
+    table's examples, on -0.0 / NaN / inf entries at a length that is not a
+    multiple of 4 (the scalar tail), on an unaligned view, in bf16, and at
+    32 x 224 x 224 x 64 fp32; then timed there beside its plain version and
+    its bound."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.mask_compress.ops import dangling_filter, dangling_filter_reference
+
+    def bits(t):
+        return t.view(torch.int32) if t.element_size() == 4 else t.view(torch.int16)
+
+    err = 0.0  # max |kernel - plain| over every case (NaN positions equal)
+
+    def check(name, a, w) -> None:
+        nonlocal err
+        got, want = dangling_filter(a, w), dangling_filter_reference(a, w)
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            if g.dtype != p.dtype or g.shape != p.shape or not torch.equal(bits(g), bits(p)):
+                fail(f"dangling_filter {name} differs from its plain version")
+            err = max(err, float((g.float() - p.float()).nan_to_num(0.0).abs().max()))
+        print(f"[dangling_filter] {name}: bit-equal to the plain version", flush=True)
+
+    for i, ((a, w), _) in enumerate(registry.op_spec("dangling_filter").examples()):
+        check(f"example {i} {tuple(a.shape)}", a.to(dev), w.to(dev))
+    n = 4099  # 1024 16-byte vectors and a 3-element tail
+    a = torch.randn(n, generator=gen) * (torch.rand(n, generator=gen) > 0.4)
+    w = torch.randn(n, generator=gen) * (torch.rand(n, generator=gen) > 0.4)
+    a[::5], w[::7] = -0.0, -0.0
+    a[1::11], w[2::13] = float("nan"), float("nan")
+    a[3::17], w[4::19] = float("inf"), float("-inf")
+    a[-3:], w[-3:] = torch.tensor([float("nan"), -0.0, 1.5]), torch.tensor([2.0, 3.0, -0.0])
+    a, w = a.to(dev), w.to(dev)
+    check(f"-0.0 / NaN / inf, length {n}", a, w)
+    check(f"unaligned views, length {n - 1}", a[1:], w[1:])
+    check(f"bf16, length {n}", a.to(torch.bfloat16), w.to(torch.bfloat16))
+    del a, w
+    cgen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.relu(torch.randn(DF_SHAPE, device=dev, generator=cgen))
+    w = torch.randn(DF_SHAPE, device=dev, generator=cgen)
+    w *= torch.rand(DF_SHAPE, device=dev, generator=cgen) > 0.5
+    check(f"{DF_SHAPE} fp32", a, w)
+    ms = timed(lambda: dangling_filter(a, w), 20)
+    plain_ms = timed(lambda: dangling_filter_reference(a, w), 5, warmup=1)
+    # two fp32 reads and two fp32 writes per element; two tests, an AND and
+    # two selects
+    b_ms, b_by = bound(16.0 * a.numel(), 5.0 * a.numel())
+    print(f"[dangling_filter] {DF_SHAPE} fp32: kernel {ms:.4f} ms "
+          f"({16.0 * a.numel() / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound", flush=True)
+    del a, w
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "shape": f"{DF_SHAPE} fp32, ReLU-sparse a, half-sparse w"}
+
+
+def phase_sweep(dev) -> dict:
+    """(7b) the kernel parity sweep, ``bench_kernels.smoke_rows`` on the
+    card: every op of the table, its kernel against its plain version on
+    every example under the op's compare; counters zeroed just before and
+    read just after, every kernel of the sweep must have launched."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.benchmarks.bench_kernels import smoke_rows
+
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    rows, failures = smoke_rows(dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    for name, us, worst, route, n in rows:
+        print(f"[sweep] {name.split('.')[2]:17s} {route:5s} {n} cases, worst deviation "
+              f"{worst:.3g}, {'kernel' if route == 'cuda' else 'plain'} "
+              f"{us / 1e3:.4f} ms per case", flush=True)
+    print(f"[sweep] {wall:.1f}s, launches {launches}", flush=True)
+    for f in failures:
+        print(f"[sweep] FAILURE {f}", file=sys.stderr, flush=True)
+    if failures:
+        fail(f"the kernel sweep failed on {len(failures)} op(s)")
+    for name in SWEEP_KERNELS:
+        if launches[name] <= 0:
+            fail(f"the kernel sweep never launched the {name} kernel")
+    return {"rows": [dict(zip(("name", "us_per_case", "worst", "route", "cases"), r))
+                     for r in rows], "launches": launches, "wall_s": wall}
+
+
+def phase_paper(dev) -> dict:
+    """(7c) the paper's evaluation path: ``sparsity_probe`` on the card's
+    kernels (counters zeroed just before and read just after), then Table 1
+    and the Figs. 11-16 geomeans of the model with and without the measured
+    skip fractions, beside the paper's."""
+    import math
+
+    from repro_torch import kernels
+    from repro_torch.benchmarks import bench_paper_figs, bench_table1
+    from repro_torch.kernels.masked_matmul.backward import sparsity_probe
+
+    kernels.reset_launch_counts()
+    probe = sparsity_probe(density=0.5, size=512, device=dev)
+    launches = kernels.launch_counts()
+    print(f"[paper] sparsity_probe(density=0.5, size=512) on the card: {probe}; "
+          f"launches {launches}", flush=True)
+    skips = (probe["forward_tile_skip"], probe["backward_tile_skip"])
+    if not all(v is not None and 0.0 <= v < 1.0 for v in skips):
+        fail(f"sparsity_probe measured no valid skip fraction: {probe}")
+    for name in PAPER_KERNELS:
+        if launches[name] <= 0:
+            fail(f"sparsity_probe never launched the {name} kernel")
+    table1 = bench_table1.rows()
+    print("[paper] Table 1: " + ", ".join(f"{n.split('.')[1]} {v:g}" for n, _, v in table1),
+          flush=True)
+
+    def geomeans(rows, tag):
+        return {n.rsplit(".", 1)[0]: v for n, _, v in rows if n.endswith("." + tag)}
+
+    analytic = bench_paper_figs.rows()
+    measured = bench_paper_figs.rows(compute_skip_fraction=skips[0],
+                                     backward_skip_fraction=skips[1])
+    model, grounded = geomeans(analytic, "GEOMEAN"), geomeans(measured, "GEOMEAN")
+    paper = geomeans(analytic, "PAPER_GEOMEAN")
+    for fig in model:
+        print(f"[paper] {fig} geomean: model {model[fig]:.4f}, with the measured skips "
+              f"{grounded[fig]:.4f}, paper {paper[fig]:g}", flush=True)
+    if not all(math.isfinite(v) and v > 0 for v in (*model.values(), *grounded.values())):
+        fail("the paper figures' geomeans are not finite and positive")
+    return {"probe": probe, "launches": launches, "table1": {n: v for n, _, v in table1},
+            "geomean_model": model, "geomean_measured_skips": grounded, "geomean_paper": paper,
+            "rows_measured_skips": [list(r) for r in measured]}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are not next to this script ({SRC / 'repro_torch'})")
@@ -1011,13 +1170,20 @@ def main() -> None:
         "llama3.2-1b": profile_prefill(dev, "llama3.2-1b", LONG_PROMPT),
         "mamba2-780m": profile_prefill(dev, "mamba2-780m", MAMBA_PROMPT)}
 
+    # -- 7. slice 4: the kernel sweep and the paper evaluation -----------------
+    report["dangling_filter"] = df = phase_dangling_filter(dev, gen)
+    report["sweep"] = sweep = phase_sweep(dev)
+    report["paper"] = paper = phase_paper(dev)
+
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, train, serve_long,
-    # serve_mamba2), each zeroed just before its run and read just after (the
-    # comparisons above count in none)
+    # serve_mamba2, the kernel sweep, the paper path's probe), each zeroed
+    # just before its run and read just after (the comparisons above count in
+    # none)
     by_path = {name: {"serve": launches[name], "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
-                      "train": train["launches"][name]}
+                      "train": train["launches"][name], "sweep": sweep["launches"][name],
+                      "paper": paper["launches"][name]}
                for name in launches}
     total = {name: sum(v.values()) for name, v in by_path.items()}
 
@@ -1080,9 +1246,10 @@ def main() -> None:
         {"name": "splitk_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
-         "launches": total["splitk_reduce"], **bwd["reduce"], "library_ms": None,
+         "launches": total["splitk_reduce"], **bwd["reduce"],
          "note": "masked_matmul's split-K reduce, one launch per product with K > 8192; "
-                 "the Pallas kernel carries its K sum across the sequential grid axis",
+                 "the Pallas kernel carries its K sum across the sequential grid axis; "
+                 "library: torch.sum(partials, 0)",
          "launches_by_path": by_path["splitk_reduce"]},
         {"name": "stochastic_round", "route": "cuda",
          "source": "src/repro_torch/csrc/stochastic_round.cu",
@@ -1103,6 +1270,14 @@ def main() -> None:
          "launches": total["ssd_scan"], **ssd, "library_ms": None,
          "note": "one counted launch per call runs three kernels: chunk, state scan, inter-chunk",
          "launches_by_path": by_path["ssd_scan"]},
+        {"name": "dangling_filter", "route": "cuda",
+         "source": "src/repro_torch/csrc/dangling_filter.cu",
+         "replaces": "src/repro/kernels/mask_compress/mc_kernel.py:58",
+         "launches": total["dangling_filter"], **df, "library_ms": None,
+         "note": "on the kernel sweep's path alone: the model paths (serve, serve_long, "
+                 "serve_mamba2, train) launch it 0 times, as the reference's model code "
+                 "never calls it; no single PyTorch call computes it",
+         "launches_by_path": by_path["dangling_filter"]},
     ]}
     report["kernels"] = line["kernels"]
     try:

@@ -6,11 +6,16 @@ A dense vector is stored as its non-zeros collapsed to the front plus a
 shifts or adds on that dtype, so the bit arithmetic runs in int64 and
 only the finished words are cast.
 
-Every function here also takes a leading batch of blocks: the last axis
-is the block, so one call covers all (layer, slot) blocks of a KV leaf.
+The bit and collapse functions also take a leading batch of blocks: the
+last axis is the block, so one call covers all (layer, slot) blocks of a
+KV leaf.  :class:`MaskedVector`, :func:`mask_encode` and
+:func:`mask_decode` are the flat compressed form of paper Fig. 5, with its
+storage accounting (:func:`compressed_bits`, :func:`compression_ratio`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -60,3 +65,64 @@ def expand_from_mask(values: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     gathered = torch.gather(values, -1, src.clamp(0, cap - 1))
     return torch.where(valid, gathered, torch.zeros((), dtype=values.dtype,
                                                     device=values.device))
+
+
+class MaskedVector(NamedTuple):
+    """Binary-mask compressed tensor (flat).
+
+    values:  (length,) float32, non-zeros collapsed to the front,
+             zero-padded tail;
+    mask:    (ceil(length/32),) uint32 packed position bits;
+    nnz:     () int32 number of live values;
+    length:  python int, the original dense length.
+    """
+
+    values: torch.Tensor
+    mask: torch.Tensor
+    nnz: torch.Tensor
+    length: int
+
+
+def mask_encode(x: torch.Tensor) -> MaskedVector:
+    """Dense tensor -> flat binary-mask compressed form (fp32 values)."""
+    x = x.reshape(-1).to(torch.float32)
+    n = x.shape[0]
+    bits = x != 0.0
+    return MaskedVector(values=collapse_to_front(x, bits, n), mask=pack_mask_bits(bits),
+                        nnz=bits.sum(dtype=torch.int32), length=n)
+
+
+def mask_decode(mv: MaskedVector) -> torch.Tensor:
+    """Compressed form -> dense (length,)."""
+    return expand_from_mask(mv.values, unpack_mask_bits(mv.mask, mv.length))
+
+
+def compressed_bits(mv: MaskedVector, value_bits: int) -> torch.Tensor:
+    """Total storage bits of the compressed form (paper Fig. 5 accounting)."""
+    return mv.nnz * value_bits + mv.length
+
+
+def compression_ratio(mv: MaskedVector, value_bits: int) -> torch.Tensor:
+    """Dense bits / compressed bits.  Fig. 5: 16 elems, 6 nnz, 16b -> 2.29x."""
+    bits = compressed_bits(mv, value_bits).to(torch.float32)
+    # a float32 division, as jnp's (``scalar / tensor`` would multiply by
+    # the reciprocal)
+    return torch.div(bits.new_tensor(mv.length * value_bits), bits)
+
+
+def tile_occupancy(dense: torch.Tensor, tile_m: int, tile_n: int) -> torch.Tensor:
+    """(M, N) -> (M/tile_m, N/tile_n) bool, True where the tile holds a
+    non-zero: the tile-granular form of the mask AND, which the
+    ``masked_matmul`` kernel uses to skip whole tiles.  M and N must be
+    tile-divisible (callers pad)."""
+    m, n = dense.shape
+    if m % tile_m or n % tile_n:
+        raise ValueError(f"tile_occupancy: {tuple(dense.shape)} not divisible into "
+                         f"({tile_m}, {tile_n}) tiles")
+    t = dense.reshape(m // tile_m, tile_m, n // tile_n, tile_n)
+    return (t != 0.0).any(dim=3).any(dim=1)
+
+
+def density(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of non-zero elements (1 - sparsity)."""
+    return (x != 0.0).to(torch.float32).mean()

@@ -7,14 +7,15 @@ kernels: ``masked_matmul`` (the forward product), ``masked_matmul_dx`` and
 ``tile_occupancy`` (their occupancy pre-pass, two per product),
 ``splitk_reduce`` (the split-K reduce, one per product with K > 8192),
 ``mask_pack``, ``stochastic_round``, ``flash_attention`` (one per prefill
-attention) and ``ssd_scan`` (one per SSD scan, three kernels).  Importing
-this package builds nothing.
+attention), ``ssd_scan`` (one per SSD scan, three kernels) and
+``dangling_filter`` (the pre-compute filter, on the kernel sweep's path
+alone).  Importing this package builds nothing.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.mask_compress.ops import mask_pack
+from repro_torch.kernels.mask_compress.ops import dangling_filter, mask_pack
 from repro_torch.kernels.masked_matmul.backward import masked_matmul_dw, masked_matmul_dx
 from repro_torch.kernels.masked_matmul.ops import masked_matmul, splitk_reduce, tile_occupancy
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -25,7 +26,7 @@ WRAPPERS = {"masked_matmul": masked_matmul, "masked_matmul_dx": masked_matmul_dx
             "masked_matmul_dw": masked_matmul_dw, "tile_occupancy": tile_occupancy,
             "splitk_reduce": splitk_reduce, "mask_pack": mask_pack,
             "stochastic_round": stochastic_round, "flash_attention": flash_attention,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "dangling_filter": dangling_filter}
 
 
 def launch_counts() -> dict:

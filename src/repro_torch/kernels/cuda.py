@@ -29,7 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: kernel library name -> source file under ``csrc/``
 SOURCES = {"masked_matmul": "masked_matmul.cu", "mask_pack": "mask_pack.cu",
            "stochastic_round": "stochastic_round.cu", "flash_attention": "flash_attention.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu", "dangling_filter": "dangling_filter.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,6 @@
-"""Mask packing (port of ``repro/kernels/mask_compress/ops.py``, the
-``mask_pack`` / ``mask_unpack`` ops).
+"""Mask packing and the dangling-data filter (port of
+``repro/kernels/mask_compress/ops.py``: the ``mask_pack``,
+``mask_unpack`` and ``dangling_filter`` ops).
 
 ``mask_pack`` packs along the last axis, one block per row: (..., n)
 values -> (..., ceil(n/32)) ``torch.uint32`` words, bit i of word w set iff
@@ -9,9 +10,15 @@ CPU tensor runs :func:`mask_pack_reference`.  The JAX op packs the
 flattened array; a 1-D input here gives the same words, without the
 kernel's lane padding.
 
+``dangling_filter(a, w)`` is the paper's pre-compute filter (Figs. 7a/7b):
+each operand keeps only the entries where both are non-zero.  A CUDA
+tensor launches ``csrc/dangling_filter.cu`` (one pass over the flattened
+operands, no padding) or raises; a CPU tensor runs
+:func:`dangling_filter_reference`.  Outputs keep the inputs' dtype, as the
+reference's oracle does (its Pallas route casts to fp32).
+
 ``mask_unpack`` is a shift-and-test on every backend (its Pallas
 registrations aliased the jnp lowering), so it has only the plain form.
-``dangling_filter`` is off the serving path and not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import functools
 import torch
 
 from repro_torch.core.masking import pack_mask_bits, unpack_mask_bits
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cuda, registry
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -33,6 +40,15 @@ def _lib() -> ctypes.CDLL:
     lib.mask_pack_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.mask_pack_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _filter_lib() -> ctypes.CDLL:
+    lib = cuda.load("dangling_filter")
+    p = ctypes.c_void_p
+    lib.dangling_filter_launch.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
+    lib.dangling_filter_launch.restype = ctypes.c_int
     return lib
 
 
@@ -57,13 +73,22 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, n_words)
 
 
-def mask_pack(x: torch.Tensor) -> torch.Tensor:
-    """Packed occupancy words of every block (last axis) of ``x``."""
+def pack_words(x: torch.Tensor) -> torch.Tensor:
+    """What :func:`mask_pack` returns, without its metric row (``kv_pack``
+    notes its own, as the reference's does)."""
     if x.ndim == 0:
         raise ValueError("mask_pack: needs at least one axis")
-    if x.is_cuda:
-        return _launch(x)
-    return mask_pack_reference(x)
+    return _launch(x) if x.is_cuda else mask_pack_reference(x)
+
+
+def mask_pack(x: torch.Tensor) -> torch.Tensor:
+    """Packed occupancy words of every block (last axis) of ``x``."""
+    words = pack_words(x)
+    if registry.metrics_active():
+        # wire bytes of the packed representation, one bit per element in
+        # whole uint32 words (ceil(n/32)*4 for one block), from shapes alone
+        registry.note_metric("mask_pack", wire_bytes=float(words.numel() * 4))
+    return words
 
 
 #: kernel launches made by this wrapper (the CPU path counts nothing)
@@ -73,3 +98,41 @@ mask_pack.launches = 0
 def mask_unpack(words: torch.Tensor, length: int) -> torch.Tensor:
     """Packed words (..., w) -> (..., length) bool (``mask_pack`` inverse)."""
     return unpack_mask_bits(words, length)
+
+
+def dangling_filter_reference(a: torch.Tensor, w: torch.Tensor):
+    """Plain version of :func:`dangling_filter`: zero each operand where
+    the other is zero, in each operand's own dtype.  Zeroing changes no
+    product (it was already zero), which is why SPRING can skip them."""
+    joint = (a != 0.0) & (w != 0.0)
+    return torch.where(joint, a, 0.0), torch.where(joint, w, 0.0)
+
+
+def _filter_launch(a: torch.Tensor, w: torch.Tensor):
+    if a.dtype not in _ELEM_BYTES or w.dtype != a.dtype:
+        raise TypeError(f"dangling_filter: CUDA takes fp32 or bf16 operands of one dtype, got "
+                        f"{a.dtype}, {w.dtype}")
+    if w.device != a.device:
+        raise ValueError(f"dangling_filter: a on {a.device}, w on {w.device}")
+    a, w = a.contiguous(), w.contiguous()
+    a_out, w_out = torch.empty_like(a), torch.empty_like(w)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        cuda.check(_filter_lib().dangling_filter_launch(
+            a.data_ptr(), w.data_ptr(), a_out.data_ptr(), w_out.data_ptr(), a.numel(),
+            _ELEM_BYTES[a.dtype], stream), "dangling_filter")
+    dangling_filter.launches += 1
+    return a_out, w_out
+
+
+def dangling_filter(a: torch.Tensor, w: torch.Tensor):
+    """Zero each operand where the other is zero (pre-compute filter)."""
+    if a.shape != w.shape:
+        raise ValueError(f"dangling_filter: shapes {tuple(a.shape)} and {tuple(w.shape)} differ")
+    if a.is_cuda:
+        return _filter_launch(a, w)
+    return dangling_filter_reference(a, w)
+
+
+#: kernel launches made by this wrapper (the CPU path counts nothing)
+dangling_filter.launches = 0

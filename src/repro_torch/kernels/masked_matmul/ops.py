@@ -27,7 +27,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import cuda
+from repro_torch.core import masking
+from repro_torch.kernels import cuda, registry
 from repro_torch.kernels.masked_matmul.ref import (
     BK,
     BM,
@@ -86,19 +87,13 @@ def split_k(k: int) -> tuple[int, int]:
     return SPLIT_K // bk, -(-k // SPLIT_K)
 
 
-def _occupancy(a: torch.Tensor, tm: int, tn: int) -> torch.Tensor:
-    """(M, N) with M % tm == N % tn == 0 -> (M/tm, N/tn) int32 any-nonzero."""
-    m, n = a.shape
-    t = a.reshape(m // tm, tm, n // tn, tn)
-    return (t != 0.0).any(dim=3).any(dim=1).to(torch.int32)
-
-
 def tile_occupancy_reference(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
     """Plain version of :func:`tile_occupancy`: zero-pad to whole tiles,
     then one any-nonzero flag per tile."""
     rows, cols = a.shape
     pad = (0, -(-cols // tile_cols) * tile_cols - cols, 0, -(-rows // tile_rows) * tile_rows - rows)
-    return _occupancy(torch.nn.functional.pad(a.to(torch.float32), pad), tile_rows, tile_cols)
+    padded = torch.nn.functional.pad(a.to(torch.float32), pad)
+    return masking.tile_occupancy(padded, tile_rows, tile_cols).to(torch.int32)
 
 
 def tile_occupancy(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
@@ -268,6 +263,9 @@ def masked_matmul(
     launch the kernel (and count one launch); CPU operands run
     :func:`masked_matmul_reference`.
 
+    Inside ``registry.record_kernel_metrics`` the call notes its
+    ``tile_skip`` at the reference's 128 tiles, as the reference does.
+
     ``backward``: None/"none" gives the forward alone (the plain version
     differentiates densely; the kernel has no gradient, so on the card it
     raises when autograd would need one); "auto" wraps the call in the
@@ -277,6 +275,8 @@ def masked_matmul(
     """
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"masked_matmul: bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if registry.metrics_active():
+        registry.note_metric("masked_matmul", tile_skip=tile_skip_fraction(x, w))
     if backward == "auto":
         # imported here: backward.py imports this module
         from repro_torch.kernels.masked_matmul.backward import MaskedMatmulFn

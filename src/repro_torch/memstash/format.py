@@ -37,9 +37,9 @@ from repro_torch.core.masking import (
 VALUE_BITS = 20
 
 
-def formula_bits_per_elem(density: float):
-    """Paper Fig. 5 traffic accounting: ``VALUE_BITS * density + 1``."""
-    return VALUE_BITS * density + 1.0
+def formula_bits_per_elem(density: float, value_bits: int = VALUE_BITS):
+    """Paper Fig. 5 traffic accounting: ``value_bits * density + 1``."""
+    return value_bits * density + 1.0
 
 
 @dataclasses.dataclass

@@ -297,3 +297,70 @@ def test_engine_on_the_card_runs_the_new_kernels(card, arch, kernel):
     n_layers = 3 if arch == "llama3.2-1b" else 4
     assert counts[kernel] == 3 * n_layers  # one per layer of each request's prefill
     assert counts["masked_matmul"] > 0
+
+
+def _filter_operands(gen, n):
+    """Half-sparse operands with -0.0, NaN and inf entries."""
+    a = torch.randn(n, generator=gen) * (torch.rand(n, generator=gen) > 0.4)
+    w = torch.randn(n, generator=gen) * (torch.rand(n, generator=gen) > 0.4)
+    a[::5], w[::7] = -0.0, -0.0
+    a[1::11], w[2::13] = float("nan"), float("nan")
+    a[3::17], w[4::19] = float("inf"), float("-inf")
+    return a, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,offset", [(4099, 0), (4099, 1), (3, 0), (1 << 20, 0), (1000, 2)])
+def test_dangling_filter_kernel_bit_equal_to_plain(card, dtype, n, offset):
+    """Bit for bit (NaN positions too) on -0.0 / NaN / inf entries, with a
+    scalar tail (n not a multiple of the vector width) and on unaligned
+    views (``offset``), which take the scalar path."""
+    from repro_torch.kernels.mask_compress.ops import dangling_filter, dangling_filter_reference
+
+    a, w = _filter_operands(torch.Generator().manual_seed(n + offset), n + offset)
+    dt = getattr(torch, dtype)
+    a, w = a.to(card, dt)[offset:], w.to(card, dt)[offset:]
+    before = dangling_filter.launches
+    got, want = dangling_filter(a, w), dangling_filter_reference(a, w)
+    torch.cuda.synchronize()
+    assert dangling_filter.launches == before + 1
+    view = torch.int32 if dt == torch.float32 else torch.int16
+    for g, p in zip(got, want):
+        assert g.dtype == dt and g.shape == a.shape
+        assert torch.equal(g.view(view), p.view(view))
+
+
+def test_dangling_filter_wrapper_raises_on_the_card(card):
+    from repro_torch.kernels.mask_compress.ops import dangling_filter
+
+    a = torch.ones(8, device=card)
+    with pytest.raises(TypeError, match="one dtype"):
+        dangling_filter(a, a.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        dangling_filter(a.double(), a.double())
+    with pytest.raises(ValueError, match="differ"):
+        dangling_filter(a, torch.ones(9, device=card))
+
+
+def test_kernel_sweep_passes_on_the_card(card):
+    """``bench_kernels --smoke``'s sweep: every op with a kernel holds its
+    plain version on every example under the op's compare, on the card."""
+    from repro_torch.benchmarks.bench_kernels import smoke_rows
+    from repro_torch.kernels import registry
+
+    rows, failures = smoke_rows(card)
+    assert not failures, failures
+    routes = {name.split(".")[2]: route for name, _, _, route, _ in rows}
+    for op in registry.ops():
+        assert routes[op] == ("cuda" if registry.op_spec(op).kernel is not None else "plain")
+
+
+def test_sparsity_probe_runs_the_kernels(card):
+    from repro_torch import kernels
+    from repro_torch.kernels.masked_matmul.backward import sparsity_probe
+
+    kernels.reset_launch_counts()
+    on_card = sparsity_probe(device=card)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"))
+    assert on_card == sparsity_probe(device="cpu")
