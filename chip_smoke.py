@@ -10,19 +10,25 @@ failure:
   1. build   — compile every kernel under src/repro_torch/csrc with nvcc,
                one process per source, in parallel;
   2. kernels — each kernel's wrapper on card tensors at the serving path's
-               shapes (masked_matmul's occupancy pre-pass too, and once on
-               block-pruned operands), held against its plain PyTorch
-               version (tolerances below), then timed beside the plain
-               version, the one PyTorch call computing the same function
-               (where there is one) and the H100's bound for the same work;
+               shapes (masked_matmul at decode M = 4, prompt M = 32 and
+               prefill M = 4096, each row printed with its route: the skinny
+               kernel for M <= 32, bit-equal there to the tile kernel forced
+               on the same operands; the tile kernel's occupancy pre-pass
+               too, and once on block-pruned operands), held against its
+               plain PyTorch version (tolerances below), then timed beside
+               the plain version, the one PyTorch call computing the same
+               function (where there is one) and the H100's bound for the
+               same work;
   3. serve   — full-width llama3.2-1b, quant_sparse, random weights from a
                seed, 4 slots, 6 requests, prompt 32, gen 16, through
                ``repro_torch.launch.serve.serve_session`` on the card; the
                kernels' launch counters are zeroed just before and read just
-               after, and every kernel must have launched;
+               after, and every kernel must have launched; every product
+               there has M <= 32, so tile_occupancy must not launch;
   3b. profile — a second engine over the same model, four decode ticks
                under torch.profiler: the device-busy share and the kernels
-               by device time per tick;
+               by device time per tick; each tick launches the skinny
+               kernel 7 times per layer and tile_occupancy never;
   4. check  — the reduced llama3.2-1b on the card against the same model on
                the CPU (plain versions), prefill and decode logits;
   5a. stochastic_round — bit-equal to its plain version on the reference's
@@ -160,6 +166,7 @@ def profile_decode(dev, ticks: int = 4) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import serving_config, synthetic_prompts
     from repro_torch.serving.engine import ServingEngine
@@ -172,12 +179,18 @@ def profile_decode(dev, ticks: int = 4) -> dict:
     eng.step()  # admissions (prefill + install) and the first decode tick
     eng.step()
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(ticks):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    per_tick = {k: v / ticks for k, v in kernels.launch_counts().items() if v}
+    print(f"[profile] launches per decode tick {per_tick}", flush=True)
+    if per_tick.get("masked_matmul_skinny") != 7 * cfg.n_layers or "tile_occupancy" in per_tick:
+        fail(f"a decode tick must launch the skinny kernel {7 * cfg.n_layers} times and "
+             f"tile_occupancy never: {per_tick}")
     rows = device_time_by_kernel(prof, ticks)
     busy_ms = sum(r[1] for r in rows)
     tick_ms = wall_ms / ticks
@@ -189,7 +202,7 @@ def profile_decode(dev, ticks: int = 4) -> dict:
               f"{busy_ms:.2f} ms = {busy_ms / tick_ms:.1%}; top kernels per tick:", flush=True)
         for name, ms, n in rows[:12]:
             print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
-    return {"tick_ms": tick_ms, "device_busy_ms": busy_ms,
+    return {"tick_ms": tick_ms, "device_busy_ms": busy_ms, "launches_per_tick": per_tick,
             "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
                         for n, ms, c in rows[:40]]}
 
@@ -202,9 +215,11 @@ VGG_HW, VGG_BATCH, VGG_STEPS = 224, 32, 3
 # 64 -> 64), conv c3_0 (28 x 28, 256 -> 512) and fc6 (25088 -> 4096)
 BWD_LAYERS = {"c0_1": ("conv", 224, 64, 64), "c3_0": ("conv", 28, 256, 512),
               "fc6": ("fc", 25088, 4096)}
-SERVE_KERNELS = ("masked_matmul", "tile_occupancy", "mask_pack", "flash_attention")
-TRAIN_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "tile_occupancy",
-                 "splitk_reduce", "stochastic_round")
+# prompt 32 and decode ticks of 4 slots: every product on the skinny kernel
+SERVE_KERNELS = ("masked_matmul", "masked_matmul_skinny", "mask_pack", "flash_attention")
+# the fc forward and fc6 dX at batch 32 take the skinny kernel
+TRAIN_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "masked_matmul_skinny",
+                 "tile_occupancy", "splitk_reduce", "stochastic_round")
 
 
 def phase_stochastic_round(dev, gen) -> dict:
@@ -312,11 +327,13 @@ def phase_backward(dev, gen) -> dict:
             b_ms, b_by = bound(4.0 * (mm_m * mm_k + mm_k * mm_n + mm_m * mm_n),
                                2.0 * mm_m * mm_n * mm_k * (1 - skip))
             chunks = mm.split_k(mm_k)[1]
+            kernel = mm.route(mm_m, mm_n, mm_k)
             rows.append({"op": op, "layer": layer, "shape": [mm_m, mm_k, mm_n],
-                         "chunks": chunks, "ms": ms, "plain_ms": plain_ms,
+                         "route": kernel, "chunks": chunks, "ms": ms, "plain_ms": plain_ms,
                          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "skip": skip, "max_abs_err": float(err.max())})
-            print(f"[backward] {op} {layer} ({mm_m},{mm_k})@({mm_k},{mm_n}) split {chunks}: "
+            print(f"[backward] {op} {layer} ({mm_m},{mm_k})@({mm_k},{mm_n}) {kernel} kernel, "
+                  f"split {chunks}: "
                   f"err={float(err.max()):.3g}, deterministic; kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
                   f"({b_by}), {ms / lib_ms:.2f}x torch.matmul", flush=True)
@@ -957,8 +974,8 @@ def main() -> None:
     from repro_torch.kernels import cuda
     from repro_torch.kernels.mask_compress.ops import mask_pack, mask_pack_reference
     from repro_torch.kernels.masked_matmul.ops import (
-        KERNEL_TILES, masked_matmul, masked_matmul_reference, tile_occupancy,
-        tile_occupancy_reference, tile_skip_fraction)
+        KERNEL_TILES, launch_skinny, launch_tile, masked_matmul, masked_matmul_reference, route,
+        tile_occupancy, tile_occupancy_reference, tile_skip_fraction)
 
     # -- 1. build -------------------------------------------------------------
     t0 = time.monotonic()
@@ -1022,14 +1039,18 @@ def main() -> None:
     # -- 2b. masked_matmul, SR off: allclose at the serving path's shapes -----
     # Q4.16 operands; fp32 sums in another order differ by at most
     # gamma_K * (|x| @ |w|) per side, gamma_K ~ K * 2**-24: tolerance
-    # 2 * K * 2**-24 * (|x| @ |w|), elementwise
+    # 2 * K * 2**-24 * (|x| @ |w|), elementwise.  M = 4 and 32 take the
+    # skinny kernel, which must give the tile kernel's bits on the same
+    # operands (SR off and on); M = 4096 (a long prompt's prefill) takes
+    # the tile kernel.
     mm_rows, mm_err = [], 0.0
-    for m in (DECODE_M, PREFILL_M):
+    for m in (DECODE_M, PREFILL_M, LONG_PROMPT):
         for name, (k, n) in LAYER_SHAPES.items():
             x = quantize_nearest(randn(m, k))
             w = quantize_nearest(randn(k, n) / k**0.5)
             for a, tr, tc in ((x, tm, tk), (w, tk, tn)):
                 occ_err = max(occ_err, check_occupancy(a, tr, tc)[0])
+            kernel = route(m, n, k)
             got = masked_matmul(x, w, apply_sr=False)
             want = masked_matmul_reference(x, w, apply_sr=False)
             tol = 2 * k * 2.0**-24 * (x.abs() @ w.abs())
@@ -1037,15 +1058,25 @@ def main() -> None:
             if not bool((err <= tol).all()):
                 fail(f"masked_matmul ({m},{k})@({k},{n}) off by {float(err.max()):.3g}")
             mm_err = max(mm_err, float(err.max()))
+            if kernel == "skinny":
+                for sr in (False, True):
+                    if not torch.equal(launch_skinny(x, w, 7, 4, 16, sr),
+                                       launch_tile(x, w, 7, 4, 16, sr)):
+                        fail(f"masked_matmul ({m},{k})@({k},{n}) sr={sr}: the skinny and the "
+                             "tile kernel disagree")
+            del tol, want
             # time against cold weights, as decode finds them: rotate copies
             # of w through more than the 50 MB L2
             copies = [w] + [w.clone() for _ in range(max(1, (256 << 20) // (k * n * 4)))]
             cyc = itertools.cycle(copies)
-            iters = 50
+            iters = 50 if m <= PREFILL_M else 5
             ms = timed(lambda: masked_matmul(x, next(cyc), apply_sr=False), iters)
             plain_ms = timed(lambda: masked_matmul_reference(x, next(cyc), apply_sr=False), iters)
             lib_ms = timed(lambda: torch.matmul(x, next(cyc)), iters)
-            # the pre-pass alone: both operands' flags, as one wrapper call makes them
+            # the skinny rows: the tile kernel forced on the same operands
+            tile_ms = (timed(lambda: launch_tile(x, next(cyc), 0, 4, 16, False), iters)
+                       if kernel == "skinny" else ms)
+            # the tile kernel's pre-pass alone: both operands' flags
             occ_ms = timed(lambda: (tile_occupancy(x, tm, tk),
                                     tile_occupancy(next(cyc), tk, tn)), iters)
             occ_plain_ms = timed(lambda: (tile_occupancy_reference(x, tm, tk),
@@ -1054,17 +1085,21 @@ def main() -> None:
             occ_b_ms, occ_b_by = bound(4.0 * (m * k + k * n + n_flags), m * k + k * n)
             skip = tile_skip_fraction(x, w, tiles)
             b_ms, b_by = bound(4.0 * (m * k + k * n + m * n), 2.0 * m * n * k * (1 - skip))
-            mm_rows.append({"shape": [m, k, n], "proj": name, "ms": ms, "plain_ms": plain_ms,
-                            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            tflops = 2.0 * m * n * k / ms / 1e9
+            mm_rows.append({"shape": [m, k, n], "proj": name, "route": kernel, "ms": ms,
+                            "plain_ms": plain_ms, "library_ms": lib_ms, "tile_ms": tile_ms,
+                            "bound_ms": b_ms, "bound_by": b_by, "tflops": tflops,
                             "max_abs_err": float(err.max()), "skip": skip,
                             "occ_ms": occ_ms, "occ_plain_ms": occ_plain_ms,
                             "occ_bound_ms": occ_b_ms, "occ_bound_by": occ_b_by})
-            print(f"[masked_matmul] {name:4s} ({m},{k})@({k},{n}) err={float(err.max()):.3g} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}); occupancy pre-pass {occ_ms:.4f} ms, "
-                  f"plain {occ_plain_ms:.4f} ms, bound {occ_b_ms:.4f} ms ({occ_b_by})",
-                  flush=True)
-            del copies
+            print(f"[masked_matmul] {name:4s} ({m},{k})@({k},{n}) {kernel} kernel "
+                  f"err={float(err.max()):.3g}: {ms:.4f} ms ({tflops:.2f} TFLOP/s), "
+                  + (f"tile kernel {tile_ms:.4f} ms (bit-equal), " if kernel == "skinny" else "")
+                  + f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}); occupancy pre-pass {occ_ms:.4f} ms, plain {occ_plain_ms:.4f} ms, "
+                  f"bound {occ_b_ms:.4f} ms ({occ_b_by})", flush=True)
+            del copies, x, w, got, err
+        torch.cuda.empty_cache()
     report["masked_matmul_shapes"] = mm_rows
 
     # -- 2b'. block-pruned operands at the widest projection's shape ---------
@@ -1144,6 +1179,8 @@ def main() -> None:
     for name in SERVE_KERNELS:
         if launches[name] <= 0:
             fail(f"serve phase never launched the {name} kernel")
+    if launches["tile_occupancy"] != 0:
+        fail("serve phase (M <= 32 throughout) launched the tile kernel's occupancy pre-pass")
     report["decode_profile"] = profile_decode(dev)
 
     # -- 4. check: reduced model on the card vs the CPU plain versions --------
@@ -1200,38 +1237,52 @@ def main() -> None:
                     r["bound_ms"] for r in rows if r["bound_by"] == by)),
                 "library_ms": sum(r["library_ms"] for r in rows),
                 "shape": f"VGG-19 batch {VGG_BATCH} backward {op} of c0_1 + c3_0 + fc6 "
-                         "(per-layer rows in chip_smoke.json)",
+                         "(per-layer rows, each with its route, in chip_smoke.json)",
                 "launches_by_path": by_path[f"masked_matmul_{op}"]}
 
     decode_rows = [r for r in mm_rows if r["shape"][0] == DECODE_M]
+    prefill_rows = [r for r in mm_rows if r["shape"][0] == LONG_PROMPT]
     fa_main = next(r for r in fa["rows"] if r["seq"] == LONG_PROMPT)
+
+    def layer_entry(rows, pre: str = "") -> dict:
+        return {"ms": sum(r[pre + "ms"] for r in rows),
+                "plain_ms": sum(r[pre + "plain_ms"] for r in rows),
+                "bound_ms": sum(r[pre + "bound_ms"] for r in rows),
+                "bound_by": max(("operations", "bytes"), key=lambda by: sum(
+                    r[pre + "bound_ms"] for r in rows if r[pre + "bound_by"] == by))}
+
     line = {"kernels": [
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"], "max_abs_err": mm_err,
-         "ms": sum(r["ms"] for r in decode_rows),
-         "plain_ms": sum(r["plain_ms"] for r in decode_rows),
-         "bound_ms": sum(r["bound_ms"] for r in decode_rows),
-         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in decode_rows)
-         else "operations",
-         "library_ms": sum(r["library_ms"] for r in decode_rows),
-         "shape": "one decode layer: q,k,v,o,gate,up,down at M=4, cold weights; "
-                  "the wrapper's time, its occupancy pre-pass included",
+         **layer_entry(prefill_rows),
+         "library_ms": sum(r["library_ms"] for r in prefill_rows),
+         "shape": f"the tile kernel (masked_mm_kernel): one prefill layer, q,k,v,o,gate,up,down "
+                  f"at M={LONG_PROMPT}, the wrapper's time with its occupancy pre-pass",
+         "note": "launches: every forward product, on either kernel; those with M <= 32 are "
+                 "also counted under masked_matmul_skinny",
          "launches_by_path": by_path["masked_matmul"]},
+        {"name": "masked_matmul_skinny", "route": "cuda",
+         "source": "src/repro_torch/csrc/masked_matmul.cu",
+         "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
+         "launches": total["masked_matmul_skinny"], "max_abs_err": mm_err,
+         **layer_entry(decode_rows),
+         "library_ms": sum(r["library_ms"] for r in decode_rows),
+         "tile_ms": sum(r["tile_ms"] for r in decode_rows),
+         "shape": f"the skinny kernel (masked_mm_skinny_kernel): one decode layer, "
+                  f"q,k,v,o,gate,up,down at M={DECODE_M}, cold weights, the wrapper's time",
+         "note": "every product with M <= 32 (forward, dx, dw); bit-equal to the tile kernel "
+                 "on the same operands; tile_ms: the tile kernel forced on them",
+         "launches_by_path": by_path["masked_matmul_skinny"]},
         {"name": "tile_occupancy", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/ops.py:43",
          "launches": total["tile_occupancy"], "max_abs_err": float(occ_err),
-         "ms": sum(r["occ_ms"] for r in decode_rows),
-         "plain_ms": sum(r["occ_plain_ms"] for r in decode_rows),
-         "bound_ms": sum(r["occ_bound_ms"] for r in decode_rows),
-         "bound_by": "bytes" if all(r["occ_bound_by"] == "bytes" for r in decode_rows)
-         else "operations",
-         "library_ms": None,
-         "shape": "one decode layer: x and w flags of the 7 projections at M=4, cold weights",
-         "note": "masked_matmul's occupancy pre-pass (the jnp _occupancy ahead of "
-                 "masked_matmul_pallas), two launches per product (forward, dx or dw)",
+         **layer_entry(prefill_rows, "occ_"), "library_ms": None,
+         "shape": f"one prefill layer: x and w flags of the 7 projections at M={LONG_PROMPT}",
+         "note": "the tile kernel's occupancy pre-pass (the jnp _occupancy ahead of "
+                 "masked_matmul_pallas), two launches per product with M > 32",
          "launches_by_path": by_path["tile_occupancy"]},
         {"name": "mask_pack", "route": "cuda",
          "source": "src/repro_torch/csrc/mask_pack.cu",

@@ -2,21 +2,27 @@
 ``repro/kernels/masked_matmul/ops.py``).
 
 ``masked_matmul`` dispatches on the operands' device: CUDA tensors launch
-the hand-written kernel in ``csrc/masked_matmul.cu`` (per-tile occupancy,
-then the tile-gated product with its SR epilogue) or raise; CPU tensors
-run the plain version in ``ref.py``.  There is no availability-based
-pick: a CUDA tensor never falls back to the plain version.
+one of the two hand-written kernels in ``csrc/masked_matmul.cu`` or
+raise; CPU tensors run the plain version in ``ref.py``.  There is no
+availability-based pick: a CUDA tensor never falls back to the plain
+version, and neither kernel falls back to the other.
 
-The kernel reads each operand row-major or column-major in place, so the
-backward GEMMs (``backward.py``) pass ``w.T`` and ``x.T`` as views.  It
-splits K into chunks of :data:`SPLIT_K` when K is longer than that (a
-split that depends on K alone, reduced in a fixed order by a second
+:func:`route` picks the kernel from the shape alone: M <= :data:`SKINNY_M`
+(decode ticks, short prompts, VGG-19's fc layers) goes to the skinny
+kernel, which streams the weight and flags x's empty K-tiles itself;
+every other M goes to the tile kernel, after the ``tile_occupancy``
+pre-pass of both operands.  The two give the same bits on the same row.
+
+Both kernels read each operand row-major or column-major in place, so the
+backward GEMMs (``backward.py``) pass ``w.T`` and ``x.T`` as views.  They
+split K into chunks of :data:`SPLIT_K` when K is longer than that (a
+split that depends on K alone, reduced in a fixed order by a third
 kernel, :func:`splitk_reduce`).  ``backward=`` routes the call through
 the sparsity-aware autograd Function of ``backward.py``.
 
-The kernel tiles at 64 x 64 x 32; :func:`tile_skip_fraction` keeps
-reporting at the reference's 128 granularity so the two packages'
-numbers compare.
+Occupancy flags and recorded tile steps are at :data:`KERNEL_TILES`
+(64 x 64 x 32); :func:`tile_skip_fraction` keeps reporting at the
+reference's 128 granularity so the two packages' numbers compare.
 """
 
 from __future__ import annotations
@@ -41,12 +47,18 @@ from repro_torch.kernels.masked_matmul.ref import (
 __all__ = ["masked_matmul", "masked_matmul_reference", "padded_dims",
            "tile_skip_fraction", "tile_occupancy", "tile_occupancy_reference",
            "splitk_reduce", "splitk_reduce_reference", "split_k",
-           "record_tile_skip", "KERNEL_TILES", "SPLIT_K", "BM", "BN", "BK"]
+           "record_tile_skip", "route", "launch", "launch_skinny", "launch_tile",
+           "KERNEL_TILES", "SKINNY_M", "SPLIT_K", "BM", "BN", "BK"]
 
 _c_int, _c_float, _c_ptr, _c_ll = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong
 
-#: (BM, BN, BK) the CUDA kernel is built with (checked against the library)
+#: (rows, columns, depth) of the occupancy flags: a's flags are rows x
+#: depth, b's depth x columns; depth is both kernels' K-step, and tile steps
+#: are recorded at these tiles (checked against the library)
 KERNEL_TILES = (64, 64, 32)
+#: M up to this takes the skinny kernel: near the fp32 ridge (67 TFLOP/s
+#: over 3.35 TB/s, about 20 FLOPs per byte; 2 M FLOPs per 4-byte weight)
+SKINNY_M = 32
 #: K longer than this is split into chunks of this length (a multiple of BK)
 SPLIT_K = 8192
 
@@ -63,18 +75,31 @@ def _lib() -> ctypes.CDLL:
         _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,  # out, partial, m n k, chunks
         _c_int, ctypes.c_uint, _c_int, _c_float, _c_float, _c_float, _c_float, _c_ptr]
     lib.masked_matmul_launch.restype = _c_int
+    lib.masked_matmul_skinny_launch.argtypes = [
+        _c_ptr, _c_ll, _c_int, _c_ptr, _c_ll, _c_int,      # a, lda, a_col, b, ldb, b_col
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,  # out, partial, m n k, chunks
+        _c_int, ctypes.c_uint, _c_int, _c_float, _c_float, _c_float, _c_float, _c_ptr]
+    lib.masked_matmul_skinny_launch.restype = _c_int
     lib.splitk_reduce_launch.argtypes = [
         _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, ctypes.c_uint, _c_int,
         _c_float, _c_float, _c_float, _c_float, _c_ptr]
     lib.splitk_reduce_launch.restype = _c_int
-    lib.masked_matmul_tiles.argtypes = [ctypes.POINTER(_c_int)]
-    lib.masked_matmul_tiles.restype = None
-    tiles = (_c_int * 3)()
-    lib.masked_matmul_tiles(tiles)
-    if tuple(tiles) != KERNEL_TILES:
-        raise cuda.KernelBuildError(f"masked_matmul built with tiles {tuple(tiles)}, "
-                                    f"the wrapper expects {KERNEL_TILES}")
+    lib.masked_matmul_config.argtypes = [ctypes.POINTER(_c_int)]
+    lib.masked_matmul_config.restype = None
+    conf = (_c_int * 5)()
+    lib.masked_matmul_config(conf)
+    want = (*KERNEL_TILES, SKINNY_M, SPLIT_K // KERNEL_TILES[2])
+    if tuple(conf) != want:
+        raise cuda.KernelBuildError(f"masked_matmul built with (flag tiles, SKINNY_M, chunk "
+                                    f"tiles) {tuple(conf)}, the wrapper expects {want}")
     return lib
+
+
+def _stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev`` as an integer handle, read without
+    building a ``torch.cuda.Stream`` (which costs more host time than a
+    decode product takes on the card)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def split_k(k: int) -> tuple[int, int]:
@@ -99,8 +124,9 @@ def tile_occupancy_reference(a: torch.Tensor, tile_rows: int, tile_cols: int) ->
 def tile_occupancy(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Tensor:
     """(R, C) -> (ceil(R/tile_rows), ceil(C/tile_cols)) int32 any-nonzero
     flags (the ragged edge counts as zero).  A contiguous fp32 CUDA tensor
-    launches ``tile_occupancy_kernel``, one block per tile (and counts one
-    launch); a CPU tensor runs :func:`tile_occupancy_reference`."""
+    launches ``tile_occupancy_kernel``, one block per row of tiles across
+    8 column tiles (and counts one launch); a CPU tensor runs
+    :func:`tile_occupancy_reference`."""
     if not a.is_cuda:
         return tile_occupancy_reference(a, tile_rows, tile_cols)
     if not (a.dtype == torch.float32 and a.ndim == 2 and a.is_contiguous()):
@@ -109,16 +135,16 @@ def tile_occupancy(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Ten
     rows, cols = a.shape
     occ = torch.empty((-(-rows // tile_rows), -(-cols // tile_cols)), dtype=torch.int32,
                       device=a.device)
-    if occ.shape[1] > 65535:
+    if -(-occ.shape[1] // 8) > 65535:  # groups of 8 column tiles on grid y
         raise ValueError(f"tile_occupancy: {occ.shape[1]} column tiles exceed the grid")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = _stream(a.device)
     cuda.check(_lib().tile_occupancy_launch(a.data_ptr(), rows, cols, tile_rows, tile_cols,
                                             occ.data_ptr(), stream), "tile_occupancy")
     tile_occupancy.launches += 1
     return occ
 
 
-#: kernel launches made by this wrapper (two per matmul launch)
+#: kernel launches made by this wrapper (two per tile-kernel product)
 tile_occupancy.launches = 0
 
 
@@ -168,19 +194,132 @@ def note_plain(op: str, a: torch.Tensor, b: torch.Tensor) -> None:
         _note_skip(op, tile_occupancy_reference(a, tm, tk), tile_occupancy_reference(b, tk, tn))
 
 
-# -- the kernel ---------------------------------------------------------------
+# -- the kernels --------------------------------------------------------------
 
 
-def _operand(a: torch.Tensor, tile_rows: int, tile_cols: int):
-    """(tensor, leading dim, column-major?, occupancy flags) of one
-    operand, read in place when it is row- or column-major."""
+def route(m: int, n: int, k: int) -> str:
+    """The kernel for an (m, k) @ (k, n) product: ``"skinny"`` for
+    m <= :data:`SKINNY_M`, else ``"tile"``, for either operand layout.  A
+    function of the shape alone; both kernels give the same bits."""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"masked_matmul: no kernel for ({m},{k}) @ ({k},{n})")
+    return "skinny" if m <= SKINNY_M else "tile"
+
+
+def _layout(a: torch.Tensor):
+    """(tensor, leading dim, column-major?) of one operand, read in place
+    when it is row- or column-major."""
     if a.dtype != torch.float32:
         a = a.to(torch.float32)
     if not a.is_contiguous() and a.t().is_contiguous():
-        # a transposed operand: the transposed flags of its untransposed self
-        return a, a.shape[0], 1, tile_occupancy(a.t(), tile_cols, tile_rows).t()
+        return a, a.shape[0], 1
     a = a.contiguous()
-    return a, a.shape[1], 0, tile_occupancy(a, tile_rows, tile_cols)
+    return a, a.shape[1], 0
+
+
+def _flags(a: torch.Tensor, col: int, tile_rows: int, tile_cols: int) -> torch.Tensor:
+    """Occupancy flags of a laid-out operand; a transposed operand's are
+    the transposed flags of its untransposed self."""
+    if col:
+        return tile_occupancy(a.t(), tile_cols, tile_rows).t()
+    return tile_occupancy(a, tile_rows, tile_cols)
+
+
+def _checked_shape(a: torch.Tensor, b: torch.Tensor, op: str) -> tuple[int, int, int]:
+    if b.device != a.device:
+        raise ValueError(f"{op}: a on {a.device}, b on {b.device}")
+    m, k = a.shape
+    n = b.shape[1]
+    chunks = split_k(k)[1]
+    if min(m, n, k) == 0 or max(m, n, k) >= 2**31 or -(-n // KERNEL_TILES[1]) > 65535 \
+            or chunks > 65535 or chunks * m * n >= 2**62:
+        raise ValueError(f"{op}: unsupported shape ({m},{k}) @ ({k},{n})")
+    return m, n, k
+
+
+def _run(kernel: str, a, b, seed: int, il: int, fl: int, apply_sr: bool, op: str,
+         launch_fn) -> torch.Tensor:
+    """The shared frame of both kernels: shape checks, layouts, output and
+    split-K buffers, the kernel's launch through ``launch_fn(a, lda,
+    a_col, b, ldb, b_col, out, partial, m, n, k, chunk_tiles, chunks,
+    epilogue args, stream)``, then the split-K reduce."""
+    m, n, k = _checked_shape(a, b, op)
+    chunk_tiles, chunks = split_k(k)
+    _, n_pad, _ = padded_dims(m, n, k)
+    eps = 2.0**-fl
+    dev = a.device
+    # entering the device's context costs more host time than a decode
+    # product takes on the card, so it is entered only when needed
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        a, lda, a_col = _layout(a)
+        b, ldb, b_col = _layout(b)
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        partial = (torch.empty((chunks, m, n), dtype=torch.float32, device=dev)
+                   if chunks > 1 else None)
+        stream = _stream(dev)
+        cuda.check(launch_fn(
+            a, lda, a_col, b, ldb, b_col, out.data_ptr(),
+            0 if partial is None else partial.data_ptr(), m, n, k, chunk_tiles, chunks,
+            n_pad, int(seed) & 0xFFFFFFFF, int(apply_sr), 2.0**fl, eps, -(2.0**il),
+            2.0**il - eps, stream), f"{op} ({kernel} kernel)")
+        if partial is not None:
+            out = splitk_reduce(partial, seed, il=il, fl=fl, apply_sr=apply_sr)
+    return out
+
+
+def launch_tile(a: torch.Tensor, b: torch.Tensor, seed: int, il: int, fl: int,
+                apply_sr: bool, op: str = "masked_matmul") -> torch.Tensor:
+    """``a @ b`` on the card through ``masked_mm_kernel``, after the
+    ``tile_occupancy`` pre-pass of both operands (two counted launches).
+    ``op`` names the caller for :func:`record_tile_skip`."""
+    tm, tn, tk = KERNEL_TILES
+
+    def go(a, lda, a_col, b, ldb, b_col, *rest):
+        a_occ, b_occ = _flags(a, a_col, tm, tk), _flags(b, b_col, tk, tn)
+        if _SKIP is not None:
+            _note_skip(op, a_occ, b_occ)
+        return _lib().masked_matmul_launch(
+            a.data_ptr(), lda, a_col, b.data_ptr(), ldb, b_col,
+            a_occ.data_ptr(), a_occ.stride(0), a_occ.stride(1),
+            b_occ.data_ptr(), b_occ.stride(0), b_occ.stride(1), *rest)
+
+    return _run("tile", a, b, seed, il, fl, apply_sr, op, go)
+
+
+def launch_skinny(a: torch.Tensor, b: torch.Tensor, seed: int, il: int, fl: int,
+                  apply_sr: bool, op: str = "masked_matmul") -> torch.Tensor:
+    """``a @ b`` on the card through ``masked_mm_skinny_kernel`` (M <=
+    :data:`SKINNY_M`; one counted launch), which flags x's empty K-tiles
+    itself and computes no weight occupancy.  While
+    :func:`record_tile_skip` is active the tile steps are recorded from
+    the plain flags, as the tile kernel's pre-pass would give them."""
+    if a.shape[0] > SKINNY_M:
+        raise ValueError(f"{op}: the skinny kernel takes M <= {SKINNY_M}, got {a.shape[0]}")
+    note_plain(op, a, b)
+
+    def go(a, lda, a_col, b, ldb, b_col, *rest):
+        return _lib().masked_matmul_skinny_launch(a.data_ptr(), lda, a_col, b.data_ptr(), ldb,
+                                                  b_col, *rest)
+
+    out = _run("skinny", a, b, seed, il, fl, apply_sr, op, go)
+    launch_skinny.launches += 1
+    return out
+
+
+#: skinny-kernel launches, whichever wrapper (forward, dx, dw) made them
+launch_skinny.launches = 0
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, seed: int, il: int, fl: int, apply_sr: bool,
+           op: str = "masked_matmul") -> torch.Tensor:
+    """``a @ b`` on the card through the kernel :func:`route` picks: each
+    operand row-major or column-major (read in place), K split per
+    :func:`split_k`, SR epilogue when ``apply_sr``.  ``op`` names the
+    caller for :func:`record_tile_skip`."""
+    kernel = launch_skinny if route(a.shape[0], b.shape[1], a.shape[1]) == "skinny" \
+        else launch_tile
+    return kernel(a, b, seed, il, fl, apply_sr, op)
 
 
 def splitk_reduce(partial: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int = 16,
@@ -197,7 +336,7 @@ def splitk_reduce(partial: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int 
     _, n_pad, _ = padded_dims(m, n, 1)
     out = torch.empty((m, n), dtype=torch.float32, device=partial.device)
     eps = 2.0**-fl
-    stream = torch.cuda.current_stream(partial.device).cuda_stream
+    stream = _stream(partial.device)
     cuda.check(_lib().splitk_reduce_launch(
         partial.data_ptr(), out.data_ptr(), m, n, chunks, n_pad, int(seed) & 0xFFFFFFFF,
         int(apply_sr), 2.0**fl, eps, -(2.0**il), 2.0**il - eps, stream), "splitk_reduce")
@@ -207,44 +346,6 @@ def splitk_reduce(partial: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int 
 
 #: kernel launches made by this wrapper
 splitk_reduce.launches = 0
-
-
-def launch(a: torch.Tensor, b: torch.Tensor, seed: int, il: int, fl: int, apply_sr: bool,
-           op: str = "masked_matmul") -> torch.Tensor:
-    """``a @ b`` on the card through ``masked_mm_kernel``: each operand
-    row-major or column-major (read in place), K split per
-    :func:`split_k`, SR epilogue when ``apply_sr``.  ``op`` names the
-    caller for :func:`record_tile_skip`."""
-    if b.device != a.device:
-        raise ValueError(f"{op}: a on {a.device}, b on {b.device}")
-    m, k = a.shape
-    n = b.shape[1]
-    tm, tn, tk = KERNEL_TILES
-    chunk_tiles, chunks = split_k(k)
-    if min(m, n, k) == 0 or max(m, n, k) >= 2**31 or -(-n // tn) > 65535 \
-            or chunks > 65535 or chunks * m * n >= 2**62:
-        raise ValueError(f"{op}: unsupported shape ({m},{k}) @ ({k},{n})")
-    _, n_pad, _ = padded_dims(m, n, k)
-    eps = 2.0**-fl
-    with torch.cuda.device(a.device):
-        a, lda, a_col, a_occ = _operand(a, tm, tk)
-        b, ldb, b_col, b_occ = _operand(b, tk, tn)
-        if _SKIP is not None:
-            _note_skip(op, a_occ, b_occ)
-        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-        partial = (torch.empty((chunks, m, n), dtype=torch.float32, device=a.device)
-                   if chunks > 1 else None)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        cuda.check(_lib().masked_matmul_launch(
-            a.data_ptr(), lda, a_col, b.data_ptr(), ldb, b_col,
-            a_occ.data_ptr(), a_occ.stride(0), a_occ.stride(1),
-            b_occ.data_ptr(), b_occ.stride(0), b_occ.stride(1),
-            out.data_ptr(), 0 if partial is None else partial.data_ptr(), m, n, k,
-            chunk_tiles, chunks, n_pad, int(seed) & 0xFFFFFFFF, int(apply_sr), 2.0**fl, eps,
-            -(2.0**il), 2.0**il - eps, stream), op)
-        if partial is not None:
-            out = splitk_reduce(partial, seed, il=il, fl=fl, apply_sr=apply_sr)
-    return out
 
 
 def masked_matmul(

@@ -41,12 +41,18 @@ def test_masked_matmul_kernel_matches_plain(card, m, k, n, sr):
     gen = torch.Generator().manual_seed(m + k + n)
     x, w = _coarse(gen, (m, k), 0.5).to(card), _coarse(gen, (k, n), 0.5).to(card)
     x[:, : k // 2] = 0.0  # whole K-tiles skipped
+    from repro_torch.kernels.masked_matmul.ops import SKINNY_M, launch_skinny
+
     before, occ_before = masked_matmul.launches, tile_occupancy.launches
+    skinny_before = launch_skinny.launches
     got = masked_matmul(x, w, 7, apply_sr=sr)
     want = masked_matmul_reference(x, w, 7, apply_sr=sr)
     torch.cuda.synchronize()
     assert masked_matmul.launches == before + 1
-    assert tile_occupancy.launches == occ_before + 2
+    # the skinny kernel flags x itself; the tile kernel runs the pre-pass
+    skinny = m <= SKINNY_M
+    assert launch_skinny.launches == skinny_before + skinny
+    assert tile_occupancy.launches == occ_before + (0 if skinny else 2)
     assert torch.equal(got, want)
 
 
@@ -62,6 +68,85 @@ def test_masked_matmul_kernel_allclose_on_q4_16(card):
     want = masked_matmul_reference(x, w, apply_sr=False)
     tol = 2 * k * 2.0**-24 * (x.abs() @ w.abs())
     assert bool(((got - want).abs() <= tol).all())
+
+
+# -- the two masked_matmul kernels: the same bits -----------------------------------
+
+
+def _q_operand(gen, shape, col: bool, card):
+    """Q4.16 values with whole 32-deep K-tiles zero, laid out row-major or
+    (``col``) column-major as a transposed view."""
+    from repro_torch.core.fixedpoint import quantize_nearest
+
+    rows, cols = shape
+    v = quantize_nearest(torch.randn((cols, rows) if col else shape, device=card,
+                                     generator=gen) / 4)
+    return v.t() if col else v
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("b_col", [False, True])
+@pytest.mark.parametrize("k,n", [(k, n) for k in (70, 2048, 8193, 25088) for n in (50, 512, 4096)])
+def test_skinny_and_tile_kernels_bit_equal_on_the_same_rows(card, k, n, b_col, sr):
+    """At M in {1, 3, 4, 17, 32}, x row- and column-major: the skinny and
+    the tile kernel, each forced through its launcher, give the same bits,
+    as do the first M rows of a tile launch at M = 300 (batch invariance),
+    and two calls give the same bits."""
+    from repro_torch.kernels.masked_matmul.ops import launch_skinny, launch_tile
+
+    gen = torch.Generator(device=card).manual_seed(k * 7 + n + 2 * b_col)
+    w = _q_operand(gen, (k, n), b_col, card)
+    tall = _q_operand(gen, (300, k), False, card)
+    tall[:, 32:96] = 0.0  # two x K-tiles empty
+    for m in (1, 3, 4, 17, 32):
+        for a_col in (False, True):
+            x = tall[:m].t().contiguous().t() if a_col else tall[:m]
+            skinny = launch_skinny(x, w, 11, 4, 16, sr)
+            again = launch_skinny(x, w, 11, 4, 16, sr)
+            tile = launch_tile(x, w, 11, 4, 16, sr)
+            torch.cuda.synchronize()
+            assert torch.equal(skinny, again), (m, a_col)
+            assert torch.equal(skinny, tile), (m, a_col)
+    rows = launch_tile(tall, w, 11, 4, 16, sr)[:32]
+    assert torch.equal(rows, launch_skinny(tall[:32], w, 11, 4, 16, sr))
+
+
+def test_skinny_kernel_skips_an_empty_x_k_tile(card):
+    """NaN in the weight rows under an all-zero x K-tile: a skipped tile
+    never reads them, so both kernels stay finite and give the bits they
+    give with those rows zero."""
+    from repro_torch.kernels.masked_matmul.ops import launch_skinny, launch_tile
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = _q_operand(gen, (4, 2048), False, card)
+    w = _q_operand(gen, (2048, 512), False, card)
+    x[:, 64:128] = 0.0  # K-tiles 2 and 3
+    w_nan = w.clone()
+    w_nan[64:128] = float("nan")
+    w[64:128] = 0.0
+    want = launch_skinny(x, w, 0, 4, 16, False)
+    for fn in (launch_skinny, launch_tile):
+        got = fn(x, w_nan, 0, 4, 16, False)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,kernel", [(32, 8192, 512, "skinny"), (8, 8192, 4096, "skinny"),
+                                          (300, 2048, 2048, "tile"), (4096, 576, 64, "tile")])
+def test_masked_matmul_kernels_launch_above_the_default_shared_memory(card, m, k, n, kernel):
+    """Both kernels' rings take more than the 48 KB of shared memory a
+    launch gets by default; the launcher raises the limit, and the product
+    agrees with the plain version within 2K 2^-24 (|x| @ |w|)."""
+    from repro_torch.kernels.masked_matmul.ops import (launch_skinny, launch_tile,
+                                                       masked_matmul_reference)
+
+    gen = torch.Generator(device=card).manual_seed(m + n)
+    x, w = _q_operand(gen, (m, k), False, card), _q_operand(gen, (k, n), False, card)
+    got = (launch_skinny if kernel == "skinny" else launch_tile)(x, w, 0, 4, 16, False)
+    want = masked_matmul_reference(x, w, apply_sr=False)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 2 * k * 2.0**-24 * (x.abs() @ w.abs())).all())
 
 
 @pytest.mark.parametrize("rows,cols,tiles", [(4, 2048, (64, 32)), (2048, 8192, (32, 64)),
@@ -105,7 +190,9 @@ def test_engine_on_the_card_runs_the_kernels(card):
     counts = kernels.launch_counts()
     assert out["finite"] and all(r["n_tokens"] == 4 for r in out["per_request"])
     assert counts["masked_matmul"] > 0 and counts["mask_pack"] > 0
-    assert counts["tile_occupancy"] == 2 * counts["masked_matmul"]
+    # prompts of 8 and decode ticks of 2 slots: every product on the skinny kernel
+    assert counts["masked_matmul_skinny"] == counts["masked_matmul"]
+    assert counts["tile_occupancy"] == 0
 
 
 # -- slice 2: the training kernels ----------------------------------------------
