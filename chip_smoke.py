@@ -39,7 +39,8 @@ failure:
                timed beside torch.matmul; exact on {0, 2^-8} operands at
                c0_1; a block-pruned case whose skip flags equal the plain
                version's; split-K forward with SR and the split-K reduce,
-               exact;
+               exact (the reduce also at N = 50 from an unaligned base),
+               the reduce timed on device time beside torch.sum's;
   5c. train  — full-width VGG-19 at 224x224, batch 32, quant_sparse with SR,
                the sparse backward and the memstash stash policy, sgdm with
                Q4.16 SR weights, 3 steps through
@@ -60,7 +61,12 @@ failure:
   6b. ssd_scan — y and the final state against the chunked plain version
                (rel 1e-4) on the registry's three examples and at mamba2-780m's
                prefill shape (x (1, 2000, 48, 64), b/c (1, 2000, 1, 128), read as
-               views of one projection as the model does), timed;
+               views of one projection as the model does), also at the model's
+               decays; each of the four stage kernels against its plain stage
+               (rel 1e-4); timed, each stage's device time beside the total's
+               (profiler) and the call's; the kernel's and
+               the chunked plain version's deviation from a float64 run of the
+               sequential oracle, printed (not gated);
   6c. serve_long — full-width llama3.2-1b, quant_sparse, 4 slots, 4 requests,
                prompt 4096, gen 16, counters zeroed just before and read just
                after: flash_attention, masked_matmul, tile_occupancy and
@@ -68,7 +74,9 @@ failure:
                memory;
   6d. serve_mamba2 — full-width mamba2-780m, quant_sparse, 4 slots, 6
                requests, prompt 2000, gen 16: ssd_scan, masked_matmul and
-               tile_occupancy must launch;
+               tile_occupancy must launch; two more requests with
+               deadline_ticks=0 queue behind the full pool and must be shed
+               with "deadline" and no tokens;
   6e. check  — the reduced mamba2-780m and llama3.2-1b on the card against the
                CPU at a 300-token prompt, prefill and decode logits (atol 1e-3);
   6f. profile — one 4096-token llama3.2-1b prefill and one 2000-token
@@ -142,6 +150,26 @@ def timed(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Mean device ms per call of ``fn``: the device time of every kernel it
+    launches, from torch.profiler over ``iters`` calls after ``warmup``.
+    Unlike :func:`timed` it excludes host time, which sets the pace of a
+    loop of calls shorter than their launch overhead.  None when the
+    profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(r[1] for r in device_time_by_kernel(prof, iters))
+    return busy or None
 
 
 def device_time_by_kernel(prof, per: int = 1) -> list:
@@ -392,24 +420,36 @@ def phase_backward(dev, gen) -> dict:
     if not torch.equal(got, want):
         fail("masked_matmul split-K forward with SR differs from its plain version")
     part = torch.randn(196, 576, 64, generator=gen).to(dev)
-    for sr in (False, True):
-        got = mm.splitk_reduce(part, 3, apply_sr=sr)
-        want = mm.splitk_reduce_reference(part, 3, apply_sr=sr)
-        red_err = max(red_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            fail("splitk_reduce differs from its plain version")
-    red_ms = timed(lambda: mm.splitk_reduce(part), 20)
+    # c0_1's dW partials, then N = 50 from a base 4 bytes past 16-byte
+    # alignment (scalar loads) and an M * N that fills no block
+    flat = torch.randn(1 + 7 * 70 * 50, generator=gen).to(dev)
+    for pt in (part, flat[1:].view(7, 70, 50), flat[:17 * 5 * 50].view(17, 5, 50)):
+        for sr in (False, True):
+            got = mm.splitk_reduce(pt, 3, apply_sr=sr)
+            want = mm.splitk_reduce_reference(pt, 3, apply_sr=sr)
+            red_err = max(red_err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"splitk_reduce {tuple(pt.shape)} differs from its plain version")
+    # the call is shorter than its host overhead, so a loop of calls times
+    # the host: the kernel and torch.sum are held on device time (profiler),
+    # and the call times are kept beside them
+    red_call_ms = timed(lambda: mm.splitk_reduce(part), 20)
     red_plain_ms = timed(lambda: mm.splitk_reduce_reference(part), 3, warmup=1)
-    red_lib_ms = timed(lambda: torch.sum(part, 0), 20)
+    red_lib_call_ms = timed(lambda: torch.sum(part, 0), 20)
+    red_ms = device_ms(lambda: mm.splitk_reduce(part))
+    red_lib_ms = device_ms(lambda: torch.sum(part, 0))
     red_b, red_by = bound(4.0 * (part.numel() + part[0].numel()), part.numel())
     print(f"[backward] split-K forward with SR (32,25088)@(25088,64) exact; splitk_reduce "
-          f"(196,576,64) exact, kernel {red_ms:.4f} ms, plain {red_plain_ms:.4f} ms, torch.sum "
-          f"{red_lib_ms:.4f} ms, bound {red_b:.4f} ms ({red_by})", flush=True)
+          f"(196,576,64), (7,70,50) unaligned and (17,5,50) exact; at c0_1 device time: kernel "
+          f"{red_ms} ms, torch.sum {red_lib_ms} ms; call time: kernel {red_call_ms:.4f} ms, "
+          f"torch.sum {red_lib_call_ms:.4f} ms; plain {red_plain_ms:.4f} ms, bound "
+          f"{red_b:.4f} ms ({red_by})", flush=True)
     return {"rows": rows, "err": err_max,
             "reduce": {"ms": red_ms, "plain_ms": red_plain_ms, "library_ms": red_lib_ms,
-                       "bound_ms": red_b,
-                       "bound_by": red_by, "max_abs_err": red_err,
-                       "shape": "c0_1 dw partial sums (196, 576, 64)"}}
+                       "call_ms": red_call_ms, "library_call_ms": red_lib_call_ms,
+                       "bound_ms": red_b, "bound_by": red_by, "max_abs_err": red_err,
+                       "shape": "c0_1 dw partial sums (196, 576, 64); ms and library_ms are "
+                                "device time, call_ms and library_call_ms a timed loop of calls"}}
 
 
 def profile_train_step(dev, params, memstash) -> dict:
@@ -548,6 +588,7 @@ FA_HEADS, FA_KV_HEADS, FA_DIM, FA_SEQS = 32, 8, 64, (512, 4096, 8192)
 LONG_SLOTS, LONG_REQUESTS, LONG_PROMPT = 4, 4, 4096
 SSD_HEADS, SSD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 128
 MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_PROMPT = 4, 6, 2000
+MAMBA_LATE = 2  # requests with an admission deadline of 0 ticks, shed behind the full pool
 CHECK_PROMPT = 300
 LONG_KERNELS = ("flash_attention", "masked_matmul", "tile_occupancy", "mask_pack")
 MAMBA_KERNELS = ("ssd_scan", "masked_matmul", "tile_occupancy")
@@ -627,12 +668,19 @@ def phase_ssd_scan(dev, gen) -> dict:
     state, rel 1e-4: the registry's compare, ``ssd_scan/ops.py:126-127``)
     on the registry's three examples (``ops.py:112-123``) and at
     mamba2-780m's prefill shape, x / b / c read as views of one projection
-    as ``ssm_apply`` splits them, timed beside the plain version and the
-    bound.  No single PyTorch call computes the scan."""
+    as ``ssm_apply`` splits them; each of the four stage kernels against its
+    plain stage there (rel 1e-4, fed the plain outputs of the stages before
+    it); timed, each stage beside the total, the plain version and the
+    bound; and, not gated, the deviation of the kernel and of the chunked
+    plain version from a float64 run of the sequential oracle at the model's
+    decays.  No single PyTorch call computes the scan."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan.ops import (chunk_scan, chunk_scores, chunk_state,
+                                                  ssd_scan, ssd_scan_chunked,
+                                                  ssd_scan_reference, state_passing)
 
     def rel(got, want) -> float:
         return float((got.double() - want.double()).abs().max() / want.double().abs().max())
@@ -673,9 +721,46 @@ def phase_ssd_scan(dev, gen) -> dict:
     # softplus(dt_raw + 0), so cumulative log decays reach about -2000 per chunk
     model_dt = F.softplus(torch.randn(1, s, h, generator=gen)).to(dev)
     model_a = -torch.linspace(1.0, 16.0, h, device=dev)
+    model_args = (x, model_dt, model_a, b, c)
     err = max(err, check("mamba2-780m prefill, the model's decays a = -linspace(1, 16)",
-                         (x, model_dt, model_a, b, c)))
+                         model_args))
+
+    # each stage kernel against its plain stage, on the plain outputs of the
+    # stages before it, at the prefill shape
+    cb = ref.ssd_chunk_scores(b, c)
+    st, cum = ref.ssd_chunk_state(x, dt, a, b)
+    h_prev, final = ref.ssd_state_passing(st, cum)
+    stages = {"chunk_scores": (lambda: chunk_scores(b, c), cb),
+              "chunk_state": (lambda: chunk_state(x, dt, a, b), (st, cum)),
+              "state_passing": (lambda: state_passing(st, cum), (h_prev, final)),
+              "chunk_scan": (lambda: chunk_scan(x, dt, c, cb, cum, h_prev),
+                             ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev))}
+    stage_rows = {}
+    for name, (fn, want) in stages.items():
+        got = fn()
+        pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+        r = max(rel(g_, w_) for g_, w_ in pairs)
+        e = max(_max_err(g_, w_) for g_, w_ in pairs)
+        err = max(err, e)
+        stage_rows[name] = {"rel_err": r, "max_abs_err": e}
+        print(f"[ssd_scan] stage {name}: rel err {r:.3g} (rel 1e-4) against its plain stage",
+              flush=True)
+        if not r <= 1e-4:
+            fail(f"ssd_scan stage {name} disagrees with its plain stage")
+    # each stage's device time, on the contiguous workspaces the kernels
+    # hand each other (the plain stages' outputs would be copied first)
+    cb = chunk_scores(b, c)
+    st, cum = chunk_state(x, dt, a, b)
+    h_prev, final = state_passing(st, cum)
+    for name, fn in (("chunk_scores", lambda: chunk_scores(b, c)),
+                     ("chunk_state", lambda: chunk_state(x, dt, a, b)),
+                     ("state_passing", lambda: state_passing(st, cum)),
+                     ("chunk_scan", lambda: chunk_scan(x, dt, c, cb, cum, h_prev))):
+        stage_rows[name]["device_ms"] = device_ms(fn)
+    del cb, st, cum, h_prev, final, stages
+
     ms = timed(lambda: ssd_scan(*args, return_state=True), 20)
+    dev_ms = device_ms(lambda: ssd_scan(*args, return_state=True))
     plain_ms = timed(lambda: ssd_scan_chunked(*args, return_state=True), 5, warmup=1)
     nc = -(-s // SSD_CHUNK)
     # live (t, j <= t) pairs over the S real steps; C·B^T once for the one
@@ -684,35 +769,59 @@ def phase_ssd_scan(dev, gen) -> dict:
     flops = 2.0 * (pairs * n + h * (pairs * p + 2 * s * n * p))
     nbytes = 4.0 * (2 * s * h * p + 2 * s * n + s * h + h + h * n * p)
     b_ms, b_by = bound(nbytes, flops)
-    print(f"[ssd_scan] mamba2-780m prefill: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err, "shape": f"x {tuple(x.shape)}, b/c {tuple(b.shape)}, "
-            f"{nc} chunks, with the final state"}
+    print(f"[ssd_scan] mamba2-780m prefill: kernel {ms:.4f} ms a call, {dev_ms} ms of device "
+          f"time ({flops / ms / 1e9:.2f} TFLOP/s a call; stages' device ms "
+          + ", ".join(f"{k} {v['device_ms']}" for k, v in stage_rows.items())
+          + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    # which drifts from the recurrence: the kernel or the chunked plain
+    # version, against a float64 run of the sequential oracle (not gated)
+    y64 = ssd_scan_reference(*(t.double() for t in model_args))
+    drift = {"kernel": rel(ssd_scan(*model_args), y64),
+             "ssd_scan_chunked": rel(ssd_scan_chunked(*model_args), y64)}
+    del y64
+    print(f"[ssd_scan] the model's decays against the float64 sequential oracle: kernel rel "
+          f"{drift['kernel']:.3g}, ssd_scan_chunked rel {drift['ssd_scan_chunked']:.3g} "
+          f"(printed, not gated)", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "stages": stage_rows,
+            "float64_oracle_rel": drift,
+            "shape": f"x {tuple(x.shape)}, b/c {tuple(b.shape)}, {nc} chunks, with the final "
+                     "state"}
 
 
 def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: tuple,
-                tag: str) -> dict:
-    """(6c/6d) full-width ``arch`` served in quant_sparse through
-    ``serve_session``, gen GEN; the counters are zeroed just before and
-    read just after, and every kernel in ``needed`` must have launched."""
+                tag: str, late: int = 0) -> dict:
+    """(6c/6d) full-width ``arch`` served in quant_sparse, gen GEN, through
+    the engine as ``serve_session`` builds it; the counters are zeroed just
+    before and read just after, and every kernel in ``needed`` must have
+    launched.  ``late`` more requests with an admission deadline of 0 ticks
+    queue behind the full pool: each must be shed with ``"deadline"`` and
+    no tokens."""
     import torch
 
     from repro_torch import kernels
-    from repro_torch.launch.serve import serve_session
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.serving.engine import ServingEngine
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    out = serve_session(arch, reduced=False, mode="quant_sparse", slots=slots, queue=requests,
-                        prompt_len=prompt, gen=GEN, seed=0, device=dev)
+    cfg = get_arch(arch).resolve(False)
+    engine = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=slots,
+                           max_len=prompt + GEN + 1, seed=0, device=dev)
+    prompts = synthetic_prompts(requests + late, prompt, cfg.vocab, 0)
+    for i, p in enumerate(prompts):
+        engine.submit_prompt(p, GEN, seed=i, deadline_ticks=0 if i >= requests else None)
+    out = engine.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    done = [r for r in out["per_request"] if r["n_tokens"] == GEN]
+    served, shed = out["per_request"][:requests], out["per_request"][requests:]
+    done = [r for r in served if r["n_tokens"] == GEN]
     print(f"[{tag}] {arch} quant_sparse {slots} slots, prompt {prompt}: {len(done)}/{requests} "
           f"requests with {GEN} tokens, finite={out['finite']}, prefill "
           f"{out['prefill_s'] / requests:.3f} s per request, tokens_per_s="
@@ -721,6 +830,13 @@ def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: 
     print(f"[{tag}] launches {launches}", flush=True)
     if len(done) != requests or not out["finite"]:
         fail(f"{tag} phase: not every request finished with finite logits")
+    if late:
+        print(f"[{tag}] {late} requests with deadline_ticks=0 behind the full pool: "
+              f"{[(r['rid'], r['rejected'], r['n_tokens']) for r in shed]}, "
+              f"{out['elastic']}", flush=True)
+        if any(r["rejected"] != "deadline" or r["tokens"] for r in shed) \
+                or out["elastic"]["n_rejected"] != late:
+            fail(f"{tag} phase: the late requests were not shed with 'deadline' and no tokens")
     for name in needed:
         if launches[name] <= 0:
             fail(f"{tag} phase never launched the {name} kernel")
@@ -1200,7 +1316,7 @@ def main() -> None:
         dev, "llama3.2-1b", LONG_SLOTS, LONG_REQUESTS, LONG_PROMPT, LONG_KERNELS, "serve_long")
     report["serve_mamba2"] = serve_mamba2 = phase_serve(
         dev, "mamba2-780m", MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_PROMPT, MAMBA_KERNELS,
-        "serve_mamba2")
+        "serve_mamba2", late=MAMBA_LATE)
     report["check_long"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT)
                             for arch in ("mamba2-780m", "llama3.2-1b")}
     report["prefill_profile"] = {
@@ -1319,7 +1435,9 @@ def main() -> None:
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_kernel.py:71",
          "launches": total["ssd_scan"], **ssd, "library_ms": None,
-         "note": "one counted launch per call runs three kernels: chunk, state scan, inter-chunk",
+         "note": "one counted launch per call runs four stage kernels: chunk scores (once "
+                 "per group), chunk state, state passing, chunk scan; ms is a timed loop of "
+                 "calls, device_ms the kernels' device time; stage times in chip_smoke.json",
          "launches_by_path": by_path["ssd_scan"]},
         {"name": "dangling_filter", "route": "cuda",
          "source": "src/repro_torch/csrc/dangling_filter.cu",

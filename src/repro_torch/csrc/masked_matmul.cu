@@ -711,16 +711,85 @@ masked_mm_skinny_kernel(const float* __restrict__ a, int64_t lda, int a_vec,
 }
 
 // out[i] = epilogue(sum over chunks c = 0, 1, ... of partial[c][i]), in
-// chunk order
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                     int M, int N, int n_chunks, Epilogue ep) {
-    const int64_t total = (int64_t)M * N;
-    for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < total;
-         i += (int64_t)gridDim.x * blockDim.x) {
-        float s = partial[i];
-        for (int c = 1; c < n_chunks; ++c) s += partial[(int64_t)c * total + i];
-        out[i] = ep(s, (int)(i / N), (int)(i % N));
+// chunk order: the order is the bit contract with both matmul kernels, so
+// the sum over chunks is never split into a tree.  What bounds it on the
+// H100 is bytes: every partial is read once (28.9 MB for VGG-19 c0_1's dW,
+// 196 chunks of 576 x 64), against only 36,864 outputs, so the card must
+// keep many chunks' loads in flight for few threads.  A thread that issues
+// a batch of loads into registers and then adds them lets its loads drain
+// to none before the next batch, and stays latency-bound far below the
+// memory rate.  Here a thread owns V = 4 adjacent outputs (16-byte
+// copies; V = 1, 4-byte copies, where the chunk stride or a pointer is not
+// 16-byte aligned) and keeps RED_RING chunks in flight at every step in its
+// own slots of a shared-memory ring with cp.async: it waits for the next
+// RED_BATCH chunks, adds them in order, and refills their slots with the
+// chunks RED_RING further on.  No thread reads another's slots, so no
+// barrier is needed; blocks of one warp spread the few threads over every
+// SM.  The SR epilogue's row and column come from one 32-bit division per
+// thread, and only when SR is on.
+constexpr int RED_THREADS = 32;
+constexpr int RED_RING = 32;
+constexpr int RED_BATCH = 8;
+
+template <int V>
+__device__ __forceinline__ void cp_async_v(float* dst, const float* src) {
+    if constexpr (V == 4)
+        cp_async16(dst, src, 4);
+    else
+        cp_async4(dst, src, true);
+}
+
+template <int V>
+__global__ void __launch_bounds__(RED_THREADS)
+splitk_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int total, int N,
+                     int n_chunks, Epilogue ep) {
+    __shared__ __align__(16) float ring[RED_RING][RED_THREADS * V];
+    const int i0 = (blockIdx.x * RED_THREADS + threadIdx.x) * V;
+    if (i0 >= total) return;
+    const float* p = partial + i0;
+    float* slot = &ring[0][threadIdx.x * V];  // chunk c lands at slot + (c % RED_RING) * stride
+    constexpr int stride = RED_THREADS * V;
+#pragma unroll
+    for (int r = 0; r < RED_RING; r += RED_BATCH) {
+#pragma unroll
+        for (int q = 0; q < RED_BATCH; ++q)
+            if (r + q < n_chunks)
+                cp_async_v<V>(slot + (r + q) * stride, p + (int64_t)(r + q) * total);
+        cp_async_commit();  // one group per batch, empty past the last chunk
     }
+    float s[V];
+    for (int c = 0; c < n_chunks; c += RED_BATCH) {
+        cp_async_wait<RED_RING / RED_BATCH - 1>();  // chunks c .. c + RED_BATCH - 1 landed
+        float* sl = slot + (c % RED_RING) * stride;
+        float v[RED_BATCH][V];
+#pragma unroll
+        for (int q = 0; q < RED_BATCH; ++q)
+#pragma unroll
+            for (int e = 0; e < V; ++e) v[q][e] = sl[q * stride + e];
+#pragma unroll
+        for (int q = 0; q < RED_BATCH; ++q)
+            if (c + q < n_chunks)
+#pragma unroll
+                for (int e = 0; e < V; ++e) s[e] = c + q == 0 ? v[q][e] : s[e] + v[q][e];
+        // the slots were read into registers above, so they can be refilled
+#pragma unroll
+        for (int q = 0; q < RED_BATCH; ++q)
+            if (c + q + RED_RING < n_chunks)
+                cp_async_v<V>(sl + q * stride, p + (int64_t)(c + q + RED_RING) * total);
+        cp_async_commit();
+    }
+    if (ep.apply_sr) {
+        int row = (int)((unsigned)i0 / (unsigned)N), col = i0 - row * N;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            s[e] = ep(s[e], row, col);
+            if (++col == N) col = 0, ++row;
+        }
+    }
+    if constexpr (V == 4)
+        *reinterpret_cast<float4*>(out + i0) = make_float4(s[0], s[1], s[2], s[3]);
+    else
+        out[i0] = s[0];
 }
 
 // occ[ti * n_tile_cols + tj] = any(a[tile (ti, tj)] != 0).  A block reads
@@ -945,10 +1014,19 @@ int splitk_reduce_launch(const float* partial, float* out, int m, int n, int n_c
                          float min_v, float max_v, void* stream) {
     const Epilogue ep{n_pad, seed, apply_sr, scale, eps, min_v, max_v};
     const int64_t total = (int64_t)m * n;
-    const int blocks = (int)((total + OCC_THREADS - 1) / OCC_THREADS < 132 * 32
-                             ? (total + OCC_THREADS - 1) / OCC_THREADS : 132 * 32);
-    splitk_reduce_kernel<<<blocks, OCC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        partial, out, m, n, n_chunks, ep);
+    if (m <= 0 || n <= 0 || n_chunks <= 0 || total > INT32_MAX - 3)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = total % 4 == 0 && reinterpret_cast<uintptr_t>(partial) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int64_t threads = vec ? total / 4 : total;
+    const unsigned blocks = (unsigned)((threads + RED_THREADS - 1) / RED_THREADS);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec)
+        splitk_reduce_kernel<4><<<blocks, RED_THREADS, 0, st>>>(partial, out, (int)total, n,
+                                                                 n_chunks, ep);
+    else
+        splitk_reduce_kernel<1><<<blocks, RED_THREADS, 0, st>>>(partial, out, (int)total, n,
+                                                                 n_chunks, ep);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,7 @@ the skinny kernel), ``tile_occupancy`` (the tile kernel's occupancy
 pre-pass, two per product with M > 32),
 ``splitk_reduce`` (the split-K reduce, one per product with K > 8192),
 ``mask_pack``, ``stochastic_round``, ``flash_attention`` (one per prefill
-attention), ``ssd_scan`` (one per SSD scan, three kernels) and
+attention), ``ssd_scan`` (one per SSD scan, four stage kernels) and
 ``dangling_filter`` (the pre-compute filter, on the kernel sweep's path
 alone).  Importing this package builds nothing.
 """

@@ -64,7 +64,7 @@ def build(names=None) -> dict:
     """Compile the named kernels (default: all) that are not built yet,
     one ``nvcc`` per source in parallel.  Returns ``{name: {"seconds",
     "ptxas"}}`` for the libraries compiled by this call; ``ptxas`` holds the
-    register / shared-memory report of ``-Xptxas -v``."""
+    register / shared-memory / spill report of ``-Xptxas -v``."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
@@ -87,7 +87,7 @@ def build(names=None) -> dict:
             continue
         tmp.replace(library_path(n))  # atomic: a half-written .so is never seen
         report[n] = {"seconds": time.monotonic() - t0,
-                     "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln]}
+                     "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]}
     if failed:
         raise KernelBuildError("\n".join(failed))
     return report

@@ -7,6 +7,9 @@ returns (B, H, Sq, D) in q's dtype.  It dispatches on the tensors' device:
 a CUDA tensor launches the kernel in ``csrc/flash_attention.cu`` (one
 launch, counted) or raises; a CPU tensor runs
 :func:`~repro_torch.kernels.flash_attention.ref.attention_reference`.
+The kernel has no backward (nor has the reference's Pallas kernel), so on
+the card a call that autograd would need to differentiate raises instead
+of dropping the gradient; the plain version stays differentiable.
 
 The kernel reads q/k/v through their strides (only the D axis must be
 contiguous), so the model hands it transposed views of its (B, S, H, D)
@@ -89,6 +92,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Multi-head attention; q (B,H,Sq,D), k/v (B,HKV,Skv,D) -> (B,H,Sq,D)."""
     _check(q, k, v, window)
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise ValueError("flash_attention: the kernel forward has no gradient; "
+                             "run it under torch.no_grad() or on plain tensors")
         return _launch(q, k, v, causal, window)
     return attention_reference(q, k, v, causal=causal, window=window)
 

@@ -335,6 +335,8 @@ def splitk_reduce(partial: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int 
     chunks, m, n = partial.shape
     _, n_pad, _ = padded_dims(m, n, 1)
     out = torch.empty((m, n), dtype=torch.float32, device=partial.device)
+    if out.numel() == 0:
+        return out
     eps = 2.0**-fl
     stream = _stream(partial.device)
     cuda.check(_lib().splitk_reduce_launch(

@@ -6,27 +6,38 @@ recurrence over x (B, S, H, P) with dt (B, S, H), a (H,) and b/c
 (B, S, G, N); y comes back in x's dtype and, with ``return_state``, the
 final (B, H, N, P) state in fp32 (the prefill -> decode cache handoff,
 which the reference's Pallas kernel cannot give and its jnp form can).
-A CUDA tensor launches the three kernels of ``csrc/ssd_scan.cu`` (one
+A CUDA tensor launches the four stage kernels of ``csrc/ssd_scan.cu`` (one
 counted launch per call) or raises; a CPU tensor runs
-:func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_chunked`.
+:func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_chunked`.  The kernels
+have no backward (nor has the reference's Pallas kernel), so on the card
+a call that autograd would need to differentiate raises instead of
+dropping the gradient; the plain version stays differentiable.
+
+The stages are public too, each on the card or, for CPU tensors, as its
+plain version in ``ref.py``: :func:`chunk_scores`, :func:`chunk_state`,
+:func:`state_passing` and :func:`chunk_scan`.  Only ``ssd_scan`` counts
+launches.
 
 x, b and c are read through their strides (only the last axis must be
 contiguous), so the model hands the kernel the views it splits off its
 convolved projection without a copy.  A ragged S is handled inside the
-kernel as the reference's padding with dt = 0, x = b = c = 0.
+kernels as the reference's padding with dt = 0, x = b = c = 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
 import torch
 
 from repro_torch.kernels import cuda
+from repro_torch.kernels.ssd_scan import ref
 from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_chunked, ssd_scan_reference
 
-__all__ = ["ssd_scan", "ssd_scan_chunked", "ssd_scan_reference", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_chunked", "ssd_scan_reference", "CHUNK", "chunk_scores",
+           "chunk_state", "state_passing", "chunk_scan"]
 
 #: head dims (P) the CUDA kernels are instantiated for, and the largest state
 HEAD_DIMS = (32, 64)
@@ -38,59 +49,192 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("ssd_scan")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, *([ll] * 12),
-                                    p, p, p, p, p, p, p]
-    lib.ssd_scan_launch.restype = i
+    lib.ssd_chunk_scores_launch.argtypes = [p, p, i, i, i, i, i, *([ll] * 6), p, p]
+    lib.ssd_chunk_state_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, *([ll] * 9), p, p, p]
+    lib.ssd_state_passing_launch.argtypes = [p, p, i, i, i, i, p, p, p]
+    lib.ssd_chunk_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, *([ll] * 9),
+                                          p, p]
+    for fn in (lib.ssd_chunk_scores_launch, lib.ssd_chunk_state_launch,
+               lib.ssd_state_passing_launch, lib.ssd_chunk_scan_launch):
+        fn.restype = i
     return lib
 
 
 def _check(x, dt, a, b, c) -> None:
-    if x.ndim != 4 or dt.ndim != 3 or a.ndim != 1 or b.ndim != 4 or c.ndim != 4:
+    """Shapes: x (B,S,H,P), dt (B,S,H), a (H,) (None where a stage does not
+    read it), b/c (B,S,G,N) with H % G == 0."""
+    if x.ndim != 4 or dt.ndim != 3 or (a is not None and a.ndim != 1) or b.ndim != 4 \
+            or c.ndim != 4:
         raise ValueError("ssd_scan: x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,G,N)")
     bsz, s, h, _ = x.shape
-    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,) or b.shape != c.shape
-            or tuple(b.shape[:2]) != (bsz, s)):
+    if (tuple(dt.shape) != (bsz, s, h) or (a is not None and tuple(a.shape) != (h,))
+            or b.shape != c.shape or tuple(b.shape[:2]) != (bsz, s)):
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
-                         f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)} disagree")
+                         f"b {tuple(b.shape)}, c {tuple(c.shape)} disagree"
+                         + ("" if a is None else f" (a {tuple(a.shape)})"))
     if b.shape[2] == 0 or h % b.shape[2]:
         raise ValueError(f"ssd_scan: {h} heads do not divide into {b.shape[2]} groups")
 
 
-def _launch(x, dt, a, b, c):
+def _check_cuda(x, dt, a, b, c) -> None:
+    """What the kernels take: fp32 or bf16 x/b/c of one dtype, fp32 dt and
+    a, one device, P in HEAD_DIMS, N up to MAX_STATE, and no gradient."""
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"ssd_scan: CUDA takes fp32 or bf16 x/b/c of one dtype, got "
                         f"{x.dtype}, {b.dtype}, {c.dtype}")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise TypeError(f"ssd_scan: CUDA takes fp32 dt and a, got {dt.dtype}, {a.dtype}")
-    if any(t.device != x.device for t in (dt, a, b, c)):
+    ops = tuple(t for t in (x, dt, a, b, c) if t is not None)
+    if dt.dtype != torch.float32 or (a is not None and a.dtype != torch.float32):
+        raise TypeError(f"ssd_scan: CUDA takes fp32 dt and a, got {dt.dtype}, "
+                        f"{None if a is None else a.dtype}")
+    if any(t.device != x.device for t in ops):
         raise ValueError("ssd_scan: every operand must be on one CUDA device")
-    bsz, s, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
+    p, n = x.shape[3], b.shape[3]
     if p not in HEAD_DIMS or not 1 <= n <= MAX_STATE:
         raise ValueError(f"ssd_scan: head_dim {p} not in {HEAD_DIMS} or d_state {n} "
                          f"not in [1, {MAX_STATE}]")
-    x, dt, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, dt, b, c))
-    a = a.contiguous()
+    _no_gradient(*ops)
+
+
+def _no_gradient(*ts) -> None:
+    """The kernels have no backward: raise where autograd would need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError("ssd_scan: the kernel forward has no gradient; "
+                         "run it under torch.no_grad() or on plain tensors")
+
+
+def _rows(*ts):
+    """The operands with a contiguous last axis (views are kept)."""
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
+def _f32(t, shape, device) -> torch.Tensor:
+    """A stage's fp32 workspace operand, made contiguous for the kernel."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"ssd_scan: a stage operand must be an fp32 {tuple(shape)} tensor "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _on(dev: torch.device):
+    """Launch on ``dev``: enter its context only when it is not current."""
+    return (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+            else contextlib.nullcontext())
+
+
+def _bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+# -- the four stages on the card ----------------------------------------------------
+
+
+def _scores(b, c):
+    bsz, s, g, n = b.shape
+    cb = torch.empty((bsz, -(-s // CHUNK), g, CHUNK, CHUNK), dtype=torch.float32,
+                     device=b.device)
+    cuda.check(_lib().ssd_chunk_scores_launch(
+        b.data_ptr(), c.data_ptr(), _bf16(b), bsz, s, g, n, *b.stride()[:3], *c.stride()[:3],
+        cb.data_ptr(), _stream(b.device)), "ssd_chunk_scores")
+    return cb
+
+
+def _state(x, dt, a, b):
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
     nc = -(-s // CHUNK)
-    f32 = dict(dtype=torch.float32, device=x.device)
+    st = torch.empty((bsz, nc, h, n, p), dtype=torch.float32, device=x.device)
+    cum = torch.empty((bsz, nc, h, CHUNK), dtype=torch.float32, device=x.device)
+    cuda.check(_lib().ssd_chunk_state_launch(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), _bf16(x), bsz, s, h, p, g, n,
+        *x.stride()[:3], *dt.stride(), *b.stride()[:3], st.data_ptr(), cum.data_ptr(),
+        _stream(x.device)), "ssd_chunk_state")
+    return st, cum
+
+
+def _passing(st, cum):
+    bsz, nc, h, n, p = st.shape
+    h_prev = torch.empty_like(st)
+    final = torch.empty((bsz, h, n, p), dtype=torch.float32, device=st.device)
+    cuda.check(_lib().ssd_state_passing_launch(
+        st.data_ptr(), cum.data_ptr(), bsz, nc, h, n * p, h_prev.data_ptr(), final.data_ptr(),
+        _stream(st.device)), "ssd_state_passing")
+    return h_prev, final
+
+
+def _scan(x, dt, c, cb, cum, h_prev):
+    bsz, s, h, p = x.shape
+    g, n = c.shape[2], c.shape[3]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
-    state = torch.empty((bsz, h, n, p), **f32)
-    if y.numel() == 0:
-        return y, state.zero_()
-    y_acc = y if x.dtype == torch.float32 else torch.empty(y.shape, **f32)
-    cum = torch.empty((bsz, nc, h, CHUNK), **f32)
-    chunk_decay = torch.empty((bsz, nc, h), **f32)
-    chunk_state = torch.empty((bsz, nc, h, n, p), **f32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        cuda.check(_lib().ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            bsz, s, h, p, g, n, int(x.dtype == torch.bfloat16),
-            *x.stride()[:3], *dt.stride(), *b.stride()[:3], *c.stride()[:3],
-            y.data_ptr(), y_acc.data_ptr(), cum.data_ptr(), chunk_decay.data_ptr(),
-            chunk_state.data_ptr(), state.data_ptr(), stream), "ssd_scan")
-    ssd_scan.launches += 1
-    return y, state
+    cuda.check(_lib().ssd_chunk_scan_launch(
+        x.data_ptr(), dt.data_ptr(), c.data_ptr(), cb.data_ptr(), cum.data_ptr(),
+        h_prev.data_ptr(), _bf16(x), bsz, s, h, p, g, n, *x.stride()[:3], *dt.stride(),
+        *c.stride()[:3], y.data_ptr(), _stream(x.device)), "ssd_chunk_scan")
+    return y
+
+
+def chunk_scores(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Stage 1, ``cb`` (B, NC, G, L, L): the kernel on CUDA tensors,
+    :func:`ref.ssd_chunk_scores` on CPU tensors."""
+    if not b.is_cuda:
+        return ref.ssd_chunk_scores(b, c)
+    if b.ndim != 4 or b.shape != c.shape or b.dtype not in _DTYPES or c.dtype != b.dtype \
+            or c.device != b.device or not 1 <= b.shape[3] <= MAX_STATE:
+        raise ValueError("ssd_scan: chunk_scores takes b/c (B,S,G,N) of one fp32 or bf16 "
+                         f"dtype with N <= {MAX_STATE}")
+    _no_gradient(b, c)
+    with _on(b.device):
+        return _scores(*_rows(b, c))
+
+
+def chunk_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Stage 2, ``(chunk_state, cum)``: the kernel on CUDA tensors,
+    :func:`ref.ssd_chunk_state` on CPU tensors."""
+    if not x.is_cuda:
+        return ref.ssd_chunk_state(x, dt, a, b)
+    _check(x, dt, a, b, b)
+    _check_cuda(x, dt, a, b, b)
+    x, dt, b = _rows(x, dt, b)
+    with _on(x.device):
+        return _state(x, dt, a.contiguous(), b)
+
+
+def state_passing(chunk_state: torch.Tensor, cum: torch.Tensor) -> tuple:
+    """Stage 3, ``(h_prev, final_state)``: the kernel on CUDA tensors,
+    :func:`ref.ssd_state_passing` on CPU tensors."""
+    if not chunk_state.is_cuda:
+        return ref.ssd_state_passing(chunk_state, cum)
+    bsz, nc, h, n, p = chunk_state.shape
+    chunk_state = _f32(chunk_state, (bsz, nc, h, n, p), chunk_state.device)
+    cum = _f32(cum, (bsz, nc, h, CHUNK), chunk_state.device)
+    if p not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan: head_dim {p} not in {HEAD_DIMS}")
+    _no_gradient(chunk_state, cum)
+    with _on(cum.device):
+        return _passing(chunk_state, cum)
+
+
+def chunk_scan(x: torch.Tensor, dt: torch.Tensor, c: torch.Tensor, cb: torch.Tensor,
+               cum: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
+    """Stage 4, y (B, S, H, P) in x's dtype: the kernel on CUDA tensors,
+    :func:`ref.ssd_chunk_scan` on CPU tensors."""
+    if not x.is_cuda:
+        return ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev)
+    bsz, s, h, p = x.shape
+    g, n = c.shape[2], c.shape[3]
+    nc = -(-s // CHUNK)
+    _check(x, dt, None, c, c)
+    _check_cuda(x, dt, None, c, c)
+    _no_gradient(cb, cum, h_prev)
+    cb = _f32(cb, (bsz, nc, g, CHUNK, CHUNK), x.device)
+    cum = _f32(cum, (bsz, nc, h, CHUNK), x.device)
+    h_prev = _f32(h_prev, (bsz, nc, h, n, p), x.device)
+    x, dt, c = _rows(x, dt, c)
+    with _on(x.device):
+        return _scan(x, dt, c, cb, cum, h_prev)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -99,12 +243,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     final (B,H,N,P) fp32 state as well."""
     _check(x, dt, a, b, c)
     if x.is_cuda:
-        y, state = _launch(x, dt, a, b, c)
+        _check_cuda(x, dt, a, b, c)
+        bsz, s, h, p = x.shape
+        if x.numel() == 0:
+            y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+            state = torch.zeros((bsz, h, b.shape[3], p), dtype=torch.float32, device=x.device)
+        else:
+            x, dt, b, c = _rows(x, dt, b, c)
+            with _on(x.device):
+                cb = _scores(b, c)
+                st, cum = _state(x, dt, a.contiguous(), b)
+                h_prev, state = _passing(st, cum)
+                y = _scan(x, dt, c, cb, cum, h_prev)
+            ssd_scan.launches += 1
     else:
         y, state = ssd_scan_chunked(x, dt, a, b, c, return_state=True)
     return (y, state) if return_state else y
 
 
-#: kernel launches made by this wrapper, one per call of the three-kernel
+#: kernel launches made by this wrapper, one per call of the four-stage
 #: scan (the CPU path counts nothing)
 ssd_scan.launches = 0

@@ -18,9 +18,15 @@ Decoding is greedy.  Token accounting is the reference's: the prefill's
 argmax is fed as the first decode input (not reported), every decode step
 emits one reported token, ``max_tokens`` bounds them and EOS is included.
 
+Load shedding follows the reference: with a :class:`ShedPolicy` a request
+arriving at a full queue is rejected at submit (``"queue_full"``) and a
+request still queued past its admission deadline is shed at the top of a
+tick (``"deadline"``); a rejected request finishes with no tokens, its
+``finished_by`` is ``"rejected"`` and its ``rejected`` field says why.
+
 Not ported yet: sampled decode (it draws from ``jax.random``), snapshots,
-rescale, spill/resume, shedding, the paged pool, telemetry spans and
-latency sketches.
+rescale, spill/resume, the paged pool, telemetry spans and latency
+sketches.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 from repro_torch.serving import kvpool
 from repro_torch.serving.request import Request, RequestResult
-from repro_torch.serving.scheduler import SlotScheduler
+from repro_torch.serving.scheduler import ShedPolicy, SlotScheduler
 from repro_torch.serving.steps import make_decode_step, make_prefill_step
 
 
@@ -58,11 +64,13 @@ class ServingEngine:
 
     ``cfg`` is an ``LMConfig``; ``spring`` the serving ``SpringConfig``
     (``launch.serve.serving_config``).  ``params`` default to
-    ``lm_init(cfg, seed)`` on ``device``.
+    ``lm_init(cfg, seed)`` on ``device``.  ``shed`` is the scheduler's
+    load-shedding policy (None: plain FCFS, nothing is shed).
     """
 
     def __init__(self, cfg, spring, *, params: Optional[dict] = None, n_slots: int = 4,
-                 max_len: int = 256, seed: int = 0, device="cuda"):
+                 max_len: int = 256, seed: int = 0, shed: Optional[ShedPolicy] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         cfg.check_supported()
         self.cfg = cfg
@@ -78,7 +86,7 @@ class ServingEngine:
                              f"engine on {self.device}")
         self.params = params
 
-        self.sched = SlotScheduler(n_slots)
+        self.sched = SlotScheduler(n_slots, policy=shed)
         self._ledger = kvpool.SlotLedger(n_slots)
         self._next_tok = np.zeros((n_slots,), np.int64)
         self._results: dict[int, RequestResult] = {}
@@ -102,6 +110,7 @@ class ServingEngine:
         self._density_sum = 0.0
         self.finite = True
         self.peak_active = 0
+        self.n_rejected: dict = {}  # reason -> count
 
     # -- submission ---------------------------------------------------------
 
@@ -117,8 +126,20 @@ class ServingEngine:
         self._results[req.rid] = RequestResult(rid=req.rid, tokens=[],
                                                submit_s=self._now(),
                                                enqueue_tick=self.tick)
-        self.sched.submit(req, tick=self.tick)
+        reason = self.sched.submit(req, tick=self.tick)
+        if reason is not None:
+            self._reject(req.rid, reason)
         return req.rid
+
+    def _reject(self, rid: int, reason: str) -> None:
+        """Record a typed rejection: the request is finished, carries no
+        tokens, and its result says why."""
+        res = self._results[rid]
+        res.rejected = reason
+        res.finished_by = "rejected"
+        res.done_s = self._now()
+        res.finish_tick = self.tick
+        self.n_rejected[reason] = self.n_rejected.get(reason, 0) + 1
 
     def submit_prompt(self, prompt, max_tokens: int, **kw) -> int:
         rid = self._next_rid
@@ -147,7 +168,13 @@ class ServingEngine:
         res.admit_s = self._now()
         res.slot = tracker.slot
 
+    def _shed_phase(self) -> None:
+        """Expire queued requests whose admission deadline passed."""
+        for req, reason in self.sched.shed_expired(self.tick):
+            self._reject(req.rid, reason)
+
     def step(self) -> None:
+        self._shed_phase()
         for tracker in self.sched.admit():
             self._admit_one(tracker)
         self.peak_active = max(self.peak_active, len(self.sched.active))
@@ -224,6 +251,7 @@ class ServingEngine:
                 "decode_ticks": r.decode_ticks,
                 "finished_by": r.finished_by,
                 "status": r.status,
+                "rejected": r.rejected,
             }
             for r in results
         ]
@@ -247,5 +275,7 @@ class ServingEngine:
             "peak_kv_wire_bytes": self.peak_kv_wire_bytes,
             "peak_active": self.peak_active,
             "finite": self.finite,
+            "elastic": {"rejected": dict(self.n_rejected),
+                        "n_rejected": sum(self.n_rejected.values())},
             **stats,
         }

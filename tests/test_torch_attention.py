@@ -73,6 +73,27 @@ def test_flash_attention_plain_matches_reference_kernel(case):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
 
 
+def test_flash_attention_plain_version_keeps_its_gradient():
+    """On the CPU the wrapper's plain version stays differentiable (only
+    the card's kernel raises when a gradient is wanted): d/d(q, k, v) of a
+    weighted sum of the causal GQA output equal jax's gradients of the
+    reference's oracle (``impl="ref"``) within 2e-5."""
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((1, 4, 150, 32), (1, 2, 150, 32), (1, 2, 150, 32)))
+    wgt = rng.standard_normal(q.shape).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, impl="ref") * wgt)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    (flash_attention(tq, tk, tv) * torch.from_numpy(wgt)).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert got is not None
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=0, atol=2e-5)
+
+
 def test_flash_attention_noncausal_ragged_follows_the_oracle():
     """Non-causal with a ragged Skv (200): the port masks keys >= Skv and
     matches the reference's oracle (``impl="ref"``).  The reference's own

@@ -239,14 +239,25 @@ def test_backward_kernels_match_plain_and_repeat(card, which, m, k, n):
     assert bool(((got - want).abs() <= 2 * k * 2.0**-24 * absprod).all())
 
 
-def test_splitk_reduce_kernel_matches_plain(card):
+@pytest.mark.parametrize("chunks,m,n,offset", [
+    (5, 70, 130, 0), (1, 70, 130, 0), (2, 33, 64, 0), (7, 9, 50, 0), (196, 576, 64, 0),
+    (7, 70, 50, 1), (17, 5, 50, 0), (3, 3, 7, 2)])
+def test_splitk_reduce_kernel_matches_plain(card, chunks, m, n, offset):
+    """Bit-equal with SR off and on: one to 196 chunks, N = 50 (not a
+    multiple of 4), M * N not a multiple of a block's outputs, and a
+    partials tensor whose base is ``offset`` floats past 16-byte alignment
+    (the kernel reads 16-byte vectors only where every chunk is aligned)."""
     from repro_torch.kernels.masked_matmul.ops import splitk_reduce, splitk_reduce_reference
 
     gen = torch.Generator().manual_seed(3)
-    part = torch.randn(5, 70, 130, generator=gen).to(card)
+    flat = torch.randn(offset + chunks * m * n, generator=gen).to(card)
+    part = flat[offset:].view(chunks, m, n)
+    assert part.is_contiguous() and part.data_ptr() % 16 == 4 * offset % 16
+    before = splitk_reduce.launches
     for sr in (False, True):
         assert torch.equal(splitk_reduce(part, 11, apply_sr=sr),
                            splitk_reduce_reference(part, 11, apply_sr=sr))
+    assert splitk_reduce.launches == before + 2
 
 
 def test_tiny_cnn_trains_on_the_card_through_the_kernels(card):
@@ -325,15 +336,7 @@ def test_flash_attention_wrapper_raises_on_the_card(card):
         flash_attention(q, q[:, :, :, :32], q)
 
 
-@pytest.mark.parametrize("bsz,s,h,p,g,n,dtype", [
-    (1, 2000, 48, 64, 1, 128, "float32"), (2, 320, 4, 64, 2, 32, "float32"),
-    (1, 300, 4, 32, 1, 16, "bfloat16")])
-def test_ssd_scan_kernel_matches_plain(card, bsz, s, h, p, g, n, dtype):
-    """y and the final state against the chunked plain version at rel 1e-4
-    (the registry's compare; bf16 inputs are up-cast alike, and y is held
-    after its one bf16 rounding at rel 1e-2)."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked
-
+def _ssd_operands(card, bsz, s, h, p, g, n, dtype):
     gen = torch.Generator().manual_seed(s)
     dt_ = getattr(torch, dtype)
     x = torch.randn(bsz, s, h, p, generator=gen).to(card, dt_)
@@ -341,18 +344,128 @@ def test_ssd_scan_kernel_matches_plain(card, bsz, s, h, p, g, n, dtype):
     a = -torch.exp(torch.randn(h, generator=gen) * 0.5).to(card)
     b = (torch.randn(bsz, s, g, n, generator=gen) / n**0.5).to(card, dt_)
     c = (torch.randn(bsz, s, g, n, generator=gen) / n**0.5).to(card, dt_)
+    return x, dt, a, b, c
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+@pytest.mark.parametrize("bsz,s,h,p,g,n,dtype", [
+    (1, 2000, 48, 64, 1, 128, "float32"), (2, 320, 4, 64, 2, 32, "float32"),
+    (1, 300, 4, 32, 1, 16, "bfloat16"), (1, 333, 8, 32, 2, 64, "bfloat16"),
+    (2, 200, 6, 32, 2, 256, "float32"), (1, 129, 4, 64, 2, 16, "bfloat16"),
+    (1, 77, 2, 32, 1, 200, "float32")])
+def test_ssd_scan_kernel_matches_plain(card, bsz, s, h, p, g, n, dtype):
+    """y and the final state against the chunked plain version at rel 1e-4
+    (the registry's compare; bf16 inputs are up-cast alike, and y is held
+    after its one bf16 rounding at rel 1e-2): fp32 and bf16, G = 1 and 2,
+    P = 32 and 64, N from 16 to 256, ragged S."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked
+
+    dt_ = getattr(torch, dtype)
+    x, dt, a, b, c = _ssd_operands(card, bsz, s, h, p, g, n, dtype)
     before = ssd_scan.launches
     y, state = ssd_scan(x, dt, a, b, c, return_state=True)
     wy, wstate = ssd_scan_chunked(x, dt, a, b, c, return_state=True)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert y.dtype == dt_ and state.dtype == torch.float32
+    assert _rel(y, wy) <= (1e-2 if dtype == "bfloat16" else 1e-4)
+    assert _rel(state, wstate) <= 1e-4
 
-    def rel(got, want):
-        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
-    assert rel(y, wy) <= (1e-2 if dtype == "bfloat16" else 1e-4)
-    assert rel(state, wstate) <= 1e-4
+@pytest.mark.parametrize("bsz,s,h,p,g,n,dtype", [
+    (1, 2000, 48, 64, 1, 128, "float32"), (2, 333, 8, 32, 2, 64, "float32"),
+    (1, 300, 4, 64, 2, 256, "bfloat16")])
+def test_ssd_stage_kernels_match_plain_stages(card, bsz, s, h, p, g, n, dtype):
+    """Each stage kernel against its plain stage on the same inputs (the
+    plain outputs of the stages before it), rel 1e-4; the mamba2-780m
+    prefill's b/c are views of one projection, as the model passes them."""
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan.ops import (chunk_scan, chunk_scores, chunk_state,
+                                                  state_passing)
+
+    x, dt, a, b, c = _ssd_operands(card, bsz, s, h, p, g, n, dtype)
+    if g == 1:
+        bc = torch.cat([b, c], dim=-1)
+        b, c = bc[..., :n], bc[..., n:]
+    cb = ref.ssd_chunk_scores(b, c)
+    assert _rel(chunk_scores(b, c), cb) <= 1e-4
+    st, cum = ref.ssd_chunk_state(x, dt, a, b)
+    got_st, got_cum = chunk_state(x, dt, a, b)
+    assert _rel(got_st, st) <= 1e-4 and _rel(got_cum, cum) <= 1e-4
+    h_prev, final = ref.ssd_state_passing(st, cum)
+    got_h, got_final = state_passing(st, cum)
+    assert _rel(got_h[:, 1:], h_prev[:, 1:]) <= 1e-4 and not got_h[:, 0].any()
+    assert _rel(got_final, final) <= 1e-4
+    got_y = chunk_scan(x, dt, c, cb, cum, h_prev)
+    assert got_y.dtype == x.dtype
+    assert _rel(got_y, ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev)) <= (
+        1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
+def test_kernels_without_backward_raise_when_a_gradient_is_wanted(card, kernel):
+    """On card operands that require a gradient, under grad mode, the
+    kernel raises instead of returning an output with no graph; under
+    torch.no_grad() it launches."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    if kernel == "flash_attention":
+        fn = flash_attention
+        args = [torch.randn(1, 2, 64, 32, device=card) for _ in range(3)]
+    else:
+        fn = ssd_scan
+        args = list(_ssd_operands(card, 1, 130, 2, 32, 1, 16, "float32"))
+    for i in range(len(args)):
+        wanted = [t.clone().requires_grad_(j == i) for j, t in enumerate(args)]
+        with pytest.raises(ValueError, match="no gradient"):
+            fn(*wanted)
+        before = fn.launches
+        with torch.no_grad():
+            out = fn(*wanted)
+        assert fn.launches == before + 1 and not out.requires_grad
+
+
+def test_engine_on_the_card_sheds_as_on_the_cpu(card):
+    """The reduced llama3.2-1b served on the card with admission deadlines
+    of one tick: per request the CPU engine's tokens, finished_by, rejected
+    and finish_tick, and its n_rejected; requests 2 and 3 wait behind two
+    6-token requests and are shed with "deadline"."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_arch("llama3.2-1b").resolve(reduced=True)
+    params = lm_init(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab, (8 + i,), generator=gen).tolist() for i in range(4)]
+
+    def serve(device):
+        p = params if device == "cpu" else _to(params, device)
+        eng = ServingEngine(cfg, serving_config("quant_sparse"), params=p, n_slots=2,
+                            max_len=64, device=device)
+        for prompt in prompts:
+            eng.submit_prompt(prompt, 6, deadline_ticks=1)
+        return eng.run()
+
+    fields = ("tokens", "finished_by", "rejected", "finish_tick")
+    want, got = serve("cpu"), serve(torch.device("cuda", torch.cuda.current_device()))
+    assert [{f: r[f] for f in fields} for r in got["per_request"]] == \
+        [{f: r[f] for f in fields} for r in want["per_request"]]
+    assert got["elastic"] == want["elastic"] == {"rejected": {"deadline": 2}, "n_rejected": 2}
+    assert [r["tokens"] for r in got["per_request"][2:]] == [[], []]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def test_ssd_scan_wrapper_raises_on_the_card(card):

@@ -36,7 +36,8 @@ from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro_torch.configs import get_arch as tget_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
-    ssd_scan, ssd_scan_chunked, ssd_scan_reference)
+    chunk_scan, chunk_scores, chunk_state, ssd_scan, ssd_scan_chunked, ssd_scan_reference,
+    state_passing)
 from repro_torch.launch.serve import serving_config as tserving_config  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.layers import SpringContext as TContext  # noqa: E402
@@ -114,6 +115,74 @@ def test_ssd_scan_sequential_oracle_matches_reference_and_chunked_form():
     c_last = tc.repeat_interleave(2, dim=2)[:, -1]  # (B,H,N), 2 heads per group
     y_last = torch.einsum("bhn,bhnp->bhp", c_last, state)
     assert _rel(y_last.numpy(), seq[:, -1].numpy()) <= SCAN_REL
+
+
+def _model_decay_inputs(seed, bsz, s, h, p, g, n):
+    """The registry's x, b, c with mamba2-780m's own decays: ``ssm_init``'s
+    a = -linspace(1, 16) and dt = softplus(N(0, 1)), so a chunk's
+    cumulative log decay reaches about -2000."""
+    x, dt, _, b, c = _scan_inputs(seed, bsz, s, h, p, g, n)
+    return x, dt, -np.linspace(1.0, 16.0, h).astype(np.float32), b, c
+
+
+#: the staged plain versions' cases: the registry's three examples, a
+#: ragged S, G > 1 with several heads per group, and the model's decays
+STAGE_CASES = {"registry0": 0, "registry1": 1, "registry2": 2,
+               "ragged": (5, 1, 300, 4, 32, 1, 16), "groups": (6, 2, 200, 6, 64, 3, 16),
+               "model decays": (7, 1, 260, 8, 32, 1, 32)}
+
+
+def _stage_case(name):
+    case = STAGE_CASES[name]
+    if isinstance(case, int):
+        return _ssd_examples()[case]
+    if name == "model decays":
+        return _model_decay_inputs(*case)
+    return _scan_inputs(*case)
+
+
+@pytest.mark.parametrize("name", list(STAGE_CASES))
+def test_staged_plain_versions_compose_to_the_scan(name):
+    """The four stages (scores once per group, chunk state and decays,
+    state passing, chunk scan), composed through the wrappers' CPU path,
+    give ``ssd_scan_chunked``'s y and final state (rel 1e-6: the same fp32
+    math, batched otherwise) and the interpret-mode Pallas kernel's y (rel
+    1e-4, the registry's compare)."""
+    args = _stage_case(name)
+    x, dt, a, b, c = (torch.from_numpy(v) for v in args)
+    cb = chunk_scores(b, c)
+    st, cum = chunk_state(x, dt, a, b)
+    h_prev, state = state_passing(st, cum)
+    y = chunk_scan(x, dt, c, cb, cum, h_prev)
+    nc, g = -(-x.shape[1] // 128), b.shape[2]
+    assert tuple(cb.shape) == (x.shape[0], nc, g, 128, 128)
+    assert not torch.triu(cb, diagonal=1).any()  # nothing above the diagonal
+    assert tuple(h_prev.shape) == tuple(st.shape) == (x.shape[0], nc, x.shape[2], b.shape[3],
+                                                       x.shape[3])
+    assert not h_prev[:, 0].any()  # the first chunk starts from h = 0
+    wy, wstate = ssd_scan_chunked(x, dt, a, b, c, return_state=True)
+    assert _rel(y.numpy(), wy.numpy()) <= 1e-6
+    assert _rel(state.numpy(), wstate.numpy()) <= 1e-6
+    want = np.asarray(jssd.ssd_scan(*(jnp.asarray(v) for v in args), impl="interpret"))
+    assert _rel(y.numpy(), want) <= SCAN_REL
+
+
+def test_ssd_scan_plain_version_keeps_its_gradient():
+    """On the CPU the wrapper's plain version stays differentiable (only
+    the card's kernels raise when a gradient is wanted): d/d(x, dt, b, c) of
+    a weighted sum of y equal jax's gradients of the reference's jnp form
+    at the registry's compare."""
+    args = _scan_inputs(8, 1, 200, 4, 32, 2, 16)
+    wgt = np.random.default_rng(9).standard_normal(args[0].shape).astype(np.float32)
+
+    def loss(x, dt, b, c):
+        return jnp.sum(jssd.ssd_scan_jnp(x, dt, jnp.asarray(args[2]), b, c) * wgt)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(args[i]) for i in (0, 1, 3, 4)))
+    x, dt, b, c = (torch.from_numpy(args[i]).requires_grad_(True) for i in (0, 1, 3, 4))
+    (ssd_scan(x, dt, torch.from_numpy(args[2]), b, c) * torch.from_numpy(wgt)).sum().backward()
+    for got, w in zip((x.grad, dt.grad, b.grad, c.grad), want):
+        assert got is not None and _rel(got.numpy(), w) <= SCAN_REL
 
 
 @pytest.mark.parametrize("bad", ["ndim", "dt", "groups"])
