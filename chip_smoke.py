@@ -40,7 +40,8 @@ failure:
                c0_1; a block-pruned case whose skip flags equal the plain
                version's; split-K forward with SR and the split-K reduce,
                exact (the reduce also at N = 50 from an unaligned base),
-               the reduce timed on device time beside torch.sum's;
+               the reduce timed as a call and on device time with L2
+               flushed, each beside torch.sum's;
   5c. train  — full-width VGG-19 at 224x224, batch 32, quant_sparse with SR,
                the sparse backward and the memstash stash policy, sgdm with
                Q4.16 SR weights, 3 steps through
@@ -63,8 +64,8 @@ failure:
                prefill shape (x (1, 2000, 48, 64), b/c (1, 2000, 1, 128), read as
                views of one projection as the model does), also at the model's
                decays; each of the four stage kernels against its plain stage
-               (rel 1e-4); timed, each stage's device time beside the total's
-               (profiler) and the call's; the kernel's and
+               (rel 1e-4); timed as a call, and each stage and the total on
+               device time with L2 flushed; the kernel's and
                the chunked plain version's deviation from a float64 run of the
                sequential oracle, printed (not gated);
   6c. serve_long — full-width llama3.2-1b, quant_sparse, 4 slots, 4 requests,
@@ -152,24 +153,52 @@ def timed(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
-    """Mean device ms per call of ``fn``: the device time of every kernel it
-    launches, from torch.profiler over ``iters`` calls after ``warmup``.
-    Unlike :func:`timed` it excludes host time, which sets the pace of a
-    loop of calls shorter than their launch overhead.  None when the
-    profiler records no device activity."""
+#: bytes read ahead of each call that :func:`cold_device_ms` times: ten
+#: times the H100's 50 MB L2, so none of the call's operands is left there,
+#: and about 0.17 ms of the card's time, in which the host queues the call
+L2_FLUSH_BYTES = 512 * 2**20
+
+
+def cold_device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of one call of ``fn`` with its operands out of L2:
+    CUDA events just around each call, each call queued behind a read of
+    :data:`L2_FLUSH_BYTES`.  A read leaves L2 holding clean lines, so the
+    call pays no write-back of the flush's own data.  The card is still
+    reading while the host queues the call, so the events time the call's
+    kernels and not its host time.  :func:`timed` times a loop of calls
+    instead, which the host paces when a call is shorter than its host
+    time and which finds a repeated call's operands in L2."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush.amax()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def host_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean host ms per call of ``fn``: the wall time of ``iters`` calls
+    queued without a wait (the card runs each in less time than the host
+    takes to queue it, so the host never waits on a full queue)."""
+    import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(r[1] for r in device_time_by_kernel(prof, iters))
-    return busy or None
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall * 1e3 / iters
 
 
 def device_time_by_kernel(prof, per: int = 1) -> list:
@@ -430,26 +459,30 @@ def phase_backward(dev, gen) -> dict:
             red_err = max(red_err, float((got - want).abs().max()))
             if not torch.equal(got, want):
                 fail(f"splitk_reduce {tuple(pt.shape)} differs from its plain version")
-    # the call is shorter than its host overhead, so a loop of calls times
-    # the host: the kernel and torch.sum are held on device time (profiler),
-    # and the call times are kept beside them
-    red_call_ms = timed(lambda: mm.splitk_reduce(part), 20)
+    # ms: a loop of calls, as every row has it (the call is about as short
+    # on the card as its host time, so it is long enough for the host to
+    # pace); device_ms: the kernel alone with the partials out of L2, to
+    # hold against the byte bound
+    red_ms = timed(lambda: mm.splitk_reduce(part), 200, warmup=20)
+    red_lib_ms = timed(lambda: torch.sum(part, 0), 200, warmup=20)
     red_plain_ms = timed(lambda: mm.splitk_reduce_reference(part), 3, warmup=1)
-    red_lib_call_ms = timed(lambda: torch.sum(part, 0), 20)
-    red_ms = device_ms(lambda: mm.splitk_reduce(part))
-    red_lib_ms = device_ms(lambda: torch.sum(part, 0))
+    red_dev_ms = cold_device_ms(lambda: mm.splitk_reduce(part))
+    red_lib_dev_ms = cold_device_ms(lambda: torch.sum(part, 0))
+    red_host_ms = host_ms(lambda: mm.splitk_reduce(part))
+    red_lib_host_ms = host_ms(lambda: torch.sum(part, 0))
     red_b, red_by = bound(4.0 * (part.numel() + part[0].numel()), part.numel())
     print(f"[backward] split-K forward with SR (32,25088)@(25088,64) exact; splitk_reduce "
-          f"(196,576,64), (7,70,50) unaligned and (17,5,50) exact; at c0_1 device time: kernel "
-          f"{red_ms} ms, torch.sum {red_lib_ms} ms; call time: kernel {red_call_ms:.4f} ms, "
-          f"torch.sum {red_lib_call_ms:.4f} ms; plain {red_plain_ms:.4f} ms, bound "
-          f"{red_b:.4f} ms ({red_by})", flush=True)
+          f"(196,576,64), (7,70,50) unaligned and (17,5,50) exact; at c0_1 a call: kernel "
+          f"{red_ms:.5f} ms, torch.sum {red_lib_ms:.5f} ms; device time, L2 flushed: kernel "
+          f"{red_dev_ms:.5f} ms, torch.sum {red_lib_dev_ms:.5f} ms; host time a call: kernel "
+          f"{red_host_ms:.5f} ms, torch.sum {red_lib_host_ms:.5f} ms; plain {red_plain_ms:.4f} "
+          f"ms, bound {red_b:.5f} ms ({red_by})", flush=True)
     return {"rows": rows, "err": err_max,
-            "reduce": {"ms": red_ms, "plain_ms": red_plain_ms, "library_ms": red_lib_ms,
-                       "call_ms": red_call_ms, "library_call_ms": red_lib_call_ms,
+            "reduce": {"ms": red_ms, "device_ms": red_dev_ms, "plain_ms": red_plain_ms,
+                       "library_ms": red_lib_ms, "library_device_ms": red_lib_dev_ms,
+                       "host_ms": red_host_ms, "library_host_ms": red_lib_host_ms,
                        "bound_ms": red_b, "bound_by": red_by, "max_abs_err": red_err,
-                       "shape": "c0_1 dw partial sums (196, 576, 64); ms and library_ms are "
-                                "device time, call_ms and library_call_ms a timed loop of calls"}}
+                       "shape": "c0_1 dw partial sums (196, 576, 64)"}}
 
 
 def profile_train_step(dev, params, memstash) -> dict:
@@ -677,10 +710,8 @@ def phase_ssd_scan(dev, gen) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_scan import ref
-    from repro_torch.kernels.ssd_scan.ops import (chunk_scan, chunk_scores, chunk_state,
-                                                  ssd_scan, ssd_scan_chunked,
-                                                  ssd_scan_reference, state_passing)
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked, ssd_scan_reference
 
     def rel(got, want) -> float:
         return float((got.double() - want.double()).abs().max() / want.double().abs().max())
@@ -725,16 +756,20 @@ def phase_ssd_scan(dev, gen) -> dict:
     err = max(err, check("mamba2-780m prefill, the model's decays a = -linspace(1, 16)",
                          model_args))
 
-    # each stage kernel against its plain stage, on the plain outputs of the
-    # stages before it, at the prefill shape
-    cb = ref.ssd_chunk_scores(b, c)
-    st, cum = ref.ssd_chunk_state(x, dt, a, b)
-    h_prev, final = ref.ssd_state_passing(st, cum)
-    stages = {"chunk_scores": (lambda: chunk_scores(b, c), cb),
-              "chunk_state": (lambda: chunk_state(x, dt, a, b), (st, cum)),
-              "state_passing": (lambda: state_passing(st, cum), (h_prev, final)),
-              "chunk_scan": (lambda: chunk_scan(x, dt, c, cb, cum, h_prev),
-                             ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev))}
+    # each stage kernel's launcher, on the operands ssd_scan checks and
+    # hands it, against its plain stage fed the plain outputs of the stages
+    # before it (the fp32 workspaces made contiguous, as the kernels write
+    # them), at the prefill shape
+    ops._check_cuda(x, dt, a, b, c)
+    xr, dtr, br, cr = ops._rows(x, dt, b, c)
+    cb = ref.ssd_chunk_scores(br, cr).contiguous()
+    st, cum = (t.contiguous() for t in ref.ssd_chunk_state(xr, dtr, a, br))
+    h_prev, final = (t.contiguous() for t in ref.ssd_state_passing(st, cum))
+    stages = {"chunk_scores": (lambda: ops._scores(br, cr), cb),
+              "chunk_state": (lambda: ops._state(xr, dtr, a, br), (st, cum)),
+              "state_passing": (lambda: ops._passing(st, cum), (h_prev, final)),
+              "chunk_scan": (lambda: ops._scan(xr, dtr, cr, cb, cum, h_prev),
+                             ref.ssd_chunk_scan(xr, dtr, cr, cb, cum, h_prev))}
     stage_rows = {}
     for name, (fn, want) in stages.items():
         got = fn()
@@ -742,25 +777,16 @@ def phase_ssd_scan(dev, gen) -> dict:
         r = max(rel(g_, w_) for g_, w_ in pairs)
         e = max(_max_err(g_, w_) for g_, w_ in pairs)
         err = max(err, e)
-        stage_rows[name] = {"rel_err": r, "max_abs_err": e}
         print(f"[ssd_scan] stage {name}: rel err {r:.3g} (rel 1e-4) against its plain stage",
               flush=True)
         if not r <= 1e-4:
             fail(f"ssd_scan stage {name} disagrees with its plain stage")
-    # each stage's device time, on the contiguous workspaces the kernels
-    # hand each other (the plain stages' outputs would be copied first)
-    cb = chunk_scores(b, c)
-    st, cum = chunk_state(x, dt, a, b)
-    h_prev, final = state_passing(st, cum)
-    for name, fn in (("chunk_scores", lambda: chunk_scores(b, c)),
-                     ("chunk_state", lambda: chunk_state(x, dt, a, b)),
-                     ("state_passing", lambda: state_passing(st, cum)),
-                     ("chunk_scan", lambda: chunk_scan(x, dt, c, cb, cum, h_prev))):
-        stage_rows[name]["device_ms"] = device_ms(fn)
+        stage_rows[name] = {"rel_err": r, "max_abs_err": e,
+                            "device_ms": cold_device_ms(fn)}
     del cb, st, cum, h_prev, final, stages
 
     ms = timed(lambda: ssd_scan(*args, return_state=True), 20)
-    dev_ms = device_ms(lambda: ssd_scan(*args, return_state=True))
+    dev_ms = cold_device_ms(lambda: ssd_scan(*args, return_state=True))
     plain_ms = timed(lambda: ssd_scan_chunked(*args, return_state=True), 5, warmup=1)
     nc = -(-s // SSD_CHUNK)
     # live (t, j <= t) pairs over the S real steps; C·B^T once for the one
@@ -769,9 +795,9 @@ def phase_ssd_scan(dev, gen) -> dict:
     flops = 2.0 * (pairs * n + h * (pairs * p + 2 * s * n * p))
     nbytes = 4.0 * (2 * s * h * p + 2 * s * n + s * h + h + h * n * p)
     b_ms, b_by = bound(nbytes, flops)
-    print(f"[ssd_scan] mamba2-780m prefill: kernel {ms:.4f} ms a call, {dev_ms} ms of device "
-          f"time ({flops / ms / 1e9:.2f} TFLOP/s a call; stages' device ms "
-          + ", ".join(f"{k} {v['device_ms']}" for k, v in stage_rows.items())
+    print(f"[ssd_scan] mamba2-780m prefill: kernel {ms:.4f} ms a call, {dev_ms:.4f} ms of "
+          f"device time with L2 flushed ({flops / ms / 1e9:.2f} TFLOP/s a call; stages' device "
+          "ms " + ", ".join(f"{k} {v['device_ms']:.4f}" for k, v in stage_rows.items())
           + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
 
     # which drifts from the recurrence: the kernel or the chunked plain
@@ -793,29 +819,33 @@ def phase_ssd_scan(dev, gen) -> dict:
 def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: tuple,
                 tag: str, late: int = 0) -> dict:
     """(6c/6d) full-width ``arch`` served in quant_sparse, gen GEN, through
-    the engine as ``serve_session`` builds it; the counters are zeroed just
-    before and read just after, and every kernel in ``needed`` must have
-    launched.  ``late`` more requests with an admission deadline of 0 ticks
-    queue behind the full pool: each must be shed with ``"deadline"`` and
-    no tokens."""
+    ``serve_session``; the counters are zeroed just before and read just
+    after, and every kernel in ``needed`` must have launched.  ``late``
+    more requests with an admission deadline of 0 ticks queue behind the
+    full pool: each must be shed with ``"deadline"`` and no tokens."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.launch.serve import serve_session, serving_config, synthetic_prompts
     from repro_torch.serving.engine import ServingEngine
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    cfg = get_arch(arch).resolve(False)
-    engine = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=slots,
-                           max_len=prompt + GEN + 1, seed=0, device=dev)
-    prompts = synthetic_prompts(requests + late, prompt, cfg.vocab, 0)
-    for i, p in enumerate(prompts):
-        engine.submit_prompt(p, GEN, seed=i, deadline_ticks=0 if i >= requests else None)
-    out = engine.run()
+    if late:
+        # serve_session's own body (launch/serve.py), which takes no
+        # deadline, with the late requests submitted after its own
+        cfg = get_arch(arch).resolve(False)
+        engine = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=slots,
+                               max_len=prompt + GEN + 1, seed=0, device=dev)
+        for i, p in enumerate(synthetic_prompts(requests + late, prompt, cfg.vocab, 0)):
+            engine.submit_prompt(p, GEN, seed=i, deadline_ticks=0 if i >= requests else None)
+        out = engine.run()
+    else:
+        out = serve_session(arch, reduced=False, mode="quant_sparse", slots=slots,
+                            queue=requests, prompt_len=prompt, gen=GEN, seed=0, device=dev)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = kernels.launch_counts()
@@ -1416,7 +1446,10 @@ def main() -> None:
          "launches": total["splitk_reduce"], **bwd["reduce"],
          "note": "masked_matmul's split-K reduce, one launch per product with K > 8192; "
                  "the Pallas kernel carries its K sum across the sequential grid axis; "
-                 "library: torch.sum(partials, 0)",
+                 "library: torch.sum(partials, 0); ms and library_ms: a timed loop of calls; "
+                 "device_ms and library_device_ms: one call's kernel with L2 flushed ahead "
+                 "of it, to hold against the byte bound; host_ms and library_host_ms: the "
+                 "host's time to queue one call",
          "launches_by_path": by_path["splitk_reduce"]},
         {"name": "stochastic_round", "route": "cuda",
          "source": "src/repro_torch/csrc/stochastic_round.cu",
@@ -1436,8 +1469,9 @@ def main() -> None:
          "replaces": "src/repro/kernels/ssd_scan/ssd_kernel.py:71",
          "launches": total["ssd_scan"], **ssd, "library_ms": None,
          "note": "one counted launch per call runs four stage kernels: chunk scores (once "
-                 "per group), chunk state, state passing, chunk scan; ms is a timed loop of "
-                 "calls, device_ms the kernels' device time; stage times in chip_smoke.json",
+                 "per group), chunk state, state passing, chunk scan; ms: a timed loop of "
+                 "calls; device_ms: one call's kernels with L2 flushed ahead of it; stage "
+                 "times in chip_smoke.json",
          "launches_by_path": by_path["ssd_scan"]},
         {"name": "dangling_filter", "route": "cuda",
          "source": "src/repro_torch/csrc/dangling_filter.cu",

@@ -15,6 +15,7 @@ load raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +23,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -104,6 +107,21 @@ def load(name: str) -> ctypes.CDLL:
             raise KernelBuildError(f"loading {name}: {e}") from e
         _loaded[name] = lib
     return lib
+
+
+def stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev`` as an integer handle, read without
+    building a ``torch.cuda.Stream`` (which costs more host time than a
+    decode product takes on the card)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def on_device(dev: torch.device):
+    """Launch on ``dev``: its context is entered only when it is not the
+    current device, since entering it costs more host time than a decode
+    product takes on the card."""
+    return (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+            else contextlib.nullcontext())
 
 
 def check(status: int, kernel: str) -> None:

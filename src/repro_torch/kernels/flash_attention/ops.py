@@ -75,14 +75,13 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     out = torch.empty_like(q)  # keeps q's layout when q is dense
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with cuda.on_device(q.device):
         cuda.check(_lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, hkv, sq, skv, d, int(q.dtype == torch.bfloat16),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), 0 if window is None else int(window), 1.0 / (d**0.5), stream),
-            "flash_attention")
+            int(causal), 0 if window is None else int(window), 1.0 / (d**0.5),
+            cuda.stream(q.device)), "flash_attention")
     flash_attention.launches += 1
     return out
 

@@ -63,12 +63,11 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     lead, block_len = x.shape[:-1], x.shape[-1]
     x2 = x.contiguous().reshape(-1, block_len)
     n_words = -(-block_len // 32)
-    with torch.cuda.device(x.device):
+    with cuda.on_device(x.device):
         out = torch.empty((x2.shape[0], n_words), dtype=torch.uint32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         cuda.check(_lib().mask_pack_launch(x2.data_ptr(), out.data_ptr(), x2.shape[0],
-                                           block_len, _ELEM_BYTES[x.dtype], stream),
-                   "mask_pack")
+                                           block_len, _ELEM_BYTES[x.dtype],
+                                           cuda.stream(x.device)), "mask_pack")
     mask_pack.launches += 1
     return out.reshape(*lead, n_words)
 
@@ -116,11 +115,10 @@ def _filter_launch(a: torch.Tensor, w: torch.Tensor):
         raise ValueError(f"dangling_filter: a on {a.device}, w on {w.device}")
     a, w = a.contiguous(), w.contiguous()
     a_out, w_out = torch.empty_like(a), torch.empty_like(w)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    with cuda.on_device(a.device):
         cuda.check(_filter_lib().dangling_filter_launch(
             a.data_ptr(), w.data_ptr(), a_out.data_ptr(), w_out.data_ptr(), a.numel(),
-            _ELEM_BYTES[a.dtype], stream), "dangling_filter")
+            _ELEM_BYTES[a.dtype], cuda.stream(a.device)), "dangling_filter")
     dangling_filter.launches += 1
     return a_out, w_out
 

@@ -95,11 +95,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _stream(dev: torch.device) -> int:
-    """The current CUDA stream of ``dev`` as an integer handle, read without
-    building a ``torch.cuda.Stream`` (which costs more host time than a
-    decode product takes on the card)."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
+@functools.cache
+def _epilogue(il: int, fl: int) -> tuple:
+    """The SR epilogue's (2^fl, eps, min, max) on Q(il, fl) as C floats,
+    converted once: ctypes converting four Python floats at every launch
+    costs host time that a short launch does not hide."""
+    eps = 2.0**-fl
+    return tuple(ctypes.c_float(v) for v in (2.0**fl, eps, -(2.0**il), 2.0**il - eps))
 
 
 def split_k(k: int) -> tuple[int, int]:
@@ -137,9 +139,9 @@ def tile_occupancy(a: torch.Tensor, tile_rows: int, tile_cols: int) -> torch.Ten
                       device=a.device)
     if -(-occ.shape[1] // 8) > 65535:  # groups of 8 column tiles on grid y
         raise ValueError(f"tile_occupancy: {occ.shape[1]} column tiles exceed the grid")
-    stream = _stream(a.device)
     cuda.check(_lib().tile_occupancy_launch(a.data_ptr(), rows, cols, tile_rows, tile_cols,
-                                            occ.data_ptr(), stream), "tile_occupancy")
+                                            occ.data_ptr(), cuda.stream(a.device)),
+               "tile_occupancy")
     tile_occupancy.launches += 1
     return occ
 
@@ -246,23 +248,18 @@ def _run(kernel: str, a, b, seed: int, il: int, fl: int, apply_sr: bool, op: str
     m, n, k = _checked_shape(a, b, op)
     chunk_tiles, chunks = split_k(k)
     _, n_pad, _ = padded_dims(m, n, k)
-    eps = 2.0**-fl
     dev = a.device
-    # entering the device's context costs more host time than a decode
-    # product takes on the card, so it is entered only when needed
-    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
+    with cuda.on_device(dev):
         a, lda, a_col = _layout(a)
         b, ldb, b_col = _layout(b)
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
         partial = (torch.empty((chunks, m, n), dtype=torch.float32, device=dev)
                    if chunks > 1 else None)
-        stream = _stream(dev)
         cuda.check(launch_fn(
             a, lda, a_col, b, ldb, b_col, out.data_ptr(),
             0 if partial is None else partial.data_ptr(), m, n, k, chunk_tiles, chunks,
-            n_pad, int(seed) & 0xFFFFFFFF, int(apply_sr), 2.0**fl, eps, -(2.0**il),
-            2.0**il - eps, stream), f"{op} ({kernel} kernel)")
+            n_pad, int(seed) & 0xFFFFFFFF, int(apply_sr), *_epilogue(il, fl),
+            cuda.stream(dev)), f"{op} ({kernel} kernel)")
         if partial is not None:
             out = splitk_reduce(partial, seed, il=il, fl=fl, apply_sr=apply_sr)
     return out
@@ -333,15 +330,15 @@ def splitk_reduce(partial: torch.Tensor, seed: int = 0, *, il: int = 4, fl: int 
     if not (partial.dtype == torch.float32 and partial.ndim == 3 and partial.is_contiguous()):
         raise ValueError("splitk_reduce: needs a contiguous (chunks, M, N) fp32 tensor")
     chunks, m, n = partial.shape
-    _, n_pad, _ = padded_dims(m, n, 1)
     out = torch.empty((m, n), dtype=torch.float32, device=partial.device)
     if out.numel() == 0:
         return out
-    eps = 2.0**-fl
-    stream = _stream(partial.device)
+    # the call is about as short on the card as its host time, so the SR
+    # counter's n_pad is padded_dims' BN rounding inlined
     cuda.check(_lib().splitk_reduce_launch(
-        partial.data_ptr(), out.data_ptr(), m, n, chunks, n_pad, int(seed) & 0xFFFFFFFF,
-        int(apply_sr), 2.0**fl, eps, -(2.0**il), 2.0**il - eps, stream), "splitk_reduce")
+        partial.data_ptr(), out.data_ptr(), m, n, chunks, -(-n // BN) * BN,
+        int(seed) & 0xFFFFFFFF, int(apply_sr), *_epilogue(il, fl), cuda.stream(partial.device)),
+        "splitk_reduce")
     splitk_reduce.launches += 1
     return out
 

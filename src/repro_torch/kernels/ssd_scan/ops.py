@@ -13,10 +13,11 @@ have no backward (nor has the reference's Pallas kernel), so on the card
 a call that autograd would need to differentiate raises instead of
 dropping the gradient; the plain version stays differentiable.
 
-The stages are public too, each on the card or, for CPU tensors, as its
-plain version in ``ref.py``: :func:`chunk_scores`, :func:`chunk_state`,
-:func:`state_passing` and :func:`chunk_scan`.  Only ``ssd_scan`` counts
-launches.
+Each stage kernel has its launcher here (``_scores``, ``_state``,
+``_passing``, ``_scan``, on operands :func:`ssd_scan` has checked) and its
+plain version in ``ref.py`` (``ssd_chunk_scores``, ``ssd_chunk_state``,
+``ssd_state_passing``, ``ssd_chunk_scan``); the card tests and
+``chip_smoke.py`` hold each launcher against its plain stage.
 
 x, b and c are read through their strides (only the last axis must be
 contiguous), so the model hands the kernel the views it splits off its
@@ -26,18 +27,15 @@ kernels as the reference's padding with dt = 0, x = b = c = 0.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.ssd_scan import ref
 from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_chunked, ssd_scan_reference
 
-__all__ = ["ssd_scan", "ssd_scan_chunked", "ssd_scan_reference", "CHUNK", "chunk_scores",
-           "chunk_state", "state_passing", "chunk_scan"]
+__all__ = ["ssd_scan", "ssd_scan_chunked", "ssd_scan_reference", "CHUNK"]
 
 #: head dims (P) the CUDA kernels are instantiated for, and the largest state
 HEAD_DIMS = (32, 64)
@@ -61,17 +59,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(x, dt, a, b, c) -> None:
-    """Shapes: x (B,S,H,P), dt (B,S,H), a (H,) (None where a stage does not
-    read it), b/c (B,S,G,N) with H % G == 0."""
-    if x.ndim != 4 or dt.ndim != 3 or (a is not None and a.ndim != 1) or b.ndim != 4 \
-            or c.ndim != 4:
+    if x.ndim != 4 or dt.ndim != 3 or a.ndim != 1 or b.ndim != 4 or c.ndim != 4:
         raise ValueError("ssd_scan: x (B,S,H,P), dt (B,S,H), a (H,), b/c (B,S,G,N)")
     bsz, s, h, _ = x.shape
-    if (tuple(dt.shape) != (bsz, s, h) or (a is not None and tuple(a.shape) != (h,))
-            or b.shape != c.shape or tuple(b.shape[:2]) != (bsz, s)):
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,) or b.shape != c.shape
+            or tuple(b.shape[:2]) != (bsz, s)):
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
-                         f"b {tuple(b.shape)}, c {tuple(c.shape)} disagree"
-                         + ("" if a is None else f" (a {tuple(a.shape)})"))
+                         f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)} disagree")
     if b.shape[2] == 0 or h % b.shape[2]:
         raise ValueError(f"ssd_scan: {h} heads do not divide into {b.shape[2]} groups")
 
@@ -82,22 +76,15 @@ def _check_cuda(x, dt, a, b, c) -> None:
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"ssd_scan: CUDA takes fp32 or bf16 x/b/c of one dtype, got "
                         f"{x.dtype}, {b.dtype}, {c.dtype}")
-    ops = tuple(t for t in (x, dt, a, b, c) if t is not None)
-    if dt.dtype != torch.float32 or (a is not None and a.dtype != torch.float32):
-        raise TypeError(f"ssd_scan: CUDA takes fp32 dt and a, got {dt.dtype}, "
-                        f"{None if a is None else a.dtype}")
-    if any(t.device != x.device for t in ops):
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: CUDA takes fp32 dt and a, got {dt.dtype}, {a.dtype}")
+    if any(t.device != x.device for t in (dt, a, b, c)):
         raise ValueError("ssd_scan: every operand must be on one CUDA device")
     p, n = x.shape[3], b.shape[3]
     if p not in HEAD_DIMS or not 1 <= n <= MAX_STATE:
         raise ValueError(f"ssd_scan: head_dim {p} not in {HEAD_DIMS} or d_state {n} "
                          f"not in [1, {MAX_STATE}]")
-    _no_gradient(*ops)
-
-
-def _no_gradient(*ts) -> None:
-    """The kernels have no backward: raise where autograd would need one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
         raise ValueError("ssd_scan: the kernel forward has no gradient; "
                          "run it under torch.no_grad() or on plain tensors")
 
@@ -105,24 +92,6 @@ def _no_gradient(*ts) -> None:
 def _rows(*ts):
     """The operands with a contiguous last axis (views are kept)."""
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
-
-
-def _f32(t, shape, device) -> torch.Tensor:
-    """A stage's fp32 workspace operand, made contiguous for the kernel."""
-    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"ssd_scan: a stage operand must be an fp32 {tuple(shape)} tensor "
-                         f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    return t.contiguous()
-
-
-def _stream(dev: torch.device) -> int:
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
-def _on(dev: torch.device):
-    """Launch on ``dev``: enter its context only when it is not current."""
-    return (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-            else contextlib.nullcontext())
 
 
 def _bf16(t) -> int:
@@ -138,7 +107,7 @@ def _scores(b, c):
                      device=b.device)
     cuda.check(_lib().ssd_chunk_scores_launch(
         b.data_ptr(), c.data_ptr(), _bf16(b), bsz, s, g, n, *b.stride()[:3], *c.stride()[:3],
-        cb.data_ptr(), _stream(b.device)), "ssd_chunk_scores")
+        cb.data_ptr(), cuda.stream(b.device)), "ssd_chunk_scores")
     return cb
 
 
@@ -151,7 +120,7 @@ def _state(x, dt, a, b):
     cuda.check(_lib().ssd_chunk_state_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), _bf16(x), bsz, s, h, p, g, n,
         *x.stride()[:3], *dt.stride(), *b.stride()[:3], st.data_ptr(), cum.data_ptr(),
-        _stream(x.device)), "ssd_chunk_state")
+        cuda.stream(x.device)), "ssd_chunk_state")
     return st, cum
 
 
@@ -161,7 +130,7 @@ def _passing(st, cum):
     final = torch.empty((bsz, h, n, p), dtype=torch.float32, device=st.device)
     cuda.check(_lib().ssd_state_passing_launch(
         st.data_ptr(), cum.data_ptr(), bsz, nc, h, n * p, h_prev.data_ptr(), final.data_ptr(),
-        _stream(st.device)), "ssd_state_passing")
+        cuda.stream(st.device)), "ssd_state_passing")
     return h_prev, final
 
 
@@ -172,69 +141,8 @@ def _scan(x, dt, c, cb, cum, h_prev):
     cuda.check(_lib().ssd_chunk_scan_launch(
         x.data_ptr(), dt.data_ptr(), c.data_ptr(), cb.data_ptr(), cum.data_ptr(),
         h_prev.data_ptr(), _bf16(x), bsz, s, h, p, g, n, *x.stride()[:3], *dt.stride(),
-        *c.stride()[:3], y.data_ptr(), _stream(x.device)), "ssd_chunk_scan")
+        *c.stride()[:3], y.data_ptr(), cuda.stream(x.device)), "ssd_chunk_scan")
     return y
-
-
-def chunk_scores(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Stage 1, ``cb`` (B, NC, G, L, L): the kernel on CUDA tensors,
-    :func:`ref.ssd_chunk_scores` on CPU tensors."""
-    if not b.is_cuda:
-        return ref.ssd_chunk_scores(b, c)
-    if b.ndim != 4 or b.shape != c.shape or b.dtype not in _DTYPES or c.dtype != b.dtype \
-            or c.device != b.device or not 1 <= b.shape[3] <= MAX_STATE:
-        raise ValueError("ssd_scan: chunk_scores takes b/c (B,S,G,N) of one fp32 or bf16 "
-                         f"dtype with N <= {MAX_STATE}")
-    _no_gradient(b, c)
-    with _on(b.device):
-        return _scores(*_rows(b, c))
-
-
-def chunk_state(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """Stage 2, ``(chunk_state, cum)``: the kernel on CUDA tensors,
-    :func:`ref.ssd_chunk_state` on CPU tensors."""
-    if not x.is_cuda:
-        return ref.ssd_chunk_state(x, dt, a, b)
-    _check(x, dt, a, b, b)
-    _check_cuda(x, dt, a, b, b)
-    x, dt, b = _rows(x, dt, b)
-    with _on(x.device):
-        return _state(x, dt, a.contiguous(), b)
-
-
-def state_passing(chunk_state: torch.Tensor, cum: torch.Tensor) -> tuple:
-    """Stage 3, ``(h_prev, final_state)``: the kernel on CUDA tensors,
-    :func:`ref.ssd_state_passing` on CPU tensors."""
-    if not chunk_state.is_cuda:
-        return ref.ssd_state_passing(chunk_state, cum)
-    bsz, nc, h, n, p = chunk_state.shape
-    chunk_state = _f32(chunk_state, (bsz, nc, h, n, p), chunk_state.device)
-    cum = _f32(cum, (bsz, nc, h, CHUNK), chunk_state.device)
-    if p not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan: head_dim {p} not in {HEAD_DIMS}")
-    _no_gradient(chunk_state, cum)
-    with _on(cum.device):
-        return _passing(chunk_state, cum)
-
-
-def chunk_scan(x: torch.Tensor, dt: torch.Tensor, c: torch.Tensor, cb: torch.Tensor,
-               cum: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
-    """Stage 4, y (B, S, H, P) in x's dtype: the kernel on CUDA tensors,
-    :func:`ref.ssd_chunk_scan` on CPU tensors."""
-    if not x.is_cuda:
-        return ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev)
-    bsz, s, h, p = x.shape
-    g, n = c.shape[2], c.shape[3]
-    nc = -(-s // CHUNK)
-    _check(x, dt, None, c, c)
-    _check_cuda(x, dt, None, c, c)
-    _no_gradient(cb, cum, h_prev)
-    cb = _f32(cb, (bsz, nc, g, CHUNK, CHUNK), x.device)
-    cum = _f32(cum, (bsz, nc, h, CHUNK), x.device)
-    h_prev = _f32(h_prev, (bsz, nc, h, n, p), x.device)
-    x, dt, c = _rows(x, dt, c)
-    with _on(x.device):
-        return _scan(x, dt, c, cb, cum, h_prev)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -250,7 +158,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
             state = torch.zeros((bsz, h, b.shape[3], p), dtype=torch.float32, device=x.device)
         else:
             x, dt, b, c = _rows(x, dt, b, c)
-            with _on(x.device):
+            with cuda.on_device(x.device):
                 cb = _scores(b, c)
                 st, cum = _state(x, dt, a.contiguous(), b)
                 h_prev, state = _passing(st, cum)

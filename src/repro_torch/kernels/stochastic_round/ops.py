@@ -39,11 +39,10 @@ def _launch(x: torch.Tensor, seed: int, il: int, fl: int) -> torch.Tensor:
     if x.numel() == 0:
         return out
     eps = 2.0**-fl
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with cuda.on_device(x.device):
         cuda.check(_lib().stochastic_round_launch(
             x.data_ptr(), out.data_ptr(), x.numel(), int(seed) & 0xFFFFFFFF, 2.0**fl, eps,
-            -(2.0**il), 2.0**il - eps, stream), "stochastic_round")
+            -(2.0**il), 2.0**il - eps, cuda.stream(x.device)), "stochastic_round")
     stochastic_round.launches += 1
     return out
 

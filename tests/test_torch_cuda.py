@@ -379,27 +379,30 @@ def test_ssd_scan_kernel_matches_plain(card, bsz, s, h, p, g, n, dtype):
     (1, 2000, 48, 64, 1, 128, "float32"), (2, 333, 8, 32, 2, 64, "float32"),
     (1, 300, 4, 64, 2, 256, "bfloat16")])
 def test_ssd_stage_kernels_match_plain_stages(card, bsz, s, h, p, g, n, dtype):
-    """Each stage kernel against its plain stage on the same inputs (the
-    plain outputs of the stages before it), rel 1e-4; the mamba2-780m
-    prefill's b/c are views of one projection, as the model passes them."""
-    from repro_torch.kernels.ssd_scan import ref
-    from repro_torch.kernels.ssd_scan.ops import (chunk_scan, chunk_scores, chunk_state,
-                                                  state_passing)
+    """Each stage kernel's launcher, on operands ``ssd_scan`` has checked,
+    against its plain stage on the same inputs (the plain outputs of the
+    stages before it), rel 1e-4; the mamba2-780m prefill's b/c are views
+    of one projection, as the model passes them."""
+    from repro_torch.kernels.ssd_scan import ops, ref
 
     x, dt, a, b, c = _ssd_operands(card, bsz, s, h, p, g, n, dtype)
     if g == 1:
         bc = torch.cat([b, c], dim=-1)
         b, c = bc[..., :n], bc[..., n:]
+    ops._check_cuda(x, dt, a, b, c)
+    x, dt, b, c = ops._rows(x, dt, b, c)
     cb = ref.ssd_chunk_scores(b, c)
-    assert _rel(chunk_scores(b, c), cb) <= 1e-4
+    assert _rel(ops._scores(b, c), cb) <= 1e-4
     st, cum = ref.ssd_chunk_state(x, dt, a, b)
-    got_st, got_cum = chunk_state(x, dt, a, b)
+    got_st, got_cum = ops._state(x, dt, a, b)
     assert _rel(got_st, st) <= 1e-4 and _rel(got_cum, cum) <= 1e-4
+    # the launchers take the stages' fp32 workspaces contiguous
+    cb, st, cum = cb.contiguous(), st.contiguous(), cum.contiguous()
     h_prev, final = ref.ssd_state_passing(st, cum)
-    got_h, got_final = state_passing(st, cum)
+    got_h, got_final = ops._passing(st, cum)
     assert _rel(got_h[:, 1:], h_prev[:, 1:]) <= 1e-4 and not got_h[:, 0].any()
     assert _rel(got_final, final) <= 1e-4
-    got_y = chunk_scan(x, dt, c, cb, cum, h_prev)
+    got_y = ops._scan(x, dt, c, cb, cum, h_prev.contiguous())
     assert got_y.dtype == x.dtype
     assert _rel(got_y, ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev)) <= (
         1e-2 if dtype == "bfloat16" else 1e-4)

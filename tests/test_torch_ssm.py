@@ -35,9 +35,9 @@ from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 
 from repro_torch.configs import get_arch as tget_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as tssd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
-    chunk_scan, chunk_scores, chunk_state, ssd_scan, ssd_scan_chunked, ssd_scan_reference,
-    state_passing)
+    ssd_scan, ssd_scan_chunked, ssd_scan_reference)
 from repro_torch.launch.serve import serving_config as tserving_config  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.layers import SpringContext as TContext  # noqa: E402
@@ -144,16 +144,15 @@ def _stage_case(name):
 @pytest.mark.parametrize("name", list(STAGE_CASES))
 def test_staged_plain_versions_compose_to_the_scan(name):
     """The four stages (scores once per group, chunk state and decays,
-    state passing, chunk scan), composed through the wrappers' CPU path,
-    give ``ssd_scan_chunked``'s y and final state (rel 1e-6: the same fp32
+    state passing, chunk scan), composed from their plain versions, give ``ssd_scan_chunked``'s y and final state (rel 1e-6: the same fp32
     math, batched otherwise) and the interpret-mode Pallas kernel's y (rel
     1e-4, the registry's compare)."""
     args = _stage_case(name)
     x, dt, a, b, c = (torch.from_numpy(v) for v in args)
-    cb = chunk_scores(b, c)
-    st, cum = chunk_state(x, dt, a, b)
-    h_prev, state = state_passing(st, cum)
-    y = chunk_scan(x, dt, c, cb, cum, h_prev)
+    cb = tssd_ref.ssd_chunk_scores(b, c)
+    st, cum = tssd_ref.ssd_chunk_state(x, dt, a, b)
+    h_prev, state = tssd_ref.ssd_state_passing(st, cum)
+    y = tssd_ref.ssd_chunk_scan(x, dt, c, cb, cum, h_prev)
     nc, g = -(-x.shape[1] // 128), b.shape[2]
     assert tuple(cb.shape) == (x.shape[0], nc, g, 128, 128)
     assert not torch.triu(cb, diagonal=1).any()  # nothing above the diagonal
