@@ -56,9 +56,11 @@ failure:
   6a. flash_attention — the kernel against its plain version on the
                reference registry's five examples (fp32 atol 2e-5, bf16 2e-2),
                a non-causal ragged case, and llama3.2-1b's prefill shapes at
-               S 512 / 4096 / 8192 (q/k/v as the model passes them), timed
-               beside the plain version, fp32 scaled_dot_product_attention and
-               the bound;
+               S 32 / 128 / 512 / 4096 / 8192 and a D 128 row at S 4096 (q/k/v
+               as the model passes them), each with the query tile it took,
+               timed as a call, on device time with L2 flushed and on host
+               time, beside the plain version, fp32
+               scaled_dot_product_attention and the bound;
   6b. ssd_scan — y and the final state against the chunked plain version
                (rel 1e-4) on the registry's three examples and at mamba2-780m's
                prefill shape (x (1, 2000, 48, 64), b/c (1, 2000, 1, 128), read as
@@ -617,7 +619,11 @@ def phase_arms(dev) -> dict:
 
 # llama3.2-1b's attention (H 32, HKV 8, D 64) at prefill lengths; the long
 # serve; mamba2-780m's SSD (H 48, P 64, N 128, G 1) and its serve
-FA_HEADS, FA_KV_HEADS, FA_DIM, FA_SEQS = 32, 8, 64, (512, 4096, 8192)
+FA_HEADS, FA_KV_HEADS, FA_DIM = 32, 8, 64
+# 6a's timed (S, D) rows at B 1, H 32, HKV 8, causal, fp32: llama3.2-1b's
+# prefills (S 32 and 128 as in the prompt-32 serve, up to S 8192), and head
+# dim 128 (minitron-4b's and mistral-nemo-12b's) at S 4096
+FA_ROWS = ((32, 64), (128, 64), (512, 64), (4096, 64), (8192, 64), (4096, 128))
 LONG_SLOTS, LONG_REQUESTS, LONG_PROMPT = 4, 4, 4096
 SSD_HEADS, SSD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 128
 MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_PROMPT = 4, 6, 2000
@@ -635,13 +641,14 @@ def phase_flash_attention(dev, gen) -> dict:
     """(6a) flash_attention against its plain version on the reference
     registry's examples (``flash_attention/ops.py:39-55``, its compare:
     fp32 atol 2e-5, bf16 atol 2e-2) and a non-causal ragged case, then at
-    llama3.2-1b's prefill shapes, q/k/v as ``gqa_apply`` passes them
-    (transposed (B, S, H, D) projections), timed beside the plain version,
-    fp32 scaled_dot_product_attention and the bound."""
+    the :data:`FA_ROWS` shapes, q/k/v as ``gqa_apply`` passes them
+    (transposed (B, S, H, D) projections): each row's query tile, its call
+    time (a timed loop), device time with L2 flushed and host time, beside
+    the plain version, fp32 scaled_dot_product_attention and the bound."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention, plan
 
     def qkv(b, h, hkv, s, d, dtype=torch.float32):
         return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
@@ -661,37 +668,47 @@ def phase_flash_attention(dev, gen) -> dict:
         print(f"[flash_attention] {name} {kw}: max_abs_err {e:.3g} (atol {atol:g})", flush=True)
         if not e <= atol:
             fail(f"flash_attention {name} disagrees with its plain version")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for s in FA_SEQS:
-        q = torch.randn(1, s, FA_HEADS, FA_DIM, generator=gen).to(dev).transpose(1, 2)
-        k, v = (torch.randn(1, s, FA_KV_HEADS, FA_DIM, generator=gen).to(dev).transpose(1, 2)
+    for s, d in FA_ROWS:
+        q = torch.randn(1, s, FA_HEADS, d, generator=gen).to(dev).transpose(1, 2)
+        k, v = (torch.randn(1, s, FA_KV_HEADS, d, generator=gen).to(dev).transpose(1, 2)
                 for _ in range(2))
+        tile = plan(1, FA_HEADS, FA_KV_HEADS, s, d, n_sms)
+
+        def kernel():
+            return flash_attention(q, k, v)
 
         def lib():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-        got, want = flash_attention(q, k, v), attention_reference(q, k, v)
-        e, lib_e = _max_err(got, want), _max_err(lib(), want)
-        del got, want
-        err, case_errs[f"llama prefill S={s}"] = max(err, e), e
+        want = attention_reference(q, k, v)
+        e, lib_e = _max_err(kernel(), want), _max_err(lib(), want)
+        del want
+        err, case_errs[f"llama prefill S={s} D={d}"] = max(err, e), e
         if not e <= 2e-5:
-            fail(f"flash_attention at S={s} off by {e:.3g}")
-        iters = 20 if s <= 4096 else 5
-        ms = timed(lambda: flash_attention(q, k, v), iters)
+            fail(f"flash_attention at S={s} D={d} off by {e:.3g}")
+        iters = 200 if s <= 512 else 20 if s * d <= 4096 * 128 else 5
+        ms, dev_ms = timed(kernel, iters), cold_device_ms(kernel)
+        host = host_ms(kernel, iters=50, warmup=5)
         plain_ms = timed(lambda: attention_reference(q, k, v), 2, warmup=1)
-        lib_ms = timed(lib, iters)
+        lib_ms, lib_dev_ms = timed(lib, iters), cold_device_ms(lib)
         torch.cuda.empty_cache()
         pairs = s * (s + 1) / 2  # live (query, key) pairs under the causal mask
-        b_ms, b_by = bound(4.0 * 2 * s * FA_DIM * (FA_HEADS + FA_KV_HEADS),
-                           4.0 * FA_HEADS * pairs * FA_DIM)
-        rows.append({"seq": s, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": e,
-                     "library_max_abs_err": lib_e,
-                     "tflops": 4.0 * FA_HEADS * pairs * FA_DIM / ms / 1e9})
-        print(f"[flash_attention] llama prefill B1 H{FA_HEADS} HKV{FA_KV_HEADS} D{FA_DIM} S{s} "
-              f"causal fp32: err {e:.3g}; kernel {ms:.4f} ms ({rows[-1]['tflops']:.2f} TFLOP/s), "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (err {lib_e:.3g}), bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        flops = 4.0 * FA_HEADS * pairs * d
+        b_ms, b_by = bound(4.0 * 2 * s * d * (FA_HEADS + FA_KV_HEADS), flops)
+        rows.append({"seq": s, "head_dim": d, "tile": tile._asdict(), "ms": ms,
+                     "device_ms": dev_ms, "host_ms": host, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": e, "library_max_abs_err": lib_e,
+                     "tflops": flops / ms / 1e9, "device_tflops": flops / dev_ms / 1e9})
+        print(f"[flash_attention] llama prefill B1 H{FA_HEADS} HKV{FA_KV_HEADS} D{d} S{s} "
+              f"causal fp32, tile {tile.rows} rows = {tile.heads_per_cta} heads x "
+              f"{tile.positions} positions, {tile.ctas} CTAs: err {e:.3g}; kernel {ms:.4f} ms "
+              f"({rows[-1]['tflops']:.2f} TFLOP/s), device {dev_ms:.4f} ms with L2 flushed, "
+              f"host {host:.4f} ms; plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+              f"(device {lib_dev_ms:.4f}, err {lib_e:.3g}), bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
         del q, k, v
     return {"rows": rows, "err": err, "case_errs": case_errs}
 
@@ -1293,10 +1310,12 @@ def main() -> None:
     x = (randn(16 * SLOTS, block) * (torch.rand(16 * SLOTS, block, generator=gen) > 0.4)
          .to(dev)).to(torch.bfloat16)
     mp_ms = timed(lambda: mask_pack(x), 200)
+    mp_dev_ms, mp_host_ms = cold_device_ms(lambda: mask_pack(x)), host_ms(lambda: mask_pack(x))
     mp_plain_ms = timed(lambda: mask_pack_reference(x), 50)
     n_words = -(-block // 32)
     mp_bound, mp_by = bound(x.numel() * 2 + x.shape[0] * n_words * 4, x.numel())
-    print(f"[mask_pack] decode leaf ({x.shape[0]},{block}) bf16: kernel {mp_ms:.4f} ms, "
+    print(f"[mask_pack] decode leaf ({x.shape[0]},{block}) bf16: kernel {mp_ms:.4f} ms a call, "
+          f"{mp_dev_ms:.4f} ms device time with L2 flushed, {mp_host_ms:.4f} ms host time; "
           f"plain {mp_plain_ms:.4f} ms, bound {mp_bound:.4f} ms ({mp_by})", flush=True)
 
     # -- 3. serve: full-width llama3.2-1b through the port's entry point ------
@@ -1388,7 +1407,7 @@ def main() -> None:
 
     decode_rows = [r for r in mm_rows if r["shape"][0] == DECODE_M]
     prefill_rows = [r for r in mm_rows if r["shape"][0] == LONG_PROMPT]
-    fa_main = next(r for r in fa["rows"] if r["seq"] == LONG_PROMPT)
+    fa_main = next(r for r in fa["rows"] if (r["seq"], r["head_dim"]) == (LONG_PROMPT, FA_DIM))
 
     def layer_entry(rows, pre: str = "") -> dict:
         return {"ms": sum(r[pre + "ms"] for r in rows),
@@ -1435,8 +1454,10 @@ def main() -> None:
          "replaces": "src/repro/kernels/mask_compress/mc_kernel.py:36",
          "launches": total["mask_pack"], "max_abs_err": float(mp_err),
          "ms": mp_ms, "plain_ms": mp_plain_ms, "bound_ms": mp_bound, "bound_by": mp_by,
-         "library_ms": None,
+         "library_ms": None, "device_ms": mp_dev_ms, "host_ms": mp_host_ms,
          "shape": f"one decode-tick KV leaf ({16 * SLOTS},{block}) bf16",
+         "note": "ms: a timed loop of calls; device_ms: one call's kernel with L2 flushed "
+                 "ahead of it; host_ms: the host's time to queue one call",
          "launches_by_path": by_path["mask_pack"]},
         bwd_entry("dx"),
         bwd_entry("dw"),
@@ -1460,10 +1481,15 @@ def main() -> None:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:99",
          "launches": total["flash_attention"], "max_abs_err": fa["err"],
-         **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "device_ms", "host_ms", "library_device_ms", "tile")},
          "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "
                   f"D {FA_DIM}, S {LONG_PROMPT}, causal, fp32; library: fp32 "
                   "scaled_dot_product_attention (enable_gqa, is_causal)",
+         "note": "ms and library_ms: a timed loop of calls; device_ms and library_device_ms: "
+                 "one call with L2 flushed ahead of it; host_ms: the host's time to queue a "
+                 "call; tile: the query tile the wrapper's plan chose; every row of 6a in "
+                 "chip_smoke.json",
          "launches_by_path": by_path["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_kernel.py:71",

@@ -299,26 +299,73 @@ def test_spring_matmul_runs_the_kernel_without_the_sparse_backward(card):
 # -- slice 3: flash_attention and ssd_scan ----------------------------------------
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype", [
+_FA_CASES = [
     (1, 32, 8, 512, 64, True, None, "float32"), (1, 4, 2, 300, 128, False, None, "float32"),
-    (2, 2, 2, 256, 64, True, 128, "float32"), (1, 2, 2, 200, 16, True, None, "bfloat16")])
-def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, d, causal, window, dtype):
+    (2, 2, 2, 256, 64, True, 128, "float32"), (1, 2, 2, 200, 16, True, None, "bfloat16"),
+    # groups 1, 2, 4, 8 (the heads packed into a query tile)
+    (1, 4, 4, 200, 64, True, None, "float32"), (2, 4, 2, 200, 32, True, None, "float32"),
+    (1, 8, 2, 33, 64, True, None, "float32"), (1, 16, 2, 200, 64, True, None, "float32"),
+    # Sq of 1 and 31: below one strip of positions
+    (1, 8, 2, 1, 64, True, None, "float32"), (1, 8, 2, 31, 64, True, None, "float32"),
+    # windows across a kv tile and the ring's stages
+    (1, 8, 2, 300, 64, True, 45, "float32"), (1, 4, 2, 300, 128, True, 70, "bfloat16"),
+    # head dims 16 and 128, bf16, non-causal ragged
+    (1, 4, 1, 130, 16, True, None, "float32"), (1, 8, 2, 200, 128, True, None, "float32"),
+    (1, 8, 2, 200, 64, True, None, "bfloat16"), (1, 8, 8, 300, 32, False, None, "bfloat16"),
+    (1, 8, 2, 200, 64, False, None, "float32")]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype,rows", [
+    (*case, rows) for case in _FA_CASES for rows in (None, 128, 64)
+    if not (rows == 128 and case[4] == 128)])
+def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, d, causal, window, dtype, rows):
     """Against the plain version at the registry's compare: atol 2e-5 for
     fp32, 2e-2 for bf16; q/k/v as the model passes them, transposed
-    (B,S,H,D) projections read through strides."""
-    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+    (B,S,H,D) projections read through strides; on the planned query tile
+    (rows None) and on each tile forced."""
+    from repro_torch.kernels.flash_attention import ops
 
     gen = torch.Generator().manual_seed(s)
     dt = getattr(torch, dtype)
     q = torch.randn(b, s, h, d, generator=gen).to(card, dt).transpose(1, 2)
     k = torch.randn(b, s, hkv, d, generator=gen).to(card, dt).transpose(1, 2)
     v = torch.randn(b, s, hkv, d, generator=gen).to(card, dt).transpose(1, 2)
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal, window=window)
-    want = attention_reference(q, k, v, causal=causal, window=window)
+    before = ops.flash_attention.launches
+    if rows is None:
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        got = ops._launch(q, k, v, causal, window, rows=rows)
+    want = ops.attention_reference(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert ops.flash_attention.launches == before + 1
     assert got.dtype == dt and got.shape == want.shape
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("sq,skv,causal", [(50, 77, True), (50, 77, False), (90, 40, True)])
+@pytest.mark.parametrize("rows", [128, 64])
+def test_flash_attention_kernel_on_unaligned_views_and_other_key_counts(card, dtype, offset, sq,
+                                                                        skv, causal, rows):
+    """Skv other than Sq (masks by absolute index, as the plain version),
+    and q/k/v views whose base is `offset` elements into their storage:
+    16-byte copies at 0, 4-byte ones (fp32) or plain loads (bf16, odd
+    offset) otherwise."""
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator().manual_seed(sq + skv + offset)
+    dt = getattr(torch, dtype)
+
+    def view(shape):
+        flat = torch.randn(int(torch.tensor(shape).prod()) + offset, generator=gen)
+        return flat.to(card, dt)[offset:].view(shape)
+
+    q, k, v = view((1, 8, sq, 32)), view((1, 2, skv, 32)), view((1, 2, skv, 32))
+    got = ops._launch(q, k, v, causal, None, rows=rows)
+    want = ops.attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
     atol = 2e-2 if dtype == "bfloat16" else 2e-5
     assert float((got.float() - want.float()).abs().max()) <= atol
 
