@@ -19,6 +19,15 @@ failure:
                the plain version, the one PyTorch call computing the same
                function (where there is one) and the H100's bound for the
                same work;
+  2c. mask_pack — both kernels bit-equal to the plain version on bf16, fp16
+               and fp32 with +-0.0, NaN, +-inf and subnormals (the planner's
+               route on every case, the lane route forced on stream-shaped
+               ones, a misaligned view on the lane route); the prompt-32
+               decode leaf, the 4096-token decode leaf and its install row,
+               each route as a call and on device time with L2 flushed,
+               beside the plain version and the bound; the launch floor (a
+               one-word call's device time) and the host time of a call at
+               the decode leaf, split into its parts;
   3. serve   — full-width llama3.2-1b, quant_sparse, random weights from a
                seed, 4 slots, 6 requests, prompt 32, gen 16, through
                ``repro_torch.launch.serve.serve_session`` on the card; the
@@ -28,7 +37,8 @@ failure:
   3b. profile — a second engine over the same model, four decode ticks
                under torch.profiler: the device-busy share and the kernels
                by device time per tick; each tick launches the skinny
-               kernel 7 times per layer and tile_occupancy never;
+               kernel 7 times per layer, mask_pack twice and tile_occupancy
+               never;
   4. check  — the reduced llama3.2-1b on the card against the same model on
                the CPU (plain versions), prefill and decode logits;
   5a. stochastic_round — bit-equal to its plain version on the reference's
@@ -74,7 +84,7 @@ failure:
                prompt 4096, gen 16, counters zeroed just before and read just
                after: flash_attention, masked_matmul, tile_occupancy and
                mask_pack must launch; prefill s per request, tokens/s, peak
-               memory;
+               memory; then three of its decode ticks profiled as in 3b;
   6d. serve_mamba2 — full-width mamba2-780m, quant_sparse, 4 slots, 6
                requests, prompt 2000, gen 16: ssd_scan, masked_matmul and
                tile_occupancy must launch; two more requests with
@@ -217,11 +227,13 @@ def device_time_by_kernel(prof, per: int = 1) -> list:
     return rows
 
 
-def profile_decode(dev, ticks: int = 4) -> dict:
-    """Where a decode tick's time goes: the same full-width engine, all
-    slots admitted first, then ``ticks`` pooled decode ticks under
-    torch.profiler.  Prints the device-busy share of the window and the
-    kernels by device time."""
+def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4) -> dict:
+    """Where a decode tick's time goes: a full-width llama3.2-1b engine of
+    SLOTS slots with ``prompt``-token requests, all slots admitted first,
+    then ``ticks`` pooled decode ticks under torch.profiler.  Prints the
+    wall time per tick, the device-busy share of the window, the kernels by
+    device time and the launches per tick: the skinny kernel 7 per layer,
+    tile_occupancy never, mask_pack twice (the pool's k and v leaves)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -231,9 +243,10 @@ def profile_decode(dev, ticks: int = 4) -> dict:
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_arch("llama3.2-1b").resolve(False)
+    torch.cuda.empty_cache()
     eng = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=SLOTS,
-                        max_len=PROMPT + GEN + 1, seed=0, device=dev)
-    for p in synthetic_prompts(SLOTS, PROMPT, cfg.vocab, 0):
+                        max_len=prompt + GEN + 1, seed=0, device=dev)
+    for p in synthetic_prompts(SLOTS, prompt, cfg.vocab, 0):
         eng.submit_prompt(p, GEN)
     eng.step()  # admissions (prefill + install) and the first decode tick
     eng.step()
@@ -245,25 +258,184 @@ def profile_decode(dev, ticks: int = 4) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    del eng
     per_tick = {k: v / ticks for k, v in kernels.launch_counts().items() if v}
-    print(f"[profile] launches per decode tick {per_tick}", flush=True)
-    if per_tick.get("masked_matmul_skinny") != 7 * cfg.n_layers or "tile_occupancy" in per_tick:
-        fail(f"a decode tick must launch the skinny kernel {7 * cfg.n_layers} times and "
-             f"tile_occupancy never: {per_tick}")
+    tag = f"profile prompt {prompt}"
+    print(f"[{tag}] launches per decode tick {per_tick}", flush=True)
+    if per_tick.get("masked_matmul_skinny") != 7 * cfg.n_layers or "tile_occupancy" in per_tick \
+            or per_tick.get("mask_pack") != 2:
+        fail(f"a decode tick must launch the skinny kernel {7 * cfg.n_layers} times, "
+             f"mask_pack twice and tile_occupancy never: {per_tick}")
     rows = device_time_by_kernel(prof, ticks)
     busy_ms = sum(r[1] for r in rows)
     tick_ms = wall_ms / ticks
     if busy_ms == 0:
-        print(f"[profile] decode tick {tick_ms:.2f} ms wall; device time not measured "
+        print(f"[{tag}] decode tick {tick_ms:.2f} ms wall; device time not measured "
               f"(the profiler recorded no device activity)", flush=True)
     else:
-        print(f"[profile] decode tick {tick_ms:.2f} ms wall (profiled), device busy "
+        print(f"[{tag}] decode tick {tick_ms:.2f} ms wall (profiled), device busy "
               f"{busy_ms:.2f} ms = {busy_ms / tick_ms:.1%}; top kernels per tick:", flush=True)
         for name, ms, n in rows[:12]:
-            print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
-    return {"tick_ms": tick_ms, "device_busy_ms": busy_ms, "launches_per_tick": per_tick,
+            print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
+    return {"prompt": prompt, "tick_ms": tick_ms, "device_busy_ms": busy_ms,
+            "launches_per_tick": per_tick,
             "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
                         for n, ms, c in rows[:40]]}
+
+
+# -- 2c. mask_pack ----------------------------------------------------------------
+
+#: one (layer, slot) k/v block of llama3.2-1b's pool is max_len x 8 kv heads
+#: x 64 values, max_len = prompt + GEN + 1
+KV_ROW = 8 * 64
+#: exactness cases (n_blocks, block_len): the prompt-32 pool's decode and
+#: install leaves, ragged lengths, a sweep-like 1-D length, one word, a
+#: partial last warp step
+MP_CASES = ((64, (PROMPT + GEN + 1) * KV_ROW), (16, (PROMPT + GEN + 1) * KV_ROW), (7, 1000),
+            (3, 33), (1, 4096), (1, 32), (5, 288))
+
+
+def _pack_operand(n_blocks: int, block_len: int, dtype, g):
+    """Values with 40% zeros, every 7th -0.0, and +-0.0, NaN, +-inf and
+    +-subnormals of ``dtype`` at one place in 16, made on the card from
+    the generator ``g``."""
+    import torch
+
+    dev = g.device
+    x = torch.randn(n_blocks, block_len, generator=g, device=dev)
+    x *= torch.rand(n_blocks, block_len, generator=g, device=dev) > 0.4
+    x[:, ::7] = -0.0
+    sub = torch.finfo(dtype).smallest_normal / 4
+    specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), float("-inf"), sub, -sub],
+                            device=dev)
+    flat = x.view(-1)
+    at = torch.randint(0, flat.numel(), (max(1, flat.numel() // 16),), generator=g, device=dev)
+    flat[at] = specials[torch.randint(0, len(specials), at.shape, generator=g, device=dev)]
+    return x.to(dtype)
+
+
+def phase_mask_pack(dev) -> dict:
+    """(2c) both kernels of ``mask_pack`` against its plain version, exact,
+    on bf16 / fp16 / fp32 with special values: the planner's route on every
+    case, the lane route forced on stream-shaped ones, and a misaligned
+    view (which must take the lane route); then the timed rows: the
+    prompt-32 decode leaf, the 4096-token decode leaf and its install row,
+    each route as a call and on device time with L2 flushed, beside the
+    plain version and the bound; the launch floor (a one-word call's device
+    time); the host time of one call at the decode leaf, split into its
+    parts."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.mask_compress import ops as mc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(2)
+    n_sms = cuda.sm_count(dev.index)
+    err = 0  # max |kernel - plain| over the words, as unsigned integers
+    n_checked = 0
+
+    def check(x, route, tag):
+        nonlocal err, n_checked
+        got, want = mc._launch(x, route=route), mc.mask_pack_reference(x)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"mask_pack {tag}: shape {tuple(got.shape)}, plain {tuple(want.shape)}")
+        words = [w.view(torch.int32).to(torch.int64) & 0xFFFFFFFF for w in (got, want)]
+        e = int((words[0] - words[1]).abs().max()) if got.numel() else 0
+        if e:
+            fail(f"mask_pack {tag} route={route} disagrees with its plain version")
+        err = max(err, e)
+        n_checked += 1
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        elem = mc._ELEM_BYTES[dtype]
+        for n_blocks, blen in MP_CASES:
+            x = _pack_operand(n_blocks, blen, dtype, g)
+            check(x, None, f"{dtype} ({n_blocks},{blen})")
+            if mc.plan(n_blocks, blen, elem, True, n_sms).route == "stream":
+                check(x, "lane", f"{dtype} ({n_blocks},{blen})")
+        base = _pack_operand(1, 6 * 1024 + 1, dtype, g)
+        view = base.view(-1)[1:].view(6, 1024)  # contiguous, off 16-byte alignment
+        if mc.plan(6, 1024, elem, view.data_ptr() % 16 == 0, n_sms).route != "lane":
+            fail("mask_pack: a misaligned view did not plan the lane route")
+        check(view, None, f"{dtype} misaligned view (6,1024)")
+    print(f"[mask_pack] exact on bf16/fp16/fp32 with +-0/NaN/+-inf/subnormals, both routes, "
+          f"lengths {sorted({b for _, b in MP_CASES})}, a misaligned view: {n_checked} "
+          f"cases ok", flush=True)
+
+    rows = []
+    for tag, n_blocks, max_len in (("decode leaf, prompt 32", 4 * 16, PROMPT + GEN + 1),
+                                   ("decode leaf, prompt 4096", 4 * 16, LONG_PROMPT + GEN + 1),
+                                   ("install row, prompt 4096", 16, LONG_PROMPT + GEN + 1)):
+        blen = max_len * KV_ROW
+        x = _pack_operand(n_blocks, blen, torch.bfloat16, g)
+        p = mc.plan(n_blocks, blen, 2, True, n_sms)
+        check(x, None, tag)
+        check(x, "lane", tag)
+        long = blen > 2**20
+        iters = 50 if long else 200
+        row = {"row": tag, "shape": [n_blocks, blen], "dtype": "bf16", "route": p.route,
+               "ctas": p.ctas,
+               "ms": timed(lambda: mc.mask_pack(x), iters),
+               "device_ms": cold_device_ms(lambda: mc.mask_pack(x)),
+               "lane_ms": timed(lambda: mc._launch(x, route="lane"), iters),
+               "lane_device_ms": cold_device_ms(lambda: mc._launch(x, route="lane")),
+               "plain_ms": timed(lambda: mc.mask_pack_reference(x), 5 if long else 50)}
+        n_words = n_blocks * blen // 32
+        row["bound_ms"], row["bound_by"] = bound(2.0 * x.numel() + 4.0 * n_words, x.numel())
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        print(f"[mask_pack] {tag} ({n_blocks},{blen}) bf16: stream {row['ms']:.4f} ms a call, "
+              f"{row['device_ms']:.4f} ms device time with L2 flushed ({p.ctas} CTAs, "
+              f"{row['bound_share']:.0%} of the bound's rate); lane {row['lane_ms']:.4f} / "
+              f"{row['lane_device_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+    # the launch floor: one word's call on device time
+    one = _pack_operand(1, 32, torch.bfloat16, g)
+    floor_ms = cold_device_ms(lambda: mc.mask_pack(one))
+
+    # the host time of one call at the decode leaf, and its parts: the
+    # wrapper's Python (dtype, contiguity, shape, plan, stream and device
+    # lookups, counter), the output's torch.empty, the ctypes call with its
+    # launch
+    n_blocks, blen = 4 * 16, (PROMPT + GEN + 1) * KV_ROW
+    x = _pack_operand(n_blocks, blen, torch.bfloat16, g)
+    p = mc.plan(n_blocks, blen, 2, True, n_sms)
+    out = torch.empty((n_blocks, blen // 32), dtype=torch.uint32, device=dev)
+    lib, ptr, out_ptr, stream = mc._lib(), x.data_ptr(), out.data_ptr(), cuda.stream(dev)
+
+    def enter_device():
+        with cuda.on_device(dev):
+            pass
+
+    split = {
+        "call": host_ms(lambda: mc.mask_pack(x)),
+        "empty": host_ms(lambda: torch.empty((n_blocks, blen // 32), dtype=torch.uint32,
+                                             device=dev)),
+        "ctypes_launch": host_ms(lambda: lib.mask_pack_launch(ptr, out_ptr, n_blocks, blen, 2, 1,
+                                                              p.ctas, stream)),
+        "plan": host_ms(lambda: mc.plan(n_blocks, blen, 2, ptr % 16 == 0,
+                                        cuda.sm_count(dev.index))),
+        "stream": host_ms(lambda: cuda.stream(dev)),
+        "on_device": host_ms(enter_device),
+        "shape": host_ms(lambda: (x.is_contiguous(), math.prod(x.shape[:-1]), x.data_ptr())),
+    }
+    split["python"] = split["call"] - split["empty"] - split["ctypes_launch"]
+    print(f"[mask_pack] launch floor: a one-word (1,32) call takes {floor_ms:.4f} ms of device "
+          f"time with L2 flushed (decode leaf {rows[0]['device_ms']:.4f})", flush=True)
+    print("[mask_pack] host time of a call at the decode leaf, ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    main = rows[1]
+    return {"max_abs_err": float(err), "cases": n_checked, "rows": rows, "floor_ms": floor_ms,
+            "host_split": split, "host_ms": split["call"],
+            **{k: main[k] for k in ("ms", "device_ms", "lane_ms", "lane_device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")}}
 
 
 # -- slice 2: CNN training ------------------------------------------------------
@@ -1135,7 +1307,6 @@ def main() -> None:
     from repro_torch import kernels
     from repro_torch.core.fixedpoint import quantize_nearest
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.mask_compress.ops import mask_pack, mask_pack_reference
     from repro_torch.kernels.masked_matmul.ops import (
         KERNEL_TILES, launch_skinny, launch_tile, masked_matmul, masked_matmul_reference, route,
         tile_occupancy, tile_occupancy_reference, tile_skip_fraction)
@@ -1291,32 +1462,8 @@ def main() -> None:
         fail("masked_matmul on block-pruned operands: no tile skipped or results disagree")
     mm_err = max(mm_err, float(err.max()))
 
-    # -- 2c. mask_pack: exact on bf16 and fp32, -0.0, unaligned lengths -------
-    block = 49 * 8 * 64  # one (layer, slot) k/v block: max_len 49 x 8 kv heads x 64
-    mp_err = 0  # max |kernel - plain| over the words, as unsigned integers
-    for dtype in (torch.bfloat16, torch.float32):
-        for n_blocks, blen in [(64, block), (16, block), (7, 1000), (3, 33), (1, 4096)]:
-            x = randn(n_blocks, blen) * (torch.rand(n_blocks, blen, generator=gen) > 0.4).to(dev)
-            x[:, ::7] = -0.0
-            x = x.to(dtype)
-            got, want = mask_pack(x), mask_pack_reference(x)
-            torch.cuda.synchronize()
-            words = [v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF for v in (got, want)]
-            err = int((words[0] - words[1]).abs().max())
-            if err or got.shape != want.shape:
-                fail(f"mask_pack {dtype} ({n_blocks},{blen}) disagrees with its plain version")
-            mp_err = max(mp_err, err)
-    print("[mask_pack] exact on bf16/fp32, -0.0, lengths 33/1000/4096/25088: ok", flush=True)
-    x = (randn(16 * SLOTS, block) * (torch.rand(16 * SLOTS, block, generator=gen) > 0.4)
-         .to(dev)).to(torch.bfloat16)
-    mp_ms = timed(lambda: mask_pack(x), 200)
-    mp_dev_ms, mp_host_ms = cold_device_ms(lambda: mask_pack(x)), host_ms(lambda: mask_pack(x))
-    mp_plain_ms = timed(lambda: mask_pack_reference(x), 50)
-    n_words = -(-block // 32)
-    mp_bound, mp_by = bound(x.numel() * 2 + x.shape[0] * n_words * 4, x.numel())
-    print(f"[mask_pack] decode leaf ({x.shape[0]},{block}) bf16: kernel {mp_ms:.4f} ms a call, "
-          f"{mp_dev_ms:.4f} ms device time with L2 flushed, {mp_host_ms:.4f} ms host time; "
-          f"plain {mp_plain_ms:.4f} ms, bound {mp_bound:.4f} ms ({mp_by})", flush=True)
+    # -- 2c. mask_pack: both routes exact, timed at the pool's leaves -------
+    report["mask_pack"] = mp = phase_mask_pack(dev)
 
     # -- 3. serve: full-width llama3.2-1b through the port's entry point ------
     from repro_torch.launch.serve import serve_session
@@ -1363,6 +1510,7 @@ def main() -> None:
     report["ssd_scan"] = ssd = phase_ssd_scan(dev, gen)
     report["serve_long"] = serve_long = phase_serve(
         dev, "llama3.2-1b", LONG_SLOTS, LONG_REQUESTS, LONG_PROMPT, LONG_KERNELS, "serve_long")
+    report["decode_profile_long"] = profile_decode(dev, LONG_PROMPT, ticks=3)
     report["serve_mamba2"] = serve_mamba2 = phase_serve(
         dev, "mamba2-780m", MAMBA_SLOTS, MAMBA_REQUESTS, MAMBA_PROMPT, MAMBA_KERNELS,
         "serve_mamba2", late=MAMBA_LATE)
@@ -1452,12 +1600,18 @@ def main() -> None:
         {"name": "mask_pack", "route": "cuda",
          "source": "src/repro_torch/csrc/mask_pack.cu",
          "replaces": "src/repro/kernels/mask_compress/mc_kernel.py:36",
-         "launches": total["mask_pack"], "max_abs_err": float(mp_err),
-         "ms": mp_ms, "plain_ms": mp_plain_ms, "bound_ms": mp_bound, "bound_by": mp_by,
-         "library_ms": None, "device_ms": mp_dev_ms, "host_ms": mp_host_ms,
-         "shape": f"one decode-tick KV leaf ({16 * SLOTS},{block}) bf16",
-         "note": "ms: a timed loop of calls; device_ms: one call's kernel with L2 flushed "
-                 "ahead of it; host_ms: the host's time to queue one call",
+         "launches": total["mask_pack"], "library_ms": None,
+         **{k: mp[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "lane_ms", "lane_device_ms", "host_ms", "floor_ms",
+                               "host_split", "rows")},
+         "shape": f"one 4096-token decode-tick KV leaf ({16 * LONG_SLOTS},"
+                  f"{(LONG_PROMPT + GEN + 1) * KV_ROW}) bf16, the stream route",
+         "note": "ms and lane_ms: a timed loop of calls; device_ms and lane_device_ms: one "
+                 "call's kernel with L2 flushed ahead of it (lane: the lane route forced on "
+                 "the same input); host_ms: the host's time to queue one call at the "
+                 "prompt-32 decode leaf, host_split its parts; floor_ms: a one-word call's "
+                 "device time; rows: the prompt-32 decode leaf, this leaf and the 4096-token "
+                 "install row",
          "launches_by_path": by_path["mask_pack"]},
         bwd_entry("dx"),
         bwd_entry("dw"),

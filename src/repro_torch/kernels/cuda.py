@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -109,6 +110,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (a planner input)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def stream(dev: torch.device) -> int:
     """The current CUDA stream of ``dev`` as an integer handle, read without
     building a ``torch.cuda.Stream`` (which costs more host time than a
@@ -116,12 +123,16 @@ def stream(dev: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
+_CURRENT = contextlib.nullcontext()  # reusable: entering it does nothing
+
+
 def on_device(dev: torch.device):
     """Launch on ``dev``: its context is entered only when it is not the
     current device, since entering it costs more host time than a decode
-    product takes on the card."""
-    return (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-            else contextlib.nullcontext())
+    product takes on the card.  The caller holds a tensor on ``dev``, so
+    CUDA is initialised and the current device is read without
+    ``torch.cuda.current_device``'s lazy-init check."""
+    return torch.cuda.device(dev) if dev.index != torch._C._cuda_getDevice() else _CURRENT
 
 
 def check(status: int, kernel: str) -> None:

@@ -74,11 +74,6 @@ def plan(batch: int, n_heads: int, n_kv_heads: int, sq: int, head_dim: int, n_sm
 
 
 @functools.cache
-def _n_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -130,7 +125,7 @@ def _launch(q, k, v, causal: bool, window: Optional[int], rows: Optional[int] = 
     out = torch.empty_like(q)  # keeps q's layout when q is dense
     if out.numel() == 0:
         return out
-    tile = plan(b, h, hkv, sq, d, _n_sms(q.device.index))
+    tile = plan(b, h, hkv, sq, d, cuda.sm_count(q.device.index))
     with cuda.on_device(q.device):
         cuda.check(_lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

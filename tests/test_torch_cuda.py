@@ -165,19 +165,58 @@ def test_tile_occupancy_kernel_matches_plain(card, rows, cols, tiles):
     assert torch.equal(tile_occupancy(a, tr, tc), want)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("n_blocks,block_len", [(3, 33), (7, 1000), (64, 25088)])
-def test_mask_pack_kernel_matches_plain(card, dtype, n_blocks, block_len):
-    from repro_torch.kernels.mask_compress.ops import mask_pack, mask_pack_reference
-
-    gen = torch.Generator().manual_seed(block_len)
+def _pack_operand(gen, n_blocks, block_len, dtype):
+    """Random values, 40% zeros, every 7th -0.0, and +-0.0, NaN, +-inf and
+    +-subnormals of ``dtype`` at random places."""
     x = torch.randn(n_blocks, block_len, generator=gen)
     x = x * (torch.rand(n_blocks, block_len, generator=gen) > 0.4)
     x[:, ::7] = -0.0
-    x = x.to(getattr(torch, dtype)).to(card)
-    got = mask_pack(x)
+    sub = torch.finfo(dtype).smallest_normal / 4
+    specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), float("-inf"), sub, -sub])
+    flat = x.view(-1)
+    at = torch.randint(0, flat.numel(), (max(1, flat.numel() // 16),), generator=gen)
+    flat[at] = specials[torch.randint(0, len(specials), at.shape, generator=gen)]
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("route", [None, "lane"])
+@pytest.mark.parametrize("n_blocks,block_len", [(3, 33), (7, 1000), (3, 32), (3, 256), (5, 288),
+                                                (64, 25088), (2, 2105856)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_mask_pack_kernel_matches_plain(card, dtype, n_blocks, block_len, route):
+    """The planner's route (``stream`` where blocks end on a word
+    boundary, ``lane`` for ragged lengths) and the lane route forced, on
+    operands with special values."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.mask_compress import ops as mc
+
+    dtype = getattr(torch, dtype)
+    x = _pack_operand(torch.Generator().manual_seed(block_len), n_blocks, block_len,
+                      dtype).to(card)
+    p = mc.plan(n_blocks, block_len, mc._ELEM_BYTES[dtype], True,
+                cuda.sm_count(x.device.index))
+    assert p.route == ("stream" if block_len % 32 == 0 else "lane")
+    before = mc.mask_pack.launches
+    got = mc._launch(x, route=route)
     torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), mask_pack_reference(x).view(torch.int32))
+    assert mc.mask_pack.launches == before + 1
+    assert torch.equal(got.view(torch.int32), mc.mask_pack_reference(x).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("block_len", [33, 1000, 1024])
+def test_mask_pack_misaligned_view_takes_the_lane_route(card, dtype, block_len):
+    from repro_torch.kernels.mask_compress import ops as mc
+
+    dtype = getattr(torch, dtype)
+    base = _pack_operand(torch.Generator().manual_seed(7), 1, 6 * block_len + 1, dtype)
+    x = base.to(card).view(-1)[1:].view(6, block_len)  # contiguous, off 16-byte alignment
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="route 'stream'"):
+        mc._launch(x, route="stream")
+    got = mc.mask_pack(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), mc.mask_pack_reference(x).view(torch.int32))
 
 
 def test_engine_on_the_card_runs_the_kernels(card):
