@@ -94,6 +94,26 @@ failure:
                CPU at a 300-token prompt, prefill and decode logits (atol 1e-3);
   6f. profile — one 4096-token llama3.2-1b prefill and one 2000-token
                mamba2-780m prefill under torch.profiler: device time by kernel;
+  6g. survive — full-width llama3.2-1b, quant_sparse, 4 slots, 8 requests,
+               prompt 512, gen 16, greedy: the uninterrupted run (the oracle),
+               then the same requests through ChaosHarness (an .npz round
+               trip, a rescale to 2 slots that spills, a snapshot, a rescale
+               back to 4, a rewind, a kill into a fresh engine over the same
+               parameter tensors): every request's tokens must equal the
+               oracle's and requests must have spilled and resumed; an
+               explicit .npz round trip timed (bytes, save and load s);
+               slots 0-1's decode logits at 4 and at 2 slots must be
+               bit-equal; one _spill_slot and one _resume_one timed, the
+               payload's and the pool's bytes; sampled decode (4 requests)
+               twice and through a snapshot and a rewind, equal; the
+               oracle's workload with telemetry on: span count, tokens/s,
+               equal tokens; then full-width mamba2-780m (6 requests, prompt
+               256) through rescale 4 -> 2 -> 4, a snapshot and a rewind in
+               memory, with the same gates; counters zeroed just before
+               each model's chaos run and read just after: the skinny and
+               tile kernels and tile_occupancy (both models),
+               flash_attention and mask_pack (llama) and ssd_scan (mamba2)
+               must launch there;
   7a. dangling_filter — bit-equal to its plain version on the registry's
                examples, -0.0 / NaN / inf entries at a length with a scalar
                tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
@@ -1145,6 +1165,271 @@ def profile_prefill(dev, arch: str, prompt: int) -> dict:
             "kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:40]]}
 
 
+# -- slice 9: the rest of the serving engine ---------------------------------------
+
+# 6g: llama3.2-1b with 8 requests of prompt 512 over 4 slots (a rescale to 2
+# spills two of them), mamba2-780m with 6 of prompt 256; gen GEN
+SURVIVE_SLOTS, SURVIVE_REQUESTS, SURVIVE_PROMPT = 4, 8, 512
+SURVIVE_SAMPLED = 4  # requests of the sampled-decode runs
+SURVIVE_MAMBA_REQUESTS, SURVIVE_MAMBA_PROMPT = 6, 256
+SURVIVE_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy",
+                   "flash_attention", "mask_pack")
+SURVIVE_MAMBA_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy", "ssd_scan")
+
+
+def _bytes_by_part(tree: dict) -> dict:
+    """Bytes of a pool or a slot payload by part: the KV leaves' values,
+    mask words and nnz, and the dense leaves (``pos`` and SSM state)."""
+    from repro_torch.serving.kvpool import PackedKV
+
+    out = dict.fromkeys(("values", "mask", "nnz", "dense"), 0)
+    for node in tree.values():
+        for leaf in (node.values() if isinstance(node, dict) else [node]):
+            if isinstance(leaf, PackedKV):
+                leaf = {part: getattr(leaf, part) for part in ("values", "mask", "nnz")}
+            if isinstance(leaf, dict):
+                for part, x in leaf.items():
+                    out[part] += x.nbytes
+            else:
+                out["dense"] += leaf.nbytes
+    out["total"] = sum(out.values())
+    return out
+
+
+def _decode_logits(engine, slots: list, width: int):
+    """Decode logits of the engine's ``slots`` computed in a pool of ``width``
+    slots holding their exact packed bits (slot i of it = slots[i]) and
+    nothing else, with each slot's next token fed: the engine's own decode
+    step, unpack to repack."""
+    import torch
+
+    from repro_torch.serving import kvpool
+
+    pool = kvpool.init_pool(engine.cfg, width, engine.max_len, device=engine.device)
+    tokens = torch.zeros(width, dtype=torch.int64)
+    for i, slot in enumerate(slots):
+        kvpool.restore_slot_packed(pool, kvpool.extract_slot_packed(engine.pool, slot), i)
+        tokens[i] = int(engine._next_tok[slot])
+    logits, _ = engine._decode(engine.params, tokens.to(engine.device),
+                               kvpool.unpack_cache(pool))
+    return logits[:len(slots)].float().cpu()
+
+
+def _batch_invariance(engine, tag: str) -> dict:
+    """Slots 0 and 1's decode logits in a pool of 4 slots (all four
+    resident) and of 2 (those two alone): the largest difference and
+    whether the bits agree."""
+    import torch
+
+    four = _decode_logits(engine, [0, 1, 2, 3], 4)[:2]
+    two = _decode_logits(engine, [0, 1], 2)
+    diff = float((four - two).abs().max())
+    equal = bool(torch.equal(four, two))
+    print(f"[survive] {tag}: decode logits of slots 0-1 at 4 slots vs at 2 slots: max |diff| "
+          f"= {diff:.3g}, bit-equal {equal}", flush=True)
+    if not equal:
+        fail(f"survive phase: {tag}'s decode logits depend on the number of slots")
+    return {"max_abs_diff": diff, "bit_equal": equal}
+
+
+def _survive_model(dev, arch: str, requests: int, prompt: int, schedule: list, tag: str,
+                   roundtrip: bool, needed: tuple) -> tuple:
+    """One model of 6g: the oracle run, then the same requests under
+    ``schedule`` through ChaosHarness (a kill builds a fresh engine over the
+    same parameter tensors); every request's tokens must equal the oracle's
+    and requests must have spilled and resumed.  With ``roundtrip`` an
+    explicit snapshot -> .npz -> load -> restore at tick 3 is timed first.
+    The launch counters are zeroed just before the chaos run and read just
+    after it; each kernel in ``needed`` must have launched there.  Returns
+    the report and ``submitted(n, greedy)``, which builds an engine over the
+    model with its first ``n`` requests queued."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import kvpool
+    from repro_torch.serving.elastic import ChaosHarness, load_snapshot, save_snapshot
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.cuda.empty_cache()
+    cfg = get_arch(arch).resolve(False)
+    params = lm_init(cfg, 0, device=dev)
+    prompts = synthetic_prompts(requests, prompt, cfg.vocab, 0)
+
+    def make(greedy: bool = True):
+        return ServingEngine(cfg, serving_config("quant_sparse"), params=params,
+                             n_slots=SURVIVE_SLOTS, max_len=prompt + GEN + 1, greedy=greedy,
+                             spec_hash=f"chip-smoke-{arch}", device=dev)
+
+    def submitted(n: int = requests, greedy: bool = True):
+        eng = make(greedy)
+        for i, p in enumerate(prompts[:n]):
+            eng.submit_prompt(p, GEN, seed=i)
+        return eng
+
+    def tokens(out) -> list:
+        return [r["tokens"] for r in out["per_request"]]
+
+    res: dict = {"arch": arch, "requests": requests, "prompt": prompt,
+                 "schedule": [(e.at, e.kind, e.slots) for e in schedule]}
+    t0 = time.monotonic()
+    oracle = submitted().run()
+    res["oracle_s"] = time.monotonic() - t0
+    res["oracle_tokens_per_s"] = oracle["tokens_per_s"]
+    want = tokens(oracle)
+    if not oracle["finite"] or any(len(t) != GEN for t in want):
+        fail(f"survive phase: {tag}'s uninterrupted run did not finish every request")
+
+    eng = submitted()
+    for _ in range(3):
+        eng.step()
+    res["pool_bytes"] = _bytes_by_part(eng.pool)
+    res["payload_bytes"] = _bytes_by_part(kvpool.extract_slot_packed(eng.pool, 0))
+    res["batch_invariance"] = _batch_invariance(eng, tag)
+    if roundtrip:
+        path = ROOT / "build" / f"survive_{arch}.npz"
+        path.parent.mkdir(exist_ok=True)
+        t1 = time.monotonic()
+        snap = eng.snapshot()
+        t2 = time.monotonic()
+        save_snapshot(snap, str(path))
+        t3 = time.monotonic()
+        loaded = load_snapshot(str(path))
+        t4 = time.monotonic()
+        eng.restore(loaded)
+        torch.cuda.synchronize()
+        t5 = time.monotonic()
+        res.update(snapshot_s=t2 - t1, save_s=t3 - t2, load_s=t4 - t3, restore_s=t5 - t4,
+                   npz_bytes=path.stat().st_size)
+        path.unlink()
+        print(f"[survive] {tag}: .npz round trip at tick 3: {res['npz_bytes']} bytes, snapshot "
+              f"{res['snapshot_s']:.3f} s, save {res['save_s']:.3f} s, load {res['load_s']:.3f} s, "
+              f"restore {res['restore_s']:.3f} s", flush=True)
+    harness = ChaosHarness(eng, schedule, make_engine=make, max_steps=500)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t1 = time.monotonic()
+    out = harness.run()
+    torch.cuda.synchronize()
+    res["chaos_s"] = time.monotonic() - t1
+    res["launches"] = kernels.launch_counts()
+    print(f"[survive] {tag}: launches in the chaos run {res['launches']}", flush=True)
+    for name in needed:
+        if res["launches"][name] <= 0:
+            fail(f"survive phase: {tag}'s chaos run never launched the {name} kernel")
+    got = tokens(out)
+    res["elastic"] = out["elastic"]
+    res["tokens_equal"] = got == want
+    print(f"[survive] {tag}: {requests} requests, prompt {prompt}, {SURVIVE_SLOTS} slots; oracle "
+          f"{res['oracle_s']:.1f} s ({oracle['tokens_per_s']:.1f} tokens/s); chaos "
+          f"{res['schedule']} {res['chaos_s']:.1f} s: tokens equal {res['tokens_equal']}, "
+          f"{out['elastic']}", flush=True)
+    if not res["tokens_equal"]:
+        fail(f"survive phase: {tag}'s tokens under chaos differ from the uninterrupted run's")
+    if out["elastic"]["n_spills"] <= 0 or out["elastic"]["n_resumes"] <= 0:
+        fail(f"survive phase: {tag}'s chaos schedule did not both spill and resume")
+    print(f"[survive] {tag}: bytes of the pool {res['pool_bytes']}, of one slot's payload "
+          f"{res['payload_bytes']}", flush=True)
+    res["spill_resume"] = _time_spill_resume(submitted(SURVIVE_SLOTS), want[:SURVIVE_SLOTS], tag)
+    res["oracle_tokens"] = want
+    return res, submitted
+
+
+def _time_spill_resume(eng, want: list, tag: str, reps: int = 5) -> dict:
+    """One ``_spill_slot`` and one ``_resume_one`` (through the admit phase,
+    whose only work is the resume), each ending at a device sync, ``reps``
+    times on slot 0 of a full pool after one tick; then the run finishes
+    with the uninterrupted run's tokens."""
+    import torch
+
+    eng.step()
+    spill, resume = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng._spill_slot(0)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        eng._admit_phase()
+        torch.cuda.synchronize()
+        spill.append((t1 - t0) * 1e3)
+        resume.append((time.monotonic() - t1) * 1e3)
+    got = [r["tokens"] for r in eng.run()["per_request"]]
+    print(f"[survive] {tag}: _spill_slot {min(spill):.2f} ms (min of {reps}; "
+          f"mean {sum(spill) / reps:.2f}), _resume_one {min(resume):.2f} ms (mean "
+          f"{sum(resume) / reps:.2f}); tokens after {reps} spills equal {got == want}", flush=True)
+    if got != want:
+        fail(f"survive phase: {tag}'s tokens after repeated spills differ")
+    return {"spill_ms": spill, "resume_ms": resume}
+
+
+def phase_survive(dev) -> dict:
+    """(6g) spill/resume, live rescale, exact snapshots, the chaos harness,
+    sampled decode and telemetry, on full-width llama3.2-1b and
+    mamba2-780m; each model's launch counts are those of its chaos run
+    alone."""
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.serving.elastic import ChaosEvent, ChaosHarness
+
+    t_phase = time.monotonic()
+    llama, submitted = _survive_model(
+        dev, "llama3.2-1b", SURVIVE_REQUESTS, SURVIVE_PROMPT,
+        [ChaosEvent(2, "roundtrip"), ChaosEvent(4, "rescale", slots=2),
+         ChaosEvent(6, "snapshot"), ChaosEvent(9, "rescale", slots=4),
+         ChaosEvent(12, "rewind"), ChaosEvent(15, "kill")], "llama3.2-1b", roundtrip=True,
+        needed=SURVIVE_KERNELS)
+
+    # sampled decode: twice, then through a snapshot and a rewind
+    sampled = []
+    for schedule in ([], [], [ChaosEvent(3, "snapshot"), ChaosEvent(8, "rewind")]):
+        eng = submitted(SURVIVE_SAMPLED, greedy=False)
+        out = ChaosHarness(eng, schedule).run()
+        sampled.append([r["tokens"] for r in out["per_request"]])
+    greedy_first = llama["oracle_tokens"][:SURVIVE_SAMPLED]
+    print(f"[survive] sampled decode, {SURVIVE_SAMPLED} requests: two runs and a rewound one "
+          f"equal {sampled[0] == sampled[1] == sampled[2]}; differ from greedy "
+          f"{sampled[0] != greedy_first}; first {sampled[0][0][:8]}", flush=True)
+    if not sampled[0] == sampled[1] == sampled[2]:
+        fail("survive phase: sampled decode gave other tokens on a rerun or after a rewind")
+
+    # telemetry on: the oracle's workload inside a scope
+    tel_eng = submitted()
+    t0 = time.monotonic()
+    with telemetry.scope(telemetry.TelemetryConfig(enabled=True)) as tracer:
+        tel_out = tel_eng.run()
+        n_spans = len(tracer)
+    tel_s = time.monotonic() - t0
+    tel_equal = [r["tokens"] for r in tel_out["per_request"]] == llama["oracle_tokens"]
+    print(f"[survive] telemetry on: {n_spans} spans, {tel_out['tokens_per_s']:.1f} tokens/s "
+          f"against {llama['oracle_tokens_per_s']:.1f} off, run {tel_s:.1f} s against "
+          f"{llama['oracle_s']:.1f} s; tokens equal {tel_equal}", flush=True)
+    if not tel_equal:
+        fail("survive phase: telemetry changed a token")
+    del submitted, eng, tel_eng  # the model's parameters go with them
+    torch.cuda.empty_cache()
+
+    mamba, submitted = _survive_model(
+        dev, "mamba2-780m", SURVIVE_MAMBA_REQUESTS, SURVIVE_MAMBA_PROMPT,
+        [ChaosEvent(2, "rescale", slots=2), ChaosEvent(4, "snapshot"),
+         ChaosEvent(7, "rescale", slots=4), ChaosEvent(10, "rewind")], "mamba2-780m",
+        roundtrip=False, needed=SURVIVE_MAMBA_KERNELS)
+    del submitted
+    torch.cuda.empty_cache()
+    wall = time.monotonic() - t_phase
+    print(f"[survive] phase 6g wall {wall:.1f} s", flush=True)
+    return {"llama": llama, "mamba2": mamba, "sampled_tokens": sampled,
+            "telemetry": {"spans": n_spans, "tokens_per_s": tel_out["tokens_per_s"],
+                          "tokens_per_s_off": llama["oracle_tokens_per_s"], "run_s": tel_s,
+                          "run_s_off": llama["oracle_s"], "tokens_equal": tel_equal},
+            "launches": {name: llama["launches"][name] + mamba["launches"][name]
+                         for name in llama["launches"]},
+            "wall_s": wall}
+
+
 # -- slice 4: the kernel sweep and the paper evaluation ----------------------------
 
 # the dangling filter at VGG-19's first activation at batch 32 (the size
@@ -1520,6 +1805,9 @@ def main() -> None:
         "llama3.2-1b": profile_prefill(dev, "llama3.2-1b", LONG_PROMPT),
         "mamba2-780m": profile_prefill(dev, "mamba2-780m", MAMBA_PROMPT)}
 
+    # -- 6g. slice 9: spill/resume, rescale, snapshots, chaos, sampling --------
+    report["survive"] = survive = phase_survive(dev)
+
     # -- 7. slice 4: the kernel sweep and the paper evaluation -----------------
     report["dangling_filter"] = df = phase_dangling_filter(dev, gen)
     report["sweep"] = sweep = phase_sweep(dev)
@@ -1527,11 +1815,12 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, train, serve_long,
-    # serve_mamba2, the kernel sweep, the paper path's probe), each zeroed
-    # just before its run and read just after (the comparisons above count in
-    # none)
+    # serve_mamba2, survive, the kernel sweep, the paper path's probe), each
+    # zeroed just before its run and read just after (the comparisons above
+    # count in none)
     by_path = {name: {"serve": launches[name], "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
+                      "survive": survive["launches"][name],
                       "train": train["launches"][name], "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
                for name in launches}

@@ -21,12 +21,13 @@ registrations aliased the plain lowering, have a plain version only.
 The reference's ``packed_all_gather`` / ``packed_reduce_scatter`` wait
 for the ``dist/`` port.
 
-Eager instrumentation: inside :func:`record_kernel_metrics` the
-instrumented wrappers (``masked_matmul``, ``masked_matmul_dx`` / ``_dw``,
-``mask_pack``, ``kv_pack``) note host-side scalars with the reference's
-keys, which ``perfmodel`` reads.  Outside it they note nothing and cost
-nothing (no device read, no host sync).  The reference also feeds every
-noted value into telemetry histograms; that waits for the telemetry port.
+Eager instrumentation: inside :func:`record_kernel_metrics`, or inside
+an active telemetry scope, the instrumented wrappers (``masked_matmul``,
+``masked_matmul_dx`` / ``_dw``, ``mask_pack``, ``kv_pack``) note host-side
+scalars with the reference's keys, which ``perfmodel`` reads; every noted
+value also lands in the telemetry registry as a
+``spring_kernel_<key>{op=...}`` histogram, as in the reference.  Outside
+both they note nothing and cost nothing (no device read, no host sync).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import telemetry
 
 # -- eager instrumentation ------------------------------------------------------
 
@@ -60,15 +63,25 @@ def record_kernel_metrics():
 
 
 def metrics_active() -> bool:
-    """Should the hooks compute their scalars?  Only inside a recorder:
-    the scalars cost a device read."""
-    return _rows is not None
+    """Should the hooks compute their scalars?  Inside a recorder or an
+    active telemetry scope: the scalars cost a device read."""
+    return _rows is not None or telemetry.enabled()
+
+
+#: prefix of the per-key histograms noted values feed (the reference's)
+KERNEL_METRIC_PREFIX = "spring_kernel_"
 
 
 def note_metric(op: str, **values: float) -> None:
-    """Record one instrumentation row, when a recorder is active."""
+    """Record one instrumentation row: in the active recorder, if any,
+    and always in the telemetry registry as ``spring_kernel_<key>{op=...}``
+    histograms."""
     if _rows is not None:
         _rows.append(dict(values, op=op))
+    reg = telemetry.default_registry()
+    for key, v in values.items():
+        reg.observe(KERNEL_METRIC_PREFIX + key, float(v), op=op,
+                    help=f"eager kernel instrumentation: {key} per op")
 
 
 def metric_summary(rows: list) -> dict[str, dict[str, float]]:

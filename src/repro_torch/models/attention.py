@@ -14,8 +14,10 @@ Two regimes, as in the reference:
     there, so the current token's key is bf16-rounded exactly as in the
     reference (``_row_update``, ``attention.py:41-45``).
 
-Decode attention stays plain torch, as in the reference.  MLA, sliding
-windows, the qkv bias and the int8 cache are not ported yet.
+Decode attention stays plain torch, as in the reference; its score
+product runs in fixed row blocks (``layers.fixed_rows``) so that a row's
+result does not depend on the batch's size.  MLA, sliding windows, the qkv bias and the int8 cache are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import SpringContext, dense_apply, dense_init, rope_apply
+from repro_torch.models.layers import (SpringContext, dense_apply, dense_init, fixed_rows,
+                                        rope_apply)
 
 
 def _pos_vec(pos, b: int, device) -> torch.Tensor:
@@ -41,6 +44,26 @@ def _row_update(cache_leaf: torch.Tensor, new: torch.Tensor, slot_v: torch.Tenso
     out = cache_leaf.clone()
     out[torch.arange(b, device=out.device), slot_v] = new[:, 0].to(cache_leaf.dtype)
     return out
+
+
+def _scores(qh: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bkgd,bskd->bkgs", qh, ck)
+
+
+def _decode_attend(qh: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   pos_v: torch.Tensor) -> torch.Tensor:
+    """fp32 attention of (B, KV, G, D) queries over the (B, S, KV, D) cache
+    up to each row's position.  The score product runs in fixed row blocks
+    (``fixed_rows``): on the card its batched GEMM's sums differ with the
+    batch's size.  The softmax and the value product read equal at 4 and at
+    2 rows there, so they run batched."""
+    d, s_max = qh.shape[-1], ck.shape[1]
+    scores = fixed_rows(_scores, qh.to(torch.float32), ck.to(torch.float32)) / (d**0.5)
+    valid = torch.arange(s_max, device=qh.device)[None, :] <= pos_v[:, None]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full((), -1e30, device=qh.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p, cv.to(torch.float32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,16 +122,8 @@ def gqa_apply(
         pos_v = _pos_vec(pos, b, x.device)
         ck = _row_update(cache["k"], k, pos_v)
         cv = _row_update(cache["v"], v, pos_v)
-        s_max = ck.shape[1]
-        group = h // kv
-        qh = q.reshape(b, kv, group, d)
-        scores = torch.einsum("bkgd,bskd->bkgs", qh.to(torch.float32),
-                              ck.to(torch.float32)) / (d**0.5)
-        valid = torch.arange(s_max, device=x.device)[None, :] <= pos_v[:, None]
-        scores = torch.where(valid[:, None, None, :], scores,
-                             torch.full((), -1e30, device=x.device))
-        p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgs,bskd->bkgd", p, cv.to(torch.float32))
+        qh = q.reshape(b, kv, h // kv, d)
+        out = _decode_attend(qh, ck, cv, pos_v)
         out = out.reshape(b, 1, h, d).to(x.dtype)
         new_cache = {"k": ck, "v": cv}
 

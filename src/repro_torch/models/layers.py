@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.spring_ops import DENSE, DENSE_DTYPE, KeyGen, SpringConfig, spring_matmul
 from repro_torch.memstash.config import MemstashConfig
@@ -80,9 +81,40 @@ def rmsnorm_init(d: int, *, device=None) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+#: rows (dim 0) of every call that :func:`fixed_rows` makes
+ROW_BLOCK = 8
+
+
+def fixed_rows(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` over ``xs`` in blocks of exactly ``ROW_BLOCK`` rows (dim 0),
+    the last block zero-padded, the results concatenated without the
+    padding.  cuBLAS and torch's reduction kernels choose their algorithm,
+    and so their summation order, by the operands' shapes: on the card a
+    row reduced in a batch of 4 and in a batch of 2 can differ in its last
+    bits.  Here every call has the same shape whatever the batch's size,
+    and each row's result reads only that row, so serving's decode is
+    batch-invariant (the same tokens after a rescale, or a resume into
+    another slot) on every device."""
+    b, out = xs[0].shape[0], []
+    for start in range(0, b, ROW_BLOCK):
+        n = min(ROW_BLOCK, b - start)
+        block = [x[start:start + n] for x in xs]
+        if n < ROW_BLOCK:
+            block = [F.pad(x, (0, 0) * (x.ndim - 1) + (0, ROW_BLOCK - n)) for x in block]
+        out.append(fn(*block)[:n])
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _mean_square(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(x * x, dim=-1, keepdim=True)
+
+
 def rmsnorm_apply(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm.  For one position per row (a decode step) the mean of
+    squares is reduced in fixed row blocks (:func:`fixed_rows`)."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = fixed_rows(_mean_square, xf) if xf.ndim == 3 and xf.shape[1] == 1 \
+        else _mean_square(xf)
     y = xf * torch.rsqrt(var + eps) * params["scale"]
     return y.to(x.dtype)
 

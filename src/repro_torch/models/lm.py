@@ -10,7 +10,11 @@ walked in order.  Caches keep the reference's stacked layout,
 laid out exactly as the reference's, and SSM ``{"conv", "ssm"}`` states.
 
 The tied-embedding logits product stays ``torch.matmul`` in fp32: the
-reference computes it outside any kernel too (``lm.py:412-415``).
+reference computes it outside any kernel too (``lm.py:412-415``).  The
+decode's plain reductions that are not batch-invariant on the card (this
+product, RMSNorm's mean, decode attention's score product, the SSM state
+readout) run in fixed row blocks (``layers.fixed_rows``), so a request's
+tokens do not depend on how many slots the pool has.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_apply,
     embed_init,
+    fixed_rows,
     rmsnorm_apply,
     rmsnorm_init,
     swiglu_apply,
@@ -132,9 +137,11 @@ def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
 
 
 def _logits(params: dict, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of (B, d) rows in fixed row blocks (``fixed_rows``:
+    cuBLAS picks its GEMM by the row count)."""
     w = (params["embed"]["embedding"].t() if cfg.tie_embeddings
-         else params["lm_head"]["kernel"])
-    return torch.matmul(h.to(torch.float32), w.to(torch.float32))
+         else params["lm_head"]["kernel"]).to(torch.float32)
+    return fixed_rows(lambda r: torch.matmul(r, w), h.to(torch.float32))
 
 
 def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -4,7 +4,10 @@ Per block: in_proj -> split(z, xBC, dt); a short causal depthwise conv over
 xBC; the SSD scan (``kernels.ssd_scan``: the CUDA kernels on the card, the
 chunked plain version on the CPU); gated RMSNorm of y * silu(z); out_proj.
 Decode keeps a (conv, ssm) state pair per layer, O(1) in sequence length;
-the one-token decode update stays plain torch, as in the reference.
+the one-token decode update stays plain torch, as in the reference, its
+state readout in fixed row blocks (``layers.fixed_rows``: batch-invariant;
+the 4-tap conv sum reads equal at 4 and at 2 rows on the card, so it runs
+batched).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from repro_torch.models.layers import (
     SpringContext,
     dense_apply,
     dense_init,
+    fixed_rows,
     rmsnorm_apply,
     rmsnorm_init,
 )
@@ -116,7 +120,8 @@ def ssm_apply(params: dict, x: torch.Tensor, ctx: SpringContext, spec: SSMSpec,
         alpha = torch.exp(dt1 * a[None, :])
         ssm = cache["ssm"].to(torch.float32) * alpha[..., None, None] + torch.einsum(
             "bhn,bhp->bhnp", bmr * dt1[..., None], xs.to(torch.float32))
-        y = torch.einsum("bhn,bhnp->bhp", cmr, ssm).reshape(b, 1, h, p)
+        y = fixed_rows(lambda c, s: torch.einsum("bhn,bhnp->bhp", c, s), cmr, ssm)
+        y = y.reshape(b, 1, h, p)
         new_cache = {"conv": conv_state[:, 1:], "ssm": ssm.to(cache["ssm"].dtype)}
         xs = xs.reshape(b, 1, h, p)
 

@@ -17,9 +17,13 @@ installed per slot, merged per active row, never packed.  Every cache leaf
 sits under a ``unit_*`` key with the layers stacked in front, so its slot
 axis is axis 1.
 
-Slot surgery (install, release) writes the pool in place; the reference's
-versions are pure functions inside jitted programs.  Sliding-window rings
-and MLA latents are not ported yet.
+Slot surgery (install, release, restore) writes the pool in place; the
+reference's versions are pure functions inside jitted programs.  So what
+must outlive the next surgery is copied out: a spilled slot's payload
+(:func:`extract_slot_packed`) and a snapshot's leaves
+(:func:`pool_leaves`) are host copies, never views of the pool.  Mask
+words move through an int32 view (torch has few uint32 kernels).
+Sliding-window rings and MLA latents are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.masking import MASK_WORD_BITS, _n_words
@@ -159,6 +164,105 @@ def merge_active(new_cache: dict, old_cache: dict, active: torch.Tensor) -> dict
             shape[1] = active.shape[0]  # the slot axis
             out[unit][name] = torch.where(active.reshape(shape), new, old_cache[unit][name])
     return out
+
+
+# -- spill / resume: one slot's exact packed bits -------------------------------
+
+
+def slot_axis(path: tuple) -> int:
+    """Slot (batch) axis of the cache leaf at ``path`` (its keys from the
+    root): leaves under a ``unit_*`` key stack the layers in front of it."""
+    return 1 if path and str(path[0]).startswith("unit_") else 0
+
+
+def word_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with uint32 words seen as int32 (the same bits), for copies."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous CPU copy of ``t`` (a copy on the CPU too: the pool is
+    written in place afterwards), dtype and bits kept."""
+    out = torch.empty(t.shape, dtype=word_view(t).dtype)
+    out.copy_(word_view(t))
+    return out.view(t.dtype)
+
+
+def extract_slot_packed(pool: dict, slot: int) -> dict:
+    """One slot's row of the packed pool, bit-exact, as host copies:
+    PackedKV leaves become ``{"values", "mask", "nnz"}`` dicts of the
+    slot's packed blocks (copied, never repacked), dense state leaves and
+    ``pos`` give their slot rows (the slot axis kept, of size 1).  The
+    spill and rescale payload; :func:`restore_slot_packed` writes it back,
+    possibly into another slot or another pool of the same shape."""
+    out = {"pos": host_copy(pool["pos"].narrow(0, slot, 1))}
+    for unit in _units(pool):
+        out[unit] = {}
+        for name, leaf in pool[unit].items():
+            if not isinstance(leaf, PackedKV):
+                out[unit][name] = host_copy(leaf.narrow(slot_axis((unit, name)), slot, 1))
+                continue
+            ax = len(leaf.shape) + PACKED_SEQ_AXIS[name] - 1  # the slot axis
+            out[unit][name] = {part: host_copy(getattr(leaf, part).narrow(ax, slot, 1))
+                               for part in ("values", "mask", "nnz")}
+    return out
+
+
+def as_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor; a numpy array is copied (bfloat16, which torch
+    takes from no numpy array, through its uint16 bits)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _splice(dst: torch.Tensor, src, ax: int, slot: int) -> None:
+    word_view(dst).narrow(ax, slot, 1).copy_(word_view(as_tensor(src)))
+
+
+def restore_slot_packed(pool: dict, payload: dict, slot: int) -> dict:
+    """Inverse of :func:`extract_slot_packed`: write a slot payload's exact
+    packed bits into ``slot`` of the pool, in place, each leaf keeping its
+    dtype (``pos`` is converted by value)."""
+    _splice(pool["pos"], payload["pos"], 0, slot)
+    for unit in _units(pool):
+        for name, leaf in pool[unit].items():
+            p = payload[unit][name]
+            if not isinstance(leaf, PackedKV):
+                _splice(leaf, p, slot_axis((unit, name)), slot)
+                continue
+            ax = len(leaf.shape) + PACKED_SEQ_AXIS[name] - 1
+            for part in ("values", "mask", "nnz"):
+                _splice(getattr(leaf, part), p[part], ax, slot)
+    return pool
+
+
+def pool_leaves(tree) -> list:
+    """The leaves of a pool (or any dict/list tree of tensors and PackedKV)
+    in the reference's order, ``jax.tree_util.tree_leaves``: dict keys
+    sorted, a PackedKV as its values, mask, nnz."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in pool_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in pool_leaves(x)]
+    if isinstance(tree, PackedKV):
+        return [tree.values, tree.mask, tree.nnz]
+    return [tree]
+
+
+def pool_shapes(pool: dict, n_slots: int) -> list:
+    """The shapes of :func:`pool_leaves` for this pool rebuilt at
+    ``n_slots`` (every leaf's slot axis resized)."""
+    shapes = []
+    for key in sorted(pool):
+        for leaf in pool_leaves(pool[key]):
+            shape = list(leaf.shape)
+            shape[slot_axis((key,))] = n_slots
+            shapes.append(tuple(shape))
+    return shapes
 
 
 # -- host-side slot accounting ------------------------------------------------

@@ -1,9 +1,8 @@
 """FCFS slot admission + request lifecycle, with elastic extensions.
 
 A copy of ``repro/serving/scheduler.py`` (pure Python; the port imports
-nothing from ``repro``).  The port's engine uses the FCFS core and the
-load shedding; the preemption paths come along unused until they are
-ported.
+nothing from ``repro``).  The port's engine uses all of it: the FCFS
+core, load shedding, and the preemption paths (spill, resume, rescale).
 
 Model-agnostic on purpose: the scheduler never touches jax, so the
 hypothesis property suites (tests/test_serving_scheduler.py,
