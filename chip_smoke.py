@@ -114,6 +114,32 @@ failure:
                tile kernels and tile_occupancy (both models),
                flash_attention and mask_pack (llama) and ssd_scan (mamba2)
                must launch there;
+  6h. paged  — full-width llama3.2-1b, quant_sparse, on the paged
+               copy-on-write pool (``serving/paging``): 4 slots, 8 requests
+               of 500-512 tokens whose first 256 are one system prompt, gen
+               16, 8 tokens a page, max_len 530 (not a multiple of the
+               page), 8 page installs a tick.  The uninterrupted paged run
+               (counters zeroed just before, read just after: the skinny and
+               tile kernels, flash_attention and mask_pack must launch),
+               the same requests on the monolithic engine (tokens must be
+               equal), a chaos run (an .npz round trip, the page budget cut
+               to two requests' worth with spills, a snapshot, a rewind, the
+               budget raised back; tokens equal to the uninterrupted run's,
+               requests spilled and resumed); a prefix hit must happen.
+               Printed: tokens/s of both engines, a decode tick's wall and
+               device ms with its launches (mask_pack twice), page-array
+               bytes, peak page utilization, the most frames shared, an
+               .npz round trip's bytes and save / load s, a request's spill
+               and resume ms;
+  6i. archs  — full-width minitron-4b and mistral-nemo-12b (head_dim 128;
+               GQA groups of 3 and 4), quant_sparse, 4 requests of prompt
+               512, gen 16, 4 slots, on the paged and then the monolithic
+               engine over the same parameters: tokens equal, logits
+               finite, and in the paged run the skinny and tile kernels,
+               tile_occupancy, splitk_reduce (d_ff over 8192),
+               flash_attention at D 128 and mask_pack launched; prefill s
+               per request, tokens/s, peak memory; then each reduced model
+               on the card against the CPU as in 6e;
   7a. dangling_filter — bit-equal to its plain version on the registry's
                examples, -0.0 / NaN / inf entries at a length with a scalar
                tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
@@ -134,6 +160,7 @@ TF32 is off throughout: Q4.16 values carry 21 significant bits, TF32 keeps
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import pathlib
@@ -1430,6 +1457,351 @@ def phase_survive(dev) -> dict:
             "wall_s": wall}
 
 
+# -- slice 10: the paged pool, minitron-4b and mistral-nemo-12b ---------------------
+
+# 6h: llama3.2-1b on the paged pool, 4 slots, 8 requests of 500-512 tokens
+# whose first 256 are one system prompt, gen GEN, 8 tokens a page, max_len
+# 530 (not a multiple of the page), 8 page installs a tick
+PAGED_SLOTS, PAGED_REQUESTS, PAGED_SYSTEM, PAGED_MAX_LEN = 4, 8, 256, 530
+PAGED_PROMPTS = (500, 512)  # the shortest and the longest prompt
+PAGE_TOKENS, PREFILL_CHUNK = 8, 8
+PAGED_KERNELS = ("masked_matmul_skinny", "masked_matmul", "flash_attention", "mask_pack")
+# 6i: 4 requests of prompt 512 on 4 slots, paged then monolithic; both
+# models' d_ff (9216, 14336) exceed the 8192-long split-K chunk
+ARCHS_NEW, ARCH_REQUESTS, ARCH_PROMPT = ("minitron-4b", "mistral-nemo-12b"), 4, 512
+ARCH_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy", "splitk_reduce",
+                "flash_attention", "mask_pack")
+
+
+def _store_bytes(store_arrays: dict) -> dict:
+    """Bytes of the paged store's arrays by part."""
+    out = dict.fromkeys(("values", "mask", "nnz"), 0)
+    for leaf in store_arrays.values():
+        for part, t in leaf.items():
+            out[part] += t.nbytes
+    out["total"] = sum(out.values())
+    return out
+
+
+def _decode_split(out: dict) -> dict:
+    """What an engine summary's tokens/s is made of: decode ticks, their
+    mean ms and their mean occupancy (tokens/s = occupancy x slots / ms)."""
+    steps = max(out["decode_steps"], 1)
+    return {"decode_steps": out["decode_steps"], "ms_per_decode": out["decode_s"] * 1e3 / steps,
+            "mean_occupancy": out["mean_occupancy"], "ticks": out["latency"]["ticks"]}
+
+
+def _drive(eng) -> tuple:
+    """``eng.run()`` stepped by hand, with the most frames shared at once
+    (0 for the monolithic engine) kept; returns (summary, that count)."""
+    shared = 0
+    while eng.sched.has_work():
+        eng.step()
+        eng.sched.check_invariants()
+        if eng.backend_kind == "paged":
+            shared = max(shared, len(eng.table.shared_frames()))
+    return eng.summary(), shared
+
+
+def _paged_tick_profile(eng, ticks: int = 3) -> dict:
+    """Three decode ticks of a full pool under torch.profiler: wall and
+    device ms a tick, launches a tick.  ``eng`` installs whole prompts at
+    admission (``prefill_chunk=None``), so its first tick admits every
+    slot and the next ones decode all of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+
+    eng.step()
+    if eng._installing or len(eng._decode_slots()) < PAGED_SLOTS:
+        fail(f"paged phase: {len(eng._decode_slots())} of {PAGED_SLOTS} slots decode "
+             f"after the admitting tick")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / ticks
+    per_tick = {k: v / ticks for k, v in kernels.launch_counts().items() if v}
+    rows = device_time_by_kernel(prof, ticks)
+    busy = sum(r[1] for r in rows)
+    print(f"[paged] decode tick, {PAGED_SLOTS} slots at ~{PAGED_MAX_LEN} rows: {wall_ms:.2f} ms "
+          f"wall (profiled), device "
+          + (f"{busy:.2f} ms = {busy / wall_ms:.1%}" if busy else "not measured")
+          + f"; launches a tick {per_tick}", flush=True)
+    for name, ms, n in rows[:8]:
+        print(f"[paged]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
+    if per_tick.get("mask_pack") != 2:
+        fail(f"a paged decode tick must pack its k and v pages in one mask_pack launch "
+             f"each: {per_tick}")
+    return {"tick_ms": wall_ms, "device_busy_ms": busy, "launches_per_tick": per_tick,
+            "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
+                        for n, ms, c in rows[:20]]}
+
+
+def phase_paged(dev) -> dict:
+    """(6h) full-width llama3.2-1b on the paged copy-on-write pool: the
+    uninterrupted paged run (the main path: counters zeroed just before,
+    read just after), the same requests on the monolithic engine, and a
+    chaos run (an .npz round trip, the page budget cut to two requests'
+    worth with spills, raised back, a rewind).  Paged tokens must equal
+    monolithic tokens, chaos tokens the uninterrupted ones; a prefix hit,
+    a spill and a resume must happen."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving.elastic import ChaosEvent, ChaosHarness, load_snapshot, save_snapshot
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paging import PagedServingEngine
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    cfg = get_arch("llama3.2-1b").resolve(False)
+    params = lm_init(cfg, 0, device=dev)
+    system = synthetic_prompts(1, PAGED_SYSTEM, cfg.vocab, 0)[0]
+    lo, hi = PAGED_PROMPTS
+    prompts = [system + synthetic_prompts(1, lo + (hi - lo) * i // (PAGED_REQUESTS - 1)
+                                          - PAGED_SYSTEM, cfg.vocab, 1 + i)[0]
+               for i in range(PAGED_REQUESTS)]
+    spring = serving_config("quant_sparse")
+    common = dict(params=params, n_slots=PAGED_SLOTS, max_len=PAGED_MAX_LEN,
+                  spec_hash="chip-smoke-paged", device=dev)
+
+    def submitted(paged: bool = True, n: int = PAGED_REQUESTS, chunk=PREFILL_CHUNK):
+        eng = (PagedServingEngine(cfg, spring, page_tokens=PAGE_TOKENS, prefill_chunk=chunk,
+                                  **common)
+               if paged else ServingEngine(cfg, spring, **common))
+        for i, p in enumerate(prompts[:n]):
+            eng.submit_prompt(p, GEN, seed=i)
+        return eng
+
+    def tokens(out) -> list:
+        return [r["tokens"] for r in out["per_request"]]
+
+    res: dict = {"prompt_lens": [len(p) for p in prompts]}
+    eng = submitted()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out, shared = _drive(eng)
+    torch.cuda.synchronize()
+    res["paged_s"] = time.monotonic() - t0
+    res["launches"] = kernels.launch_counts()
+    want = tokens(out)
+    pg = out["paging"]
+    res.update(paging=pg, shared_frames_max=shared, store_bytes=_store_bytes(eng.store_arrays),
+               paged_tokens_per_s=out["tokens_per_s"], finite=out["finite"],
+               paged_prefill_s_per_request=out["prefill_s"] / PAGED_REQUESTS,
+               paged_decode=_decode_split(out))
+    num_pages = pg["num_pages"]
+    del eng
+    print(f"[paged] llama3.2-1b quant_sparse, {PAGED_REQUESTS} requests of "
+          f"{min(res['prompt_lens'])}-{max(res['prompt_lens'])} tokens ({PAGED_SYSTEM} shared), "
+          f"{PAGED_SLOTS} slots, max_len {PAGED_MAX_LEN}, {PAGE_TOKENS} tokens a page: "
+          f"{res['paged_s']:.1f} s, {out['tokens_per_s']:.1f} tokens/s ({res['paged_decode']}), "
+          f"finite={out['finite']}; "
+          f"{num_pages} pages ({pg['logical_frames']} frames), prefix hits {pg['prefix_hits']}, "
+          f"cow {pg['cow_copies']}, at most {shared} frames shared, peak page utilization "
+          f"{pg['peak_page_utilization']:.3f}; page arrays {res['store_bytes']}", flush=True)
+    print(f"[paged] launches {res['launches']}", flush=True)
+    if not out["finite"] or any(len(t) != GEN for t in want):
+        fail("paged phase: the uninterrupted paged run did not finish every request")
+    for name in PAGED_KERNELS:
+        if res["launches"][name] <= 0:
+            fail(f"paged phase never launched the {name} kernel")
+    if pg["prefix_hits"] <= 0 or shared <= 0:
+        fail("paged phase: the shared system prompt made no prefix hit")
+
+    t0 = time.monotonic()
+    mono = submitted(paged=False).run()
+    res["mono_s"] = time.monotonic() - t0
+    res["mono_tokens_per_s"] = mono["tokens_per_s"]
+    res["mono_decode"] = _decode_split(mono)
+    res["paged_equals_monolithic"] = tokens(mono) == want
+    print(f"[paged] monolithic engine, the same requests: {res['mono_s']:.1f} s, "
+          f"{mono['tokens_per_s']:.1f} tokens/s ({res['mono_decode']}); paged tokens equal "
+          f"{res['paged_equals_monolithic']}", flush=True)
+    if not res["paged_equals_monolithic"]:
+        first = next(i for i, (a, b) in enumerate(zip(tokens(mono), want)) if a != b)
+        fail(f"paged phase: request {first}'s paged tokens {want[first]} differ from the "
+             f"monolithic engine's {tokens(mono)[first]}")
+
+    # chaos: the budget cut to two requests' worth (a resumed request holds
+    # private copies of all its pages: the rescale spills every active
+    # one), a snapshot, a rewind to it, the budget raised back
+    small = 2 * -(-PAGED_MAX_LEN // PAGE_TOKENS)
+    schedule = [ChaosEvent(2, "roundtrip"), ChaosEvent(4, "rescale", num_pages=small),
+                ChaosEvent(7, "snapshot"), ChaosEvent(10, "rewind"),
+                ChaosEvent(13, "rescale", num_pages=num_pages)]
+    t0 = time.monotonic()
+    chaos = ChaosHarness(submitted(), schedule, max_steps=500).run()
+    torch.cuda.synchronize()
+    res["chaos_s"] = time.monotonic() - t0
+    res["chaos_equal"] = tokens(chaos) == want
+    res["chaos_elastic"] = chaos["elastic"]
+    res["schedule"] = [(e.at, e.kind, e.num_pages) for e in schedule]
+    print(f"[paged] chaos {res['schedule']}: {res['chaos_s']:.1f} s, tokens equal "
+          f"{res['chaos_equal']}, {chaos['elastic']}", flush=True)
+    if not res["chaos_equal"]:
+        fail("paged phase: tokens under chaos differ from the uninterrupted run's")
+    if chaos["elastic"]["n_spills"] <= 0 or chaos["elastic"]["n_resumes"] <= 0:
+        fail("paged phase: the page-budget cut did not both spill and resume")
+
+    # one full pool (whole prompts installed at admission): a profiled
+    # tick, an .npz round trip, spill and resume
+    eng = submitted(n=PAGED_SLOTS, chunk=None)
+    res["tick"] = _paged_tick_profile(eng)
+    path = ROOT / "build" / "paged_llama.npz"
+    path.parent.mkdir(exist_ok=True)
+    t1 = time.monotonic()
+    snap = eng.snapshot()
+    t2 = time.monotonic()
+    save_snapshot(snap, str(path))
+    t3 = time.monotonic()
+    loaded = load_snapshot(str(path))
+    t4 = time.monotonic()
+    eng.restore(loaded)
+    torch.cuda.synchronize()
+    t5 = time.monotonic()
+    res.update(snapshot_s=t2 - t1, save_s=t3 - t2, load_s=t4 - t3, restore_s=t5 - t4,
+               npz_bytes=path.stat().st_size)
+    path.unlink()
+    print(f"[paged] .npz round trip of a full pool at tick {eng.tick}: {res['npz_bytes']} "
+          f"bytes, snapshot {res['snapshot_s']:.3f} s, save {res['save_s']:.3f} s, load "
+          f"{res['load_s']:.3f} s, restore {res['restore_s']:.3f} s", flush=True)
+    spill, resume, frames = [], [], []
+    for _ in range(5):
+        frames.append(eng.table.n_blocks(eng._slot_rid[0]))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng._spill_slot(0)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        eng._admit_phase()
+        torch.cuda.synchronize()
+        spill.append((t1 - t0) * 1e3)
+        resume.append((time.monotonic() - t1) * 1e3)
+    page_bytes = sum(s.lead_prod * (s.elems * 2 + s.words * 4 + 4)
+                     for s in eng.store.leaves.values())
+    got = tokens(eng.run())
+    res["spill_resume"] = {"spill_ms": spill, "resume_ms": resume, "frames": frames,
+                           "page_bytes": page_bytes, "tokens_equal": got == want[:PAGED_SLOTS]}
+    print(f"[paged] _spill_slot of a request's {frames[0]} pages ({frames[0] * page_bytes} "
+          f"bytes): {min(spill):.2f} ms (min of 5; mean {sum(spill) / 5:.2f}), _resume_one "
+          f"{min(resume):.2f} ms (mean {sum(resume) / 5:.2f}); tokens after 5 spills equal "
+          f"{got == want[:PAGED_SLOTS]}", flush=True)
+    if got != want[:PAGED_SLOTS]:
+        fail("paged phase: tokens after repeated spills differ")
+    del eng, params, common, submitted, snap, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.monotonic() - t_phase
+    print(f"[paged] phase 6h wall {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+def phase_archs(dev, gen) -> dict:
+    """(6i) full-width minitron-4b and mistral-nemo-12b, quant_sparse: 4
+    requests of prompt 512 on 4 slots, on the paged and then the
+    monolithic engine over the same parameters; the launch counters are
+    zeroed just before each run and read just after.  Tokens equal between
+    the backends, finite logits, and every kernel of the path (the
+    D 128 flash_attention among them) launched in the paged run; then
+    each reduced model on the card against the CPU."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import plan
+    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paging import PagedServingEngine
+
+    t_phase = time.monotonic()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res: dict = {}
+    for arch in ARCHS_NEW:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(arch).resolve(False)
+        a = cfg.attn
+        tile = plan(1, a.n_heads, a.n_kv_heads, ARCH_PROMPT, a.head_dim, n_sms)
+        params = lm_init(cfg, 0, device=dev)
+        n_params = sum(t.numel() for t in _tensors(params))
+        prompts = synthetic_prompts(ARCH_REQUESTS, ARCH_PROMPT, cfg.vocab, 0)
+        row: dict = {"params": n_params, "tile": tile._asdict()}
+        for backend in ("paged", "monolithic"):
+            kw = dict(params=params, n_slots=ARCH_REQUESTS, max_len=ARCH_PROMPT + GEN + 1,
+                      device=dev)
+            eng = (PagedServingEngine(cfg, serving_config("quant_sparse"),
+                                      page_tokens=PAGE_TOKENS, **kw) if backend == "paged"
+                   else ServingEngine(cfg, serving_config("quant_sparse"), **kw))
+            del kw  # the engine holds the parameters; nothing else may
+            for i, p in enumerate(prompts):
+                eng.submit_prompt(p, GEN, seed=i)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            out = eng.run()
+            torch.cuda.synchronize()
+            row[backend] = {"wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+                            "tokens": [r["tokens"] for r in out["per_request"]],
+                            "finite": out["finite"], "tokens_per_s": out["tokens_per_s"],
+                            "prefill_s_per_request": out["prefill_s"] / ARCH_REQUESTS,
+                            "decode": _decode_split(out)}
+            del eng, out
+        row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        p, m = row["paged"], row["monolithic"]
+        row["tokens_equal"] = p["tokens"] == m["tokens"]
+        print(f"[archs] {arch} ({n_params / 1e9:.2f} B parameters, D {a.head_dim}, "
+              f"H {a.n_heads} / HKV {a.n_kv_heads}, flash tile {tile.rows} rows x "
+              f"{tile.heads_per_cta} heads), {ARCH_REQUESTS} requests of prompt {ARCH_PROMPT}: "
+              f"paged {p['prefill_s_per_request']:.3f} s prefill per request, "
+              f"{p['tokens_per_s']:.2f} tokens/s ({p['decode']}); monolithic "
+              f"{m['prefill_s_per_request']:.3f} s, {m['tokens_per_s']:.2f} tokens/s "
+              f"({m['decode']}); peak {row['peak_mem_bytes'] / 2**30:.2f} GiB; "
+              f"tokens equal {row['tokens_equal']}, finite {p['finite'] and m['finite']}",
+              flush=True)
+        print(f"[archs] {arch} launches, paged run {p['launches']}", flush=True)
+        if not (p["finite"] and m["finite"]) or any(len(t) != GEN for t in p["tokens"]):
+            fail(f"archs phase: {arch} did not finish every request with finite logits")
+        if not row["tokens_equal"]:
+            fail(f"archs phase: {arch}'s paged tokens differ from its monolithic tokens")
+        for name in ARCH_KERNELS:
+            if p["launches"][name] <= 0:
+                fail(f"archs phase: {arch}'s paged run never launched the {name} kernel")
+        if m["launches"]["flash_attention"] <= 0:
+            fail(f"archs phase: {arch}'s monolithic run never launched flash_attention")
+        del params
+        gc.collect()  # the next model must not find this one's 20-49 GB still held
+        torch.cuda.empty_cache()
+        res[arch] = row
+    res["check"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT)
+                    for arch in ARCHS_NEW}
+    res["launches"] = {name: sum(res[arch]["paged"]["launches"][name]
+                                 + res[arch]["monolithic"]["launches"][name]
+                                 for arch in ARCHS_NEW)
+                       for name in res[ARCHS_NEW[0]]["paged"]["launches"]}
+    res["wall_s"] = time.monotonic() - t_phase
+    print(f"[archs] phase 6i wall {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
 # -- slice 4: the kernel sweep and the paper evaluation ----------------------------
 
 # the dangling filter at VGG-19's first activation at batch 32 (the size
@@ -1808,6 +2180,10 @@ def main() -> None:
     # -- 6g. slice 9: spill/resume, rescale, snapshots, chaos, sampling --------
     report["survive"] = survive = phase_survive(dev)
 
+    # -- 6h/6i. slice 10: the paged pool, minitron-4b, mistral-nemo-12b ---------
+    report["paged"] = paged = phase_paged(dev)
+    report["archs"] = archs = phase_archs(dev, gen)
+
     # -- 7. slice 4: the kernel sweep and the paper evaluation -----------------
     report["dangling_filter"] = df = phase_dangling_filter(dev, gen)
     report["sweep"] = sweep = phase_sweep(dev)
@@ -1815,12 +2191,13 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, train, serve_long,
-    # serve_mamba2, survive, the kernel sweep, the paper path's probe), each
-    # zeroed just before its run and read just after (the comparisons above
-    # count in none)
+    # serve_mamba2, survive, paged, archs, the kernel sweep, the paper
+    # path's probe), each zeroed just before its run and read just after
+    # (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
                       "survive": survive["launches"][name],
+                      "paged": paged["launches"][name], "archs": archs["launches"][name],
                       "train": train["launches"][name], "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
                for name in launches}

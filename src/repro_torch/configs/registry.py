@@ -1,0 +1,19 @@
+"""Registry of the architectures the port serves (port of
+``repro/configs/registry.py``, the ported subset): ``--arch <id>``."""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ArchDef
+from repro_torch.configs.llama3_2_1b import ARCH as _llama
+from repro_torch.configs.mamba2_780m import ARCH as _mamba2
+from repro_torch.configs.minitron_4b import ARCH as _minitron
+from repro_torch.configs.mistral_nemo_12b import ARCH as _nemo
+
+ARCHS: dict[str, ArchDef] = {a.arch_id: a for a in [_minitron, _nemo, _llama, _mamba2]}
+
+
+def get_arch(arch_id: str) -> ArchDef:
+    if arch_id not in ARCHS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported; ported: {sorted(ARCHS)}")
+    return ARCHS[arch_id]

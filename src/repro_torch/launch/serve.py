@@ -10,6 +10,7 @@
   python -m repro_torch.launch.serve --snapshot-every 4 --snapshot-path s.npz
   python -m repro_torch.launch.serve --restore s.npz          # drain a snapshot
   python -m repro_torch.launch.serve --sample --telemetry --trace-path t.json
+  python -m repro_torch.launch.serve --pages --page-tokens 8  # the paged COW pool
 
 The pool's ``max_len`` follows ``--prompt-len`` + ``--gen``.
 
@@ -20,8 +21,10 @@ With ``--restore`` the engine restores the snapshot and drains its
 in-flight work, taking no new requests, as the reference's session does.
 ``--telemetry`` serves inside a telemetry scope: the engine's spans go to
 a Chrome trace (``--trace-path``, default ``spring_serve_trace.json``) and
-the output gains a ``telemetry`` block with the metrics.  Prints the
-engine summary as one JSON object.
+the output gains a ``telemetry`` block with the metrics.  ``--pages``
+serves on the paged copy-on-write pool (``serving/paging``) and prints
+the reference's ``paging:`` line first.  Prints the engine summary as one
+JSON object (the last line).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from repro_torch import telemetry
 from repro_torch.configs import get_arch
 from repro_torch.core.spring_ops import MODES, SpringConfig
 from repro_torch.serving.engine import ServingEngine, resolve_device
+from repro_torch.serving.paging import PagedServingEngine
 from repro_torch.serving.scheduler import ShedPolicy
 
 #: snapshot file when snapshots are on and no path is given (the reference's)
@@ -70,10 +74,15 @@ def serve_session(arch: str = "llama3.2-1b", *, reduced: bool = False,
                   snapshot_every: int = 0, snapshot_path: str = "", restore_path: str = "",
                   max_queue_depth: Optional[int] = None, deadline_ticks: Optional[int] = None,
                   telemetry_enabled: bool = False, trace_path: str = "",
+                  pages: bool = False, page_tokens: int = 8, num_pages: Optional[int] = None,
+                  overcommit: float = 1.5, prefix_cache: bool = True,
                   device="cuda") -> dict:
     """Build an engine over random weights, submit ``queue`` synthetic
     requests (or restore ``restore_path`` and take none) and drain them;
-    returns the engine summary."""
+    returns the engine summary.  ``pages=True`` serves on the paged
+    copy-on-write pool (``page_tokens`` rows a page, ``num_pages`` physical
+    pages, None the monolithic pool's equivalent; ``overcommit`` logical
+    frames a page; ``prefix_cache`` shares prompt prefixes)."""
     if snapshot_every < 0:
         raise ValueError("snapshot_every must be >= 0")
     if max_queue_depth is not None and max_queue_depth < 1:
@@ -90,16 +99,22 @@ def serve_session(arch: str = "llama3.2-1b", *, reduced: bool = False,
     cfg = get_arch(arch).resolve(reduced)
     stamp = state_hash(arch=arch, reduced=reduced, mode=mode, slots=slots, queue=queue,
                        prompt_len=prompt_len, gen=gen, seed=seed, greedy=greedy,
-                       max_queue_depth=max_queue_depth, deadline_ticks=deadline_ticks)
+                       max_queue_depth=max_queue_depth, deadline_ticks=deadline_ticks,
+                       **({"pages": pages, "page_tokens": page_tokens, "num_pages": num_pages,
+                           "overcommit": overcommit, "prefix_cache": prefix_cache}
+                          if pages else {}))
     shed = (None if max_queue_depth is None and deadline_ticks is None
             else ShedPolicy(max_queue_depth=max_queue_depth, deadline_ticks=deadline_ticks))
     trace_path = (trace_path or "spring_serve_trace.json") if telemetry_enabled else ""
     scope = telemetry.TelemetryConfig(enabled=telemetry_enabled, trace_path=trace_path)
     with telemetry.scope(scope, metadata={"run": "serve", "spec_hash": stamp}):
-        engine = ServingEngine(cfg, serving_config(mode), n_slots=slots,
-                               max_len=prompt_len + gen + 1, greedy=greedy, seed=seed,
-                               spec_hash=stamp, shed=shed, snapshot_every=snapshot_every,
-                               snapshot_path=snapshot_path, device=device)
+        backend = (dict(page_tokens=page_tokens, num_pages=num_pages, overcommit=overcommit,
+                        prefix_cache=prefix_cache) if pages else {})
+        engine = (PagedServingEngine if pages else ServingEngine)(
+            cfg, serving_config(mode), n_slots=slots, max_len=prompt_len + gen + 1,
+            greedy=greedy, seed=seed, spec_hash=stamp, shed=shed,
+            snapshot_every=snapshot_every, snapshot_path=snapshot_path, device=device,
+            **backend)
         if restore_path:
             engine.restore_file(restore_path)
         else:
@@ -139,6 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="RunSpec serving.max_queue_depth")
     p.add_argument("--deadline-ticks", type=int, default=None,
                    help="RunSpec serving.deadline_ticks")
+    p.add_argument("--pages", action="store_true", help="RunSpec serving.pages")
+    p.add_argument("--page-tokens", type=int, default=8, help="RunSpec serving.page_tokens")
+    p.add_argument("--prefix-cache", default=True,
+                   type=lambda s: s.lower() not in ("0", "false", "no", "off"),
+                   help="RunSpec serving.prefix_cache")
     p.add_argument("--telemetry", action="store_true", help="RunSpec telemetry.enabled")
     p.add_argument("--trace-path", default="", help="RunSpec telemetry.trace_path")
     p.add_argument("--device", default="cuda",
@@ -154,7 +174,16 @@ def main(argv=None) -> dict:
                         snapshot_path=a.snapshot_path, restore_path=a.restore,
                         max_queue_depth=a.max_queue_depth, deadline_ticks=a.deadline_ticks,
                         telemetry_enabled=a.telemetry, trace_path=a.trace_path,
+                        pages=a.pages, page_tokens=a.page_tokens, prefix_cache=a.prefix_cache,
                         device=a.device)
+    if out.get("paging"):
+        p = out["paging"]
+        print(f"paging: {p['num_pages']} pages x {p['page_tokens']} tok "
+              f"(x{p['overcommit']:.1f} logical overcommit), "
+              f"peak {p['peak_active']} resident, "
+              f"prefix hits {p['prefix_hits']}, cow {p['cow_copies']}, "
+              f"spills {p['spills']}/{p['resumes']} resumed, "
+              f"peak budget utilization {p['peak_page_utilization']:.2f}")
     print(json.dumps(out, default=float))
     return out
 

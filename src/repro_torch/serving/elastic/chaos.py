@@ -15,8 +15,8 @@ forward, so every scheduled event fires exactly once):
                   restore into the survivor
   ``roundtrip``   snapshot -> .npz on disk -> load -> restore, with a
                   byte-exactness check on the serialized artifact
-  ``rescale``     grow/shrink slots on the live engine (``num_pages``
-                  needs the paged backend, which is not ported: it raises)
+  ``rescale``     grow/shrink slots and/or (paged backend) the physical
+                  page budget on the live engine
 
 The seal (tests/test_torch_elastic.py, and on the card chip_smoke.py's
 phase 6g): for any event schedule, every completed request's token list

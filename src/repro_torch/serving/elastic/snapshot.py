@@ -5,8 +5,9 @@ artifact per engine, bit-exact on the packed KV pool.
 A snapshot captures everything a token depends on, so the restored
 engine emits the exact remaining tokens of every in-flight request:
 
-  * the packed pool bits (the pool's leaves in the reference's order,
-    copied to the host, never repacked);
+  * the packed pool bits (the monolithic pool's leaves, or the paged
+    store's frames and slot state, in the reference's order, copied to
+    the host, never repacked);
   * scheduler state — queue (policy metadata included), active trackers
     with tokens so far, spill queue with exact packed payloads,
     admission / submission / shed logs;
@@ -38,8 +39,7 @@ import torch
 SNAPSHOT_VERSION = 1
 
 #: signature fields that must match exactly between snapshot and engine
-#: (n_slots is *adapted* by rebuilding the pool instead); the paged
-#: backend's fields are listed as the reference lists them
+#: (n_slots / num_pages are *adapted* by rebuilding the pool instead)
 _STRICT_SIG = ("max_len", "greedy", "kv_pack_impl", "kv_unpack_impl",
                "vocab", "d_model", "page_tokens", "overcommit",
                "prefix_cache")
@@ -424,6 +424,8 @@ def leaves_to_tree(template, leaves: list, what: str):
         return out
 
     def build(node):
+        if node is None:  # a hole of the paged store's slot state
+            return None
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}

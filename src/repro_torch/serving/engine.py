@@ -49,7 +49,12 @@ Spans close where the engine waits for the device (the decode's copy of
 its tokens to the host, the end of an install or a resume), so on the
 card they measure the work, not its issue.
 
-Not ported: the paged pool (``serving/paging``) and the RunSpec
+The paged backend (``serving/paging``, :class:`PagedServingEngine`)
+subclasses this engine through the reference's hooks: ``backend_kind``,
+``_make_scheduler``, ``_build_pool``, ``_pool_stats``,
+``_install_request``, ``_pre_rescale``, ``_pre_snapshot``,
+``_decode_slots``, ``_dispatch_decode``, ``_post_sample``,
+``_post_stats`` and ``_backend_gauges``.  Not ported: the RunSpec
 constructor ``from_spec``.
 """
 
@@ -168,7 +173,7 @@ class ServingEngine:
         self._kv_pack_impl = self._kv_unpack_impl = (
             "cuda" if self.device.type == "cuda" else "plain")
 
-        self.sched = SlotScheduler(n_slots, policy=shed)
+        self.sched = self._make_scheduler(n_slots)
         self._ledger = kvpool.SlotLedger(n_slots)
         self._next_tok = np.zeros((n_slots,), np.int64)
         self._results: dict[int, RequestResult] = {}
@@ -203,8 +208,17 @@ class ServingEngine:
         self.n_restores = 0
         self.slow_ticks = 0
 
+    # -- backend construction (overridden by the paged engine) --------------
+
+    def _make_scheduler(self, n_slots: int) -> SlotScheduler:
+        return SlotScheduler(n_slots, policy=self.shed_policy)
+
     def _build_pool(self) -> None:
         self.pool = kvpool.init_pool(self.cfg, self.n_slots, self.max_len, device=self.device)
+
+    def _pool_stats(self) -> dict:
+        """Current wire stats of the live KV storage (one device sync)."""
+        return kvpool.pool_wire_stats(self.pool)
 
     # -- submission ---------------------------------------------------------
 
@@ -278,10 +292,12 @@ class ServingEngine:
     def _step_body(self) -> None:
         self._admit_phase()
         self.peak_active = max(self.peak_active, len(self.sched.active))
-        slots = sorted(self.sched.active)
+        slots = self._decode_slots()
         if not slots:
             return
-        logits, host, step_s = self._dispatch_decode(slots)
+        logits, host, slots, step_s = self._dispatch_decode(slots)
+        if not slots:
+            return
         self.decode_s += step_s
         self.decode_steps += 1
         self.occupancy_sum += len(slots) / self.n_slots
@@ -303,6 +319,7 @@ class ServingEngine:
                 # every decoded request got one token this tick: the tick's
                 # decode wall time is its per-token latency
                 self.token_sketch.add(step_s)
+        self._post_sample(slots)
         with telemetry.span("serve.tick.repack"):
             for tracker in self.sched.record_tokens(token_by_slot):
                 res = self._results[tracker.req.rid]
@@ -312,7 +329,8 @@ class ServingEngine:
                 res.finished_by = tracker.finished_by
                 self.tokens_emitted += len(tracker.tokens)
                 self.release_slot(tracker.slot)
-            stats = kvpool.pool_wire_stats(self.pool)
+            stats = self._pool_stats()
+        self._post_stats(stats)
         if stats["kv_wire_bytes"] >= self.peak_kv_wire_bytes:
             self.peak_kv_wire_bytes = stats["kv_wire_bytes"]
             self._peak_stats = stats
@@ -328,6 +346,7 @@ class ServingEngine:
                   help="packed KV-pool wire bytes at the last decode tick")
             m.inc("spring_serve_tokens_total", len(slots), help="decode tokens emitted")
             m.observe("spring_serve_decode_step_s", step_s, help="decode-step wall seconds")
+            self._backend_gauges(m)
 
     def _admit_phase(self) -> None:
         self._shed_phase()
@@ -360,8 +379,7 @@ class ServingEngine:
             logits, pcache = self._prefill(self.params, tokens)
         with telemetry.span("serve.tick.install", rid=req.rid, slot=tracker.slot):
             self._ledger.install(tracker.slot)
-            kvpool.install_packed(self.pool, pcache, tracker.slot, len(req.prompt))
-            _sync(self.device)
+            self._install_request(tracker, pcache)
         self.prefill_s += time.monotonic() - t0
         # the prefill token is fed, not reported (static-path contract)
         self._next_tok[tracker.slot] = self._sample(tracker, logits[0], 0)
@@ -371,11 +389,22 @@ class ServingEngine:
         res.slot = tracker.slot
         self.queue_sketch.add(res.queue_s)
 
+    def _install_request(self, tracker, pcache: dict) -> None:
+        """Write a prefilled request into its slot (ends at a device sync)."""
+        kvpool.install_packed(self.pool, pcache, tracker.slot, len(tracker.req.prompt))
+        _sync(self.device)
+
+    def _decode_slots(self) -> list:
+        """Slots that take a decode step this tick."""
+        return sorted(self.sched.active)
+
     def _dispatch_decode(self, slots: list) -> tuple:
         """One pooled decode step over ``slots``; returns ``(logits, host,
-        step_s)``: ``host`` is the argmax per slot (greedy) or the logits,
-        on the CPU — copying it there is where the step waits for the
-        device, so the span and ``step_s`` cover the device's work."""
+        slots, step_s)``: ``host`` is the argmax per slot (greedy) or the
+        logits, on the CPU — copying it there is where the step waits for
+        the device, so the span and ``step_s`` cover the device's work.
+        The slot list may shrink (the paged backend can spill a slot while
+        claiming its write page)."""
         active = np.zeros((self.n_slots,), bool)
         active[slots] = True
         active_t = torch.as_tensor(active, device=self.device)
@@ -387,7 +416,16 @@ class ServingEngine:
             logits, new_cache = self._decode(self.params, tokens, cache)
             self.pool = kvpool.pack_cache(kvpool.merge_active(new_cache, cache, active_t))
             host = (logits.argmax(dim=-1) if self.greedy else logits).cpu()
-        return logits, host, time.monotonic() - t0
+        return logits, host, slots, time.monotonic() - t0
+
+    def _post_sample(self, slots: list) -> None:
+        """Backend hook between sampling and retirement."""
+
+    def _post_stats(self, stats: dict) -> None:
+        """Backend hook after the per-tick pool measurement."""
+
+    def _backend_gauges(self, m) -> None:
+        """Backend-specific telemetry gauges (the paged pool's occupancy)."""
 
     # -- spill / resume ------------------------------------------------------
 
@@ -427,6 +465,7 @@ class ServingEngine:
         if new < 1:
             raise ValueError(f"rescale: slots must be >= 1, got {new}")
         with telemetry.span("serve.rescale", slots=new):
+            self._pre_rescale()
             for slot in sorted(self.sched.active):
                 self._spill_slot(slot)
             self.sched.rescale(new)
@@ -435,6 +474,13 @@ class ServingEngine:
             self._next_tok = np.zeros((new,), np.int64)
             self._build_pool()
         self.n_rescales += 1
+
+    def _pre_rescale(self) -> None:
+        """Backend hook before the spill-everything phase of a rescale."""
+
+    def _pre_snapshot(self) -> None:
+        """Backend hook before state capture (the paged engine lands its
+        chunked prompt installs here so no half-installed state exists)."""
 
     def _signature(self) -> dict:
         """Structural identity a snapshot must match to restore (``n_slots``
@@ -476,6 +522,7 @@ class ServingEngine:
         has the format)."""
         from repro_torch.serving import elastic
 
+        self._pre_snapshot()
         snap = elastic.build_snapshot(self)
         self.n_snapshots += 1
         if telemetry.enabled():
@@ -525,7 +572,7 @@ class ServingEngine:
         results = [self._results[r] for r in sorted(self._results)]
         # headline KV numbers at peak wire occupancy: the pool drains as
         # requests retire, so end-of-run stats under-report
-        stats = self._peak_stats or kvpool.pool_wire_stats(self.pool)
+        stats = self._peak_stats or self._pool_stats()
         per_request = [
             {
                 "rid": r.rid,

@@ -122,15 +122,8 @@ def install_packed(pool: dict, prefill_cache: dict, slot: int, prompt_len: int) 
             if not isinstance(leaf, PackedKV):
                 leaf[:, slot] = prefill_cache[unit][name][:, 0].to(leaf.dtype)
                 continue
-            row = prefill_cache[unit][name].to(leaf.dtype)
-            ax_seq = row.ndim + PACKED_SEQ_AXIS[name]
-            extra = leaf.shape[ax_seq] - row.shape[ax_seq]
-            if extra < 0:
-                raise ValueError(f"{name}: prefill length {row.shape[ax_seq]} exceeds "
-                                 f"pool max_len {leaf.shape[ax_seq]}")
-            if extra:
-                pad = [0, 0] * (row.ndim - ax_seq - 1) + [0, extra]
-                row = torch.nn.functional.pad(row, pad)
+            row = _pad_seq(prefill_cache[unit][name].to(leaf.dtype), name,
+                           leaf.shape[len(leaf.shape) + PACKED_SEQ_AXIS[name]])
             packed = pack_leaf(row, name)  # lead (n_units, 1)
             leaf.values[:, slot] = packed.values[:, 0]
             leaf.mask.view(torch.int32)[:, slot] = packed.mask.view(torch.int32)[:, 0]
@@ -151,6 +144,56 @@ def release_packed(pool: dict, slot: int) -> dict:
             leaf.mask.view(torch.int32)[:, slot] = 0
             leaf.nnz[:, slot] = 0
     return pool
+
+
+def _pad_seq(row: torch.Tensor, name: str, length: int) -> torch.Tensor:
+    """A batch-1 prefill leaf zero-padded along its seq axis to ``length``."""
+    ax_seq = row.ndim + PACKED_SEQ_AXIS[name]
+    extra = length - row.shape[ax_seq]
+    if extra < 0:
+        raise ValueError(f"{name}: prefill length {row.shape[ax_seq]} exceeds "
+                         f"pool max_len {length}")
+    if extra:
+        pad = [0, 0] * (row.ndim - ax_seq - 1) + [0, extra]
+        row = torch.nn.functional.pad(row, pad)
+    return row
+
+
+def install_prefill(dense_pool: dict, prefill_cache: dict, slot: int, prompt_len: int) -> dict:
+    """Write one prefilled request (batch-1 cache) into ``slot`` of a dense
+    pool tree, in place: every leaf's whole slot row is overwritten (seq
+    tails zero-padded), so a reused slot keeps nothing of its previous
+    tenant.  ``None`` holes (the paged store's stripped leaves) are
+    skipped."""
+    dense_pool["pos"][slot] = prompt_len
+    for unit in _units(dense_pool):
+        for name, leaf in dense_pool[unit].items():
+            if leaf is None:
+                continue
+            row = _lookup(prefill_cache, (unit, name)).to(leaf.dtype)
+            if name in PACKED_SEQ_AXIS:
+                row = _pad_seq(row, name, leaf.shape[leaf.ndim + PACKED_SEQ_AXIS[name]])
+            leaf[:, slot] = row[:, 0]
+    return dense_pool
+
+
+def release_slot(dense_pool: dict, slot: int) -> dict:
+    """Zero one slot's rows (and its position) of a dense pool tree, in
+    place, so a retired request stops counting toward density."""
+    dense_pool["pos"][slot] = 0
+    for unit in _units(dense_pool):
+        for leaf in dense_pool[unit].values():
+            if leaf is not None:
+                leaf[:, slot] = 0
+    return dense_pool
+
+
+def _lookup(tree: dict, path: tuple):
+    """The node of ``tree`` at ``path`` (its keys from the root)."""
+    node = tree
+    for key in path:
+        node = node[key]
+    return node
 
 
 def merge_active(new_cache: dict, old_cache: dict, active: torch.Tensor) -> dict:
@@ -243,7 +286,10 @@ def restore_slot_packed(pool: dict, payload: dict, slot: int) -> dict:
 def pool_leaves(tree) -> list:
     """The leaves of a pool (or any dict/list tree of tensors and PackedKV)
     in the reference's order, ``jax.tree_util.tree_leaves``: dict keys
-    sorted, a PackedKV as its values, mask, nnz."""
+    sorted, a PackedKV as its values, mask, nnz, a ``None`` hole as no
+    leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in pool_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):

@@ -422,3 +422,156 @@ def test_decode_reductions_agree_across_batch_sizes_in_the_shipped_form():
     decode = run_decode(torch.device("cpu"), reduced=True)
     assert decode["llama3.2-1b shipped"]["bit_equal"]
     assert decode["mamba2-780m shipped"]["bit_equal"]
+
+
+# -- the paged backend (the reference's backend="paged" cases) ------------------------------
+
+_PAGED: dict = {}
+
+
+def _build_paged(mode, *, n_slots=2, spec_hash="feedbeefcafe0123"):
+    from repro_torch.serving.paging import PagedServingEngine
+
+    cfg = get_arch("llama3.2-1b").resolve(reduced=True)
+    return PagedServingEngine(cfg, serving_config(mode), params=lm_init(cfg, 0, device="cpu"),
+                              n_slots=n_slots, max_len=MAX_LEN, spec_hash=spec_hash,
+                              page_tokens=8, device="cpu")
+
+
+def get_paged_engine(mode):
+    """Cached (paged engine, post-submit snapshot, oracle tokens); the
+    oracle equals the monolithic engine's."""
+    if mode not in _PAGED:
+        eng = _build_paged(mode)
+        for i, p in enumerate(_prompts(eng.cfg.vocab)):
+            eng.submit_prompt(p, GEN, seed=100 + i)
+        snap0 = eng.snapshot()
+        oracle = _tokens(eng.run())
+        assert oracle == get_engine(mode)[2]
+        _PAGED[mode] = (eng, snap0, oracle)
+    return _PAGED[mode]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_paged_snapshot_roundtrip_bit_exact(mode, tmp_path):
+    """Mid-run paged snapshot -> .npz -> load: every page-store and
+    slot-state leaf is byte-identical, and the restored engine finishes
+    with the oracle's tokens."""
+    eng, snap0, oracle = get_paged_engine(mode)
+    eng.restore(snap0)
+    for _ in range(3):
+        eng.step()
+    snap = eng.snapshot()
+    path = str(tmp_path / "paged.npz")
+    save_snapshot(snap, path)
+    loaded = load_snapshot(path)
+    for part in ("store", "state"):
+        assert len(snap["backend"][part]) == len(loaded["backend"][part]) > 0
+        for a, b in zip(snap["backend"][part], loaded["backend"][part]):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _bits(a) == _bits(b)
+    assert loaded["kind"] == eng.backend_kind == "paged"
+    assert loaded["signature"] == eng._signature()
+    eng.restore(loaded)
+    assert _tokens(eng.run()) == oracle
+
+
+def test_paged_rescale_grow_and_shrink_keeps_every_request():
+    eng, snap0, oracle = get_paged_engine("quant_sparse")
+    eng.restore(snap0)
+    for _ in range(2):
+        eng.step()
+    eng.rescale(1)  # below occupancy: actives spill
+    assert eng.sched.n_spills >= 1
+    for _ in range(2):
+        eng.step()
+    eng.rescale(3, num_pages=12)
+    out = eng.run()
+    assert _tokens(out) == oracle
+    assert out["elastic"]["n_rescales"] == 2
+    assert out["elastic"]["n_resumes"] == out["elastic"]["n_spills"]
+    assert out["paging"]["num_pages"] == 12
+
+
+def test_paged_rescale_infeasible_page_budget_rejected():
+    eng, snap0, oracle = get_paged_engine("quant_sparse")
+    eng.restore(snap0)
+    eng.step()
+    with pytest.raises(ValueError, match="pages"):
+        eng.rescale(num_pages=1)
+    # refused before any state changed: the run still completes exactly
+    assert _tokens(eng.run()) == oracle
+
+
+def test_chaos_num_pages_raises_the_reference_message_on_the_monolithic_backend():
+    """The reference's refusal (``repro/serving/elastic/chaos.py:125-127``),
+    word for word, before any state changes."""
+    eng, snap0, oracle = get_engine("dense")
+    eng.restore(snap0)
+    with pytest.raises(ValueError, match=r"^num_pages rescale needs the paged backend$"):
+        ChaosHarness(eng, [ChaosEvent(0, "rescale", num_pages=8)]).run()
+    assert eng.n_rescales == 0 and eng.sched.n_spills == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_paged_chaos_fixed_schedule_every_mode(mode, tmp_path):
+    eng, snap0, oracle = get_paged_engine(mode)
+    eng.restore(snap0)
+    events = [ChaosEvent(1, "snapshot"), ChaosEvent(2, "kill"), ChaosEvent(3, "rewind"),
+              ChaosEvent(4, "roundtrip"), ChaosEvent(5, "rescale", slots=3, num_pages=8)]
+    out = ChaosHarness(eng, events, max_steps=500, tmp_dir=str(tmp_path)).run()
+    assert _tokens(out) == oracle
+    assert out["finite"]
+
+
+@given(st.data())
+def test_chaos_paged_matches_oracle(data):
+    eng, snap0, oracle = get_paged_engine("quant_sparse")
+    eng.restore(snap0)
+    events = []
+    for _ in range(data.draw(st.integers(0, 4), label="n_events")):
+        at = data.draw(st.integers(0, 12), label="at")
+        kind = data.draw(st.sampled_from(ChaosEvent.KINDS), label="kind")
+        if kind == "rescale":
+            events.append(ChaosEvent(at, kind, slots=data.draw(st.integers(1, 4), label="slots"),
+                                     num_pages=data.draw(st.sampled_from([None, 8, 12, 16]),
+                                                         label="pages")))
+        else:
+            events.append(ChaosEvent(at, kind))
+    out = ChaosHarness(eng, events, max_steps=500).run()
+    assert _tokens(out) == oracle
+    assert out["finite"]
+
+
+def _paged_state(eng) -> tuple:
+    snap = eng.snapshot()
+    eng.n_snapshots -= 1
+    b = snap["backend"]
+    return (snap["tick"], snap["ledger"], [_bits(t) for t in b["store"] + b["state"]],
+            b["alloc"], b["table"], eng.n_slots, eng.admission.num_pages)
+
+
+def test_paged_restore_refusals_change_nothing():
+    """A monolithic snapshot into the paged engine (and the reverse), a
+    page store of another geometry, a logical frame count that does not
+    fit: refused, nothing changed."""
+    eng, snap0, oracle = get_paged_engine("dense")
+    mono, mono0, _ = get_engine("dense")
+    eng.restore(snap0)
+    eng.step()
+    before = _paged_state(eng)
+    store = snap0["backend"]["store"]
+    bad = [dict(snap0, kind="monolithic"),
+           dict(snap0, backend=dict(snap0["backend"], store=store[:-1])),
+           dict(snap0, backend=dict(snap0["backend"],
+                                    store=[store[0][..., :-1]] + store[1:])),
+           dict(snap0, backend=dict(snap0["backend"],
+                                    alloc=dict(snap0["backend"]["alloc"], capacity=3)))]
+    for snap, match in zip(bad, ("pool", "leaves", "shape", "logical frames")):
+        with pytest.raises(SnapshotError, match=match):
+            eng.restore(snap)
+        assert _paged_state(eng) == before
+    with pytest.raises(SnapshotError, match="pool"):
+        mono.restore(snap0)
+    eng.restore(snap0)
+    assert _tokens(eng.run()) == oracle

@@ -244,3 +244,143 @@ def test_each_package_loads_the_others_file(runs, writer, tmp_path):
     _same_tree(snap["backend"], theirs["backend"])
     assert theirs["version"] == snap["version"] and theirs["spec_hash"] == snap["spec_hash"]
     assert theirs["metrics"]["queue_sketch"] == snap["metrics"]["queue_sketch"]
+
+
+# -- the paged backend ------------------------------------------------------------------
+
+PAGED_CHAOS = [("snapshot", 0, None, None), ("roundtrip", 1, None, None),
+               ("rewind", 2, None, None), ("rescale", 3, 3, 16), ("kill", 4, None, None)]
+PAGED_GEO = dict(page_tokens=8, prefill_chunk=1)
+
+
+@pytest.fixture(scope="module")
+def paged_runs(tmp_path_factory):
+    """Both packages' paged engines through one schedule: two ticks, a
+    rescale of the page budget to 2 pages (every active request spills;
+    the budget holds one of them again), one tick, a snapshot, then a chaos schedule (snapshot, ``.npz`` round
+    trip, rewind, rescale to 3 slots and 16 pages, kill into a fresh
+    engine).  (snapshot, final summary, engine) per package."""
+    from repro.serving.paging import PagedServingEngine as JPaged
+
+    from repro_torch.serving.paging import PagedServingEngine as TPaged
+
+    jview = jget_arch("llama3.2-1b").view(reduced=True)
+    tcfg = tget_arch("llama3.2-1b").resolve(reduced=True)
+    jparams = jlm.lm_init(jax.random.PRNGKey(0), jview.config)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, tcfg.vocab, PROMPT + i).tolist() for i in range(3)]
+    prompts[1] = prompts[0][:8] + prompts[1][8:]  # a shared 8-token prefix: one page
+    step_cfg = StepConfig(spring=jserving_config("quant_sparse"), optimizer=OptimizerConfig())
+
+    def jmake():
+        return JPaged(jview, step_cfg, params=jparams, n_slots=SLOTS, max_len=MAX_LEN,
+                      spec_hash="feedbeefcafe0123", **PAGED_GEO)
+
+    def tmake():
+        return TPaged(tcfg, tserving_config("quant_sparse"), params=tparams, n_slots=SLOTS,
+                      max_len=MAX_LEN, spec_hash="feedbeefcafe0123", device="cpu", **PAGED_GEO)
+
+    out = {}
+    for name, make, el in (("ref", jmake, jelastic), ("port", tmake, telastic)):
+        eng = make()
+        for i, p in enumerate(prompts):
+            eng.submit_prompt(p, GEN, seed=100 + i)
+        for _ in range(2):
+            eng.step()
+        eng.rescale(num_pages=2)
+        eng.step()
+        snap = eng.snapshot()
+        events = [el.ChaosEvent(at, kind, slots=slots, num_pages=pages)
+                  for kind, at, slots, pages in PAGED_CHAOS]
+        harness = el.ChaosHarness(eng, events, make_engine=make,
+                                  tmp_dir=str(tmp_path_factory.mktemp(f"paged-{name}")))
+        out[name] = (snap, harness.run(), harness.engine)
+    return out
+
+
+def test_paged_chaos_run_matches_the_reference_engine(paged_runs):
+    (_, want, jeng), (_, got, teng) = paged_runs["ref"], paged_runs["port"]
+    assert len(got["per_request"]) == len(want["per_request"]) == 3
+    for w, g in zip(want["per_request"], got["per_request"]):
+        assert {f: g[f] for f in FIELDS} == {f: w[f] for f in FIELDS}, g["rid"]
+        assert g["n_tokens"] == GEN
+    for key in ("n_spills", "n_resumes", "n_rescales"):
+        assert got["elastic"][key] == want["elastic"][key], key
+    assert got["elastic"]["n_spills"] >= 2
+    for key in ("prefix_hits", "cow_copies", "num_pages", "logical_frames", "spills",
+                "resumes", "peak_page_utilization", "page_utilization"):
+        assert got["paging"][key] == want["paging"][key], key
+    assert (teng.n_slots, teng.admission.num_pages) == (jeng.n_slots, 16) == (3, 16)
+    assert got["ticks"] == want["latency"]["ticks"]
+
+
+def _same_paged_backend(a: dict, b: dict) -> None:
+    """Two paged snapshots' backends: the page store and slot state leaf
+    by leaf (bits; ``pos`` by value), the allocator, the block table, and
+    the host-side mirrors, exactly."""
+    assert len(a["store"]) == len(b["store"]) > 0
+    for i, (x, y) in enumerate(zip(a["store"], b["store"])):
+        assert _same_leaf(x, y, by_value=False), i
+    assert len(a["state"]) == len(b["state"]) == 1  # pos
+    assert _same_leaf(a["state"][0], b["state"][0], by_value=True)
+    rest = {k: v for k, v in a.items() if k not in ("store", "state")}
+    _same_tree(rest, {k: v for k, v in b.items() if k not in ("store", "state")})
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_a_paged_snapshot_restores_across_packages_bit_for_bit(paged_runs, writer, tmp_path):
+    """One paged engine's mid-run snapshot, saved by its package, loaded by
+    the other's and restored into the other engine, which snapshots at
+    once: the same page store, slot state, allocator, block table and
+    scheduler (the spilled payloads' page bits included), bit for bit; run
+    on, it gives the writer's tokens."""
+    snap, want, _ = paged_runs[writer]
+    reader_name = "port" if writer == "ref" else "ref"
+    reader = paged_runs[reader_name][2]
+    path = str(tmp_path / "cross.npz")
+    PACKAGES[writer].save_snapshot(snap, path)
+    loaded = PACKAGES[reader_name].load_snapshot(path)
+    impl = reader._signature()["kv_pack_impl"]
+    reader.restore(dict(loaded, signature=dict(loaded["signature"], kv_pack_impl=impl,
+                                               kv_unpack_impl=impl)))
+    again = reader.snapshot()
+    assert again["kind"] == snap["kind"] == "paged"
+    assert again["tick"] == snap["tick"] and again["decode_steps"] == snap["decode_steps"]
+    _same_paged_backend(snap["backend"], again["backend"])
+    assert snap["scheduler"]["spilled"], "the page-budget rescale left a request spilled"
+    _same_tree(snap["scheduler"], again["scheduler"])
+    assert again["ledger"] == snap["ledger"]
+    got = reader.run()
+    assert [r["tokens"] for r in got["per_request"]] == [r["tokens"] for r in want["per_request"]]
+
+
+def test_paged_snapshots_of_the_two_runs_at_the_same_tick_agree(paged_runs):
+    """The two engines' own paged snapshots at the same tick: page mask
+    words, nnz, the allocator, the table and the scheduler exactly; the
+    bf16 page values but for the last bits of a few (as the monolithic
+    pools')."""
+    (jsnap, _, _), (tsnap, _, _) = paged_runs["ref"], paged_runs["port"]
+    assert tsnap["tick"] == jsnap["tick"]
+    jst, tst = jsnap["backend"]["store"], tsnap["backend"]["store"]
+    assert len(jst) == len(tst) == 6  # k and v as mask, nnz, values
+    for i, (a, b) in enumerate(zip(jst, tst)):
+        assert (_close_values(a, b) if i % 3 == 2 else _same_leaf(a, b, by_value=False)), i
+    rest = ("alloc", "table", "pos", "slot_rid", "resident_order", "density", "live_bits",
+            "page_util_sketch", "peak_page_utilization")
+    _same_tree({k: jsnap["backend"][k] for k in rest}, {k: tsnap["backend"][k] for k in rest})
+    _same_tree(jsnap["scheduler"], tsnap["scheduler"], values=_close_values)
+    sig = {k: v for k, v in tsnap["signature"].items() if not k.startswith("kv_")}
+    assert sig == {k: v for k, v in jsnap["signature"].items() if not k.startswith("kv_")}
+
+
+@pytest.mark.parametrize("writer", ["port", "ref"])
+def test_each_package_loads_the_others_paged_file(paged_runs, writer, tmp_path):
+    snap = paged_runs[writer][0]
+    path = str(tmp_path / f"{writer}.npz")
+    PACKAGES[writer].save_snapshot(snap, path)
+    mine = PACKAGES[writer].load_snapshot(path)
+    theirs = PACKAGES["port" if writer == "ref" else "ref"].load_snapshot(path)
+    _same_tree(mine, theirs)
+    _same_tree(snap["backend"], theirs["backend"])
+    assert theirs["kind"] == "paged"

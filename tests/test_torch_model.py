@@ -246,7 +246,12 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "new = {'repro_torch.kernels.flash_attention.ops', 'repro_torch.kernels.ssd_scan.ops',\n"
-        "       'repro_torch.models.ssm', 'repro_torch.configs.mamba2_780m'}\n"
+        "       'repro_torch.models.ssm', 'repro_torch.configs.mamba2_780m',\n"
+        "       'repro_torch.configs.minitron_4b', 'repro_torch.configs.mistral_nemo_12b',\n"
+        "       'repro_torch.configs.registry', 'repro_torch.serving.paging.engine',\n"
+        "       'repro_torch.serving.paging.store', 'repro_torch.serving.paging.blocktable',\n"
+        "       'repro_torch.serving.paging.allocator', 'repro_torch.serving.paging.admission',\n"
+        "       'repro_torch.serving.paging.scheduler'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
