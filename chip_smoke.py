@@ -138,8 +138,14 @@ failure:
                finite, and in the paged run the skinny and tile kernels,
                tile_occupancy, splitk_reduce (d_ff over 8192),
                flash_attention at D 128 and mask_pack launched; prefill s
-               per request, tokens/s, peak memory; then each reduced model
-               on the card against the CPU as in 6e;
+               per request, tokens/s, peak memory; after each model, every
+               kernel of its path at the full-width shapes the path gives
+               it against its plain version (flash_attention at D 128 and
+               the model's group, masked_matmul on every projection at M
+               512 and 4 with the occupancy flags exact, splitk_reduce and
+               kv_pack bit-equal; the tile kernel once more at the
+               lm_head's K x N, up to 786 M); then each reduced model on
+               the card against the CPU as in 6e;
   7a. dangling_filter — bit-equal to its plain version on the registry's
                examples, -0.0 / NaN / inf entries at a length with a scalar
                tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
@@ -1492,14 +1498,14 @@ def _decode_split(out: dict) -> dict:
 
 
 def _drive(eng) -> tuple:
-    """``eng.run()`` stepped by hand, with the most frames shared at once
-    (0 for the monolithic engine) kept; returns (summary, that count)."""
+    """A paged engine's ``run()`` stepped by hand, the scheduler's
+    invariants checked and the most frames shared at once kept after
+    every tick; returns (summary, that count)."""
     shared = 0
     while eng.sched.has_work():
         eng.step()
         eng.sched.check_invariants()
-        if eng.backend_kind == "paged":
-            shared = max(shared, len(eng.table.shared_frames()))
+        shared = max(shared, len(eng.table.shared_frames()))
     return eng.summary(), shared
 
 
@@ -1584,23 +1590,33 @@ def phase_paged(dev) -> dict:
     def tokens(out) -> list:
         return [r["tokens"] for r in out["per_request"]]
 
+    def timed_run(paged: bool) -> tuple:
+        """(summary, s) of one ``run()`` of the requests, nothing else timed."""
+        eng = submitted(paged=paged)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
     res: dict = {"prompt_lens": [len(p) for p in prompts]}
     eng = submitted()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    t0 = time.monotonic()
-    out, shared = _drive(eng)
+    drive, shared = _drive(eng)
     torch.cuda.synchronize()
-    res["paged_s"] = time.monotonic() - t0
     res["launches"] = kernels.launch_counts()
-    want = tokens(out)
-    pg = out["paging"]
-    res.update(paging=pg, shared_frames_max=shared, store_bytes=_store_bytes(eng.store_arrays),
-               paged_tokens_per_s=out["tokens_per_s"], finite=out["finite"],
-               paged_prefill_s_per_request=out["prefill_s"] / PAGED_REQUESTS,
-               paged_decode=_decode_split(out))
+    want = tokens(drive)
+    pg = drive["paging"]
+    res.update(paging=pg, shared_frames_max=shared, store_bytes=_store_bytes(eng.store_arrays))
     num_pages = pg["num_pages"]
     del eng
+    # both engines timed the same way: the run above also checks the
+    # scheduler's invariants and counts shared frames after every tick
+    out, res["paged_s"] = timed_run(paged=True)
+    res.update(paged_tokens_per_s=out["tokens_per_s"], finite=out["finite"],
+               paged_prefill_s_per_request=out["prefill_s"] / PAGED_REQUESTS,
+               paged_decode=_decode_split(out), paged_rerun_equal=tokens(out) == want)
     print(f"[paged] llama3.2-1b quant_sparse, {PAGED_REQUESTS} requests of "
           f"{min(res['prompt_lens'])}-{max(res['prompt_lens'])} tokens ({PAGED_SYSTEM} shared), "
           f"{PAGED_SLOTS} slots, max_len {PAGED_MAX_LEN}, {PAGE_TOKENS} tokens a page: "
@@ -1610,17 +1626,17 @@ def phase_paged(dev) -> dict:
           f"cow {pg['cow_copies']}, at most {shared} frames shared, peak page utilization "
           f"{pg['peak_page_utilization']:.3f}; page arrays {res['store_bytes']}", flush=True)
     print(f"[paged] launches {res['launches']}", flush=True)
-    if not out["finite"] or any(len(t) != GEN for t in want):
+    if not (drive["finite"] and out["finite"]) or any(len(t) != GEN for t in want):
         fail("paged phase: the uninterrupted paged run did not finish every request")
+    if not res["paged_rerun_equal"]:
+        fail("paged phase: a second uninterrupted paged run gave other tokens")
     for name in PAGED_KERNELS:
         if res["launches"][name] <= 0:
             fail(f"paged phase never launched the {name} kernel")
     if pg["prefix_hits"] <= 0 or shared <= 0:
         fail("paged phase: the shared system prompt made no prefix hit")
 
-    t0 = time.monotonic()
-    mono = submitted(paged=False).run()
-    res["mono_s"] = time.monotonic() - t0
+    mono, res["mono_s"] = timed_run(paged=False)
     res["mono_tokens_per_s"] = mono["tokens_per_s"]
     res["mono_decode"] = _decode_split(mono)
     res["paged_equals_monolithic"] = tokens(mono) == want
@@ -1706,14 +1722,111 @@ def phase_paged(dev) -> dict:
     return res
 
 
+def _arch_kernel_checks(dev, cfg, seed: int) -> dict:
+    """Each kernel of ``cfg``'s served path on card tensors at the
+    full-width shapes the path gives it, against its plain version; the
+    largest error of each.  flash_attention at (1, H, HKV, ARCH_PROMPT,
+    D), causal fp32, q/k/v as ``gqa_apply`` passes them (atol 2e-5, the
+    registry's compare); masked_matmul on every projection at
+    M = ARCH_PROMPT (the tile kernel after tile_occupancy) and
+    M = ARCH_REQUESTS (the skinny kernel) within 2b's bound
+    2 K 2**-24 (|x| @ |w|), with x's first quarter of K and half of w's
+    (32, 64) tiles zero so that a misread flag shows, both operands' flags
+    exact; splitk_reduce bit-equal on the partial sums of the d_ff-long
+    reduction at both M; kv_pack bit-equal on a decode tick's pages and
+    a request's install; and the tile kernel with its pre-pass once more
+    at the lm_head's (K, N), K x N up to 786 M, for their index arithmetic
+    (the path's logits are a torch.matmul of the last rows)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+    from repro_torch.kernels.kv_cache.ops import kv_pack, kv_pack_reference
+    from repro_torch.kernels.masked_matmul.ops import (
+        KERNEL_TILES, masked_matmul, masked_matmul_reference, route, split_k, splitk_reduce,
+        splitk_reduce_reference, tile_occupancy, tile_occupancy_reference)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tm, tn, tk = KERNEL_TILES
+    a, d, ff = cfg.attn, cfg.d_model, cfg.d_ff
+    hd = a.head_dim
+    errs = dict.fromkeys(("flash_attention", "masked_matmul", "masked_matmul_skinny",
+                          "tile_occupancy", "splitk_reduce", "mask_pack"), 0.0)
+    tag = f"{cfg.name} check"
+
+    q = torch.randn(1, ARCH_PROMPT, a.n_heads, hd, generator=g, device=dev).transpose(1, 2)
+    k, v = (torch.randn(1, ARCH_PROMPT, a.n_kv_heads, hd, generator=g, device=dev)
+            .transpose(1, 2) for _ in range(2))
+    errs["flash_attention"] = e = _max_err(flash_attention(q, k, v), attention_reference(q, k, v))
+    if not e <= 2e-5:
+        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{ARCH_PROMPT},{hd}) off "
+             f"by {e:.3g}")
+    del q, k, v
+
+    def occ_exact(t, rows, cols) -> None:
+        if not torch.equal(tile_occupancy(t, rows, cols), tile_occupancy_reference(t, rows, cols)):
+            fail(f"{tag}: tile_occupancy {tuple(t.shape)} disagrees with its plain version")
+
+    def product(m: int, kk: int, n: int) -> float:
+        x = quantize_nearest(torch.randn(m, kk, generator=g, device=dev))
+        x[:, : kk // 4] = 0.0
+        keep = torch.rand(-(-kk // tk), -(-n // tn), generator=g, device=dev) > 0.5
+        w = torch.randn(kk, n, generator=g, device=dev).div_(kk**0.5)
+        w.masked_fill_(~keep.repeat_interleave(tk, 0).repeat_interleave(tn, 1)[:kk, :n], 0.0)
+        w = quantize_nearest(w)
+        del keep
+        if route(m, n, kk) == "tile":
+            occ_exact(x, tm, tk)
+            occ_exact(w, tk, tn)
+        got = masked_matmul(x, w, apply_sr=False)
+        want = masked_matmul_reference(x, w, apply_sr=False)
+        err = (got - want).abs_()
+        del got, want
+        ok = bool((err <= (x.abs() @ w.abs()).mul_(2 * kk * 2.0**-24)).all())
+        e = float(err.max())
+        if not ok:
+            fail(f"{tag}: masked_matmul ({m},{kk})@({kk},{n}) off by {e:.3g}")
+        return e
+
+    projs = {"q": (d, a.n_heads * hd), "k": (d, a.n_kv_heads * hd), "v": (d, a.n_kv_heads * hd),
+             "o": (a.n_heads * hd, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    for m in (ARCH_PROMPT, ARCH_REQUESTS):
+        key = "masked_matmul" if route(m, 1, 1) == "tile" else "masked_matmul_skinny"
+        for kk, n in projs.values():
+            errs[key] = max(errs[key], product(m, kk, n))
+        part = quantize_nearest(torch.randn(split_k(ff)[1], m, d, generator=g, device=dev))
+        if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
+            fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain version")
+    vocab = cfg.vocab
+    errs["masked_matmul"] = max(errs["masked_matmul"], product(ARCH_PROMPT, d, vocab))
+    torch.cuda.empty_cache()
+
+    page = PAGE_TOKENS * a.n_kv_heads * hd
+    for blocks in (ARCH_REQUESTS, ARCH_PROMPT // PAGE_TOKENS):
+        pages = torch.relu(torch.randn(cfg.n_layers, blocks, page, generator=g, device=dev))
+        pages = pages.to(torch.bfloat16)
+        got, want = kv_pack(pages), kv_pack_reference(pages)
+        if not all(torch.equal(got[p], want[p]) for p in ("values", "mask", "nnz")):
+            fail(f"{tag}: kv_pack {tuple(pages.shape)} bf16 differs from its plain version")
+    print(f"[archs] {cfg.name} kernels at the path's shapes against their plain versions: "
+          f"flash_attention err {errs['flash_attention']:.3g}, tile {errs['masked_matmul']:.3g} "
+          f"(M {ARCH_PROMPT}, lm_head ({d},{vocab}) too), skinny "
+          f"{errs['masked_matmul_skinny']:.3g} (M {ARCH_REQUESTS}); tile_occupancy, "
+          f"splitk_reduce ({split_k(ff)[1]} chunks) and kv_pack ({page}-element pages) "
+          "bit-equal", flush=True)
+    return errs
+
+
 def phase_archs(dev, gen) -> dict:
     """(6i) full-width minitron-4b and mistral-nemo-12b, quant_sparse: 4
     requests of prompt 512 on 4 slots, on the paged and then the
     monolithic engine over the same parameters; the launch counters are
     zeroed just before each run and read just after.  Tokens equal between
     the backends, finite logits, and every kernel of the path (the
-    D 128 flash_attention among them) launched in the paged run; then
-    each reduced model on the card against the CPU."""
+    D 128 flash_attention among them) launched in the paged run; each
+    kernel of the path against its plain version at the model's shapes
+    (:func:`_arch_kernel_checks`); then each reduced model on the card
+    against the CPU."""
     import torch
 
     from repro_torch import kernels
@@ -1782,9 +1895,13 @@ def phase_archs(dev, gen) -> dict:
         del params
         gc.collect()  # the next model must not find this one's 20-49 GB still held
         torch.cuda.empty_cache()
+        row["kernel_errs"] = _arch_kernel_checks(dev, cfg, seed=len(res))
+        torch.cuda.empty_cache()
         res[arch] = row
     res["check"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT)
                     for arch in ARCHS_NEW}
+    res["errs"] = {name: max(res[arch]["kernel_errs"][name] for arch in ARCHS_NEW)
+                   for name in res[ARCHS_NEW[0]]["kernel_errs"]}
     res["launches"] = {name: sum(res[arch]["paged"]["launches"][name]
                                  + res[arch]["monolithic"]["launches"][name]
                                  for arch in ARCHS_NEW)
@@ -2234,7 +2351,8 @@ def main() -> None:
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
-         "launches": total["masked_matmul"], "max_abs_err": mm_err,
+         "launches": total["masked_matmul"],
+         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"]),
          **layer_entry(prefill_rows),
          "library_ms": sum(r["library_ms"] for r in prefill_rows),
          "shape": f"the tile kernel (masked_mm_kernel): one prefill layer, q,k,v,o,gate,up,down "
@@ -2245,7 +2363,8 @@ def main() -> None:
         {"name": "masked_matmul_skinny", "route": "cuda",
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
-         "launches": total["masked_matmul_skinny"], "max_abs_err": mm_err,
+         "launches": total["masked_matmul_skinny"],
+         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"]),
          **layer_entry(decode_rows),
          "library_ms": sum(r["library_ms"] for r in decode_rows),
          "tile_ms": sum(r["tile_ms"] for r in decode_rows),
@@ -2300,7 +2419,8 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:99",
-         "launches": total["flash_attention"], "max_abs_err": fa["err"],
+         "launches": total["flash_attention"],
+         "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"]),
          **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "host_ms", "library_device_ms", "tile")},
          "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "

@@ -170,25 +170,14 @@ def install_prefill(dense_pool: dict, prefill_cache: dict, slot: int, prompt_len
         for name, leaf in dense_pool[unit].items():
             if leaf is None:
                 continue
-            row = _lookup(prefill_cache, (unit, name)).to(leaf.dtype)
+            row = lookup(prefill_cache, (unit, name)).to(leaf.dtype)
             if name in PACKED_SEQ_AXIS:
                 row = _pad_seq(row, name, leaf.shape[leaf.ndim + PACKED_SEQ_AXIS[name]])
             leaf[:, slot] = row[:, 0]
     return dense_pool
 
 
-def release_slot(dense_pool: dict, slot: int) -> dict:
-    """Zero one slot's rows (and its position) of a dense pool tree, in
-    place, so a retired request stops counting toward density."""
-    dense_pool["pos"][slot] = 0
-    for unit in _units(dense_pool):
-        for leaf in dense_pool[unit].values():
-            if leaf is not None:
-                leaf[:, slot] = 0
-    return dense_pool
-
-
-def _lookup(tree: dict, path: tuple):
+def lookup(tree: dict, path: tuple):
     """The node of ``tree`` at ``path`` (its keys from the root)."""
     node = tree
     for key in path:

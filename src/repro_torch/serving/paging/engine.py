@@ -76,7 +76,7 @@ def restore_slot_state(state: dict, payload: dict, slot: int) -> dict:
             for k, v in leaf.items():
                 one(path + (k,), v)
         elif leaf is not None:
-            p = kvpool.as_tensor(kvpool._lookup(payload, path))
+            p = kvpool.as_tensor(kvpool.lookup(payload, path))
             leaf.narrow(kvpool.slot_axis(path), slot, 1).copy_(p.to(leaf.dtype))
 
     one((), state)

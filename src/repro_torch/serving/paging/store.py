@@ -45,8 +45,8 @@ import torch
 
 from repro_torch.core.masking import MASK_WORD_BITS, _n_words
 from repro_torch.kernels.kv_cache.ops import KV_VALUE_BITS, kv_pack, kv_unpack
-from repro_torch.serving.kvpool import (PACKED_SEQ_AXIS, as_tensor, host_copy, pool_leaves,
-                                        word_view)
+from repro_torch.serving.kvpool import (PACKED_SEQ_AXIS, as_tensor, host_copy, lookup,
+                                        pool_leaves, word_view)
 
 #: cache leaf kinds stored paged: token-indexed content (the port's
 #: attention leaves; the reference adds MLA's ckv/krope)
@@ -74,13 +74,6 @@ class LeafSpec:
     @property
     def lead_prod(self) -> int:
         return int(math.prod(self.lead)) if self.lead else 1
-
-
-def _get(tree, keys):
-    node = tree
-    for k in keys:
-        node = node[k]
-    return node
 
 
 def _set(tree, keys, value) -> None:
@@ -260,7 +253,7 @@ class PagedKVStore:
         block = torch.as_tensor(write_block, dtype=torch.int64).to(dev)
         slots = torch.arange(self.n_slots, device=dev)
         for key, s in self.leaves.items():
-            self._store_pages(store[key], self._page_rows(_get(cache, s.keys), s, slots, block),
+            self._store_pages(store[key], self._page_rows(lookup(cache, s.keys), s, slots, block),
                               s, frames)
         return store
 
@@ -271,7 +264,7 @@ class PagedKVStore:
         leaf}``: the only part of it the chunked page installer keeps."""
         out = {}
         for key, s in self.leaves.items():
-            leaf = _get(pcache, s.keys)
+            leaf = lookup(pcache, s.keys)
             n = leaf.shape[s.lead_n + 1]
             if n > self.tokens_cap:
                 raise ValueError(f"{key}: prefill length {n} exceeds page capacity "

@@ -351,7 +351,10 @@ _FA_CASES = [
     # head dims 16 and 128, bf16, non-causal ragged
     (1, 4, 1, 130, 16, True, None, "float32"), (1, 8, 2, 200, 128, True, None, "float32"),
     (1, 8, 2, 200, 64, True, None, "bfloat16"), (1, 8, 8, 300, 32, False, None, "bfloat16"),
-    (1, 8, 2, 200, 64, False, None, "float32")]
+    (1, 8, 2, 200, 64, False, None, "float32"),
+    # D 128 prefills of minitron-4b (a group of 3) and mistral-nemo-12b (4)
+    (1, 24, 8, 512, 128, True, None, "float32"), (1, 32, 8, 512, 128, True, None, "float32"),
+    (1, 6, 2, 200, 128, True, None, "float32")]
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,causal,window,dtype,rows", [
