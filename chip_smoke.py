@@ -39,6 +39,26 @@ failure:
                by device time per tick; each tick launches the skinny
                kernel 7 times per layer, mask_pack twice and tile_occupancy
                never;
+  3c. spec   — the example spec examples/specs/serve_quant_sparse.json run
+               by the port's launcher as a subprocess, as a user would:
+               ``python -m repro_torch.launch.serve --spec ... --set
+               arch.reduced=false --set kernels.policy=auto --set
+               shape.prompt_len=64 --json ...`` (full-width llama3.2-1b, 2
+               slots, 6 requests, gen 24; prompt 64 so that prefill takes
+               the tile kernel).  It must exit 0 with the spec_hash of the
+               in-process build_spec of the same layers; an in-process
+               ServeSession over that spec, counters zeroed just before and
+               read just after, must give the same tokens and launch the
+               skinny and tile kernels, tile_occupancy, mask_pack and
+               flash_attention; a run with serving.snapshot_every=3, then
+               one with serving.restore_path, drains the same tokens, and so
+               does serving.pages=true; kernels.policy=ref must exit
+               non-zero with the SpecError.  Printed: the launcher's prefill
+               s per request, tokens/s and wall time.  Then each kernel of
+               the path against its plain version at the path's shapes
+               (decode M 2, prefill M 64 and the lm_head, flash_attention at
+               S 64, kv_pack on the pool's leaf and pages), as 6i does: the
+               spec's 2 slots and 64-token prompts are not phase 2's shapes;
   4. check  — the reduced llama3.2-1b on the card against the same model on
                the CPU (plain versions), prefill and decode logits;
   5a. stochastic_round — bit-equal to its plain version on the reference's
@@ -292,14 +312,15 @@ def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4) -> dict:
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.launch.serve import serving_config
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_arch("llama3.2-1b").resolve(False)
     torch.cuda.empty_cache()
     eng = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=SLOTS,
                         max_len=prompt + GEN + 1, seed=0, device=dev)
-    for p in synthetic_prompts(SLOTS, prompt, cfg.vocab, 0):
+    for p in synthetic_prompts(SLOTS, SLOTS, prompt, cfg.vocab, 0):
         eng.submit_prompt(p, GEN)
     eng.step()  # admissions (prefill + install) and the first decode tick
     eng.step()
@@ -1069,7 +1090,8 @@ def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: 
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serve_session, serving_config, synthetic_prompts
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.launch.serve import serve_session, serving_config
     from repro_torch.serving.engine import ServingEngine
 
     torch.cuda.empty_cache()
@@ -1077,12 +1099,14 @@ def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: 
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     if late:
-        # serve_session's own body (launch/serve.py), which takes no
-        # deadline, with the late requests submitted after its own
+        # the session's engine body (api/sessions.py), whose spec gives
+        # every request one deadline, with the late requests submitted
+        # after its own
         cfg = get_arch(arch).resolve(False)
         engine = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=slots,
                                max_len=prompt + GEN + 1, seed=0, device=dev)
-        for i, p in enumerate(synthetic_prompts(requests + late, prompt, cfg.vocab, 0)):
+        n = requests + late
+        for i, p in enumerate(synthetic_prompts(n, n, prompt, cfg.vocab, 0)):
             engine.submit_prompt(p, GEN, seed=i, deadline_ticks=0 if i >= requests else None)
         out = engine.run()
     else:
@@ -1112,11 +1136,163 @@ def phase_serve(dev, arch: str, slots: int, requests: int, prompt: int, needed: 
     for name in needed:
         if launches[name] <= 0:
             fail(f"{tag} phase never launched the {name} kernel")
-    res = {k: v for k, v in out.items() if k != "per_request"}
+    # the tokens are kept below, once; "generated" is the session's array of them
+    res = {k: v for k, v in out.items() if k not in ("per_request", "generated")}
     res.update(tokens=[r["tokens"] for r in out["per_request"]], launches=launches,
                peak_mem_bytes=peak, wall_s=wall,
                prefill_s_per_request=out["prefill_s"] / requests)
     return res
+
+
+# 3c: the example serve spec, run by the port's launcher as a user would,
+# at full width on the card.  The spec's prompt is 32, where every product
+# has M <= 32 and takes the skinny kernel; prompt 64 puts each prefill on
+# the tile kernel and its occupancy pre-pass as well
+SPEC_FILE = "examples/specs/serve_quant_sparse.json"
+SPEC_SETS = ("arch.reduced=false", "kernels.policy=auto", "shape.prompt_len=64")
+SPEC_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy", "mask_pack",
+                "flash_attention")
+SPEC_TIMEOUT_S = 300
+
+
+def phase_spec(dev) -> dict:
+    """(3c) the spec-driven launcher: ``python -m repro_torch.launch.serve
+    --spec SPEC_FILE --set ...`` as subprocesses on the card.  The run
+    must exit 0 with the ``spec_hash`` of the in-process ``build_spec`` of
+    the same layers, and its tokens must equal an in-process
+    ``ServeSession`` over that spec, whose launch counters are zeroed just
+    before and read just after (every kernel of SPEC_KERNELS, the tile
+    kernel among them, must launch); a run with ``serving.snapshot_every=3``
+    and then ``serving.restore_path`` drains the same tokens, and so does
+    ``serving.pages=true``; ``kernels.policy=ref`` must exit non-zero with
+    the SpecError.  The snapshot, paged and refused runs share the card at
+    once; the timed run and the in-process session run alone.  Then each
+    kernel of the path against its plain version at the shapes it gives
+    them (decode M = the spec's 2 slots, prefill M = 64, the pool's leaves)."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import CLI_BASE
+
+    t_phase = time.monotonic()
+    spec_path = str(ROOT / SPEC_FILE)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p)}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_spec_"))
+    sets = [arg for item in SPEC_SETS for arg in ("--set", item)]
+
+    def launcher(name: str, *extra: str) -> tuple:
+        argv = [sys.executable, "-m", "repro_torch.launch.serve", "--spec", spec_path,
+                *sets, *extra, "--json", str(tmp / f"{name}.json")]
+        t0 = time.monotonic()
+        p = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=SPEC_TIMEOUT_S)
+        return name, p, time.monotonic() - t0
+
+    def result(run: tuple) -> dict:
+        name, p, wall = run
+        if p.returncode != 0:
+            fail(f"spec phase: the {name} launcher run exited {p.returncode}:\n"
+                 f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+        out = json.loads((tmp / f"{name}.json").read_text())
+        out["wall_s"] = wall
+        print(f"[spec] {name}: {p.stdout.strip().splitlines()[0]} (wall {wall:.1f} s)",
+              flush=True)
+        return out
+
+    def tokens(out: dict) -> list:
+        return [r["tokens"] for r in out["per_request"]]
+
+    try:
+        main_out = result(launcher("main"))
+        # the launcher's layers: its base, the file, then the --set items
+        spec = build_spec("serve", data=CLI_BASE, data_label="launcher-default",
+                          spec_file=spec_path, sets=list(SPEC_SETS))
+        want_hash = spec.spec_hash()
+        n_req = len(main_out["per_request"])
+        print(f"[spec] launcher at full width: {n_req} requests over {main_out['slots']} slots, "
+              f"prefill {main_out['prefill_s'] / n_req:.4f} s per request, "
+              f"{main_out['tokens_per_s']:.2f} tokens/s, decode_s {main_out['decode_s']:.3f}, "
+              f"wall {main_out['wall_s']:.1f} s; spec_hash {main_out['spec_hash']} "
+              f"(in process {want_hash})", flush=True)
+        if main_out["spec_hash"] != want_hash:
+            fail("spec phase: the launcher's spec_hash differs from build_spec of its layers")
+        if not main_out["finite"] or any(len(t) != spec.shape.gen for t in tokens(main_out)):
+            fail("spec phase: the launcher did not finish every request with finite logits")
+
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        inproc = ServeSession(spec, device=dev).run()
+        torch.cuda.synchronize()
+        inproc_wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        tile = launches["masked_matmul"] - launches["masked_matmul_skinny"]
+        print(f"[spec] in-process ServeSession: tokens equal the launcher's "
+              f"{tokens(inproc) == tokens(main_out)}, wall {inproc_wall:.1f} s, tile kernel "
+              f"{tile} launches; launches {launches}", flush=True)
+        if tokens(inproc) != tokens(main_out):
+            fail("spec phase: the in-process session's tokens differ from the launcher's")
+        for name in SPEC_KERNELS:
+            if launches[name] <= 0:
+                fail(f"spec phase: the in-process session never launched the {name} kernel")
+        if tile <= 0:
+            fail("spec phase: no product took the tile kernel")
+        del inproc
+        torch.cuda.empty_cache()
+
+        snap = str(tmp / "snapshot.npz")
+        with ThreadPoolExecutor(3) as pool:
+            runs = list(pool.map(lambda a: launcher(*a), [
+                ("snapshot", "--set", "serving.snapshot_every=3",
+                 "--set", f"serving.snapshot_path={snap}"),
+                ("paged", "--set", "serving.pages=true"),
+                ("refused", "--set", "kernels.policy=ref")]))
+        snap_out, paged_out = result(runs[0]), result(runs[1])
+        _, refused, _ = runs[2]
+        print(f"[spec] kernels.policy=ref on the card: exit {refused.returncode}, "
+              f"{refused.stderr.strip().splitlines()[-1] if refused.stderr.strip() else ''}",
+              flush=True)
+        if refused.returncode == 0 or "kernels.policy" not in refused.stderr:
+            fail("spec phase: kernels.policy=ref on the card did not stop with the SpecError")
+        restore_out = result(launcher("restore", "--set", f"serving.restore_path={snap}"))
+        checks = {"snapshot run": (snap_out, snap_out["elastic"]["n_snapshots"] >= 1),
+                  "restore": (restore_out, restore_out["elastic"]["n_restores"] == 1),
+                  "paged run": (paged_out, bool(paged_out.get("paging")))}
+        for what, (out, ran) in checks.items():
+            same = tokens(out) == tokens(main_out)
+            print(f"[spec] {what}: tokens equal the launcher's {same}", flush=True)
+            if not (same and ran):
+                fail(f"spec phase: the {what}'s tokens differ from the launcher's (or it did "
+                     "not snapshot, restore or page)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cfg = get_arch("llama3.2-1b").resolve(False)
+    a, slots = cfg.attn, main_out["slots"]
+    prompt, max_len = spec.shape.prompt_len, spec.shape.prompt_len + spec.shape.gen + 1
+    page = PAGE_TOKENS * a.n_kv_heads * a.head_dim
+    errs = _arch_kernel_checks(
+        dev, cfg, seed=11, prompt=prompt, decode_m=slots, tag="spec",
+        kv_blocks=((slots, max_len * a.n_kv_heads * a.head_dim), (slots, page),
+                   (-(-prompt // PAGE_TOKENS), page)))
+    wall = time.monotonic() - t_phase
+    print(f"[spec] phase 3c wall {wall:.1f} s", flush=True)
+    return {"launches": launches, "errs": errs, "wall_s": wall, "spec_hash": want_hash,
+            "prefill_s_per_request": main_out["prefill_s"] / n_req,
+            "tokens_per_s": main_out["tokens_per_s"], "decode_s": main_out["decode_s"],
+            "launcher_wall_s": main_out["wall_s"], "in_process_wall_s": inproc_wall,
+            "runs_wall_s": {k: v["wall_s"] for k, v in (("snapshot", snap_out),
+                                                         ("paged", paged_out),
+                                                         ("restore", restore_out))},
+            "tokens": tokens(main_out)}
 
 
 def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int) -> dict:
@@ -1280,7 +1456,8 @@ def _survive_model(dev, arch: str, requests: int, prompt: int, schedule: list, t
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.launch.serve import serving_config
     from repro_torch.models.lm import lm_init
     from repro_torch.serving import kvpool
     from repro_torch.serving.elastic import ChaosHarness, load_snapshot, save_snapshot
@@ -1289,7 +1466,7 @@ def _survive_model(dev, arch: str, requests: int, prompt: int, schedule: list, t
     torch.cuda.empty_cache()
     cfg = get_arch(arch).resolve(False)
     params = lm_init(cfg, 0, device=dev)
-    prompts = synthetic_prompts(requests, prompt, cfg.vocab, 0)
+    prompts = synthetic_prompts(requests, requests, prompt, cfg.vocab, 0)
 
     def make(greedy: bool = True):
         return ServingEngine(cfg, serving_config("quant_sparse"), params=params,
@@ -1560,7 +1737,8 @@ def phase_paged(dev) -> dict:
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.launch.serve import serving_config
     from repro_torch.models.lm import lm_init
     from repro_torch.serving.elastic import ChaosEvent, ChaosHarness, load_snapshot, save_snapshot
     from repro_torch.serving.engine import ServingEngine
@@ -1570,9 +1748,9 @@ def phase_paged(dev) -> dict:
     torch.cuda.empty_cache()
     cfg = get_arch("llama3.2-1b").resolve(False)
     params = lm_init(cfg, 0, device=dev)
-    system = synthetic_prompts(1, PAGED_SYSTEM, cfg.vocab, 0)[0]
+    system = synthetic_prompts(1, 1, PAGED_SYSTEM, cfg.vocab, 0)[0]
     lo, hi = PAGED_PROMPTS
-    prompts = [system + synthetic_prompts(1, lo + (hi - lo) * i // (PAGED_REQUESTS - 1)
+    prompts = [system + synthetic_prompts(1, 1, lo + (hi - lo) * i // (PAGED_REQUESTS - 1)
                                           - PAGED_SYSTEM, cfg.vocab, 1 + i)[0]
                for i in range(PAGED_REQUESTS)]
     spring = serving_config("quant_sparse")
@@ -1722,21 +1900,24 @@ def phase_paged(dev) -> dict:
     return res
 
 
-def _arch_kernel_checks(dev, cfg, seed: int) -> dict:
+def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
+                        decode_m: int = ARCH_REQUESTS, kv_blocks=None,
+                        tag: str = "archs") -> dict:
     """Each kernel of ``cfg``'s served path on card tensors at the
     full-width shapes the path gives it, against its plain version; the
-    largest error of each.  flash_attention at (1, H, HKV, ARCH_PROMPT,
+    largest error of each.  flash_attention at (1, H, HKV, ``prompt``,
     D), causal fp32, q/k/v as ``gqa_apply`` passes them (atol 2e-5, the
     registry's compare); masked_matmul on every projection at
-    M = ARCH_PROMPT (the tile kernel after tile_occupancy) and
-    M = ARCH_REQUESTS (the skinny kernel) within 2b's bound
+    M = ``prompt`` (the tile kernel after tile_occupancy) and
+    M = ``decode_m`` (the skinny kernel) within 2b's bound
     2 K 2**-24 (|x| @ |w|), with x's first quarter of K and half of w's
     (32, 64) tiles zero so that a misread flag shows, both operands' flags
     exact; splitk_reduce bit-equal on the partial sums of the d_ff-long
-    reduction at both M; kv_pack bit-equal on a decode tick's pages and
-    a request's install; and the tile kernel with its pre-pass once more
-    at the lm_head's (K, N), K x N up to 786 M, for their index arithmetic
-    (the path's logits are a torch.matmul of the last rows)."""
+    reduction at both M, where d_ff splits; kv_pack bit-equal on each
+    (blocks, block length) of ``kv_blocks`` (default: a decode tick's
+    pages and a request's install); and the tile kernel with its pre-pass
+    once more at the lm_head's (K, N), K x N up to 786 M, for their index
+    arithmetic (the path's logits are a torch.matmul of the last rows)."""
     import torch
 
     from repro_torch.core.fixedpoint import quantize_nearest
@@ -1752,14 +1933,14 @@ def _arch_kernel_checks(dev, cfg, seed: int) -> dict:
     hd = a.head_dim
     errs = dict.fromkeys(("flash_attention", "masked_matmul", "masked_matmul_skinny",
                           "tile_occupancy", "splitk_reduce", "mask_pack"), 0.0)
-    tag = f"{cfg.name} check"
+    label, tag = tag, f"{cfg.name} check"
 
-    q = torch.randn(1, ARCH_PROMPT, a.n_heads, hd, generator=g, device=dev).transpose(1, 2)
-    k, v = (torch.randn(1, ARCH_PROMPT, a.n_kv_heads, hd, generator=g, device=dev)
+    q = torch.randn(1, prompt, a.n_heads, hd, generator=g, device=dev).transpose(1, 2)
+    k, v = (torch.randn(1, prompt, a.n_kv_heads, hd, generator=g, device=dev)
             .transpose(1, 2) for _ in range(2))
     errs["flash_attention"] = e = _max_err(flash_attention(q, k, v), attention_reference(q, k, v))
     if not e <= 2e-5:
-        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{ARCH_PROMPT},{hd}) off "
+        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{prompt},{hd}) off "
              f"by {e:.3g}")
     del q, k, v
 
@@ -1790,30 +1971,33 @@ def _arch_kernel_checks(dev, cfg, seed: int) -> dict:
 
     projs = {"q": (d, a.n_heads * hd), "k": (d, a.n_kv_heads * hd), "v": (d, a.n_kv_heads * hd),
              "o": (a.n_heads * hd, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
-    for m in (ARCH_PROMPT, ARCH_REQUESTS):
+    for m in (prompt, decode_m):
         key = "masked_matmul" if route(m, 1, 1) == "tile" else "masked_matmul_skinny"
         for kk, n in projs.values():
             errs[key] = max(errs[key], product(m, kk, n))
-        part = quantize_nearest(torch.randn(split_k(ff)[1], m, d, generator=g, device=dev))
-        if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
-            fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain version")
+        if split_k(ff)[1] > 1:
+            part = quantize_nearest(torch.randn(split_k(ff)[1], m, d, generator=g, device=dev))
+            if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
+                fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain version")
     vocab = cfg.vocab
-    errs["masked_matmul"] = max(errs["masked_matmul"], product(ARCH_PROMPT, d, vocab))
+    errs["masked_matmul"] = max(errs["masked_matmul"], product(prompt, d, vocab))
     torch.cuda.empty_cache()
 
     page = PAGE_TOKENS * a.n_kv_heads * hd
-    for blocks in (ARCH_REQUESTS, ARCH_PROMPT // PAGE_TOKENS):
-        pages = torch.relu(torch.randn(cfg.n_layers, blocks, page, generator=g, device=dev))
-        pages = pages.to(torch.bfloat16)
-        got, want = kv_pack(pages), kv_pack_reference(pages)
+    if kv_blocks is None:
+        kv_blocks = ((decode_m, page), (prompt // PAGE_TOKENS, page))
+    for blocks, block_len in kv_blocks:
+        leaf = torch.relu(torch.randn(cfg.n_layers, blocks, block_len, generator=g, device=dev))
+        leaf = leaf.to(torch.bfloat16)
+        got, want = kv_pack(leaf), kv_pack_reference(leaf)
         if not all(torch.equal(got[p], want[p]) for p in ("values", "mask", "nnz")):
-            fail(f"{tag}: kv_pack {tuple(pages.shape)} bf16 differs from its plain version")
-    print(f"[archs] {cfg.name} kernels at the path's shapes against their plain versions: "
+            fail(f"{tag}: kv_pack {tuple(leaf.shape)} bf16 differs from its plain version")
+    print(f"[{label}] {cfg.name} kernels at the path's shapes against their plain versions: "
           f"flash_attention err {errs['flash_attention']:.3g}, tile {errs['masked_matmul']:.3g} "
-          f"(M {ARCH_PROMPT}, lm_head ({d},{vocab}) too), skinny "
-          f"{errs['masked_matmul_skinny']:.3g} (M {ARCH_REQUESTS}); tile_occupancy, "
-          f"splitk_reduce ({split_k(ff)[1]} chunks) and kv_pack ({page}-element pages) "
-          "bit-equal", flush=True)
+          f"(M {prompt}, lm_head ({d},{vocab}) too), skinny "
+          f"{errs['masked_matmul_skinny']:.3g} (M {decode_m}); tile_occupancy, "
+          f"splitk_reduce ({split_k(ff)[1]} chunks) and kv_pack "
+          f"({[tuple(b) for b in kv_blocks]} blocks x elements) bit-equal", flush=True)
     return errs
 
 
@@ -1832,7 +2016,8 @@ def phase_archs(dev, gen) -> dict:
     from repro_torch import kernels
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention.ops import plan
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.launch.serve import serving_config
     from repro_torch.models.lm import lm_init
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paging import PagedServingEngine
@@ -1848,7 +2033,7 @@ def phase_archs(dev, gen) -> dict:
         tile = plan(1, a.n_heads, a.n_kv_heads, ARCH_PROMPT, a.head_dim, n_sms)
         params = lm_init(cfg, 0, device=dev)
         n_params = sum(t.numel() for t in _tensors(params))
-        prompts = synthetic_prompts(ARCH_REQUESTS, ARCH_PROMPT, cfg.vocab, 0)
+        prompts = synthetic_prompts(ARCH_REQUESTS, ARCH_REQUESTS, ARCH_PROMPT, cfg.vocab, 0)
         row: dict = {"params": n_params, "tile": tile._asdict()}
         for backend in ("paged", "monolithic"):
             kw = dict(params=params, n_slots=ARCH_REQUESTS, max_len=ARCH_PROMPT + GEN + 1,
@@ -2257,7 +2442,7 @@ def main() -> None:
     print(f"[serve] launches {launches}; kv wire {out['kv_mean_wire_bytes']:.0f} B/step mean, "
           f"density {out['kv_mean_density']:.3f}, "
           f"{out['kv_traffic_reduction_vs_fp32']:.2f}x less than a dense fp32 pool", flush=True)
-    report["serve"] = {k: v for k, v in out.items() if k != "per_request"}
+    report["serve"] = {k: v for k, v in out.items() if k not in ("per_request", "generated")}
     report["serve"]["tokens"] = [r["tokens"] for r in out["per_request"]]
     report["launches"] = launches
     if len(done) != REQUESTS or not out["finite"]:
@@ -2268,6 +2453,9 @@ def main() -> None:
     if launches["tile_occupancy"] != 0:
         fail("serve phase (M <= 32 throughout) launched the tile kernel's occupancy pre-pass")
     report["decode_profile"] = profile_decode(dev)
+
+    # -- 3c. spec: the example spec through the port's launcher ---------------
+    report["spec"] = spec_run = phase_spec(dev)
 
     # -- 4. check: reduced model on the card vs the CPU plain versions --------
     report["check"] = check_lm_card_vs_cpu(dev, gen, "llama3.2-1b", 12)
@@ -2307,11 +2495,12 @@ def main() -> None:
     report["paper"] = paper = phase_paper(dev)
 
     # -- kernel line, card, result -------------------------------------------
-    # launches: the sum over the main paths' runs (serve, train, serve_long,
-    # serve_mamba2, survive, paged, archs, the kernel sweep, the paper
-    # path's probe), each zeroed just before its run and read just after
-    # (the comparisons above count in none)
-    by_path = {name: {"serve": launches[name], "serve_long": serve_long["launches"][name],
+    # launches: the sum over the main paths' runs (serve, spec, train,
+    # serve_long, serve_mamba2, survive, paged, archs, the kernel sweep, the
+    # paper path's probe), each zeroed just before its run and read just
+    # after (the comparisons above count in none)
+    by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
+                      "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
                       "survive": survive["launches"][name],
                       "paged": paged["launches"][name], "archs": archs["launches"][name],
@@ -2352,7 +2541,8 @@ def main() -> None:
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"],
-         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"]),
+         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"],
+                            spec_run["errs"]["masked_matmul"]),
          **layer_entry(prefill_rows),
          "library_ms": sum(r["library_ms"] for r in prefill_rows),
          "shape": f"the tile kernel (masked_mm_kernel): one prefill layer, q,k,v,o,gate,up,down "
@@ -2364,7 +2554,8 @@ def main() -> None:
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul_skinny"],
-         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"]),
+         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"],
+                            spec_run["errs"]["masked_matmul_skinny"]),
          **layer_entry(decode_rows),
          "library_ms": sum(r["library_ms"] for r in decode_rows),
          "tile_ms": sum(r["tile_ms"] for r in decode_rows),
@@ -2420,7 +2611,8 @@ def main() -> None:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:99",
          "launches": total["flash_attention"],
-         "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"]),
+         "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"],
+                            spec_run["errs"]["flash_attention"]),
          **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "host_ms", "library_device_ms", "tile")},
          "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "

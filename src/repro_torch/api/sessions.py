@@ -1,0 +1,379 @@
+"""Sessions: one object per execution mode, all driven by one RunSpec
+(port of ``repro/api/sessions.py``).
+
+:class:`ServeSession` owns what the serving launcher used to assemble by
+hand: it resolves the spec, checks ``kernels.policy`` against the device,
+builds the engine (``ServingEngine.from_spec``: monolithic, or paged with
+``serving.pages``), submits the reference's synthetic requests or drains
+a restored snapshot, and returns the engine summary with the canonical
+spec embedded (``spec`` / ``spec_hash`` / ``provenance``).  Its prompts
+are the reference's, bit for bit: ``randint(PRNGKey(seed), (batch,
+prompt_len), 0, vocab)``, each later batch under ``fold_in(key, chunk)``,
+drawn by the numpy threefry of :mod:`repro_torch.api.threefry`.
+
+``serving.static=true`` runs the pre-engine static path (one batch,
+prefill once, ``gen`` decode steps), the oracle the engine is held
+against.  Its greedy tokens are the reference's; sampled static tokens
+come from the port's own per-request draws (``serving.engine``'s
+``sample_token``: request ``seed + row``, draw ``1 + step``), as the
+engine's sampled decode does.
+
+``device`` is not a spec field and never enters a hash: ``"cuda"`` (the
+default) runs the CUDA kernels and raises without a card, ``"cpu"`` the
+plain versions.  The policy must name what runs there (:func:`check_policy`).
+
+``TrainSession`` and ``DryrunSession`` keep the run-mode check; their
+specs' ``resolve()`` raises a :class:`SpecError` naming the slice that
+ports them (LM training, ROADMAP §1 item 3; the dry run has no twin,
+item 5).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import telemetry
+from repro_torch.api import threefry
+from repro_torch.api.spec import RunSpec, SpecError, build_spec
+
+
+class Session:
+    """Base: resolve the spec once, expose the reproducibility payload."""
+
+    run_mode: str = ""
+
+    def __init__(self, spec: RunSpec):
+        if self.run_mode and spec.run != self.run_mode:
+            raise SpecError(
+                f"{type(self).__name__} needs a run={self.run_mode!r} spec, "
+                f"got run={spec.run!r}")
+        self.spec = spec
+        self.resolved = spec.resolve()
+
+    def trace_path(self) -> str:
+        """Effective Chrome-trace output path ('' = telemetry off); an
+        enabled spec with no explicit path still writes a trace."""
+        t = self.spec.telemetry
+        if not t.enabled:
+            return ""
+        return t.trace_path or f"spring_{self.spec.run}_trace.json"
+
+    def telemetry_scope(self):
+        """Ambient spring-trace scope for this run (no-op when disabled),
+        written to :meth:`trace_path` on exit."""
+        t = self.spec.telemetry
+        cfg = telemetry.TelemetryConfig(
+            enabled=t.enabled, trace_path=self.trace_path(),
+            sample_rate=t.sample_rate)
+        return telemetry.scope(cfg, metadata={
+            "run": self.spec.run, "spec_hash": self.spec.spec_hash()})
+
+    def _with_payload(self, out: dict) -> dict:
+        out.update(self.spec.payload())
+        if self.spec.telemetry.enabled:
+            tr = telemetry.tracer()
+            out["telemetry"] = {
+                "metrics": telemetry.metrics().snapshot(),
+                "trace_path": self.trace_path(),
+                "sample_rate": self.spec.telemetry.sample_rate,
+                "spans": len(tr) if tr is not None else 0,
+            }
+        return out
+
+
+class TrainSession(Session):
+    """LM training: its spec's ``resolve()`` raises until LM training is
+    ported (ROADMAP §1 item 3)."""
+
+    run_mode = "train"
+
+
+class DryrunSession(Session):
+    """The dry run lowers XLA programs and has no twin (ROADMAP §1 item 5):
+    its spec's ``resolve()`` raises."""
+
+    run_mode = "dryrun"
+
+
+# -- serving ----------------------------------------------------------------
+
+#: the policy names each device honours: on the card the port runs its
+#: CUDA kernels (the counterparts of the reference's Pallas kernels), on
+#: the CPU their plain versions (the reference's ref / jnp lowerings)
+DEVICE_IMPLS = {"cuda": ("auto", "pallas"), "cpu": ("auto", "ref", "jnp")}
+
+
+def check_policy(policy, device) -> None:
+    """Raise :class:`SpecError` unless every implementation ``policy``
+    names runs on ``device``: a spec must not ask for the plain oracle and
+    get the kernel, or the other way round."""
+    kind = torch.device(device).type
+    allowed = DEVICE_IMPLS.get(kind, ("auto",))
+    for op, name in (("", policy.default),) + tuple(policy.overrides):
+        if name not in allowed:
+            what = f"{op}={name}" if op else name
+            raise SpecError(
+                f"kernels.policy={policy.describe()!r}: {what!r} cannot run on "
+                f"device {kind!r}, which honours {allowed} (the card runs the "
+                "CUDA kernels, 'pallas'; the CPU their plain versions, 'ref' / "
+                "'jnp'; 'auto' takes what the device runs)")
+
+
+def synthetic_batch(arch, cfg, batch: int, prompt_len: int, key) -> dict:
+    """The serving sessions' stand-in traffic: ``{"tokens": (batch,
+    prompt_len) int32}``, bit-equal to the reference's ``synthetic_batch``
+    under the same threefry ``key``.  ``arch`` keeps the reference's
+    signature (every ported arch is a decoder-only LM without an image
+    prefix)."""
+    return {"tokens": threefry.randint(key, (batch, prompt_len), 0, cfg.vocab)}
+
+
+def synthetic_prompts(n_requests: int, batch: int, prompt_len: int, vocab: int,
+                      seed: int) -> list:
+    """The engine session's ``n_requests`` prompts: batches of ``batch``,
+    the first under ``PRNGKey(seed)``, batch ``c`` under ``fold_in(key,
+    c)`` (distinct prompts, reproducible)."""
+    key = threefry.prng_key(seed)
+    prompts: list = []
+    for chunk in range((n_requests + batch - 1) // batch):
+        k = threefry.fold_in(key, chunk) if chunk else key
+        prompts += threefry.randint(k, (batch, prompt_len), 0, vocab).tolist()
+    return prompts[:n_requests]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeSession(Session):
+    """One-shot serving session: the continuous-batching engine, or with
+    ``serving.static`` the pre-engine static path kept as the parity
+    oracle.  ``params`` default to ``lm_init(cfg, seed)`` on ``device``."""
+
+    run_mode = "serve"
+
+    def __init__(self, spec: RunSpec, *, params: Optional[dict] = None, device="cuda"):
+        super().__init__(spec)
+        check_policy(self.resolved.kernel_policy, device)
+        from repro_torch.serving.engine import resolve_device
+
+        self.device = resolve_device(device)
+        self.params = params
+
+    def run(self) -> dict:
+        with self.telemetry_scope():
+            if self.spec.serving.static:
+                return self._with_payload(self._static())
+            return self._with_payload(self._engine())
+
+    def _static(self) -> dict:
+        """One fixed batch, prefill once, decode ``gen`` steps, throw the
+        cache away (the reference's ``_static`` for decoder-only LMs)."""
+        from repro_torch.models.lm import lm_init, pad_cache
+        from repro_torch.serving.engine import sample_token
+        from repro_torch.serving.steps import make_decode_step, make_prefill_step
+
+        spec, r = self.spec, self.resolved
+        cfg, seed = r.config, spec.seeds.seed
+        batch, prompt_len, gen = (spec.shape.batch, spec.shape.prompt_len,
+                                  spec.shape.gen)
+        params = (self.params if self.params is not None
+                  else lm_init(cfg, seed, device=self.device))
+        prompts = synthetic_batch(r.arch, cfg, batch, prompt_len,
+                                  threefry.prng_key(seed))["tokens"]
+        tokens = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
+        prefill = make_prefill_step(cfg, r.spring)
+        decode = make_decode_step(cfg, r.spring)
+
+        t0 = time.monotonic()
+        logits, cache = prefill(params, tokens)
+        # decode continues past the prompt: extend the cache buffers
+        cache = pad_cache(cache, gen)
+        next_tok = logits.argmax(-1)
+        _sync(self.device)
+        t_prefill = time.monotonic() - t0
+
+        tokens_out = []
+        t0 = time.monotonic()
+        for i in range(gen):
+            logits, cache = decode(params, next_tok, cache)
+            if spec.serving.greedy:
+                next_tok = logits.argmax(-1)
+            else:
+                next_tok = torch.tensor(
+                    [sample_token(logits[b], seed + b, i + 1) for b in range(batch)],
+                    dtype=torch.int64, device=self.device)
+            tokens_out.append(next_tok)
+        _sync(self.device)
+        t_decode = time.monotonic() - t0
+
+        return {
+            "generated": torch.stack(tokens_out, dim=1).cpu().numpy().astype(np.int32),
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "tokens_per_s": batch * gen / t_decode if t_decode else 0.0,
+            "finite": bool(torch.isfinite(logits).all()),
+            "engine": False,
+            "mesh": spec.shape.mesh.label(),
+        }
+
+    def _engine(self) -> dict:
+        from repro_torch.serving.engine import ServingEngine
+
+        spec, r = self.spec, self.resolved
+        batch, prompt_len, gen = (spec.shape.batch, spec.shape.prompt_len,
+                                  spec.shape.gen)
+        # None means "default to batch" (from_spec applies the same rule to
+        # slots; an explicit 0 reaches the engine's own validation)
+        queue = spec.serving.queue
+        n_requests = batch if queue is None else queue
+        seed = spec.seeds.seed
+
+        engine = ServingEngine.from_spec(spec, params=self.params, resolved=r,
+                                         device=self.device)
+        if spec.serving.restore_path:
+            # spring-survive resume: drain a saved snapshot's in-flight work
+            # instead of submitting fresh requests
+            engine.restore_file(spec.serving.restore_path)
+        else:
+            prompts = synthetic_prompts(n_requests, batch, prompt_len,
+                                        r.config.vocab, seed)
+            for i, p in enumerate(prompts):
+                engine.submit_prompt(p, gen, seed=seed + i)
+        out = engine.run()
+        # token lists may be ragged (EOS finishes / typed rejections):
+        # stack only the uniform case, keep exact lists otherwise
+        tok_lists = [req["tokens"] for req in out["per_request"]]
+        out["generated"] = (np.asarray(tok_lists, np.int32)
+                            if len({len(t) for t in tok_lists}) == 1 else tok_lists)
+        out["engine"] = True
+        out["slots"] = engine.n_slots
+        out["mode"] = spec.numerics.mode
+        return out
+
+
+SESSION_TYPES = {
+    "train": TrainSession,
+    "serve": ServeSession,
+    "dryrun": DryrunSession,
+}
+
+
+def session_for(spec: RunSpec, **kw) -> Session:
+    """The one dispatch point: a spec's ``run`` field picks its session."""
+    return SESSION_TYPES[spec.run](spec, **kw)
+
+
+# -- legacy kwargs -> spec bridges (the reference's signatures) --------------
+
+
+def _call_overrides(pairs) -> list:
+    return [(path, value, f"call:{path}") for path, value in pairs
+            if value is not None]
+
+
+def train_spec(arch_id: str = "llama3.2-1b", *, reduced: bool = True,
+               steps: int = 100, batch: int = 8, seq: int = 128,
+               mode: str = "dense", lr: float = 3e-3,
+               fixed_point_weights: bool = False,
+               kernel_impl: Optional[str] = None,
+               backward_sparsity: str = "auto", stash: str = "none",
+               ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
+               log_every: int = 10, seed: int = 0) -> RunSpec:
+    """RunSpec equivalent of the legacy ``train_loop`` keyword surface."""
+    return build_spec("train", overrides=_call_overrides([
+        ("arch.id", arch_id), ("arch.reduced", reduced),
+        ("train.steps", steps), ("shape.batch", batch), ("shape.seq", seq),
+        ("numerics.mode", mode), ("optimizer.lr", lr),
+        ("numerics.fixed_point_weights", fixed_point_weights),
+        ("kernels.policy", kernel_impl),
+        ("sparsity.backward", backward_sparsity),
+        ("memstash.policy", stash),
+        ("train.ckpt_dir", ckpt_dir or ""), ("train.ckpt_every", ckpt_every),
+        ("train.log_every", log_every), ("seeds.seed", seed),
+    ]))
+
+
+def serve_spec(arch_id: str = "llama3.2-1b", *, reduced: bool = True,
+               batch: int = 4, prompt_len: int = 32, gen: int = 16,
+               mode: str = "dense", kernel_impl: Optional[str] = None,
+               greedy: bool = True, seed: int = 0,
+               slots: Optional[int] = None, queue: Optional[int] = None,
+               static: bool = False, pages: bool = False,
+               page_tokens: Optional[int] = None,
+               num_pages: Optional[int] = None,
+               overcommit: Optional[float] = None,
+               prefix_cache: Optional[bool] = None,
+               snapshot_every: Optional[int] = None,
+               snapshot_path: Optional[str] = None,
+               restore_path: Optional[str] = None,
+               max_queue_depth: Optional[int] = None,
+               deadline_ticks: Optional[int] = None,
+               deadline_aware: Optional[bool] = None,
+               priority_aware: Optional[bool] = None) -> RunSpec:
+    """RunSpec equivalent of the legacy ``serve_session`` surface."""
+    over = _call_overrides([
+        ("arch.id", arch_id), ("arch.reduced", reduced),
+        ("shape.batch", batch), ("shape.prompt_len", prompt_len),
+        ("shape.gen", gen), ("numerics.mode", mode),
+        ("kernels.policy", kernel_impl), ("serving.greedy", greedy),
+        ("seeds.seed", seed), ("serving.static", static),
+        ("serving.pages", pages),
+    ])
+    # slots/queue: None means "default to batch" and must stay None in the
+    # spec (an explicit 0 must reach the engine's own validation)
+    if slots is not None:
+        over.append(("serving.slots", slots, "call:serving.slots"))
+    if queue is not None:
+        over.append(("serving.queue", queue, "call:serving.queue"))
+    # paged-pool + spring-survive knobs: None keeps the spec default
+    for key, value in (("page_tokens", page_tokens), ("num_pages", num_pages),
+                       ("overcommit", overcommit),
+                       ("prefix_cache", prefix_cache),
+                       ("snapshot_every", snapshot_every),
+                       ("snapshot_path", snapshot_path),
+                       ("restore_path", restore_path),
+                       ("max_queue_depth", max_queue_depth),
+                       ("deadline_ticks", deadline_ticks),
+                       ("deadline_aware", deadline_aware),
+                       ("priority_aware", priority_aware)):
+        if value is not None:
+            over.append((f"serving.{key}", value, f"call:serving.{key}"))
+    return build_spec("serve", overrides=over)
+
+
+def dryrun_spec(arch_id: str, shape_name: str, mesh_kind: str = "single",
+                mode: str = "dense", *, microbatch: Optional[int] = None,
+                cost_unrolled: bool = True, seq_parallel: bool = False,
+                bf16_logits: bool = False, layout: str = "tp",
+                remat_policy: str = "full", cache_int8: bool = False,
+                quant_opt: bool = False, variant: str = "baseline",
+                kernel_impl: Optional[str] = None,
+                backward_sparsity: str = "auto",
+                probe_density: float = 0.5) -> RunSpec:
+    """RunSpec equivalent of the legacy ``run_cell`` keyword surface
+    (``arch.reduced`` stays null)."""
+    over = _call_overrides([
+        ("arch.id", arch_id),
+        ("shape.cell", shape_name), ("shape.mesh", mesh_kind),
+        ("numerics.mode", mode),
+        ("dryrun.cost_unrolled", cost_unrolled),
+        ("shape.seq_parallel", seq_parallel),
+        ("arch.bf16_logits", bf16_logits), ("shape.layout", layout),
+        ("serving.int8_cache", cache_int8), ("dryrun.quant_opt", quant_opt),
+        ("dryrun.variant", variant), ("kernels.policy", kernel_impl),
+        ("sparsity.backward", backward_sparsity),
+        ("sparsity.probe_density", probe_density),
+    ])
+    if microbatch is not None:
+        over.append(("shape.microbatch", microbatch, "call:shape.microbatch"))
+    # legacy quirk preserved: --remat-policy full was a no-op
+    if remat_policy != "full":
+        over.append(("arch.remat_policy", remat_policy,
+                     "call:arch.remat_policy"))
+    return build_spec("dryrun", overrides=over)

@@ -129,8 +129,9 @@ def _decode_logits(engine, slots: list, width: int):
 def run_decode(dev, reduced: bool) -> dict:
     import torch
 
+    from repro_torch.api.sessions import synthetic_prompts
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.launch.serve import serving_config
     from repro_torch.models import attention, layers, lm, ssm
     from repro_torch.serving.engine import ServingEngine
 
@@ -142,7 +143,7 @@ def run_decode(dev, reduced: bool) -> dict:
         prompt = min(prompt, 32) if reduced else prompt
         eng = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=SLOTS,
                             max_len=prompt + GEN + 1, seed=0, device=dev)
-        for p in synthetic_prompts(SLOTS, prompt, cfg.vocab, 0):
+        for p in synthetic_prompts(SLOTS, SLOTS, prompt, cfg.vocab, 0):
             eng.submit_prompt(p, GEN)
         for _ in range(3):
             eng.step()
@@ -175,14 +176,15 @@ def _tick(dev, arch: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.api.sessions import synthetic_prompts
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serving_config, synthetic_prompts
+    from repro_torch.launch.serve import serving_config
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_arch(arch).resolve(False)
     eng = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=SLOTS,
                         max_len=PROMPT + GEN + 1, seed=0, device=dev)
-    for p in synthetic_prompts(SLOTS, PROMPT, cfg.vocab, 0):
+    for p in synthetic_prompts(SLOTS, SLOTS, PROMPT, cfg.vocab, 0):
         eng.submit_prompt(p, GEN)
     eng.step()  # admissions and the first decode tick
     eng.step()

@@ -1,8 +1,11 @@
-"""Architecture definition (minimal port of ``repro/configs/base.py``).
+"""Architecture definition and the dry-run shape cells (port of
+``repro/configs/base.py``).
 
 An ``ArchDef`` carries the published config and a ``reduced()`` smoke-test
-variant of the same family.  The dry-run shape cells and ShapeDtypeStruct
-stand-ins of the reference have no counterpart here.
+variant of the same family.  ``SHAPES`` and :func:`default_memstash` are
+copies of the reference's: the RunSpec validates ``shape.cell`` against
+the one and resolves ``memstash.policy="auto"`` through the other.  The
+reference's ShapeDtypeStruct stand-ins have no counterpart here.
 """
 
 from __future__ import annotations
@@ -10,7 +13,34 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from repro_torch.memstash.config import MemstashConfig
 from repro_torch.models.lm import LMConfig
+
+
+def default_memstash(family: str) -> MemstashConfig:
+    """Recommended memstash policy per workload family: ``"cnn"`` (the
+    paper's CNNs, genuinely sparse post-ReLU activations) stashes
+    compressed, every LM family (dense | hybrid | vlm | moe | ssm | audio)
+    recomputes."""
+    if family == "cnn":
+        return MemstashConfig(policy="stash")
+    return MemstashConfig(policy="remat")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,9 +14,12 @@ cases and per-case compare overrides, drawn from numpy seeds instead of
 the compare contract.
 
 What the port decided against is not here: no availability-based
-auto-pick, no ``KernelPolicy`` and no ``SPRING_KERNEL_IMPL`` (a wrapper
-launches its kernel on a CUDA tensor or raises, and runs its plain
-version on a CPU tensor).  ``mask_unpack`` and ``kv_unpack``, whose TPU
+auto-pick and no ambient ``SPRING_KERNEL_IMPL`` (a wrapper launches its
+kernel on a CUDA tensor or raises, and runs its plain version on a CPU
+tensor).  :class:`KernelPolicy` keeps the reference's grammar and errors
+so a RunSpec's ``kernels.policy`` parses the same in both packages; it
+selects nothing here, and the serving session checks it against the
+device instead (``api/sessions.py``).  ``mask_unpack`` and ``kv_unpack``, whose TPU
 registrations aliased the plain lowering, have a plain version only.
 The reference's ``packed_all_gather`` / ``packed_reduce_scatter`` wait
 for the ``dist/`` port.
@@ -401,3 +404,65 @@ def op_spec(op: str) -> OpSpec:
     if op not in table:
         raise KeyError(f"unknown kernel op {op!r}; registered: {sorted(table)}")
     return table[op]
+
+
+# -- the reference's policy grammar -------------------------------------------------------
+
+#: The closed set of implementation names a policy may name (the reference's).
+IMPL_NAMES = ("ref", "jnp", "interpret", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """A global default plus per-op overrides, parsed from ``"ref"`` /
+    ``"ssd_scan=jnp"`` / ``"ref,ssd_scan=jnp"`` with the reference's
+    grammar and error messages (``repro/kernels/registry.py:203-262``).
+    Op names are checked against :func:`ops`."""
+
+    default: str = "auto"
+    overrides: tuple = ()  # ((op, impl), ...)
+
+    def __post_init__(self):
+        names = ("auto",) + IMPL_NAMES
+        if self.default not in names:
+            raise ValueError(
+                f"unknown kernel impl {self.default!r}; choose from {names}")
+        for op, name in self.overrides:
+            if name not in names:
+                raise ValueError(
+                    f"unknown kernel impl {name!r} for op {op!r}; "
+                    f"choose from {names}")
+        for op, _ in self.overrides:  # a misspelled op would pin nothing
+            if op not in _table():
+                raise ValueError(
+                    f"unknown kernel op {op!r} in policy overrides; "
+                    f"registered ops: {ops()}")
+
+    def impl_for(self, op: str) -> str:
+        return dict(self.overrides).get(op, self.default)
+
+    @classmethod
+    def parse(cls, spec: str) -> "KernelPolicy":
+        """Bare tokens set the global default; ``op=impl`` tokens add
+        per-op overrides."""
+        default = "auto"
+        overrides: list[tuple[str, str]] = []
+        for token in (t.strip() for t in (spec or "").split(",")):
+            if not token:
+                continue
+            if "=" in token:
+                op, _, name = token.partition("=")
+                op, name = op.strip(), name.strip()
+                if op not in _table():
+                    raise ValueError(
+                        f"unknown kernel op {op!r} in policy spec {spec!r}; "
+                        f"registered ops: {ops()}")
+                overrides.append((op, name))
+            else:
+                default = token
+        return cls(default=default, overrides=tuple(overrides))
+
+    def describe(self) -> str:
+        parts = [] if self.default == "auto" else [self.default]
+        parts += [f"{op}={name}" for op, name in self.overrides]
+        return ",".join(parts) or "auto"

@@ -1,190 +1,216 @@
-"""Serving launcher (port of ``repro/launch/serve.py``).
+"""Serving launcher: a thin adapter over the RunSpec API (port of
+``repro/launch/serve.py``).
 
-  python -m repro_torch.launch.serve --arch llama3.2-1b --mode quant_sparse \
-      --slots 4 --queue 6 --prompt-len 32 --gen 16            # GPU, full width
-  python -m repro_torch.launch.serve --arch llama3.2-1b --queue 4 \
-      --prompt-len 4096 --gen 16                              # long prompts
-  python -m repro_torch.launch.serve --arch mamba2-780m --queue 6 \
-      --prompt-len 2000 --gen 16                              # Mamba-2
-  python -m repro_torch.launch.serve --reduced --device cpu   # CPU, plain versions
-  python -m repro_torch.launch.serve --snapshot-every 4 --snapshot-path s.npz
-  python -m repro_torch.launch.serve --restore s.npz          # drain a snapshot
-  python -m repro_torch.launch.serve --sample --telemetry --trace-path t.json
-  python -m repro_torch.launch.serve --pages --page-tokens 8  # the paged COW pool
+  python -m repro_torch.launch.serve --spec examples/specs/serve_quant_sparse.json \\
+      --set arch.reduced=false --set kernels.policy=auto          # GPU, full width
+  python -m repro_torch.launch.serve --spec examples/specs/serve_quant_sparse.json \\
+      --device cpu                                                # CPU, plain versions
+  python -m repro_torch.launch.serve --set arch.id=llama3.2-1b --set arch.reduced=false \\
+      --set serving.slots=2 --set serving.queue=6 --set numerics.mode=quant_sparse
+  python -m repro_torch.launch.serve --set serving.snapshot_every=4 \\
+      --set serving.snapshot_path=s.npz
+  python -m repro_torch.launch.serve --set serving.restore_path=s.npz   # drain it
+  python -m repro_torch.launch.serve --set telemetry.enabled=true \\
+      --set telemetry.trace_path=t.json
 
-The pool's ``max_len`` follows ``--prompt-len`` + ``--gen``.
+The session lives in :class:`repro_torch.api.ServeSession`; the static
+batch loop survives behind ``serving.static=true``.  Legacy flag
+spellings (``--slots``, ``--queue``, ``--pages``, ``--restore``, ...) shim
+to the same RunSpec fields with a DeprecationWarning.  ``arch.reduced``
+left null serves the reduced model, as in the reference: full width is
+``--set arch.reduced=false``.  ``--device`` (default ``cuda``) is the one
+option that configures nothing numerical; ``kernels.policy`` must name
+what runs there (``auto`` or ``pallas`` on the card, ``auto``, ``ref`` or
+``jnp`` on the CPU), else the run stops with the ``SpecError``.  Weights
+are random, made from ``seeds.seed``, and the prompts are the
+reference's.  Snapshots are stamped with ``RunSpec.state_hash()``, so a
+snapshot written by either package's launcher restores in the other's
+under the same spec.
 
-Each flag stands for the RunSpec field named in its help; the RunSpec API
-itself is not ported yet.  Weights are random, made from ``--seed``, and
-so are the prompts.  Serving numerics round to nearest (``serving_config``).
-With ``--restore`` the engine restores the snapshot and drains its
-in-flight work, taking no new requests, as the reference's session does.
-``--telemetry`` serves inside a telemetry scope: the engine's spans go to
-a Chrome trace (``--trace-path``, default ``spring_serve_trace.json``) and
-the output gains a ``telemetry`` block with the metrics.  ``--pages``
-serves on the paged copy-on-write pool (``serving/paging``) and prints
-the reference's ``paging:`` line first.  Prints the engine summary as one
-JSON object (the last line).
+Serving numerics: quantized modes round to nearest, so a request's tokens
+are a function of the request alone, not of its batch co-tenants.
+
+``serve_session`` / ``static_reference_session`` / ``serving_config``
+keep the reference's signatures (plus ``device``) for programmatic
+callers.
 """
 
 from __future__ import annotations
 
-import argparse
-import dataclasses
-import hashlib
 import json
-from typing import Optional
 
-import torch
-
-from repro_torch import telemetry
-from repro_torch.configs import get_arch
+from repro_torch.api.cli import flag, make_parser, run_main
+from repro_torch.api.sessions import ServeSession, serve_spec
+from repro_torch.api.spec import NumericsSection, RunSpec, SpecError
 from repro_torch.core.spring_ops import MODES, SpringConfig
-from repro_torch.serving.engine import ServingEngine, resolve_device
-from repro_torch.serving.paging import PagedServingEngine
-from repro_torch.serving.scheduler import ShedPolicy
 
-#: snapshot file when snapshots are on and no path is given (the reference's)
-DEFAULT_SNAPSHOT_PATH = "spring_snapshot.npz"
+LEGACY_FLAGS = (
+    flag("--arch", "arch.id"),
+    flag("--reduced", "arch.reduced", const=True),
+    flag("--batch", "shape.batch", type=int),
+    flag("--prompt-len", "shape.prompt_len", type=int),
+    flag("--gen", "shape.gen", type=int),
+    flag("--mode", "numerics.mode", choices=list(MODES)),
+    flag("--kernel-impl", "kernels.policy"),
+    flag("--slots", "serving.slots", type=int),
+    flag("--queue", "serving.queue", type=int),
+    flag("--greedy", "serving.greedy", const=True, dest="legacy_greedy"),
+    flag("--sample", "serving.greedy", const=False, dest="legacy_greedy"),
+    flag("--seed", "seeds.seed", type=int),
+    flag("--static", "serving.static", const=True),
+    flag("--pages", "serving.pages", const=True),
+    flag("--page-tokens", "serving.page_tokens", type=int),
+    flag("--prefix-cache", "serving.prefix_cache", type=lambda s: s.lower()
+         not in ("0", "false", "no", "off")),
+    # spring-survive: periodic snapshots, restore-and-drain, load shedding
+    flag("--snapshot-every", "serving.snapshot_every", type=int),
+    flag("--snapshot-path", "serving.snapshot_path"),
+    flag("--restore", "serving.restore_path"),
+    flag("--max-queue-depth", "serving.max_queue_depth", type=int),
+    flag("--deadline-ticks", "serving.deadline_ticks", type=int),
+)
 
 
 def serving_config(mode: str) -> SpringConfig:
-    """SpringConfig for serving: the chosen mode with nearest rounding — SR
-    would couple a request's tokens to its batch co-tenants."""
-    return dataclasses.replace(MODES[mode], stochastic=False)
+    """SpringConfig for serving: the chosen mode with nearest rounding (SR
+    would couple a request's tokens to its batch co-tenants), resolved
+    through the RunSpec so there is one place serving numerics are
+    decided.  It carries no kernel policy: the port dispatches by device,
+    and a session checks its spec's policy against the device."""
+    return RunSpec(run="serve", numerics=NumericsSection(mode=mode)).resolve().spring
 
 
-def synthetic_prompts(n: int, prompt_len: int, vocab: int, seed: int) -> list:
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, vocab, (n, prompt_len), generator=gen).tolist()
+def static_reference_session(
+    arch_id: str,
+    *,
+    reduced: bool = True,
+    batch: int = 4,
+    prompt_len: int = 32,
+    gen: int = 16,
+    mode: str = "dense",
+    kernel_impl: str | None = None,
+    greedy: bool = True,
+    seed: int = 0,
+    mesh=None,
+    device="cuda",
+) -> dict:
+    """The pre-engine static path: one fixed batch, prefill once, decode
+    ``gen`` steps, throw the cache away (the engine's parity oracle)."""
+    _single_device(mesh)
+    spec = serve_spec(arch_id, reduced=reduced, batch=batch,
+                      prompt_len=prompt_len, gen=gen, mode=mode,
+                      kernel_impl=kernel_impl, greedy=greedy, seed=seed,
+                      static=True)
+    return ServeSession(spec, device=device).run()
 
 
-def state_hash(**fields) -> str:
-    """Stamp of what decides a served run's numerical state (the RunSpec's
-    ``state_hash`` role): every field but the snapshot and restore paths,
-    the telemetry switches and the device; a snapshot restores only under
-    the same stamp."""
-    compact = json.dumps(fields, sort_keys=True, separators=(",", ":"))
-    return hashlib.sha256(compact.encode()).hexdigest()[:16]
+def serve_session(
+    arch_id: str,
+    *,
+    reduced: bool = True,
+    batch: int = 4,
+    prompt_len: int = 32,
+    gen: int = 16,
+    mode: str = "dense",
+    kernel_impl: str | None = None,
+    greedy: bool = True,
+    seed: int = 0,
+    slots: int | None = None,
+    queue: int | None = None,
+    pages: bool = False,
+    page_tokens: int | None = None,
+    num_pages: int | None = None,
+    overcommit: float | None = None,
+    prefix_cache: bool | None = None,
+    mesh=None,
+    device="cuda",
+) -> dict:
+    """One-shot engine session: submit ``queue`` synthetic requests
+    (default ``batch``) over a pool of ``slots`` slots (default ``batch``)
+    and drain.  ``pages=True`` serves on the paged COW pool.  Returns the
+    engine summary plus the canonical resolved spec."""
+    _single_device(mesh)
+    spec = serve_spec(arch_id, reduced=reduced, batch=batch,
+                      prompt_len=prompt_len, gen=gen, mode=mode,
+                      kernel_impl=kernel_impl, greedy=greedy, seed=seed,
+                      slots=slots, queue=queue, pages=pages,
+                      page_tokens=page_tokens, num_pages=num_pages,
+                      overcommit=overcommit, prefix_cache=prefix_cache)
+    return ServeSession(spec, device=device).run()
 
 
-def serve_session(arch: str = "llama3.2-1b", *, reduced: bool = False,
-                  mode: str = "quant_sparse", slots: int = 4, queue: int = 4,
-                  prompt_len: int = 32, gen: int = 16, seed: int = 0, greedy: bool = True,
-                  snapshot_every: int = 0, snapshot_path: str = "", restore_path: str = "",
-                  max_queue_depth: Optional[int] = None, deadline_ticks: Optional[int] = None,
-                  telemetry_enabled: bool = False, trace_path: str = "",
-                  pages: bool = False, page_tokens: int = 8, num_pages: Optional[int] = None,
-                  overcommit: float = 1.5, prefix_cache: bool = True,
-                  device="cuda") -> dict:
-    """Build an engine over random weights, submit ``queue`` synthetic
-    requests (or restore ``restore_path`` and take none) and drain them;
-    returns the engine summary.  ``pages=True`` serves on the paged
-    copy-on-write pool (``page_tokens`` rows a page, ``num_pages`` physical
-    pages, None the monolithic pool's equivalent; ``overcommit`` logical
-    frames a page; ``prefix_cache`` shares prompt prefixes)."""
-    if snapshot_every < 0:
-        raise ValueError("snapshot_every must be >= 0")
-    if max_queue_depth is not None and max_queue_depth < 1:
-        raise ValueError("max_queue_depth must be >= 1 (or None)")
-    if deadline_ticks is not None and deadline_ticks < 0:
-        raise ValueError("deadline_ticks must be >= 0 (or None)")
-    if snapshot_every:
-        snapshot_path = snapshot_path or DEFAULT_SNAPSHOT_PATH
-        if restore_path and snapshot_path == restore_path:
-            # the snapshots would overwrite the artifact being drained
-            raise ValueError("restore_path equals the snapshot output path; "
-                             "give snapshot_path another file")
-    device = resolve_device(device)
-    cfg = get_arch(arch).resolve(reduced)
-    stamp = state_hash(arch=arch, reduced=reduced, mode=mode, slots=slots, queue=queue,
-                       prompt_len=prompt_len, gen=gen, seed=seed, greedy=greedy,
-                       max_queue_depth=max_queue_depth, deadline_ticks=deadline_ticks,
-                       **({"pages": pages, "page_tokens": page_tokens, "num_pages": num_pages,
-                           "overcommit": overcommit, "prefix_cache": prefix_cache}
-                          if pages else {}))
-    shed = (None if max_queue_depth is None and deadline_ticks is None
-            else ShedPolicy(max_queue_depth=max_queue_depth, deadline_ticks=deadline_ticks))
-    trace_path = (trace_path or "spring_serve_trace.json") if telemetry_enabled else ""
-    scope = telemetry.TelemetryConfig(enabled=telemetry_enabled, trace_path=trace_path)
-    with telemetry.scope(scope, metadata={"run": "serve", "spec_hash": stamp}):
-        backend = (dict(page_tokens=page_tokens, num_pages=num_pages, overcommit=overcommit,
-                        prefix_cache=prefix_cache) if pages else {})
-        engine = (PagedServingEngine if pages else ServingEngine)(
-            cfg, serving_config(mode), n_slots=slots, max_len=prompt_len + gen + 1,
-            greedy=greedy, seed=seed, spec_hash=stamp, shed=shed,
-            snapshot_every=snapshot_every, snapshot_path=snapshot_path, device=device,
-            **backend)
-        if restore_path:
-            engine.restore_file(restore_path)
-        else:
-            for i, p in enumerate(synthetic_prompts(queue, prompt_len, cfg.vocab, seed)):
-                engine.submit_prompt(p, gen, seed=seed + i)
-        out = engine.run()
-        if telemetry_enabled:
-            tr = telemetry.tracer()
-            out["telemetry"] = {"metrics": telemetry.metrics().snapshot(),
-                                "trace_path": trace_path, "sample_rate": scope.sample_rate,
-                                "spans": len(tr)}
-    out.update(arch=cfg.name, mode=mode, slots=engine.n_slots, spec_hash=stamp)
-    return out
+def _single_device(mesh) -> None:
+    if mesh is not None:
+        raise SpecError("mesh: the port serves on one device (the mesh waits "
+                        "for the dist/ port, ROADMAP §1 item 4)")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__,
-                                formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--arch", default="llama3.2-1b", help="RunSpec arch.id")
-    p.add_argument("--reduced", action="store_true", help="RunSpec arch.reduced")
-    p.add_argument("--mode", default="quant_sparse", choices=list(MODES),
-                   help="RunSpec numerics.mode")
-    p.add_argument("--slots", type=int, default=4, help="RunSpec serving.slots")
-    p.add_argument("--queue", type=int, default=4, help="RunSpec serving.queue")
-    p.add_argument("--prompt-len", type=int, default=32, help="RunSpec shape.prompt_len")
-    p.add_argument("--gen", type=int, default=16, help="RunSpec shape.gen")
-    p.add_argument("--seed", type=int, default=0, help="RunSpec seeds.seed")
-    p.add_argument("--greedy", dest="greedy", action="store_true", default=True,
-                   help="RunSpec serving.greedy=true (the default)")
-    p.add_argument("--sample", dest="greedy", action="store_false",
-                   help="RunSpec serving.greedy=false")
-    p.add_argument("--snapshot-every", type=int, default=0,
-                   help="RunSpec serving.snapshot_every")
-    p.add_argument("--snapshot-path", default="", help="RunSpec serving.snapshot_path")
-    p.add_argument("--restore", default="", help="RunSpec serving.restore_path")
-    p.add_argument("--max-queue-depth", type=int, default=None,
-                   help="RunSpec serving.max_queue_depth")
-    p.add_argument("--deadline-ticks", type=int, default=None,
-                   help="RunSpec serving.deadline_ticks")
-    p.add_argument("--pages", action="store_true", help="RunSpec serving.pages")
-    p.add_argument("--page-tokens", type=int, default=8, help="RunSpec serving.page_tokens")
-    p.add_argument("--prefix-cache", default=True,
-                   type=lambda s: s.lower() not in ("0", "false", "no", "off"),
-                   help="RunSpec serving.prefix_cache")
-    p.add_argument("--telemetry", action="store_true", help="RunSpec telemetry.enabled")
-    p.add_argument("--trace-path", default="", help="RunSpec telemetry.trace_path")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (cuda by default; cpu runs the plain versions)")
-    return p
+#: This adapter's historical defaults (the old argparse had --batch
+#: default=4), layered *below* file/env/CLI; provenance labels them
+#: launcher-default.
+CLI_BASE = {"shape": {"batch": 4}}
+
+
+def build_parser():
+    ap = make_parser(__doc__, LEGACY_FLAGS, json_out=True)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the CUDA kernels, the default) or "
+                         "cpu (their plain versions); not a spec field")
+    return ap
 
 
 def main(argv=None) -> dict:
-    a = build_parser().parse_args(argv)
-    out = serve_session(a.arch, reduced=a.reduced, mode=a.mode, slots=a.slots,
-                        queue=a.queue, prompt_len=a.prompt_len, gen=a.gen, seed=a.seed,
-                        greedy=a.greedy, snapshot_every=a.snapshot_every,
-                        snapshot_path=a.snapshot_path, restore_path=a.restore,
-                        max_queue_depth=a.max_queue_depth, deadline_ticks=a.deadline_ticks,
-                        telemetry_enabled=a.telemetry, trace_path=a.trace_path,
-                        pages=a.pages, page_tokens=a.page_tokens, prefix_cache=a.prefix_cache,
-                        device=a.device)
-    if out.get("paging"):
-        p = out["paging"]
-        print(f"paging: {p['num_pages']} pages x {p['page_tokens']} tok "
-              f"(x{p['overcommit']:.1f} logical overcommit), "
-              f"peak {p['peak_active']} resident, "
-              f"prefix hits {p['prefix_hits']}, cow {p['cow_copies']}, "
-              f"spills {p['spills']}/{p['resumes']} resumed, "
-              f"peak budget utilization {p['peak_page_utilization']:.2f}")
-    print(json.dumps(out, default=float))
+    args = build_parser().parse_args(argv)
+    spec = run_main("serve", args, LEGACY_FLAGS, base=CLI_BASE)
+    try:
+        session = ServeSession(spec, device=args.device)
+    except SpecError as e:
+        raise SystemExit(f"error: {e}") from None
+    out = session.run()
+    print(f"prefill {out['prefill_s']*1e3:.1f}ms, decode {out['decode_s']*1e3:.1f}ms "
+          f"({out['tokens_per_s']:.1f} tok/s), finite={out['finite']}")
+    if out.get("engine"):
+        lat = [r["latency_s"] for r in out["per_request"]]
+        print(f"requests {len(lat)} over {out['slots']} slots: "
+              f"occupancy {out['mean_occupancy']:.2f}, "
+              f"p50 latency {sorted(lat)[len(lat)//2]*1e3:.0f}ms, "
+              f"KV wire {out['kv_mean_wire_bytes']/1e6:.2f}MB/step "
+              f"({out['kv_traffic_reduction_vs_fp32']:.2f}x less traffic "
+              f"than a dense fp32 pool)")
+        la = out["latency"]
+        print(f"latency attribution: queue p50 {la['queue_s']['p50']*1e3:.0f}ms, "
+              f"ttft p50 {la['ttft_s']['p50']*1e3:.0f}ms, "
+              f"token p50/p95/p99 {la['token_s']['p50']*1e3:.1f}/"
+              f"{la['token_s']['p95']*1e3:.1f}/{la['token_s']['p99']*1e3:.1f}ms, "
+              f"tick utilization {la['tick_utilization']:.2f}")
+        el = out.get("elastic") or {}
+        if any(el.get(k) for k in ("n_rejected", "n_spills", "n_rescales",
+                                   "n_snapshots", "n_restores")):
+            print(f"elastic: shed {el['n_rejected']} ({el['rejected']}), "
+                  f"spills {el['n_spills']}/{el['n_resumes']} resumed, "
+                  f"rescales {el['n_rescales']}, "
+                  f"snapshots {el['n_snapshots']}, "
+                  f"restores {el['n_restores']}")
+        if out.get("paging"):
+            p = out["paging"]
+            print(f"paging: {p['num_pages']} pages x {p['page_tokens']} tok "
+                  f"(x{p['overcommit']:.1f} logical overcommit), "
+                  f"peak {p['peak_active']} resident, "
+                  f"prefix hits {p['prefix_hits']}, cow {p['cow_copies']}, "
+                  f"spills {p['spills']}/{p['resumes']} resumed, "
+                  f"peak budget utilization {p['peak_page_utilization']:.2f}")
+    if "telemetry" in out:
+        print(f"telemetry: {out['telemetry']['spans']} spans -> "
+              f"{out['telemetry']['trace_path']} (load in Perfetto)")
+    if len(out["generated"]):
+        print("sample tokens:", [int(t) for t in out["generated"][0][:12]])
+    print(f"spec {out['spec_hash']}")
+    if args.json:
+        payload = {k: v for k, v in out.items() if k != "generated"}
+        payload["generated_first"] = ([int(t) for t in out["generated"][0]]
+                                      if len(out["generated"]) else [])
+        with open(args.json, "w") as f:
+            json.dump(payload, f, indent=2, default=float)
     return out
 
 

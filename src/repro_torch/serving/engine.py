@@ -54,8 +54,9 @@ subclasses this engine through the reference's hooks: ``backend_kind``,
 ``_make_scheduler``, ``_build_pool``, ``_pool_stats``,
 ``_install_request``, ``_pre_rescale``, ``_pre_snapshot``,
 ``_decode_slots``, ``_dispatch_decode``, ``_post_sample``,
-``_post_stats`` and ``_backend_gauges``.  Not ported: the RunSpec
-constructor ``from_spec``.
+``_post_stats`` and ``_backend_gauges``.  :meth:`ServingEngine.from_spec`
+builds either backend from a ``run="serve"`` RunSpec, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -124,6 +125,35 @@ def sample_token(row_logits: torch.Tensor, seed: int, draw_idx: int) -> int:
     return min(int(torch.searchsorted(cdf, u, right=True)), probs.numel() - 1)
 
 
+def _shed_from_section(s) -> Optional[ShedPolicy]:
+    """ShedPolicy from a ServingSection; None when every knob is off (the
+    scheduler is then the plain FCFS one)."""
+    if (s.max_queue_depth is None and s.deadline_ticks is None
+            and not s.deadline_aware and not s.priority_aware):
+        return None
+    return ShedPolicy(max_queue_depth=s.max_queue_depth,
+                      deadline_ticks=s.deadline_ticks,
+                      deadline_aware=s.deadline_aware,
+                      priority_aware=s.priority_aware)
+
+
+def kv_impl_names(policy, device: torch.device) -> tuple:
+    """The reference's names of the pool's ``kv_pack`` / ``kv_unpack``
+    implementations under ``policy`` (None: ``auto``) on ``device``: what
+    the reference's engine stamps in a snapshot's signature, so snapshots
+    cross packages.  ``auto`` is the reference's pick, ``pallas`` on the
+    card (whose counterpart the port launches) and ``jnp`` on the CPU; a
+    policy that ``device`` cannot honour raises ``SpecError``."""
+    auto = "pallas" if device.type == "cuda" else "jnp"
+    if policy is None:
+        return auto, auto
+    from repro_torch.api.sessions import check_policy
+
+    check_policy(policy, device)
+    return tuple(auto if policy.impl_for(op) == "auto" else policy.impl_for(op)
+                 for op in ("kv_pack", "kv_unpack"))
+
+
 class ServingEngine:
     """Continuous-batching engine for the ported decoder-only LMs.
 
@@ -133,8 +163,39 @@ class ServingEngine:
     load-shedding policy (None: plain FCFS, nothing is shed).
     ``spec_hash`` stamps snapshots (a restore under another hash is
     refused); ``snapshot_every`` / ``snapshot_path`` make :meth:`run`
-    write one every N ticks.
+    write one every N ticks.  ``kernel_policy`` (a ``KernelPolicy``,
+    None for ``auto``) names the pool's pack and unpack implementations in
+    snapshot signatures, in the reference's terms (:func:`kv_impl_names`).
     """
+
+    @classmethod
+    def from_spec(cls, spec, *, params=None, resolved=None, device="cuda"):
+        """Build an engine from a ``run="serve"`` RunSpec: the slot pool,
+        pool length, sampling mode and numerics come from the spec, the
+        snapshot stamp is ``spec.state_hash()`` and ``serving.pages``
+        picks the paged pool (``resolved`` may pass a pre-computed
+        ``spec.resolve()``)."""
+        r = resolved if resolved is not None else spec.resolve()
+        s = spec.serving
+        device = resolve_device(device)
+        kw = dict(
+            params=params,
+            n_slots=spec.shape.batch if s.slots is None else s.slots,
+            max_len=spec.shape.prompt_len + spec.shape.gen + 1,
+            greedy=s.greedy, seed=spec.seeds.seed,
+            spec_hash=spec.state_hash(), shed=_shed_from_section(s),
+            snapshot_every=s.snapshot_every,
+            snapshot_path=s.snapshot_path or (
+                "spring_snapshot.npz" if s.snapshot_every else ""),
+            kernel_policy=r.kernel_policy, device=device)
+        if s.pages and cls is ServingEngine:
+            from repro_torch.serving.paging import PagedServingEngine
+
+            return PagedServingEngine(
+                r.config, r.spring, page_tokens=s.page_tokens,
+                num_pages=s.num_pages, overcommit=s.overcommit,
+                prefix_cache=s.prefix_cache, **kw)
+        return cls(r.config, r.spring, **kw)
 
     #: snapshot/restore artifact tag — snapshots from one pool backend
     #: never restore into the other (the packed layouts differ)
@@ -144,9 +205,14 @@ class ServingEngine:
                  max_len: int = 256, greedy: bool = True, seed: int = 0,
                  spec_hash: Optional[str] = None, shed: Optional[ShedPolicy] = None,
                  snapshot_every: int = 0, snapshot_path: str = "",
-                 watchdog: Optional[StragglerWatchdog] = None, device="cuda"):
+                 watchdog: Optional[StragglerWatchdog] = None,
+                 kernel_policy=None, device="cuda"):
         self.device = resolve_device(device)
         cfg.check_supported()
+        # what the pool's pack and unpack dispatch to; a snapshot restores
+        # only where they are the same, as the reference's records its impls
+        self._kv_pack_impl, self._kv_unpack_impl = kv_impl_names(kernel_policy,
+                                                                 self.device)
         self.cfg = cfg
         self.spring = spring
         self.greedy = greedy
@@ -168,10 +234,6 @@ class ServingEngine:
             raise ValueError(f"params live on {params['embed']['embedding'].device}, "
                              f"engine on {self.device}")
         self.params = params
-        # what the pool's pack and unpack dispatch to; a snapshot restores
-        # only where they are the same, as the reference's records its impls
-        self._kv_pack_impl = self._kv_unpack_impl = (
-            "cuda" if self.device.type == "cuda" else "plain")
 
         self.sched = self._make_scheduler(n_slots)
         self._ledger = kvpool.SlotLedger(n_slots)

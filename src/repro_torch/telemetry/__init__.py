@@ -16,7 +16,7 @@ Ambient surface (this module): instrumented code calls
 ``telemetry.span("serve.tick.decode")`` / ``telemetry.enabled()``
 unconditionally; both are near-zero-overhead no-ops until a
 :class:`TelemetryConfig` scope activates a tracer.  The serve launcher
-activates it (``--telemetry``, the RunSpec's ``telemetry.enabled``) via
+activates it (the RunSpec's ``telemetry.enabled``) via
 :func:`scope`, which also writes the trace file on exit.  Enabling
 telemetry never changes computed values — the tracer does no torch work
 (sealed by the on/off parity test).

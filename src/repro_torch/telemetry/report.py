@@ -2,7 +2,8 @@
 of ``repro/telemetry/report.py``).
 
 Consumes the ``telemetry`` block embedded in run artifacts (the output of
-``python -m repro_torch.launch.serve --telemetry``) or a raw
+``python -m repro_torch.launch.serve --set telemetry.enabled=true --json
+run.json``) or a raw
 ``MetricsRegistry.snapshot()`` JSON, and validates exported Chrome
 traces.
 
@@ -42,8 +43,8 @@ def extract_snapshot(artifact: dict) -> dict:
            for v in artifact.values()):
         return artifact
     raise SystemExit(
-        "error: no telemetry block found — serve with --telemetry to "
-        "record one")
+        "error: no telemetry block found — run with "
+        "--set telemetry.enabled=true to record one")
 
 
 def latency_lines(artifact: dict) -> list[str]:

@@ -548,7 +548,11 @@ def test_engine_on_the_card_sheds_as_on_the_cpu(card):
     want, got = serve("cpu"), serve(torch.device("cuda", torch.cuda.current_device()))
     assert [{f: r[f] for f in fields} for r in got["per_request"]] == \
         [{f: r[f] for f in fields} for r in want["per_request"]]
-    assert got["elastic"] == want["elastic"] == {"rejected": {"deadline": 2}, "n_rejected": 2}
+    # every elastic counter equal, but the watchdog's slow_ticks, a timing
+    untimed = [{k: v for k, v in out["elastic"].items() if k != "slow_ticks"}
+               for out in (got, want)]
+    assert untimed[0] == untimed[1]
+    assert got["elastic"]["rejected"] == {"deadline": 2} and got["elastic"]["n_rejected"] == 2
     assert [r["tokens"] for r in got["per_request"][2:]] == [[], []]
 
 

@@ -185,7 +185,7 @@ def test_restore_structural_mismatch_rejected():
     eng.step()
     _refused(eng, dict(snap0, signature=dict(snap0["signature"], max_len=MAX_LEN * 2)),
              "max_len")
-    _refused(eng, dict(snap0, signature=dict(snap0["signature"], kv_pack_impl="cuda")),
+    _refused(eng, dict(snap0, signature=dict(snap0["signature"], kv_pack_impl="pallas")),
              "kv_pack_impl")
     pool = snap0["backend"]["pool"]
     _refused(eng, dict(snap0, backend={"pool": pool[:-1]}), "leaves")
@@ -398,7 +398,7 @@ def test_launcher_snapshot_then_restore_drains_the_same_tokens(tmp_path, capsys)
     assert _tokens(restored) == _tokens(plain)
     assert restored["elastic"]["n_restores"] == 1
     assert len(restored["per_request"]) == 3
-    with pytest.raises(ValueError, match="restore_path"):
+    with pytest.raises(SystemExit, match="restore_path"):
         serve_main(base + ["--restore", path, "--snapshot-every", "2",
                            "--snapshot-path", path])
     # another configuration's stamp: refused

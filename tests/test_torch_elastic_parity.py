@@ -187,19 +187,16 @@ def _pool_tree(snap) -> dict:
 @pytest.mark.parametrize("writer", ["ref", "port"])
 def test_a_snapshot_restores_across_packages_bit_for_bit(runs, writer, tmp_path):
     """One engine's mid-run snapshot, saved by its package, loaded by the
-    other's and restored (relabelled with the reader's pool impl, the one
-    signature field the packages name differently) into the other engine,
-    which snapshots at once: the same pool leaves and scheduler, bit for
-    bit; run on, it gives the writer's tokens."""
+    other's and restored into the other engine, which snapshots at once:
+    the same pool leaves and scheduler, bit for bit; run on, it gives the
+    writer's tokens."""
     snap, want, _ = runs[writer]
     reader_name = "port" if writer == "ref" else "ref"
     reader = runs[reader_name][2]
     path = str(tmp_path / "cross.npz")
     PACKAGES[writer].save_snapshot(snap, path)
     loaded = PACKAGES[reader_name].load_snapshot(path)
-    impl = reader._signature()["kv_pack_impl"]
-    reader.restore(dict(loaded, signature=dict(loaded["signature"], kv_pack_impl=impl,
-                                               kv_unpack_impl=impl)))
+    reader.restore(loaded)
     again = reader.snapshot()
     assert again["tick"] == snap["tick"] and again["decode_steps"] == snap["decode_steps"]
     pool, pool_again = snap["backend"]["pool"], again["backend"]["pool"]
@@ -226,9 +223,8 @@ def test_snapshots_of_the_two_runs_at_the_same_tick_agree(runs):
     assert tsnap["ledger"] == jsnap["ledger"]
     assert _arr(tsnap["next_tok"]).tolist() == _arr(jsnap["next_tok"]).tolist()
     assert [r["tokens"] for r in tsnap["results"]] == [r["tokens"] for r in jsnap["results"]]
-    sig = {k: v for k, v in tsnap["signature"].items() if not k.startswith("kv_")}
-    assert sig == {k: v for k, v in jsnap["signature"].items() if not k.startswith("kv_")}
-    assert tsnap["signature"]["kv_pack_impl"] == "plain"
+    assert tsnap["signature"] == jsnap["signature"]
+    assert tsnap["signature"]["kv_pack_impl"] == "jnp"
 
 
 @pytest.mark.parametrize("writer", ["port", "ref"])
@@ -341,9 +337,7 @@ def test_a_paged_snapshot_restores_across_packages_bit_for_bit(paged_runs, write
     path = str(tmp_path / "cross.npz")
     PACKAGES[writer].save_snapshot(snap, path)
     loaded = PACKAGES[reader_name].load_snapshot(path)
-    impl = reader._signature()["kv_pack_impl"]
-    reader.restore(dict(loaded, signature=dict(loaded["signature"], kv_pack_impl=impl,
-                                               kv_unpack_impl=impl)))
+    reader.restore(loaded)
     again = reader.snapshot()
     assert again["kind"] == snap["kind"] == "paged"
     assert again["tick"] == snap["tick"] and again["decode_steps"] == snap["decode_steps"]
@@ -370,8 +364,7 @@ def test_paged_snapshots_of_the_two_runs_at_the_same_tick_agree(paged_runs):
             "page_util_sketch", "peak_page_utilization")
     _same_tree({k: jsnap["backend"][k] for k in rest}, {k: tsnap["backend"][k] for k in rest})
     _same_tree(jsnap["scheduler"], tsnap["scheduler"], values=_close_values)
-    sig = {k: v for k, v in tsnap["signature"].items() if not k.startswith("kv_")}
-    assert sig == {k: v for k, v in jsnap["signature"].items() if not k.startswith("kv_")}
+    assert tsnap["signature"] == jsnap["signature"]
 
 
 @pytest.mark.parametrize("writer", ["port", "ref"])

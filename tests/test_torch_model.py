@@ -251,7 +251,9 @@ def test_port_imports_neither_jax_nor_reference():
         "       'repro_torch.configs.registry', 'repro_torch.serving.paging.engine',\n"
         "       'repro_torch.serving.paging.store', 'repro_torch.serving.paging.blocktable',\n"
         "       'repro_torch.serving.paging.allocator', 'repro_torch.serving.paging.admission',\n"
-        "       'repro_torch.serving.paging.scheduler'}\n"
+        "       'repro_torch.serving.paging.scheduler', 'repro_torch.api',\n"
+        "       'repro_torch.api.spec', 'repro_torch.api.sessions', 'repro_torch.api.cli',\n"
+        "       'repro_torch.api.validate', 'repro_torch.api.threefry'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")

@@ -548,7 +548,8 @@ def test_launcher_pages_prints_the_paging_line(capsys):
     out = serve_main(["--reduced", "--device", "cpu", "--pages", "--queue", "3",
                       "--prompt-len", "8", "--gen", "4", "--page-tokens", "4"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[0].startswith("paging: ") and "x 4 tok" in lines[0]
+    paging = [line for line in lines if line.startswith("paging: ")]
+    assert len(paging) == 1 and "x 4 tok" in paging[0]
     assert out["paging"]["page_tokens"] == 4 and out["paging"]["prefix_cache"] is True
     off = serve_main(["--reduced", "--device", "cpu", "--pages", "--queue", "3",
                       "--prompt-len", "8", "--gen", "4", "--prefix-cache", "off"])

@@ -174,8 +174,10 @@ def test_launcher_telemetry_writes_a_valid_trace(tmp_path, capsys):
     path = tmp_path / "serve_trace.json"
     base = ["--reduced", "--device", "cpu", "--slots", "2", "--queue", "3",
             "--prompt-len", "8", "--gen", "4"]
+    art = tmp_path / "serve.json"
     off = serve_main(base)
-    on = serve_main(base + ["--telemetry", "--trace-path", str(path)])
+    on = serve_main(base + ["--set", "telemetry.enabled=true",
+                            "--set", f"telemetry.trace_path={path}", "--json", str(art)])
     capsys.readouterr()
     events = jtel.validate_chrome_trace(path.read_text())
     assert on["telemetry"]["spans"] == len(events) > 0
@@ -187,8 +189,6 @@ def test_launcher_telemetry_writes_a_valid_trace(tmp_path, capsys):
     from repro.telemetry import report as jreport
     from repro_torch.telemetry import report as treport
 
-    art = tmp_path / "serve.json"
-    art.write_text(json.dumps(on, default=float))
     for argv in ([str(art)], [str(art), "--prom"], ["--validate-trace", str(path)]):
         treport.main(argv)
         mine = capsys.readouterr().out
