@@ -83,6 +83,25 @@ failure:
   5d. check  — tiny_cnn, one nearest-rounding step on the card against the CPU;
   5e. arms   — the example's fp32 / SR / nearest arms on tiny_cnn, 150 steps,
                gaps printed (not gated);
+  5f. train LM — examples/specs/train_quant_sparse.json at full width
+               (llama3.2-1b, batch 8, seq 128, quant_sparse, SR, Q4.16 SR
+               weights, AdamW with warmup, the sparse backward) through
+               ``python -m repro_torch.launch.train --spec ... --set
+               arch.reduced=false --set train.steps=6 --set
+               train.ckpt_dir=`` as a subprocess: exit 0, the reference's
+               last line with the spec_hash of the in-process build, finite
+               losses; the same spec in process with telemetry on (s/step
+               from its train.step spans, tokens/s, peak memory, every
+               parameter on the grid), then one step at batch 1 / seq 32 (the
+               skinny kernel) and one at seq 1040 (dW's K over 8192: split-K
+               and its reduce), counters zeroed just before the first run
+               and read just after the last: the tile and skinny kernels,
+               tile_occupancy, dx, dw, splitk_reduce and stochastic_round
+               must launch, flash_attention must not; one step profiled;
+               each path kernel against its plain version at the path's
+               shapes; at reduced size the reference's SR-vs-fp32 claim
+               (60 steps, its two bounds) and its resume contract (30
+               straight against 20 + a resume to 30, rtol 1e-4);
   6a. flash_attention — the kernel against its plain version on the
                reference registry's five examples (fp32 atol 2e-5, bf16 2e-2),
                a non-causal ragged case, and llama3.2-1b's prefill shapes at
@@ -859,6 +878,293 @@ def phase_arms(dev) -> dict:
           f"{out['sr']['tail']:.4f}, nearest {out['nearest']['tail']:.4f}; SR gap "
           f"{out['sr_gap']:+.4f}, nearest gap {out['nearest_gap']:+.4f}", flush=True)
     return out
+
+
+# -- slice 12: LM training --------------------------------------------------------
+
+# 5f: the example train spec at full width through the launcher and in
+# process.  Every product of its shape (batch 8, seq 128) has M = 1,024
+# (forward, dX) or K = 1,024 (dW) and K <= 8,192, so the tile kernel takes
+# them all; one step of the same spec at batch 1, seq 32 (M = 32: the
+# skinny kernel) and one at seq 1,040 (dW's K = 8,320 > 8,192: split-K and
+# its reduce) drive the two other routes of the LM train path
+TRAIN_SPEC_FILE = "examples/specs/train_quant_sparse.json"
+TRAIN_LM_STEPS = 6
+TRAIN_LM_SETS = ("arch.reduced=false", f"train.steps={TRAIN_LM_STEPS}", "train.ckpt_dir=")
+TRAIN_LM_EDGES = {"skinny": ("shape.batch=1", "shape.seq=32"),
+                  "split-K": ("shape.seq=1040",)}
+TRAIN_LM_KERNELS = ("masked_matmul", "masked_matmul_skinny", "tile_occupancy",
+                    "masked_matmul_dx", "masked_matmul_dw", "splitk_reduce", "stochastic_round")
+TRAIN_LM_TIMEOUT_S = 300
+#: the reference's SR-vs-fp32 claim (tests/test_system.py:38-45) and its
+#: resume contract (tests/test_system.py:26-35), reduced llama3.2-1b
+SR_CLAIM = dict(steps=60, batch=8, seq=64)
+RESUME = dict(batch=4, seq=32)
+
+
+def _train_lm_kernel_checks(dev, cfg, batch: int, seq: int) -> dict:
+    """Each kernel of the LM train path on card tensors at the shapes the
+    path gives it, against its plain version: the forward (tile kernel,
+    exact occupancy flags), dX and dW of the seven projections at M =
+    batch x seq within 2b's bound 2 K 2**-24 (|a| @ |b|); the forward and
+    dX at M = 32 (the skinny kernel); splitk_reduce bit-equal on dW
+    partials of the split-K edge; stochastic_round bit-equal at the
+    embedding's (vocab, d_model)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.masked_matmul.backward import (
+        masked_matmul_dw, masked_matmul_dw_reference, masked_matmul_dx,
+        masked_matmul_dx_reference)
+    from repro_torch.kernels.masked_matmul.ops import (
+        KERNEL_TILES, SPLIT_K, masked_matmul, masked_matmul_reference, route, splitk_reduce,
+        splitk_reduce_reference, tile_occupancy, tile_occupancy_reference)
+    from repro_torch.kernels.stochastic_round.ops import sr_reference, stochastic_round
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    tm, tn, tk = KERNEL_TILES
+    a, d, ff = cfg.attn, cfg.d_model, cfg.d_ff
+    projs = {"q": (d, a.n_heads * a.head_dim), "k": (d, a.n_kv_heads * a.head_dim),
+             "v": (d, a.n_kv_heads * a.head_dim), "o": (a.n_heads * a.head_dim, d),
+             "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    errs = dict.fromkeys(("forward", "skinny", "dx", "dw", "splitk_reduce",
+                          "stochastic_round", "tile_occupancy"), 0.0)
+
+    def q(*shape, scale=1.0):
+        return quantize_nearest(torch.randn(*shape, generator=g, device=dev) * scale)
+
+    def within(got, want, bound, what) -> float:
+        err = (got - want).abs_()
+        if not bool((err <= bound).all()):
+            fail(f"train LM check: {what} off by {float(err.max()):.3g}")
+        return float(err.max())
+
+    def flags_exact(t, rows, cols, what) -> None:
+        if not torch.equal(tile_occupancy(t, rows, cols), tile_occupancy_reference(t, rows, cols)):
+            fail(f"train LM check: tile_occupancy of {what} disagrees with its plain version")
+
+    for m in (batch * seq, PREFILL_M):
+        kind = "forward" if route(m, 1, 1) == "tile" else "skinny"
+        for name, (k, n) in projs.items():
+            x, w = q(m, k), q(k, n, scale=k**-0.5)
+            if kind == "forward":
+                flags_exact(x, tm, tk, f"x ({m},{k})")
+                flags_exact(w, tk, tn, f"w ({k},{n})")
+            bnd = (x.abs() @ w.abs()).mul_(2 * k * 2.0**-24)
+            errs[kind] = max(errs[kind], within(
+                masked_matmul(x, w, apply_sr=False),
+                masked_matmul_reference(x, w, apply_sr=False), bnd, f"{name} forward M {m}"))
+            cot = torch.randn(m, n, generator=g, device=dev).mul_(1e-3)
+            bnd = (cot.abs() @ w.abs().T).mul_(2 * n * 2.0**-24)
+            errs["dx" if kind == "forward" else "skinny"] = max(
+                errs["dx" if kind == "forward" else "skinny"],
+                within(masked_matmul_dx(cot, w), masked_matmul_dx_reference(cot, w), bnd,
+                       f"{name} dx M {m}"))
+            if kind == "forward":
+                bnd = (x.abs().T @ cot.abs()).mul_(2 * m * 2.0**-24)
+                errs["dw"] = max(errs["dw"], within(
+                    masked_matmul_dw(x, cot), masked_matmul_dw_reference(x, cot), bnd,
+                    f"{name} dw M {m}"))
+            del x, w, cot, bnd
+    # dW of gate at the split-K edge: K = 8 x 1040 rows in two chunks
+    part = q(-(-8 * 1040 // SPLIT_K), d, ff)
+    if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
+        fail(f"train LM check: splitk_reduce {tuple(part.shape)} differs from its plain version")
+    del part
+    emb = torch.randn(cfg.vocab, d, generator=g, device=dev).mul_(0.02)
+    got, want = stochastic_round(emb, 5), sr_reference(emb, 5)
+    if not torch.equal(got, want):
+        fail(f"train LM check: stochastic_round {tuple(emb.shape)} differs from its plain version")
+    del emb, got, want
+    torch.cuda.empty_cache()
+    print(f"[train_lm] kernels at the path's shapes against their plain versions: tile "
+          f"forward {errs['forward']:.3g}, dx {errs['dx']:.3g}, dw {errs['dw']:.3g} (M "
+          f"{batch * seq}), skinny forward and dx {errs['skinny']:.3g} (M {PREFILL_M}); "
+          f"tile_occupancy, splitk_reduce and stochastic_round ({cfg.vocab},{d}) bit-equal",
+          flush=True)
+    return errs
+
+
+def phase_train_lm(dev) -> dict:
+    """(5f) LM training from the example spec: full-width llama3.2-1b
+    through ``python -m repro_torch.launch.train`` as a subprocess (exit
+    0, the reference's last line with the spec_hash of the in-process
+    build, finite losses); the same spec in process with telemetry on
+    (its ``train.step`` spans give s/step), then one step at each of the
+    two other routes, the launch counters zeroed just before the first run
+    and read just after the last (every kernel of TRAIN_LM_KERNELS must
+    launch), every parameter on the Q4.16 grid after the last step, peak
+    memory; one step under torch.profiler; each path kernel against its
+    plain version at the path's shapes; at reduced size the reference's
+    SR-vs-fp32 claim and its resume contract."""
+    import math
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import TrainSession, build_spec
+    from repro_torch.launch.train import on_grid, train_loop
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.train import make_train_step
+
+    t_phase = time.monotonic()
+    spec_path = str(ROOT / TRAIN_SPEC_FILE)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p)}
+    try:
+        # -- the launcher, as a user runs it ------------------------------------
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--spec", spec_path,
+                *[arg for item in TRAIN_LM_SETS for arg in ("--set", item)],
+                "--json", str(tmp / "launcher.json")]
+        t0 = time.monotonic()
+        p = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=TRAIN_LM_TIMEOUT_S)
+        launcher_wall = time.monotonic() - t0
+        if p.returncode != 0:
+            fail(f"train LM phase: the launcher exited {p.returncode}:\n{p.stdout[-2000:]}\n"
+                 f"{p.stderr[-4000:]}")
+        spec = build_spec("train", spec_file=spec_path, sets=list(TRAIN_LM_SETS))
+        last = p.stdout.strip().splitlines()[-1]
+        launched = json.loads((tmp / "launcher.json").read_text())
+        want_last = (f"loss {launched['first_loss']:.4f} -> {launched['last_loss']:.4f} "
+                     f"({TRAIN_LM_STEPS} steps, slow={launched['slow_steps']}) "
+                     f"[spec {spec.spec_hash()}]")
+        print(f"[train_lm] launcher: {last} (wall {launcher_wall:.1f} s)", flush=True)
+        if last != want_last or not re.fullmatch(r"loss \S+ -> \S+ \(\d+ steps, slow=\d+\) "
+                                                 r"\[spec [0-9a-f]+\]", last):
+            fail(f"train LM phase: the launcher's last line {last!r} is not {want_last!r}")
+        if len(launched["losses"]) != TRAIN_LM_STEPS or not all(
+                math.isfinite(v) for v in launched["losses"]):
+            fail("train LM phase: the launcher's losses are not all finite")
+
+        # -- the same spec in process, then the two route edges -----------------
+        trace = tmp / "trace.json"
+        inproc = build_spec("train", spec_file=spec_path, sets=[
+            *TRAIN_LM_SETS, "telemetry.enabled=true", f"telemetry.trace_path={trace}"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = TrainSession(inproc, device=dev).run()
+        torch.cuda.synchronize()
+        inproc_wall = time.monotonic() - t0
+        main_launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        state = out.pop("state")
+        grid = on_grid(dict(enumerate(tree_leaves(state.params))))
+        steps_s = [ev["dur"] / 1e6 for ev in json.loads(trace.read_text())["traceEvents"]
+                   if ev["name"] == "train.step"]
+        s_per_step = sum(steps_s[1:]) / len(steps_s[1:])
+        tokens_per_s = spec.shape.batch * spec.shape.seq / s_per_step
+        edges = {}
+        for name, sets in TRAIN_LM_EDGES.items():
+            before = kernels.launch_counts()
+            t0 = time.monotonic()
+            e = TrainSession(build_spec("train", spec_file=spec_path, sets=[
+                *TRAIN_LM_SETS, "train.steps=1", *sets]), device=dev).run()
+            torch.cuda.synchronize()
+            edges[name] = {"loss": e["losses"][0], "wall_s": time.monotonic() - t0,
+                           "launches": {k: v - before[k]
+                                        for k, v in kernels.launch_counts().items()}}
+            del e
+        launches = kernels.launch_counts()
+        per_step = {k: main_launches[k] / TRAIN_LM_STEPS for k in TRAIN_LM_KERNELS}
+        print(f"[train_lm] in process: losses {[round(v, 4) for v in out['losses']]}, on grid "
+              f"{grid}, {s_per_step:.4f} s/step (steps {[round(s, 4) for s in steps_s]}), "
+              f"{tokens_per_s:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, wall "
+              f"{inproc_wall:.1f} s", flush=True)
+        print(f"[train_lm] launches a step (batch {spec.shape.batch}, seq {spec.shape.seq}): "
+              f"{per_step}", flush=True)
+        for name, e in edges.items():
+            print(f"[train_lm] {name} edge step: loss {e['loss']:.4f}, wall {e['wall_s']:.1f} "
+                  f"s, launches { {k: e['launches'][k] for k in TRAIN_LM_KERNELS} }",
+                  flush=True)
+        if not (all(math.isfinite(v) for v in out["losses"]) and grid
+                and all(math.isfinite(e["loss"]) for e in edges.values())):
+            fail("train LM phase: a loss is not finite or a parameter left the Q4.16 grid")
+        for name in TRAIN_LM_KERNELS:
+            if launches[name] <= 0:
+                fail(f"train LM phase never launched the {name} kernel")
+        if launches["flash_attention"] != 0:
+            fail("train LM phase launched flash_attention (training takes chunked attention)")
+
+        # -- one step under the profiler ----------------------------------------
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+
+        r = inproc.resolve()
+        step = make_train_step(r.view, r.step)
+        tokens = SyntheticLMStream(DataConfig(seed=0, vocab=r.config.vocab, seq_len=spec.shape.seq,
+                                              global_batch=spec.shape.batch),
+                                   device=dev).batch(TRAIN_LM_STEPS)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            state, _ = step(state, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prof_ms = (time.monotonic() - t0) * 1e3
+        del state, step
+        rows = device_time_by_kernel(prof)
+        busy = sum(row[1] for row in rows)
+        print(f"[train_lm] profiled step {prof_ms:.1f} ms wall, device busy {busy:.1f} ms "
+              f"({busy / prof_ms:.1%}); top kernels:", flush=True)
+        for name, ms, n in rows[:14]:
+            print(f"[train_lm]   {ms:9.2f} ms  x{n:<5d} {name[:90]}", flush=True)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    errs = _train_lm_kernel_checks(dev, r.config, spec.shape.batch, spec.shape.seq)
+
+    # -- reduced: the SR-vs-fp32 claim and the resume contract -------------------
+    t0 = time.monotonic()
+    fp32 = train_loop("llama3.2-1b", reduced=True, mode="dense", device=dev, **SR_CLAIM)
+    srq = train_loop("llama3.2-1b", reduced=True, mode="quant", fixed_point_weights=True,
+                     device=dev, **SR_CLAIM)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        straight = train_loop("llama3.2-1b", reduced=True, steps=30, device=dev, **RESUME)
+        train_loop("llama3.2-1b", reduced=True, steps=20, ckpt_dir=ckpt, ckpt_every=10,
+                   device=dev, **RESUME)
+        resumed = train_loop("llama3.2-1b", reduced=True, steps=30, ckpt_dir=ckpt,
+                             ckpt_every=10, device=dev, **RESUME)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    reduced_wall = time.monotonic() - t0
+    resume_rel = abs(resumed["losses"][-1] - straight["losses"][-1]) / abs(straight["losses"][-1])
+    print(f"[train_lm] reduced SR claim ({SR_CLAIM}): fp32 {fp32['first_loss']:.4f} -> "
+          f"{fp32['last_loss']:.4f}, Q4.16 SR {srq['first_loss']:.4f} -> "
+          f"{srq['last_loss']:.4f}; resume: last loss {resumed['losses'][-1]:.6f} vs "
+          f"{straight['losses'][-1]:.6f} straight (rel {resume_rel:.3g}); wall "
+          f"{reduced_wall:.1f} s", flush=True)
+    if not srq["last_loss"] < srq["first_loss"] - 0.3:
+        fail("train LM phase: SR fixed-point training did not learn (tests/test_system.py:43)")
+    if not srq["last_loss"] < fp32["last_loss"] + 0.6:
+        fail("train LM phase: SR fixed-point training diverged from fp32 "
+             "(tests/test_system.py:44)")
+    if len(resumed["losses"]) != 10 or not resume_rel <= 1e-4:
+        fail("train LM phase: the resumed run's last loss differs from the straight run's")
+    wall = time.monotonic() - t_phase
+    print(f"[train_lm] phase 5f wall {wall:.1f} s", flush=True)
+    return {"launches": launches, "main_launches": main_launches,
+            "launches_per_step": per_step, "edges": edges,
+            "losses": out["losses"], "launcher_losses": launched["losses"],
+            "launcher_wall_s": launcher_wall, "in_process_wall_s": inproc_wall,
+            "steps_s": steps_s, "s_per_step": s_per_step, "tokens_per_s": tokens_per_s,
+            "peak_mem_bytes": peak, "on_grid": grid, "errs": errs,
+            "profile": {"step_ms": prof_ms, "device_busy_ms": busy,
+                        "kernels": [{"name": n, "ms": ms, "calls": c}
+                                    for n, ms, c in rows[:40]]},
+            "sr_claim": {"fp32": fp32["losses"], "sr": srq["losses"]},
+            "resume": {"straight": straight["losses"][-1], "resumed": resumed["losses"][-1],
+                       "rel": resume_rel},
+            "reduced_wall_s": reduced_wall, "wall_s": wall}
 
 
 # -- slice 3: long-prompt prefill and Mamba-2 serving -----------------------------
@@ -2466,6 +2772,7 @@ def main() -> None:
     report["train"] = train = phase_train(dev)
     report["cnn_card_vs_cpu"] = phase_cnn_card_vs_cpu(dev)
     report["arms"] = phase_arms(dev)
+    report["train_lm"] = train_lm = phase_train_lm(dev)
 
     # -- 6. slice 3: long-prompt prefill, Mamba-2 ------------------------------
     report["flash_attention"] = fa = phase_flash_attention(dev, gen)
@@ -2496,15 +2803,16 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
-    # serve_long, serve_mamba2, survive, paged, archs, the kernel sweep, the
-    # paper path's probe), each zeroed just before its run and read just
-    # after (the comparisons above count in none)
+    # train_lm, serve_long, serve_mamba2, survive, paged, archs, the kernel
+    # sweep, the paper path's probe), each zeroed just before its run and
+    # read just after (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
                       "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
                       "survive": survive["launches"][name],
                       "paged": paged["launches"][name], "archs": archs["launches"][name],
-                      "train": train["launches"][name], "sweep": sweep["launches"][name],
+                      "train": train["launches"][name],
+                      "train_lm": train_lm["launches"][name], "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
                for name in launches}
     total = {name: sum(v.values()) for name, v in by_path.items()}

@@ -3,7 +3,8 @@
 
 One frozen, serializable :class:`RunSpec` describes any run (train /
 serve / dryrun) with the reference's fields, canonical JSON and hashes;
-:class:`ServeSession` executes a serve spec on the port's engines, and
+:class:`ServeSession` executes a serve spec on the port's engines,
+:class:`TrainSession` a train spec through the LM train step, and
 ``build_spec`` implements the layered resolution (defaults -> ArchDef ->
 spec file -> SPRING_* env -> CLI) with per-field provenance.
 """

@@ -22,14 +22,23 @@ engine's sampled decode does.
 default) runs the CUDA kernels and raises without a card, ``"cpu"`` the
 plain versions.  The policy must name what runs there (:func:`check_policy`).
 
-``TrainSession`` and ``DryrunSession`` keep the run-mode check; their
-specs' ``resolve()`` raises a :class:`SpecError` naming the slice that
-ports them (LM training, ROADMAP §1 item 3; the dry run has no twin,
-item 5).
+:class:`TrainSession` is the reference's training loop: the
+reference's token stream (``SyntheticLMStream``, bit for bit),
+``init_train_state`` from the seed (the port's own init, on ``device``),
+``CheckpointManager`` resume (a checkpoint the reference's session wrote
+resumes here), and the step loop under the spans ``train.step``,
+``train.step.data``, ``train.step.device`` (synchronised when telemetry is
+on) and ``train.step.host``, with the straggler watchdog; its result has
+the reference's keys.  Its ``kernels.policy`` and ``sparsity.backward``
+must name what runs on ``device``, and a policy that pins
+``flash_attention`` is refused on the card, whose kernel has no gradient.
+``DryrunSession`` keeps the run-mode check; its spec's ``resolve()``
+raises (the dry run has no twin, ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional
 
@@ -85,11 +94,106 @@ class Session:
         return out
 
 
+log = logging.getLogger("repro_torch.train")
+
+
 class TrainSession(Session):
-    """LM training: its spec's ``resolve()`` raises until LM training is
-    ported (ROADMAP §1 item 3)."""
+    """End-to-end LM training: data -> train step -> checkpoint -> resume,
+    with the straggler watchdog and the loss log.  ``params`` default to
+    ``lm_init(cfg, seed)`` on ``device``."""
 
     run_mode = "train"
+
+    def __init__(self, spec: RunSpec, *, params: Optional[dict] = None, device="cuda",
+                 mesh=None):
+        super().__init__(spec)
+        if mesh is not None:
+            raise SpecError("mesh: the port trains on one device (the mesh waits for the "
+                            "dist/ port, ROADMAP §1 item 4)")
+        check_policy(self.resolved.kernel_policy, device)
+        check_backward(spec.sparsity.backward, device)
+        if torch.device(device).type == "cuda" and self.resolved.step.attention == "flash":
+            raise SpecError(
+                f"kernels.policy={self.resolved.kernel_policy.describe()!r} pins "
+                "flash_attention, whose card kernel has no gradient: a train step on "
+                "'cuda' takes the chunked attention (leave flash_attention unpinned)")
+        from repro_torch.serving.engine import resolve_device
+
+        self.device = resolve_device(device)
+        self.params = params
+
+    def run(self) -> dict:
+        with self.telemetry_scope():
+            return self._run_body()
+
+    def _run_body(self) -> dict:
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.convert import train_state_from_flat, train_state_to_flat
+        from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+        from repro_torch.runtime.resilience import StragglerWatchdog
+        from repro_torch.runtime.train import init_train_state, make_train_step
+
+        spec, r = self.spec, self.resolved
+        cfg, step_cfg, view = r.config, r.step, r.view
+        seed, device = spec.seeds.seed, self.device
+        if device.type == "cuda":
+            # Q4.16 values carry 21 significant bits; TF32 keeps 11
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+        data = SyntheticLMStream(DataConfig(
+            seed=seed, vocab=cfg.vocab, seq_len=spec.shape.seq,
+            global_batch=spec.shape.batch), device=device)
+        state = init_train_state(view if self.params is None else self.params, step_cfg, seed,
+                                 device=device)
+        start_step = 0
+
+        manager = (CheckpointManager(spec.train.ckpt_dir, every_steps=spec.train.ckpt_every)
+                   if spec.train.ckpt_dir else None)
+        if manager is not None:
+            restored = manager.restore_or_none()
+            if restored is not None:
+                start_step, flat = restored
+                state = train_state_from_flat(flat, cfg, device=device, like=state)
+                log.info("resumed from step %d", start_step)
+
+        step_fn = make_train_step(view, step_cfg)
+        watchdog = StragglerWatchdog()
+        losses = []
+        steps = spec.train.steps
+        meta = {"arch": spec.arch.id, "mode": spec.numerics.mode,
+                "spec_hash": spec.spec_hash()}
+        for step in range(start_step, steps):
+            with telemetry.span("train.step", step=step):
+                with telemetry.span("train.step.data"):
+                    tokens = data.batch(step)
+                watchdog.step_start()
+                with telemetry.span("train.step.device"):
+                    state, metrics = step_fn(state, {"tokens": tokens})
+                    if telemetry.enabled():
+                        # the device's work inside the device span, so the
+                        # host span times host work only
+                        _sync(device)
+                with telemetry.span("train.step.host"):
+                    loss = float(metrics["loss"])
+                    watchdog.step_end(step)
+                    losses.append(loss)
+                    if step % spec.train.log_every == 0 or step == steps - 1:
+                        log.info("step %d loss %.4f grad_norm %.3f", step, loss,
+                                 float(metrics["grad_norm"]))
+                    if manager is not None:
+                        manager.maybe_save(step + 1, lambda: train_state_to_flat(state, cfg),
+                                           meta)
+        if manager is not None:
+            manager.maybe_save(steps, lambda: train_state_to_flat(state, cfg), meta, force=True)
+        return self._with_payload({
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "losses": losses,
+            "slow_steps": sum(1 for e in watchdog.events if e.slow),
+            "state": state,
+            "mesh": spec.shape.mesh.label(),
+        })
 
 
 class DryrunSession(Session):
@@ -121,6 +225,19 @@ def check_policy(policy, device) -> None:
                 f"device {kind!r}, which honours {allowed} (the card runs the "
                 "CUDA kernels, 'pallas'; the CPU their plain versions, 'ref' / "
                 "'jnp'; 'auto' takes what the device runs)")
+
+
+def check_backward(backward: str, device) -> None:
+    """Raise :class:`SpecError` unless ``sparsity.backward`` runs on
+    ``device``: "none" and "auto" anywhere; an implementation pin only
+    where ``kernels.policy`` would honour that name (:data:`DEVICE_IMPLS`)."""
+    kind = torch.device(device).type
+    allowed = DEVICE_IMPLS.get(kind, ("auto",))
+    if backward not in ("none", "auto") and backward not in allowed:
+        raise SpecError(
+            f"sparsity.backward={backward!r} cannot run on device {kind!r}, which "
+            f"honours {allowed} (the card runs the backward kernels, 'pallas'; the CPU "
+            "their plain versions, 'ref' / 'jnp')")
 
 
 def synthetic_batch(arch, cfg, batch: int, prompt_len: int, key) -> dict:

@@ -14,13 +14,13 @@ both packages, and a serving snapshot stamped with ``state_hash()`` by
 one package's engine restores in the other's.
 
 What differs is :meth:`RunSpec.resolve`: it hands back the port's
-objects (``LMConfig``, ``SpringConfig``, ``KernelPolicy``,
-``MemstashConfig``) and only for ``run="serve"``; train and dryrun specs
+objects (``LMConfig``, ``SpringConfig``, ``StepConfig``, ``KernelPolicy``,
+``MemstashConfig``) for ``run="serve"`` and ``run="train"``; dryrun specs
 build, validate, hash and round-trip, and their ``resolve()`` raises a
-:class:`SpecError` naming the slice they wait for.  A field the port
-cannot honour raises a :class:`SpecError` naming the field; none is
-ignored.  ``kernels.policy`` is checked against the device by the
-serving session (the device is not a spec field).
+:class:`SpecError` (the dry run has no twin).  A field the port cannot
+honour raises a :class:`SpecError` naming the field; none is ignored.
+``kernels.policy`` (and a train spec's ``sparsity.backward``) is checked
+against the device by the sessions (the device is not a spec field).
 """
 
 import dataclasses
@@ -540,13 +540,13 @@ class RunSpec:
         return default_memstash(family).policy
 
     def resolve(self) -> "ResolvedRun":
-        """The port's config objects for a ``run="serve"`` spec.  Raises
-        :class:`SpecError` for a train or dryrun spec (their slices are not
-        ported), an arch the port does not serve, and each field it cannot
-        honour (:meth:`unsupported`)."""
+        """The port's config objects for a ``run="serve"`` or ``run="train"``
+        spec.  Raises :class:`SpecError` for a dryrun spec (it has no twin),
+        an arch the port does not build, and each field it cannot honour
+        (:meth:`unsupported`)."""
         self.validate()
-        if self.run != "serve":
-            raise SpecError(_RUNS_NOT_PORTED[self.run])
+        if self.run == "dryrun":
+            raise SpecError(_DRYRUN_NOT_PORTED)
         from repro_torch.configs import get_arch
 
         try:
@@ -556,33 +556,69 @@ class RunSpec:
         problems = self.unsupported()
         if problems:
             raise SpecError("; ".join(problems))
-        # reduced=None: serve runs the reduced smoke config, as in the
-        # reference (full width is arch.reduced=false)
+        # reduced=None: train and serve run the reduced smoke config, as in
+        # the reference (full width is arch.reduced=false)
         use_reduced = True if self.arch.reduced is None else self.arch.reduced
         cfg = dataclasses.replace(arch.reduced() if use_reduced else arch.config)
+        if self.arch.remat_policy:
+            cfg = dataclasses.replace(cfg, remat_policy=self.arch.remat_policy)
+        if self.arch.bf16_logits:
+            cfg = dataclasses.replace(cfg, bf16_logits=True)
         ms_policy = self.resolved_memstash_policy(arch.family)
         memstash = MemstashConfig(policy=ms_policy,
                                   min_elems=self.memstash.min_elems)
+        # an explicitly requested stash / remat policy re-routes the LM
+        # residual checkpoints (train_loop's --stash); the family's "auto"
+        # only configures the stash points the model already has
+        if self.run == "train" and self.memstash.policy != "auto":
+            if ms_policy == "stash":
+                cfg = dataclasses.replace(cfg, remat_policy="stash")
+            elif ms_policy == "remat":  # plain recompute even where the
+                # reduced variant turned remat off
+                cfg = dataclasses.replace(cfg, remat=True, remat_policy="full")
         kernel_policy = KernelPolicy.parse(self._kernel_spec())
-        # serving: nearest rounding keeps a request's tokens a function of
-        # the request alone ("on" is refused by unsupported())
-        spring = dataclasses.replace(MODES[self.numerics.mode],
-                                     stochastic=False)
+        step = None
+        if self.run == "serve":
+            # serving: nearest rounding keeps a request's tokens a function
+            # of the request alone ("on" is refused by unsupported())
+            spring = dataclasses.replace(MODES[self.numerics.mode], stochastic=False)
+        else:
+            from repro_torch.core.fixedpoint import SPRING_FORMAT
+            from repro_torch.optim.optimizers import OptimizerConfig
+            from repro_torch.runtime.train import StepConfig
+
+            spring = dataclasses.replace(MODES[self.numerics.mode],
+                                         stochastic=self.numerics.stochastic != "off")
+            if spring.is_quantized:
+                spring = dataclasses.replace(
+                    spring, weights_pre_quantized=self.numerics.weights_pre_quantized,
+                    operand_rounding=self.numerics.operand_rounding)
+            step = StepConfig(
+                spring=spring, backward_sparsity=self.sparsity.backward,
+                memstash=memstash, microbatch=self.shape.microbatch,
+                optimizer=OptimizerConfig(
+                    kind=self.optimizer.kind, lr=self.optimizer.lr,
+                    warmup_steps=self.optimizer.warmup_steps,
+                    weight_format=SPRING_FORMAT if self.numerics.fixed_point_weights
+                    else None),
+                attention="flash" if flash_pinned(kernel_policy) else "chunked")
         return ResolvedRun(
             spec=self, arch=arch, config=cfg, spring=spring,
             kernel_policy=kernel_policy, memstash=memstash,
-            memstash_policy=ms_policy)
+            memstash_policy=ms_policy, view=arch.view(config=cfg), step=step)
 
     def unsupported(self) -> list:
-        """One message per field of this serve spec that the port cannot
-        honour, each naming the field."""
+        """One message per field of this serve or train spec that the port
+        cannot honour, each naming the field."""
         out = []
         mesh = self.shape.mesh
         if mesh.explicit or mesh.kind != "single":
             out.append(
                 f"shape.mesh: {mesh.label()!r} is not supported: the port "
-                "serves on one device (the mesh waits for the dist/ port, "
+                f"{self.run}s on one device (the mesh waits for the dist/ port, "
                 "ROADMAP §1 item 4)")
+        if self.run == "train":
+            return out + self._train_unsupported()
         if self.numerics.weights_pre_quantized:
             out.append(
                 "numerics.weights_pre_quantized=true is not honoured by the "
@@ -597,22 +633,61 @@ class RunSpec:
                        "ported (ROADMAP §1 item 2.3)")
         return out
 
+    def _train_unsupported(self) -> list:
+        from repro_torch.configs import get_arch
 
-#: resolve()'s refusal of the run modes whose sessions are not ported
-_RUNS_NOT_PORTED = {
-    "train": ("run='train' does not resolve in the port: LM training "
-              "(TrainSession, launch/train.py's train_loop) is ROADMAP §1 "
-              "item 3"),
-    "dryrun": ("run='dryrun' has no twin in the port: the dry run lowers "
-               "XLA programs (ROADMAP §1 item 5)"),
-}
+        out = []
+        arch = get_arch(self.arch.id)
+        mixers = {mixer for mixer, _ in arch.config.pattern_unit}
+        if "ssm" in mixers:
+            out.append(
+                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
+                "port: its ssm blocks run ssd_scan, which raises on the card when a "
+                "gradient is wanted, and the reference has no backward kernel for it "
+                "(SSM and hybrid training, ROADMAP §1 item 3)")
+        if self.memstash.capacity != 1.0:
+            out.append(
+                f"memstash.capacity={self.memstash.capacity}: the port's stash is the "
+                "exact capacity-1.0 form (the lossy buffer is not ported)")
+        if self.memstash.value_bits != 20:
+            out.append(
+                f"memstash.value_bits={self.memstash.value_bits}: the port's stash "
+                "accounting counts Q4.16's 20 bits a value")
+        if self.shape.microbatch is not None and (
+                self.shape.microbatch < 1 or self.shape.batch % self.shape.microbatch):
+            out.append(
+                f"shape.microbatch={self.shape.microbatch} does not split "
+                f"shape.batch={self.shape.batch} into equal parts")
+        return out
+
+
+#: the reference's registered implementations of flash_attention: a global
+#: policy default among them pins the op (``SpringContext.kernel_pinned``)
+FLASH_IMPLS = ("ref", "interpret", "pallas")
+
+
+def flash_pinned(policy: KernelPolicy) -> bool:
+    """True when ``policy`` pins flash_attention, so that the full-sequence
+    attention of a train step takes the flash route, as the reference's
+    ``gqa_apply`` does (``attention.py:163-176``): a per-op pin always, a
+    global default only where the op registers that implementation."""
+    name = policy.impl_for("flash_attention")
+    if name == "auto":
+        return False
+    return "flash_attention" in dict(policy.overrides) or name in FLASH_IMPLS
+
+
+#: resolve()'s refusal of the dry run
+_DRYRUN_NOT_PORTED = ("run='dryrun' has no twin in the port: the dry run lowers "
+                      "XLA programs (ROADMAP §1 item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
 class ResolvedRun:
-    """What ``RunSpec.resolve()`` hands the serving session: the port's
-    objects for the reference's ``view`` / ``config`` / ``spring`` /
-    ``kernel_policy`` / ``memstash`` (serving builds no optimizer)."""
+    """What ``RunSpec.resolve()`` hands the sessions: the port's objects
+    for the reference's ``view`` / ``config`` / ``spring`` / ``step`` /
+    ``kernel_policy`` / ``memstash`` (``step`` is None when serving, which
+    builds no optimizer)."""
 
     spec: RunSpec
     arch: object  # configs.base.ArchDef
@@ -621,6 +696,8 @@ class ResolvedRun:
     kernel_policy: KernelPolicy
     memstash: MemstashConfig
     memstash_policy: str  # family-dispatched policy actually in force
+    view: object = None  # configs.base.ResolvedArch of ``config``
+    step: object = None  # runtime.train.StepConfig (train)
 
 
 # ---------------------------------------------------------------------------

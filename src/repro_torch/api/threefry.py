@@ -18,7 +18,10 @@ copy of what those calls compute in jax 0.9 with the default
 * :func:`randint`: ``jax.random._randint``'s int32 draw, two words per
   value (from the two halves of ``split(key)``) folded into the span by
   ``(hi % span) * (2**32 % span) + lo % span``, with jax's uint32
-  wrap-around kept (``2**16 % span`` squared can wrap to 0).
+  wrap-around kept (``2**16 % span`` squared can wrap to 0);
+* :func:`uniform`: ``jax.random._uniform`` for float32 in [0, 1): the
+  top 23 bits of :func:`random_bits` as the mantissa of a float in
+  [1, 2), minus 1.
 
 Keys are ``(2,)`` uint32 arrays.  All arithmetic is uint32 with
 wrap-around; ``np.errstate`` silences numpy's overflow notes.
@@ -97,3 +100,9 @@ def randint(key: np.ndarray, shape: tuple, minval: int, maxval: int) -> np.ndarr
         multiplier = (multiplier * multiplier) % span
         offset = ((higher % span) * multiplier + lower % span) % span
     return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32)
+
+
+def uniform(key: np.ndarray, shape: tuple) -> np.ndarray:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1))."""
+    bits = (random_bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0))

@@ -1,15 +1,14 @@
 """Spec validation CLI (port of ``repro/api/validate.py``).
 
-  # validate checked-in spec files (serve specs also resolve)
+  # validate checked-in spec files (serve and train specs also resolve)
   PYTHONPATH=src python -m repro_torch.api.validate examples/specs/*.json
 
   # round-trip seal: every ported arch x {train, serve, dryrun}
   PYTHONPATH=src python -m repro_torch.api.validate --roundtrip-all
 
 Each spec is built, round-tripped through its canonical JSON and hashed,
-as in the reference.  Only ``run="serve"`` specs resolve in the port
-(train and dryrun wait for their slices), so a train or dryrun file is
-reported ``ok`` with its hash and the slice it waits for.  ``--lower-all``
+as in the reference.  Serve and train specs resolve in the port; a
+dryrun file is reported ``ok`` with its hash (the dry run has no twin).  ``--lower-all``
 lowers XLA programs in the reference and has no twin here: it exits
 non-zero.
 
@@ -23,10 +22,10 @@ from repro_torch.api.spec import RunSpec, SpecError, build_spec
 
 
 def _resolve_note(spec: RunSpec) -> str:
-    """Resolve a serve spec; name the missing slice for the others."""
-    if spec.run == "serve":
+    """Resolve a serve or train spec; the dry run has no twin."""
+    if spec.run in ("serve", "train"):
         return f"memstash->{spec.resolve().memstash_policy}"
-    return f"run={spec.run} resolves once its slice is ported"
+    return "run=dryrun has no twin (it lowers XLA programs)"
 
 
 def validate_files(paths) -> int:

@@ -1,7 +1,8 @@
 """Architectures the port serves (a subset of ``repro.configs``), the
 dry-run shape cells and the per-family memstash default."""
 
-from repro_torch.configs.base import SHAPES, ArchDef, ShapeSpec, default_memstash
+from repro_torch.configs.base import SHAPES, ArchDef, ResolvedArch, ShapeSpec, default_memstash
 from repro_torch.configs.registry import ARCHS, get_arch
 
-__all__ = ["SHAPES", "ARCHS", "ArchDef", "ShapeSpec", "default_memstash", "get_arch"]
+__all__ = ["SHAPES", "ARCHS", "ArchDef", "ResolvedArch", "ShapeSpec", "default_memstash",
+           "get_arch"]

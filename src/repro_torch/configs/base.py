@@ -44,6 +44,19 @@ SHAPES: dict[str, ShapeSpec] = {
 
 
 @dataclasses.dataclass(frozen=True)
+class ResolvedArch:
+    """An arch view with one concrete config picked (full or reduced, or a
+    spec-modified copy): what the train step factories take.  ``reduced()``
+    returns the same config, resolution already happened."""
+
+    is_encdec: bool
+    config: LMConfig
+
+    def reduced(self) -> LMConfig:
+        return self.config
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchDef:
     arch_id: str
     family: str  # dense | hybrid | vlm | moe | ssm | audio
@@ -51,5 +64,14 @@ class ArchDef:
     reduced: Callable[[], LMConfig]
     source: str = ""
 
+    #: every ported arch is a decoder-only LM
+    is_encdec = False
+
     def resolve(self, reduced: bool = False) -> LMConfig:
         return self.reduced() if reduced else self.config
+
+    def view(self, reduced: bool = False, config=None) -> ResolvedArch:
+        """The arch with one config picked (``config`` overrides)."""
+        if config is None:
+            config = self.resolve(reduced)
+        return ResolvedArch(self.is_encdec, config)

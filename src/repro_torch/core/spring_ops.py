@@ -68,11 +68,19 @@ class SpringConfig:
     stochastic: bool = True
     # sparsity-aware backward (quant_sparse only); forward numerics unchanged
     backward_sparsity: str = "auto"
+    # weights already on the grid (the SR fixed-point optimizer keeps them
+    # there): skip their rounding at every product
+    weights_pre_quantized: bool = False
+    # operands may round to nearest; SR stays on the product's output
+    operand_rounding: str = "stochastic"  # "stochastic" | "nearest"
 
     def __post_init__(self):
         if self.backward_sparsity not in BACKWARD_SPARSITY_CHOICES:
             raise ValueError(f"unknown backward_sparsity {self.backward_sparsity!r}; "
                              f"choose from {BACKWARD_SPARSITY_CHOICES}")
+        if self.operand_rounding not in ("stochastic", "nearest"):
+            raise ValueError(f"unknown operand_rounding {self.operand_rounding!r}; "
+                             "choose from ('stochastic', 'nearest')")
 
     @property
     def is_quantized(self) -> bool:
@@ -117,11 +125,20 @@ class KeyGen:
         return gen
 
 
-def _q(x: torch.Tensor, cfg: SpringConfig, keys: Optional[KeyGen]) -> torch.Tensor:
-    """Round one tensor (operand or output) onto the grid, with the
-    straight-through gradient: stochastically when ``cfg.stochastic`` and
-    ``keys`` is given, else to nearest."""
-    if cfg.stochastic and keys is not None:
+def _q(x: torch.Tensor, cfg: SpringConfig, keys: Optional[KeyGen],
+       role: str = "out") -> torch.Tensor:
+    """Round one tensor onto the grid, with the straight-through gradient:
+    stochastically when ``cfg.stochastic`` and ``keys`` is given, else to
+    nearest.  ``role`` is "act", "weight" or "out", as in the reference:
+    a weight is passed through when ``cfg.weights_pre_quantized``, and the
+    operands ("act", "weight") round to nearest under
+    ``operand_rounding="nearest"``."""
+    if role == "weight" and cfg.weights_pre_quantized:
+        return x
+    stochastic = cfg.stochastic
+    if role in ("act", "weight") and cfg.operand_rounding == "nearest":
+        stochastic = False
+    if stochastic and keys is not None:
         if not isinstance(keys, KeyGen):
             raise TypeError("model-level SR needs a KeyGen over torch.Generator seeds "
                             f"(the reference's threefry keys are not ported), got {keys!r}")
@@ -150,10 +167,10 @@ def spring_matmul(
         wd = w.to(DENSE_DTYPE).to(torch.float32)
         return torch.matmul(xd, wd).to(DENSE_DTYPE)
 
-    xq = _q(x, cfg, keys)
+    xq = _q(x, cfg, keys, role="act")
     if w_mask is not None:
         w = w * w_mask.to(w.dtype)
-    wq = _q(w, cfg, keys)
+    wq = _q(w, cfg, keys, role="weight")
     if cfg.is_sparse and xq.ndim == 2:
         # the kernel with its SR epilogue off, the outer _q rounds (the
         # reference's CPU contract); dx/dw through the backward kernels
@@ -275,8 +292,8 @@ def spring_conv2d(
         wd = w.to(DENSE_DTYPE).to(torch.float32)
         return conv_nhwc(xd, wd, stride, padding, feature_group_count).to(DENSE_DTYPE)
 
-    xq = _q(x, cfg, keys).to(torch.float32)
-    wq = _q(w, cfg, keys).to(torch.float32)
+    xq = _q(x, cfg, keys, role="act").to(torch.float32)
+    wq = _q(w, cfg, keys, role="weight").to(torch.float32)
     if cfg.sparse_backward and feature_group_count == 1:
         y = _ConvSparseBackward.apply(xq, wq, stride, padding)
     else:

@@ -1,5 +1,6 @@
-"""Synthetic data pipelines (port of ``repro/data``, the image task)."""
+"""Synthetic data pipelines (port of ``repro/data``)."""
 
-from repro_torch.data.pipeline import DataConfig, SyntheticImageTask
+from repro_torch.data.pipeline import (DataConfig, SyntheticImageTask, SyntheticLMStream,
+                                       make_global_batch)
 
-__all__ = ["DataConfig", "SyntheticImageTask"]
+__all__ = ["DataConfig", "SyntheticImageTask", "SyntheticLMStream", "make_global_batch"]

@@ -1,5 +1,26 @@
-"""CNN training launcher (port of ``examples/sr_accuracy_parity.py`` and
-of the CNN side of ``repro/launch/train.py``).
+"""Training launcher (port of ``repro/launch/train.py``): a thin adapter
+over the RunSpec API, plus the CNN runner of ``examples/sr_accuracy_parity.py``.
+
+LM training from a spec, as in the reference:
+
+  python -m repro_torch.launch.train --spec examples/specs/train_quant_sparse.json \
+      --set train.ckpt_dir= --device cpu                   # CPU, reduced, plain versions
+  python -m repro_torch.launch.train --spec examples/specs/train_quant_sparse.json \
+      --set arch.reduced=false --set train.steps=6 --set train.ckpt_dir=   # GPU, full width
+  python -m repro_torch.launch.train --set train.steps=300 --set shape.seq=128
+
+The session is :class:`repro_torch.api.TrainSession`; the legacy flags
+(``--arch``, ``--steps``, ``--stash``, ``--kernel-impl``, ...) shim to the
+same RunSpec fields with a DeprecationWarning, ``--explain`` prints each
+field with its layer, ``--json`` writes the result with the canonical
+spec, and the last line is the reference's ``loss a -> b (N steps,
+slow=k) [spec h]``.  ``--device`` (default ``cuda``) configures nothing
+numerical: without a card it raises, ``--device cpu`` runs the plain
+versions.  Weights are random, made from ``seeds.seed``; the tokens are
+the reference's.  :func:`train_loop` keeps the reference's keyword
+signature (plus ``device``).
+
+The CNN runner, chosen by ``--cnn`` or ``--arms``:
 
   python -m repro_torch.launch.train --cnn vgg19 --hw 224 --batch 32 \
       --steps 3 --mode quant_sparse --stash stash           # GPU, full width
@@ -8,10 +29,7 @@ of the CNN side of ``repro/launch/train.py``).
 
 :func:`run_arm` trains one arm: SyntheticImageTask, SGD-momentum (lr 0.05,
 momentum 0.9) with Q4.16 SR master weights in the quantized modes, as the
-example does.  Weights are random, made from ``--seed``.  The default
-device is ``cuda``; without a card it raises, and ``--device cpu`` runs the
-plain versions.  The LM path of ``repro.launch.train`` comes with LM
-training.
+example does.
 """
 
 from __future__ import annotations
@@ -19,12 +37,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import math
+import sys
 import time
 from typing import Optional
 
 import torch
 
+from repro_torch.api.cli import flag, make_parser, run_main
+from repro_torch.api.sessions import TrainSession, train_spec
+from repro_torch.api.spec import SpecError
 from repro_torch.core.fixedpoint import SPRING_FORMAT
 from repro_torch.core.spring_ops import DENSE, MODES, QUANT, SpringConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticImageTask
@@ -35,6 +58,66 @@ from repro_torch.models.cnn import PAPER_CNNS, CNNDef, cnn_init, conv, fc, gap
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.runtime.train import StepConfig, init_train_state, make_cnn_train_step
 from repro_torch.serving.engine import resolve_device
+
+
+#: Legacy flag spellings -> RunSpec fields (all warn with the --set form)
+LEGACY_FLAGS = (
+    flag("--arch", "arch.id"),
+    flag("--reduced", "arch.reduced", const=True),
+    flag("--steps", "train.steps", type=int),
+    flag("--batch", "shape.batch", type=int),
+    flag("--seq", "shape.seq", type=int),
+    flag("--mode", "numerics.mode", choices=list(MODES)),
+    flag("--lr", "optimizer.lr", type=float),
+    flag("--fixed-point-weights", "numerics.fixed_point_weights", const=True),
+    flag("--kernel-impl", "kernels.policy"),
+    flag("--backward-sparsity", "sparsity.backward",
+         choices=["none", "auto", "ref", "jnp", "interpret", "pallas"]),
+    flag("--stash", "memstash.policy", choices=["none", "remat", "stash"]),
+    flag("--ckpt-dir", "train.ckpt_dir"),
+    flag("--ckpt-every", "train.ckpt_every", type=int),
+)
+
+
+def train_loop(
+    arch_id: str = "llama3.2-1b",
+    *,
+    reduced: bool = True,
+    steps: int = 100,
+    batch: int = 8,
+    seq: int = 128,
+    mode: str = "dense",
+    lr: float = 3e-3,
+    fixed_point_weights: bool = False,
+    kernel_impl: str | None = None,
+    backward_sparsity: str = "auto",
+    stash: str = "none",
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 100,
+    log_every: int = 10,
+    mesh=None,
+    seed: int = 0,
+    device="cuda",
+) -> dict:
+    """The reference's keyword surface: builds the equivalent RunSpec and
+    runs a :class:`repro_torch.api.TrainSession` on ``device``."""
+    spec = train_spec(
+        arch_id, reduced=reduced, steps=steps, batch=batch, seq=seq,
+        mode=mode, lr=lr, fixed_point_weights=fixed_point_weights,
+        kernel_impl=kernel_impl, backward_sparsity=backward_sparsity,
+        stash=stash, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+        log_every=log_every, seed=seed)
+    return TrainSession(spec, mesh=mesh, device=device).run()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The spec surface: ``--spec`` / ``--set`` / ``--explain`` / ``--json``,
+    the legacy flags, and ``--device``."""
+    ap = make_parser(__doc__, LEGACY_FLAGS, json_out=True)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the CUDA kernels, the default) or "
+                         "cpu (their plain versions); not a spec field")
+    return ap
 
 
 def tiny_cnn(store, ctx, x):
@@ -138,7 +221,8 @@ def parity_arms(steps: int = 150, batch: int = 32, device="cuda", seed: int = 0)
     return out
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_cnn_parser() -> argparse.ArgumentParser:
+    """The CNN runner's options (``--cnn`` / ``--arms``)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--cnn", default="vgg19", choices=sorted(MODELS))
@@ -159,7 +243,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    a = build_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if any(a in ("--cnn", "--arms") or a.startswith("--cnn=") for a in argv):
+        return cnn_main(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    args = build_parser().parse_args(argv)
+    spec = run_main("train", args, LEGACY_FLAGS)
+    try:
+        session = TrainSession(spec, device=args.device)
+    except SpecError as e:
+        raise SystemExit(f"error: {e}") from None
+    out = session.run()
+    print(f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f} "
+          f"({spec.train.steps} steps, slow={out['slow_steps']}) "
+          f"[spec {out['spec_hash']}]")
+    if args.json:
+        payload = {k: v for k, v in out.items() if k != "state"}
+        with open(args.json, "w") as f:
+            json.dump(payload, f, indent=2, default=float)
+    return out
+
+
+def cnn_main(argv) -> dict:
+    a = build_cnn_parser().parse_args(argv)
     if a.arms:
         out = parity_arms(a.steps, batch=a.batch, device=a.device, seed=a.seed)
         print(f"SR gap vs fp32:      {out['sr_gap']:+.4f}  (paper claim: ~0)")

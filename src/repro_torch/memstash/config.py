@@ -17,6 +17,7 @@ The config is a frozen dataclass, hashable as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 from typing import Optional
 
 STASH_POLICIES = ("none", "remat", "stash")
@@ -24,28 +25,41 @@ STASH_POLICIES = ("none", "remat", "stash")
 
 @dataclasses.dataclass(frozen=True)
 class MemstashConfig:
-    """Checkpoint policy of every stash point.
+    """Per-stash-point checkpoint policy.
 
-    policy:     the policy for every stash point.
+    policy:     default policy for every stash point.
+    per_layer:  ``((fnmatch_pattern, policy), ...)`` overrides matched
+                against the stash-point name (``"lm/residual"``, a CNN
+                layer's name); first match wins.
     min_elems:  stash points smaller than this fall back to "none" — the
                 mask word + metadata overhead isn't worth it.
 
-    The reference's per-layer overrides, value-bit width and lossy
-    capacity have no caller in the port; the wire accounting uses the
-    Q4.16 value width, :data:`repro_torch.memstash.format.VALUE_BITS`.
+    The reference's value-bit width and lossy capacity have no caller in
+    the port; the wire accounting uses the Q4.16 value width,
+    :data:`repro_torch.memstash.format.VALUE_BITS`, and the stash is the
+    exact capacity-1.0 form.
     """
 
     policy: str = "none"
+    per_layer: tuple = ()
     min_elems: int = 1024
 
     def __post_init__(self):
         if self.policy not in STASH_POLICIES:
             raise ValueError(f"policy {self.policy!r} not in {STASH_POLICIES}")
+        for pat, pol in self.per_layer:
+            if pol not in STASH_POLICIES:
+                raise ValueError(f"per_layer[{pat!r}] policy {pol!r} not in {STASH_POLICIES}")
 
-    def policy_for(self, elems: Optional[int] = None) -> str:
-        if self.policy != "none" and elems is not None and elems < self.min_elems:
+    def policy_for(self, name: str, elems: Optional[int] = None) -> str:
+        pol = self.policy
+        for pat, p in self.per_layer:
+            if fnmatch.fnmatchcase(name, pat):
+                pol = p
+                break
+        if pol != "none" and elems is not None and elems < self.min_elems:
             return "none"
-        return self.policy
+        return pol
 
 
 # Convenience presets: CNN ReLU activations are genuinely sparse (the

@@ -2,12 +2,16 @@
 
 Two regimes, as in the reference:
 
-  * prefill — full-sequence attention through the ``flash_attention``
-    wrapper on every device (the reference's route when the kernel is
-    pinned, ``attention.py:169-176``): the CUDA kernel on the card, reading
-    the (B, S, H, D) projections in place through strides, its plain
-    version on the CPU; the serving cache it emits is bf16, like the
-    reference's (``attention.py:200-201``);
+  * full sequence — the context's ``attention`` route.  ``"flash"``
+    (serving's prefill) runs the ``flash_attention`` wrapper on every
+    device (the reference's route when the kernel is pinned,
+    ``attention.py:169-176``): the CUDA kernel on the card, reading the
+    (B, S, H, D) projections in place through strides, its plain version
+    on the CPU; the serving cache it emits is bf16, like the reference's
+    (``attention.py:200-201``).  ``"chunked"`` (training, unless
+    ``flash_attention`` is pinned) runs :func:`_chunked_attention`, the
+    reference's differentiable attention over query chunks, each
+    recomputed in the backward pass: the card's kernel has no gradient;
   * decode — one new token per row against the cache, each row at its own
     position (a per-slot ``(B,)`` vector, or a scalar broadcast to it).  The
     new k/v row is written into the bf16 cache first and attended from
@@ -26,6 +30,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (SpringContext, dense_apply, dense_init, fixed_rows,
@@ -64,6 +69,61 @@ def _decode_attend(qh: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                          torch.full((), -1e30, device=qh.device))
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgs,bskd->bkgd", p, cv.to(torch.float32))
+
+
+#: query rows per chunk of :func:`_chunked_attention` (the reference's)
+Q_CHUNK = 1024
+
+
+def _chunked_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, Skv, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int],
+    q_chunk: int = Q_CHUNK,
+) -> torch.Tensor:
+    """Dense fp32 attention over query chunks (port of the reference's
+    ``_chunked_attention``, ``attention.py:81-136``): each chunk sees the
+    whole kv, or with a window only the last ``window + chunk`` keys, and
+    is recomputed in the backward pass (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``), so the live scores are one chunk's
+    (B, H, chunk, band).  A sequence that is not a multiple of
+    ``q_chunk`` is one chunk.  Returns (B, S, H, Dv) in q's dtype."""
+    b, s, h, d = q.shape
+    skv, kv_heads, dv = k.shape[1], k.shape[2], v.shape[-1]
+    group = h // kv_heads
+    scale = 1.0 / (d**0.5)
+    qc = q_chunk if s % q_chunk == 0 else s
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+
+    def one_chunk(q, kf, vf, ci: int):
+        q_blk = q[:, ci * qc:(ci + 1) * qc].to(torch.float32)
+        q_idx = ci * qc + torch.arange(qc, device=q.device)
+        start, band = 0, skv
+        if window is not None:
+            # only the last (window + qc) keys can be visible to this chunk
+            band = min(skv, window + qc)
+            start = min(max(ci * qc + qc - band, 0), skv - band)
+        k_blk, v_blk = kf[:, start:start + band], vf[:, start:start + band]
+        k_idx = start + torch.arange(band, device=q.device)
+        qh = q_blk.reshape(b, qc, kv_heads, group, d)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qh, k_blk) * scale
+        mask = torch.ones((qc, band), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_idx[:, None] >= k_idx[None, :]
+        if window is not None:
+            mask &= k_idx[None, :] > q_idx[:, None] - window
+        scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", p, v_blk)
+        return out.reshape(b, qc, h, dv).to(q.dtype)
+
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = [torch.utils.checkpoint.checkpoint(one_chunk, q, kf, vf, ci, use_reentrant=False)
+            if grad else one_chunk(q, kf, vf, ci) for ci in range(s // qc)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,10 +170,13 @@ def gqa_apply(
     k = rope_apply(k, positions, spec.rope_theta)
 
     if cache is None:
-        # (B,S,H,D) -> (B,H,S,D) views; the output comes back in q's layout,
-        # so the transpose back is contiguous again
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=spec.causal).transpose(1, 2)
+        if ctx.attention == "chunked":
+            out = _chunked_attention(q, k, v, causal=spec.causal, window=spec.window)
+        else:
+            # (B,S,H,D) -> (B,H,S,D) views; the output comes back in q's
+            # layout, so the transpose back is contiguous again
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=spec.causal).transpose(1, 2)
         new_cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
                      if return_cache else None)
     else:

@@ -129,7 +129,7 @@ def conv(
 
     # The conv input is the previous layer's post-ReLU map: the sparse
     # tensor the backward dW GEMM re-reads, i.e. SPRING's stash target.
-    y = checkpoint_apply(body, ctx.stash_policy(int(x.numel())), ctx.memstash,
+    y = checkpoint_apply(body, ctx.stash_policy(name, int(x.numel())), ctx.memstash,
                          name, x, (w, b))
     _record(LayerRecord(
         "conv", name,
@@ -153,7 +153,7 @@ def fc(store: ParamStore, ctx: SpringContext, name: str, x: torch.Tensor, cout: 
         y_ = y_ + b_.to(y_.dtype)
         return torch.relu(y_) if relu else y_
 
-    y = checkpoint_apply(body, ctx.stash_policy(int(x.numel())), ctx.memstash,
+    y = checkpoint_apply(body, ctx.stash_policy(name, int(x.numel())), ctx.memstash,
                          name, x, (w, b))
     _record(LayerRecord("fc", name, macs=cin * cout, in_elems=cin,
                         w_elems=cin * cout, out_elems=cout))

@@ -25,9 +25,12 @@ class SpringContext:
 
     ``keys`` is the SR generator stream (a :class:`KeyGen`; None rounds to
     nearest); ``memstash`` the compressed-activation-stash policy of the
-    conv/fc stash points (None: every point resolves to "none").
-    Magnitude pruning and the int8 KV cache are not ported: both must stay
-    at their defaults.
+    named stash points (None: every point resolves to "none");
+    ``attention`` the full-sequence attention route, ``"flash"`` (the
+    ``flash_attention`` wrapper: serving's prefill) or ``"chunked"`` (the
+    reference's differentiable chunked attention: training, unless
+    ``flash_attention`` is pinned).  Magnitude pruning and the int8 KV
+    cache are not ported: both must stay at their defaults.
     """
 
     cfg: SpringConfig = DENSE
@@ -35,16 +38,19 @@ class SpringContext:
     prune_ratio: float = 0.0
     int8_cache: bool = False
     memstash: Optional[MemstashConfig] = None
+    attention: str = "flash"
 
     def __post_init__(self):
         if self.prune_ratio != 0.0 or self.int8_cache:
             raise NotImplementedError("prune_ratio and int8_cache are not ported")
+        if self.attention not in ("flash", "chunked"):
+            raise ValueError(f"attention {self.attention!r} not in ('flash', 'chunked')")
 
-    def stash_policy(self, elems: Optional[int] = None) -> str:
-        """Resolve the checkpoint policy for a stash point of ``elems``."""
+    def stash_policy(self, name: str, elems: Optional[int] = None) -> str:
+        """Resolve the checkpoint policy for one named stash point."""
         if self.memstash is None:
             return "none"
-        return self.memstash.policy_for(elems)
+        return self.memstash.policy_for(name, elems)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device=None,

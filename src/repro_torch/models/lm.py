@@ -1,4 +1,5 @@
-"""Decoder-LM stack for serving (port of ``repro/models/lm.py``).
+"""Decoder-LM stack (port of ``repro/models/lm.py``): serving's prefill
+and decode, and training's :func:`lm_hidden` / :func:`lm_loss`.
 
 Covers two block kinds: ``("attn", "swiglu")`` (the llama family) and
 ``("ssm", "none")`` (Mamba-2, no FFN); other mixers and FFNs raise
@@ -8,6 +9,15 @@ walked in order.  Caches keep the reference's stacked layout,
 ``{"pos", "unit_0": {...}}`` with leaves ``(n_units, B, ...)``: attention
 ``{"k", "v"}`` of ``(n_units, B, S, KV, D)``, so the packed slot pool is
 laid out exactly as the reference's, and SSM ``{"conv", "ssm"}`` states.
+
+Training recomputes a unit of layers in the backward pass under
+``remat_policy``, as the reference's scan does: ``"full"`` checkpoints
+each unit (``torch.utils.checkpoint``), ``"block_io"`` each block, and
+``"stash"`` stores the unit's residual-stream input binary-mask compressed
+(``memstash.stash_apply``, stash point ``"lm/residual"``) unless the
+``MemstashConfig`` resolves that point to "remat" or "none".  A recompute
+re-draws its SR (the ``KeyGen`` moves on), as the reference's re-traced
+keys do.  The loss is the chunked cross-entropy of ``models/losses.py``.
 
 The tied-embedding logits product stays ``torch.matmul`` in fp32: the
 reference computes it outside any kernel too (``lm.py:412-415``).  The
@@ -23,7 +33,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.memstash.config import MemstashConfig
+from repro_torch.memstash.stash import stash_apply
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnSpec
@@ -38,9 +51,12 @@ from repro_torch.models.layers import (
     swiglu_apply,
     swiglu_init,
 )
+from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.models.ssm import SSMSpec
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 SUPPORTED_KINDS = (("attn", "swiglu"), ("ssm", "none"))
+REMAT_POLICIES = ("full", "block_io", "stash")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +74,20 @@ class LMConfig:
     d_ff: int = 0
     norm: str = "rms"
     tie_embeddings: bool = False
-    remat: bool = True  # training-only in the reference; kept for config parity
+    vlm_prefix_len: int = 0  # internvl2's image positions: not ported
+    remat: bool = True  # recompute each unit in the backward pass (training)
+    # bf16 loss-head product (the log-sum-exp stays fp32)
+    bf16_logits: bool = False
+    # "full" | "block_io" | "stash" (the module docstring)
+    remat_policy: str = "full"
 
     def __post_init__(self):
         n = len(self.prefix) + len(self.pattern_unit) * self.n_units + len(self.suffix)
         if n != self.n_layers:
             raise ValueError(f"{self.name}: pattern covers {n} != {self.n_layers} layers")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"{self.name}: remat_policy {self.remat_policy!r} not in "
+                             f"{REMAT_POLICIES}")
 
     def check_supported(self) -> None:
         kinds = set(self.pattern_unit)
@@ -142,6 +166,80 @@ def _logits(params: dict, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
     w = (params["embed"]["embedding"].t() if cfg.tie_embeddings
          else params["lm_head"]["kernel"]).to(torch.float32)
     return fixed_rows(lambda r: torch.matmul(r, w), h.to(torch.float32))
+
+
+def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContext,
+              img_embeds: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token ids (B, S) -> the final hidden states (B, S, d) and the
+    auxiliary loss (0: no MoE is ported), each unit recomputed in the
+    backward pass under ``cfg.remat`` / ``cfg.remat_policy``."""
+    cfg.check_supported()
+    if cfg.vlm_prefix_len or img_embeds is not None:
+        raise NotImplementedError(f"{cfg.name}: the image-embedding prefix (vlm_prefix_len, "
+                                  "img_embeds) waits for internvl2")
+    x = embed_apply(params["embed"], tokens, ctx)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    # remat_policy="stash" nominates the residual stream; the
+    # MemstashConfig has the last word (per_layer, min_elems, "none")
+    scfg = ctx.memstash if ctx.memstash is not None else MemstashConfig(policy="stash")
+    stash_policy = (scfg.policy_for("lm/residual", int(x.numel()))
+                    if cfg.remat_policy == "stash" else "none")
+    width = len(cfg.pattern_unit)
+
+    def block(h, p, u):
+        return block_apply(p, h, ctx, cfg, cfg.pattern_unit[u], positions)[0]
+
+    def checkpointed(fn, *args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    for i in range(cfg.n_units):
+        unit = params["layers"][i * width:(i + 1) * width]
+
+        def run(h, unit=unit):
+            for u, p in enumerate(unit):
+                h = block(h, p, u)
+            return h
+
+        if cfg.remat and cfg.remat_policy == "block_io":
+            for u, p in enumerate(unit):
+                x = checkpointed(block, x, p, u)
+        elif stash_policy == "stash":
+            # the unit's input is kept compressed; its parameters ride along
+            # as the stash's dense aux tensors, so their gradients flow
+            def run_aux(h, aux, unit=unit):
+                leaves = iter(aux)
+                return run(h, tree_map(lambda _: next(leaves), unit))
+
+            x = stash_apply(run_aux, scfg, "lm/residual", x, tuple(tree_leaves(unit)))
+        elif cfg.remat or stash_policy == "remat":
+            x = checkpointed(run, x)
+        else:
+            x = run(x)
+    x = rmsnorm_apply(params["final_norm"], x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _logits_kernel(params: dict, cfg: LMConfig) -> torch.Tensor:
+    """The (d, V) head: the tied embedding's transpose, or ``lm_head``."""
+    if cfg.tie_embeddings:
+        return params["embed"]["embedding"].t()
+    return params["lm_head"]["kernel"]
+
+
+def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContext,
+            img_embeds: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy, chunked over the sequence so the (tokens x
+    vocab) logits never materialize whole; returns (loss, {"ce", "aux"})."""
+    h, aux = lm_hidden(params, cfg, tokens, ctx, img_embeds)
+    b, s, _ = h.shape
+    total = chunked_softmax_xent(
+        h[:, :-1], tokens[:, 1:], _logits_kernel(params, cfg),
+        logits_dtype=torch.bfloat16 if cfg.bf16_logits else torch.float32)
+    ce = total / (b * (s - 1))
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,

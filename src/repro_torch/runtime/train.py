@@ -1,30 +1,37 @@
-"""The CNN train step (port of the CNN path of ``repro/runtime/train.py``
-``make_train_step`` and of ``examples/sr_accuracy_parity.py``'s ``step``).
+"""The train steps (port of ``repro/runtime/train.py`` ``make_train_step``,
+and of ``examples/sr_accuracy_parity.py``'s CNN ``step``).
 
 One step, in the reference's order:
 
   key = fold_in(seed, step)
-  loss and grads of the model under SpringContext(keys=KeyGen(key))
+  loss and grads under SpringContext(keys=KeyGen(key))   [LM: summed over
+      ``microbatch`` splits, split i under fold_in(key, i)]
   -> clip -> SGDm / AdamW -> [SR fixed-point weights, fold_in(key, 0x5eed)]
 
-PyTorch runs eagerly, so there is no jit and no donated state: the step
-is a plain function on a :class:`TrainState` of tensors.  The LM branch of
-``make_train_step`` comes with LM training.
+PyTorch runs eagerly, so there is no jit and no donated state: a step is a
+plain function on a :class:`TrainState` of tensors.  The seeds are the
+port's 32-bit integers, folded by :func:`repro_torch.kernels.prng.fold_in`
+(the reference's threefry keys are not reproduced; its SR draws are held
+statistically).  The reference's compressed inter-pod gradient exchange
+(``compress_pod_grads``), ``grad_sync`` and meshes need the ``dist/``
+port (ROADMAP §1 item 4): :func:`make_train_step` refuses them by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.spring_ops import DENSE, KeyGen, SpringConfig
 from repro_torch.kernels.prng import fold_in
 from repro_torch.memstash.config import MemstashConfig
+from repro_torch.models import lm as lm_mod
 from repro_torch.models.cnn import ParamStore
 from repro_torch.models.layers import SpringContext
-from repro_torch.optim.optimizers import OptimizerConfig, OptState, make_optimizer
+from repro_torch.optim.optimizers import (OptimizerConfig, OptState, make_optimizer,
+                                          tree_leaves, tree_map)
 
 #: the optimizer's seed is folded from the step key with this constant
 OPT_SEED_FOLD = 0x5EED
@@ -33,8 +40,17 @@ OPT_SEED_FOLD = 0x5EED
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     spring: SpringConfig = DENSE
+    # None inherits spring.backward_sparsity; "none" | "auto" override it
+    backward_sparsity: Optional[str] = None
+    prune_ratio: float = 0.0  # magnitude pruning is not ported: 0 only
     optimizer: OptimizerConfig = OptimizerConfig()
+    # the reference's int8 + error-feedback inter-pod reduction: refused
+    compress_pod_grads: bool = False
+    microbatch: Optional[int] = None  # gradient accumulation splits
     memstash: MemstashConfig = MemstashConfig()
+    # the LM's full-sequence attention: "chunked" (the reference's default)
+    # or "flash" (flash_attention pinned in kernels.policy)
+    attention: str = "chunked"
 
 
 @dataclasses.dataclass
@@ -45,7 +61,32 @@ class TrainState:
     seed: int
 
 
-def init_train_state(params: dict, step_cfg: StepConfig, seed: int = 0) -> TrainState:
+#: the reference's backward impl names: a pin of one is "auto" here (the
+#: device picks the kernel or its plain version; the train session checks
+#: that the device runs what the pin names)
+BACKWARD_IMPLS = ("ref", "jnp", "interpret", "pallas")
+
+
+def _spring_for(step_cfg: StepConfig) -> SpringConfig:
+    """The SpringConfig with the step-level backward_sparsity override."""
+    bwd = step_cfg.backward_sparsity
+    bwd = "auto" if bwd in BACKWARD_IMPLS else bwd
+    if bwd in (None, step_cfg.spring.backward_sparsity):
+        return step_cfg.spring
+    return dataclasses.replace(step_cfg.spring, backward_sparsity=bwd)
+
+
+def init_train_state(model, step_cfg: StepConfig, seed: int = 0, *, reduced: bool = False,
+                     device="cuda") -> TrainState:
+    """A fresh state: ``model`` is a parameter tree (kept as given: a CNN's
+    dict, or an LM's), or an arch (``ArchDef`` / ``ResolvedArch``) whose
+    config, reduced with ``reduced``, gets ``lm_init(cfg, seed)``
+    parameters on ``device``."""
+    if isinstance(model, dict):
+        params = model
+    else:
+        params = lm_mod.lm_init(model.reduced() if reduced else model.config, seed,
+                                device=device)
     opt_init, _ = make_optimizer(step_cfg.optimizer)
     return TrainState(params, opt_init(params), 0, int(seed))
 
@@ -57,17 +98,75 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (torch.logsumexp(lf, -1) - gold).mean()
 
 
+def _with_grad(params):
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False,
+                    grad_sync=None):
+    """``step(state, {"tokens": (B, S)}) -> (state, metrics)`` for an LM
+    arch (``ArchDef`` / ``ResolvedArch``).  Metrics: loss, ce, aux,
+    grad_norm, lr."""
+    refused = [name for name, on in (("mesh", mesh is not None),
+                                     ("grad_sync", grad_sync is not None),
+                                     ("compress_pod_grads", step_cfg.compress_pod_grads)) if on]
+    if refused:
+        raise NotImplementedError(f"{', '.join(refused)}: the mesh and its gradient exchange "
+                                  "wait for the dist/ port (ROADMAP §1 item 4)")
+    cfg = arch.reduced() if reduced else arch.config
+    spring = _spring_for(step_cfg)
+    _, opt_update = make_optimizer(step_cfg.optimizer)
+
+    def ctx_for(key: int) -> SpringContext:
+        return SpringContext(cfg=spring, keys=KeyGen(key) if spring.is_quantized else None,
+                             prune_ratio=step_cfg.prune_ratio, memstash=step_cfg.memstash,
+                             attention=step_cfg.attention)
+
+    def loss_and_grads(params, tokens, key):
+        p = _with_grad(params)
+        loss, metrics = lm_mod.lm_loss(p, cfg, tokens, ctx_for(key))
+        grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                tree_map(lambda _: next(grads), params))
+
+    def grads_and_loss(params, batch, key):
+        tokens = batch["tokens"]
+        nm = step_cfg.microbatch
+        if nm is None:
+            return loss_and_grads(params, tokens, key)
+        # gradient accumulation over contiguous row splits
+        splits = tokens.reshape(nm, tokens.shape[0] // nm, *tokens.shape[1:])
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        for i in range(nm):
+            loss_i, metrics, grads_i = loss_and_grads(params, splits[i], fold_in(key, i))
+            loss = loss + loss_i / nm
+            grads = tree_map(lambda a, g: a + g / nm, grads, grads_i)
+            del grads_i
+        return loss, metrics, grads
+
+    def step(state: TrainState, batch: dict):
+        key = fold_in(state.seed, state.step)
+        loss, metrics, grads = grads_and_loss(state.params, batch, key)
+        new_p, new_opt, om = opt_update(grads, state.opt_state, state.params,
+                                        fold_in(key, OPT_SEED_FOLD))
+        return (TrainState(new_p, new_opt, state.step + 1, state.seed),
+                dict(metrics, loss=loss, **om))
+
+    return step
+
+
 def make_cnn_train_step(model_fn: Callable, step_cfg: StepConfig):
     """``step(state, x, y) -> (state, metrics)`` for ``model_fn(store, ctx,
     x) -> logits`` (a :mod:`repro_torch.models.cnn` model)."""
-    spring = step_cfg.spring
+    spring = _spring_for(step_cfg)
     _, opt_update = make_optimizer(step_cfg.optimizer)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         key = fold_in(state.seed, state.step)
         ctx = SpringContext(cfg=spring, keys=KeyGen(key) if spring.is_quantized else None,
                             memstash=step_cfg.memstash)
-        params = {k: p.detach().requires_grad_(True) for k, p in state.params.items()}
+        params = _with_grad(state.params)
         loss = cross_entropy(model_fn(ParamStore(key, params), ctx, x), y)
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         new_p, new_opt, om = opt_update(grads, state.opt_state, state.params,

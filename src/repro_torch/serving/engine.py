@@ -84,7 +84,7 @@ def resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; the port serves on the GPU by default "
+            "no CUDA device is available; the port runs on the GPU by default "
             "(pass device='cpu' to run the plain versions on the CPU)")
     return device
 

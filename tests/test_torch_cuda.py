@@ -313,6 +313,43 @@ def test_tiny_cnn_trains_on_the_card_through_the_kernels(card):
         assert counts[name] > 0, counts
 
 
+def test_full_width_lm_train_step_runs_the_path_kernels(card):
+    """The example train spec at full width (llama3.2-1b, batch 8, seq 128,
+    quant_sparse, SR, Q4.16 SR weights, the sparse backward): one step on
+    the card, a finite loss, every parameter on the grid, and every kernel
+    of the path launched (every product has M = 1024 or K = 1024 and K <=
+    8192, so neither the skinny kernel nor the split-K reduce is on it)."""
+    import pathlib
+
+    from repro_torch import kernels
+    from repro_torch.api import TrainSession, build_spec
+    from repro_torch.launch.train import on_grid
+    from repro_torch.optim.optimizers import tree_leaves
+
+    example = pathlib.Path(__file__).parent.parent / "examples/specs/train_quant_sparse.json"
+    spec = build_spec("train", spec_file=str(example), use_env=False, sets=[
+        "arch.reduced=false", "train.steps=1", "train.ckpt_dir="])
+    kernels.reset_launch_counts()
+    out = TrainSession(spec, device=card).run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert all(torch.isfinite(torch.tensor(out["losses"])))
+    assert on_grid(dict(enumerate(tree_leaves(out["state"].params))))
+    for name in ("masked_matmul", "tile_occupancy", "masked_matmul_dx", "masked_matmul_dw",
+                 "stochastic_round"):
+        assert counts[name] > 0, counts
+    assert counts["flash_attention"] == 0, counts
+
+
+def test_train_spec_pinning_flash_attention_is_refused_on_the_card(card):
+    from repro_torch.api import SpecError, TrainSession, build_spec
+
+    for policy in ("flash_attention=pallas", "pallas"):
+        spec = build_spec("train", use_env=False, sets=[f"kernels.policy={policy}"])
+        with pytest.raises(SpecError, match="kernels.policy"):
+            TrainSession(spec, device=card)
+
+
 def test_spring_matmul_runs_the_kernel_without_the_sparse_backward(card):
     """quant_sparse with backward_sparsity="none" still takes its 2-D
     products on the kernel; the kernel forward has no gradient, so asking

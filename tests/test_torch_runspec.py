@@ -168,6 +168,56 @@ def test_legacy_kwarg_bridges_read_alike():
         _same(j, t)
 
 
+TRAIN_RESOLVE_CASES = [
+    ("call", None),
+    ("file", []),
+    ("file", ["numerics.operand_rounding=nearest", "numerics.weights_pre_quantized=true",
+              "numerics.stochastic=off", "arch.remat_policy=block_io",
+              "arch.bf16_logits=true", "shape.microbatch=2", "optimizer.kind=sgdm"]),
+    ("file", ["memstash.policy=remat", "arch.reduced=false", "numerics.mode=dense"]),
+    ("file", ["memstash.policy=none", "numerics.stochastic=on", "sparsity.backward=none"]),
+]
+
+
+@pytest.mark.parametrize("how,sets", TRAIN_RESOLVE_CASES,
+                         ids=[f"{h}-{i}" for i, (h, _) in enumerate(TRAIN_RESOLVE_CASES)])
+def test_train_resolve_gives_the_references_step_config(how, sets):
+    """resolve() of a train spec gives the reference's StepConfig fields
+    (tests/test_runspec.py:143's case, the example train spec and
+    variations), and the arch config's remat and logits fields."""
+    if how == "call":
+        kw = dict(mode="quant", lr=1e-2, fixed_point_weights=True, kernel_impl="ref",
+                  backward_sparsity="jnp", stash="stash")
+        j = jsessions.train_spec("llama3.2-1b", **kw).resolve()
+        t = tsessions.train_spec("llama3.2-1b", **kw).resolve()
+    else:
+        example = str(EXAMPLES[[p.name for p in EXAMPLES].index("train_quant_sparse.json")])
+        j = jspec.build_spec("train", spec_file=example, sets=sets, use_env=False).resolve()
+        t = tspec.build_spec("train", spec_file=example, sets=sets, use_env=False).resolve()
+    for field in ("mode", "stochastic", "backward_sparsity", "weights_pre_quantized",
+                  "operand_rounding"):
+        assert getattr(t.spring, field) == getattr(j.spring, field), field
+    assert (t.spring.fmt.il, t.spring.fmt.fl) == (j.spring.fmt.il, j.spring.fmt.fl)
+    assert (t.step.backward_sparsity, t.step.microbatch, t.step.prune_ratio) == \
+        (j.step.backward_sparsity, j.step.microbatch, j.step.prune_ratio)
+    assert (t.step.memstash.policy, t.step.memstash.min_elems) == \
+        (j.step.memstash.policy, j.step.memstash.min_elems)
+    assert t.memstash_policy == j.memstash_policy
+    to, jo = t.step.optimizer, j.step.optimizer
+    for field in ("kind", "lr", "beta1", "beta2", "eps", "weight_decay", "momentum",
+                  "grad_clip", "warmup_steps"):
+        assert getattr(to, field) == getattr(jo, field), field
+    assert (to.weight_format is None) == (jo.weight_format is None)
+    if jo.weight_format is not None:
+        assert (to.weight_format.il, to.weight_format.fl) == \
+            (jo.weight_format.il, jo.weight_format.fl)
+    for field in ("name", "d_model", "vocab", "n_layers", "remat", "remat_policy",
+                  "bf16_logits", "tie_embeddings"):
+        assert getattr(t.config, field) == getattr(j.config, field), field
+    assert t.view.config == t.config and t.view.is_encdec == j.view.is_encdec
+    assert t.step.attention == ("flash" if how == "call" else "chunked")  # "ref" pins it
+
+
 def test_state_hash_ignores_what_a_restore_changes():
     a = tspec.build_spec("serve", use_env=False)
     b = tspec.build_spec("serve", use_env=False, sets=[

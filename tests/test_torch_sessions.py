@@ -313,14 +313,51 @@ def test_an_engine_refuses_a_policy_its_device_cannot_honour():
 
 
 def test_train_and_dryrun_sessions_name_their_slices():
+    """A train spec now resolves and its session builds (LM training is
+    ported); the run-mode check stays, and the dry run still names its
+    missing twin."""
     with pytest.raises(SpecError, match="run='train'"):
         tsessions.TrainSession(tsessions.serve_spec(ARCH))
-    with pytest.raises(SpecError, match="item 3"):
-        tsessions.TrainSession(tsessions.train_spec(ARCH))
+    session = tsessions.session_for(tsessions.train_spec(ARCH), device="cpu")
+    assert isinstance(session, tsessions.TrainSession)
+    assert session.resolved.step.attention == "chunked"
+    assert session.resolved.view.config == session.resolved.config
     with pytest.raises(SpecError, match="item 5"):
         tsessions.session_for(tsessions.dryrun_spec(ARCH, "decode_32k"))
     with pytest.raises(SpecError, match="mesh"):
         tlaunch.serve_session(ARCH, mesh=object(), device="cpu")
+    with pytest.raises(SpecError, match="mesh"):
+        tsessions.TrainSession(tsessions.train_spec(ARCH), mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("sets,device,field", [
+    (["kernels.policy=flash_attention=pallas"], "cuda", "kernels.policy"),
+    (["kernels.policy=pallas"], "cuda", "kernels.policy"),
+    (["kernels.policy=ref"], "cuda", "kernels.policy"),
+    (["kernels.policy=pallas"], "cpu", "kernels.policy"),
+    (["sparsity.backward=pallas"], "cpu", "sparsity.backward"),
+    (["sparsity.backward=interpret"], "cuda", "sparsity.backward"),
+    (["arch.id=mamba2-780m"], "cpu", "arch.id"),
+    (["shape.mesh.data=2"], "cpu", "shape.mesh"),
+    (["memstash.capacity=0.5"], "cpu", "memstash.capacity"),
+    (["memstash.value_bits=16"], "cpu", "memstash.value_bits"),
+    (["shape.microbatch=3"], "cpu", "shape.microbatch"),
+])
+def test_train_session_refuses_what_it_cannot_honour(sets, device, field):
+    """Each field the port cannot honour in training raises the SpecError
+    naming it, before anything is built; a policy pinning flash_attention
+    is refused on the card, whose kernel has no gradient."""
+    spec = tbuild("train", sets=sets, use_env=False)
+    with pytest.raises(SpecError, match=field.replace(".", r"\.")):
+        tsessions.TrainSession(spec, device=device)
+
+
+def test_train_session_takes_the_flash_route_where_pinned_on_the_cpu():
+    for policy, route in (("ref", "flash"), ("flash_attention=ref", "flash"),
+                          ("jnp", "chunked"), ("masked_matmul=ref", "chunked"),
+                          ("auto", "chunked")):
+        spec = tbuild("train", sets=[f"kernels.policy={policy}"], use_env=False)
+        assert tsessions.TrainSession(spec, device="cpu").resolved.step.attention == route
 
 
 def test_launcher_refusals_exit_with_the_spec_error(capsys):
