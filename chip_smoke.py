@@ -185,6 +185,27 @@ failure:
                kv_pack bit-equal; the tile kernel once more at the
                lm_head's K x N, up to 786 M); then each reduced model on
                the card against the CPU as in 6e;
+  6j. hybrid — full-width recurrentgemma-9b (38 layers: 12 x (rglru, rglru,
+               local) + 2 rglru; local attention D 256, 16 heads on one kv
+               head, window 2048), quant_sparse, random weights from seed
+               0, 4 requests of prompt 2600 (past the window, not a multiple
+               of a tile), gen 16, 4 slots, on the monolithic engine: the
+               counters zeroed just before run() and read just after (the
+               skinny and tile kernels, tile_occupancy, splitk_reduce,
+               mask_pack and flash_attention at D 256 launched), finite
+               logits, prefill s per request, tokens/s, peak memory under
+               80 GB; a second engine over the same parameters: decode
+               logits of slots 0-1 at 4 and at 2 slots bit-equal, three
+               profiled decode ticks (wall against device ms), the same
+               tokens; the paged engine refused (no pageable leaf); every
+               path kernel against its plain version at the path's shapes
+               (flash_attention at D 256, window 2048, S 2600; masked_matmul
+               on every projection, the RG-LRU's included, at M 2600 and 4;
+               kv_pack on the ring leaf), the D 256 kernel timed at S 4096
+               beside its plain version, fp32 SDPA and its bound; then
+               full-width qwen2-7b with random non-zero qkv biases as 6i's
+               archs (paged tokens = monolithic tokens); each reduced model
+               on the card against the CPU;
   7a. dangling_filter — bit-equal to its plain version on the registry's
                examples, -0.0 / NaN / inf entries at a length with a scalar
                tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
@@ -1601,12 +1622,19 @@ def phase_spec(dev) -> dict:
             "tokens": tokens(main_out)}
 
 
-def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int) -> dict:
+def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
+                         shared_cache: bool = False) -> dict:
     """The reduced ``arch`` on the card against the same model on the CPU
     (plain versions): prefill logits of two rows, then one decode step.
-    Logits of a 3-4 layer model: the fp32 sums of kernel and plain version
+    Logits of a 3-5 layer model: the fp32 sums of kernel and plain version
     differ in order, which moves a quantized activation by one 2**-16 step
-    at most, far below 1e-3 at the logits."""
+    at most, far below 1e-3 at the logits.  With ``shared_cache`` the
+    prefill caches are held to one bf16 ulp at each leaf's largest
+    magnitude, and both devices decode from the CPU's cache: a bf16 cache
+    leaf one rounding apart moved the reduced recurrentgemma-9b's decode
+    logits by 3.5e-3 (its RG-LRU state; 7.4e-5 from a shared cache), so
+    decoding from each device's own cache holds the roundings, not the
+    step."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -1628,17 +1656,30 @@ def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int) -> dict:
     toks = torch.randint(0, cfg.vocab, (2, prompt_len), generator=gen)
     lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx)
     lg_gpu, c_gpu = lm_prefill(to(p_cpu, dev), cfg, toks.to(dev), ctx)
+    cache_ulps = 0.0
+    if shared_cache:
+        for key in (k for k in c_cpu if k != "pos"):
+            for name, want in c_cpu[key].items():
+                want = want.float()
+                ulp = 2.0 ** (torch.floor(torch.log2(want.abs().max())) - 7)
+                cache_ulps = max(cache_ulps, float((c_gpu[key][name].float().cpu() - want)
+                                                   .abs().max() / ulp))
+        c_gpu = to(c_cpu, dev)
     nxt = lg_cpu.argmax(-1)
     d_cpu, _ = lm_decode_step(p_cpu, cfg, nxt, pad_cache(c_cpu, 1), ctx)
     d_gpu, _ = lm_decode_step(to(p_cpu, dev), cfg, nxt.to(dev), pad_cache(c_gpu, 1), ctx)
     e_pre = float((lg_gpu.cpu() - lg_cpu).abs().max())
     e_dec = float((d_gpu.cpu() - d_cpu).abs().max())
     print(f"[check] reduced {arch} card vs CPU, prompt {prompt_len}: prefill logits "
-          f"max_abs_err={e_pre:.3g}, decode {e_dec:.3g} (atol 1e-3), argmax equal "
-          f"{bool(torch.equal(lg_gpu.argmax(-1).cpu(), nxt))}", flush=True)
-    if not (e_pre <= 1e-3 and e_dec <= 1e-3):
+          f"max_abs_err={e_pre:.3g}, decode {e_dec:.3g}"
+          + (f" (from the CPU's cache; the caches {cache_ulps:.3g} ulps apart at their "
+             "largest magnitudes)" if shared_cache else "")
+          + f" (atol 1e-3), argmax equal {bool(torch.equal(lg_gpu.argmax(-1).cpu(), nxt))}",
+          flush=True)
+    if not (e_pre <= 1e-3 and e_dec <= 1e-3 and cache_ulps <= 1.0):
         fail(f"the reduced {arch} on the card disagrees with the CPU plain versions")
-    return {"prefill_max_abs_err": e_pre, "decode_max_abs_err": e_dec}
+    return {"prefill_max_abs_err": e_pre, "decode_max_abs_err": e_dec,
+            "cache_max_ulps": cache_ulps if shared_cache else None}
 
 
 def profile_prefill(dev, arch: str, prompt: int) -> dict:
@@ -1730,7 +1771,7 @@ def _decode_logits(engine, slots: list, width: int):
     return logits[:len(slots)].float().cpu()
 
 
-def _batch_invariance(engine, tag: str) -> dict:
+def _batch_invariance(engine, tag: str, phase: str = "survive") -> dict:
     """Slots 0 and 1's decode logits in a pool of 4 slots (all four
     resident) and of 2 (those two alone): the largest difference and
     whether the bits agree."""
@@ -1740,10 +1781,10 @@ def _batch_invariance(engine, tag: str) -> dict:
     two = _decode_logits(engine, [0, 1], 2)
     diff = float((four - two).abs().max())
     equal = bool(torch.equal(four, two))
-    print(f"[survive] {tag}: decode logits of slots 0-1 at 4 slots vs at 2 slots: max |diff| "
+    print(f"[{phase}] {tag}: decode logits of slots 0-1 at 4 slots vs at 2 slots: max |diff| "
           f"= {diff:.3g}, bit-equal {equal}", flush=True)
     if not equal:
-        fail(f"survive phase: {tag}'s decode logits depend on the number of slots")
+        fail(f"{phase} phase: {tag}'s decode logits depend on the number of slots")
     return {"max_abs_diff": diff, "bit_equal": equal}
 
 
@@ -1993,42 +2034,20 @@ def _drive(eng) -> tuple:
 
 
 def _paged_tick_profile(eng, ticks: int = 3) -> dict:
-    """Three decode ticks of a full pool under torch.profiler: wall and
-    device ms a tick, launches a tick.  ``eng`` installs whole prompts at
-    admission (``prefill_chunk=None``), so its first tick admits every
-    slot and the next ones decode all of them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch import kernels
-
+    """Three decode ticks of a full pool under torch.profiler
+    (:func:`_tick_profile`).  ``eng`` installs whole prompts at admission
+    (``prefill_chunk=None``), so its first tick admits every slot and the
+    next ones decode all of them; each packs its k and v pages in one
+    ``mask_pack`` launch a leaf."""
     eng.step()
     if eng._installing or len(eng._decode_slots()) < PAGED_SLOTS:
         fail(f"paged phase: {len(eng._decode_slots())} of {PAGED_SLOTS} slots decode "
              f"after the admitting tick")
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(ticks):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3 / ticks
-    per_tick = {k: v / ticks for k, v in kernels.launch_counts().items() if v}
-    rows = device_time_by_kernel(prof, ticks)
-    busy = sum(r[1] for r in rows)
-    print(f"[paged] decode tick, {PAGED_SLOTS} slots at ~{PAGED_MAX_LEN} rows: {wall_ms:.2f} ms "
-          f"wall (profiled), device "
-          + (f"{busy:.2f} ms = {busy / wall_ms:.1%}" if busy else "not measured")
-          + f"; launches a tick {per_tick}", flush=True)
-    for name, ms, n in rows[:8]:
-        print(f"[paged]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
-    if per_tick.get("mask_pack") != 2:
+    res = _tick_profile(eng, "paged", ticks, f" at ~{PAGED_MAX_LEN} rows")
+    if res["launches_per_tick"].get("mask_pack") != 2:
         fail(f"a paged decode tick must pack its k and v pages in one mask_pack launch "
-             f"each: {per_tick}")
-    return {"tick_ms": wall_ms, "device_busy_ms": busy, "launches_per_tick": per_tick,
-            "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
-                        for n, ms, c in rows[:20]]}
+             f"each: {res['launches_per_tick']}")
+    return res
 
 
 def phase_paged(dev) -> dict:
@@ -2208,12 +2227,15 @@ def phase_paged(dev) -> dict:
 
 def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
                         decode_m: int = ARCH_REQUESTS, kv_blocks=None,
-                        tag: str = "archs") -> dict:
+                        tag: str = "archs", attn=None, extra_projs=None,
+                        kv_layers=None) -> dict:
     """Each kernel of ``cfg``'s served path on card tensors at the
     full-width shapes the path gives it, against its plain version; the
     largest error of each.  flash_attention at (1, H, HKV, ``prompt``,
-    D), causal fp32, q/k/v as ``gqa_apply`` passes them (atol 2e-5, the
-    registry's compare); masked_matmul on every projection at
+    D) of ``attn`` (default ``cfg.attn``; its window if it has one),
+    causal fp32, q/k/v as ``gqa_apply`` passes them (atol 2e-5, the
+    registry's compare); masked_matmul on every projection (and those of
+    ``extra_projs``, name -> (K, N)) at
     M = ``prompt`` (the tile kernel after tile_occupancy) and
     M = ``decode_m`` (the skinny kernel) within 2b's bound
     2 K 2**-24 (|x| @ |w|), with x's first quarter of K and half of w's
@@ -2221,7 +2243,8 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     exact; splitk_reduce bit-equal on the partial sums of the d_ff-long
     reduction at both M, where d_ff splits; kv_pack bit-equal on each
     (blocks, block length) of ``kv_blocks`` (default: a decode tick's
-    pages and a request's install); and the tile kernel with its pre-pass
+    pages and a request's install), ``kv_layers`` (default n_layers) of
+    them; and the tile kernel with its pre-pass
     once more at the lm_head's (K, N), K x N up to 786 M, for their index
     arithmetic (the path's logits are a torch.matmul of the last rows)."""
     import torch
@@ -2235,7 +2258,7 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
 
     g = torch.Generator(device=dev).manual_seed(seed)
     tm, tn, tk = KERNEL_TILES
-    a, d, ff = cfg.attn, cfg.d_model, cfg.d_ff
+    a, d, ff = attn or cfg.attn, cfg.d_model, cfg.d_ff
     hd = a.head_dim
     errs = dict.fromkeys(("flash_attention", "masked_matmul", "masked_matmul_skinny",
                           "tile_occupancy", "splitk_reduce", "mask_pack"), 0.0)
@@ -2244,10 +2267,11 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     q = torch.randn(1, prompt, a.n_heads, hd, generator=g, device=dev).transpose(1, 2)
     k, v = (torch.randn(1, prompt, a.n_kv_heads, hd, generator=g, device=dev)
             .transpose(1, 2) for _ in range(2))
-    errs["flash_attention"] = e = _max_err(flash_attention(q, k, v), attention_reference(q, k, v))
+    errs["flash_attention"] = e = _max_err(flash_attention(q, k, v, window=a.window),
+                                           attention_reference(q, k, v, window=a.window))
     if not e <= 2e-5:
-        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{prompt},{hd}) off "
-             f"by {e:.3g}")
+        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{prompt},{hd}) window "
+             f"{a.window} off by {e:.3g}")
     del q, k, v
 
     def occ_exact(t, rows, cols) -> None:
@@ -2276,7 +2300,8 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
         return e
 
     projs = {"q": (d, a.n_heads * hd), "k": (d, a.n_kv_heads * hd), "v": (d, a.n_kv_heads * hd),
-             "o": (a.n_heads * hd, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+             "o": (a.n_heads * hd, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d),
+             **(extra_projs or {})}
     for m in (prompt, decode_m):
         key = "masked_matmul" if route(m, 1, 1) == "tile" else "masked_matmul_skinny"
         for kk, n in projs.values():
@@ -2293,13 +2318,15 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     if kv_blocks is None:
         kv_blocks = ((decode_m, page), (prompt // PAGE_TOKENS, page))
     for blocks, block_len in kv_blocks:
-        leaf = torch.relu(torch.randn(cfg.n_layers, blocks, block_len, generator=g, device=dev))
+        leaf = torch.relu(torch.randn(kv_layers or cfg.n_layers, blocks, block_len, generator=g,
+                                      device=dev))
         leaf = leaf.to(torch.bfloat16)
         got, want = kv_pack(leaf), kv_pack_reference(leaf)
         if not all(torch.equal(got[p], want[p]) for p in ("values", "mask", "nnz")):
             fail(f"{tag}: kv_pack {tuple(leaf.shape)} bf16 differs from its plain version")
     print(f"[{label}] {cfg.name} kernels at the path's shapes against their plain versions: "
-          f"flash_attention err {errs['flash_attention']:.3g}, tile {errs['masked_matmul']:.3g} "
+          f"flash_attention (D {hd}, window {a.window}) err {errs['flash_attention']:.3g}, "
+          f"tile {errs['masked_matmul']:.3g} "
           f"(M {prompt}, lm_head ({d},{vocab}) too), skinny "
           f"{errs['masked_matmul_skinny']:.3g} (M {decode_m}); tile_occupancy, "
           f"splitk_reduce ({split_k(ff)[1]} chunks) and kv_pack "
@@ -2307,16 +2334,14 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     return errs
 
 
-def phase_archs(dev, gen) -> dict:
-    """(6i) full-width minitron-4b and mistral-nemo-12b, quant_sparse: 4
-    requests of prompt 512 on 4 slots, on the paged and then the
-    monolithic engine over the same parameters; the launch counters are
-    zeroed just before each run and read just after.  Tokens equal between
-    the backends, finite logits, and every kernel of the path (the
-    D 128 flash_attention among them) launched in the paged run; each
-    kernel of the path against its plain version at the model's shapes
-    (:func:`_arch_kernel_checks`); then each reduced model on the card
-    against the CPU."""
+def _serve_both(dev, arch: str, n_sms: int, tag: str, prepare=None) -> dict:
+    """Full-width ``arch``, quant_sparse: ARCH_REQUESTS requests of prompt
+    ARCH_PROMPT on as many slots, on the paged and then the monolithic
+    engine over the same parameters (``prepare(params)`` edits them first);
+    the launch counters are zeroed just before each run and read just
+    after.  Tokens equal between the backends, finite logits, every kernel
+    of ARCH_KERNELS launched in the paged run and flash_attention in the
+    monolithic one.  The parameters are freed before it returns."""
     import torch
 
     from repro_torch import kernels
@@ -2328,77 +2353,356 @@ def phase_archs(dev, gen) -> dict:
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paging import PagedServingEngine
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch).resolve(False)
+    a = cfg.attn
+    tile = plan(1, a.n_heads, a.n_kv_heads, ARCH_PROMPT, a.head_dim, n_sms)
+    params = lm_init(cfg, 0, device=dev)
+    if prepare is not None:
+        prepare(params)
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts = synthetic_prompts(ARCH_REQUESTS, ARCH_REQUESTS, ARCH_PROMPT, cfg.vocab, 0)
+    row: dict = {"params": n_params, "tile": tile._asdict()}
+    for backend in ("paged", "monolithic"):
+        kw = dict(params=params, n_slots=ARCH_REQUESTS, max_len=ARCH_PROMPT + GEN + 1,
+                  device=dev)
+        eng = (PagedServingEngine(cfg, serving_config("quant_sparse"),
+                                  page_tokens=PAGE_TOKENS, **kw) if backend == "paged"
+               else ServingEngine(cfg, serving_config("quant_sparse"), **kw))
+        del kw  # the engine holds the parameters; nothing else may
+        for i, p in enumerate(prompts):
+            eng.submit_prompt(p, GEN, seed=i)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = eng.run()
+        torch.cuda.synchronize()
+        row[backend] = {"wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+                        "tokens": [r["tokens"] for r in out["per_request"]],
+                        "finite": out["finite"], "tokens_per_s": out["tokens_per_s"],
+                        "prefill_s_per_request": out["prefill_s"] / ARCH_REQUESTS,
+                        "decode": _decode_split(out)}
+        del eng, out
+    row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    p, m = row["paged"], row["monolithic"]
+    row["tokens_equal"] = p["tokens"] == m["tokens"]
+    print(f"[{tag}] {arch} ({n_params / 1e9:.2f} B parameters, D {a.head_dim}, "
+          f"H {a.n_heads} / HKV {a.n_kv_heads}, flash tile {tile.rows} rows x "
+          f"{tile.heads_per_cta} heads), {ARCH_REQUESTS} requests of prompt {ARCH_PROMPT}: "
+          f"paged {p['prefill_s_per_request']:.3f} s prefill per request, "
+          f"{p['tokens_per_s']:.2f} tokens/s ({p['decode']}); monolithic "
+          f"{m['prefill_s_per_request']:.3f} s, {m['tokens_per_s']:.2f} tokens/s "
+          f"({m['decode']}); peak {row['peak_mem_bytes'] / 2**30:.2f} GiB; "
+          f"tokens equal {row['tokens_equal']}, finite {p['finite'] and m['finite']}",
+          flush=True)
+    print(f"[{tag}] {arch} launches, paged run {p['launches']}", flush=True)
+    if not (p["finite"] and m["finite"]) or any(len(t) != GEN for t in p["tokens"]):
+        fail(f"{tag} phase: {arch} did not finish every request with finite logits")
+    if not row["tokens_equal"]:
+        fail(f"{tag} phase: {arch}'s paged tokens differ from its monolithic tokens")
+    for name in ARCH_KERNELS:
+        if p["launches"][name] <= 0:
+            fail(f"{tag} phase: {arch}'s paged run never launched the {name} kernel")
+    if m["launches"]["flash_attention"] <= 0:
+        fail(f"{tag} phase: {arch}'s monolithic run never launched flash_attention")
+    del params
+    gc.collect()  # the next model must not find this one's 20-49 GB still held
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sum_launches(runs: list) -> dict:
+    return {name: sum(r[name] for r in runs) for name in runs[0]}
+
+
+def phase_archs(dev, gen) -> dict:
+    """(6i) full-width minitron-4b and mistral-nemo-12b, quant_sparse: 4
+    requests of prompt 512 on 4 slots, on the paged and then the
+    monolithic engine over the same parameters (:func:`_serve_both`);
+    each kernel of the path against its plain version at the model's
+    shapes (:func:`_arch_kernel_checks`); then each reduced model on the
+    card against the CPU."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
     t_phase = time.monotonic()
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     res: dict = {}
     for arch in ARCHS_NEW:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        cfg = get_arch(arch).resolve(False)
-        a = cfg.attn
-        tile = plan(1, a.n_heads, a.n_kv_heads, ARCH_PROMPT, a.head_dim, n_sms)
-        params = lm_init(cfg, 0, device=dev)
-        n_params = sum(t.numel() for t in _tensors(params))
-        prompts = synthetic_prompts(ARCH_REQUESTS, ARCH_REQUESTS, ARCH_PROMPT, cfg.vocab, 0)
-        row: dict = {"params": n_params, "tile": tile._asdict()}
-        for backend in ("paged", "monolithic"):
-            kw = dict(params=params, n_slots=ARCH_REQUESTS, max_len=ARCH_PROMPT + GEN + 1,
-                      device=dev)
-            eng = (PagedServingEngine(cfg, serving_config("quant_sparse"),
-                                      page_tokens=PAGE_TOKENS, **kw) if backend == "paged"
-                   else ServingEngine(cfg, serving_config("quant_sparse"), **kw))
-            del kw  # the engine holds the parameters; nothing else may
-            for i, p in enumerate(prompts):
-                eng.submit_prompt(p, GEN, seed=i)
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            t0 = time.monotonic()
-            out = eng.run()
-            torch.cuda.synchronize()
-            row[backend] = {"wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
-                            "tokens": [r["tokens"] for r in out["per_request"]],
-                            "finite": out["finite"], "tokens_per_s": out["tokens_per_s"],
-                            "prefill_s_per_request": out["prefill_s"] / ARCH_REQUESTS,
-                            "decode": _decode_split(out)}
-            del eng, out
-        row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-        p, m = row["paged"], row["monolithic"]
-        row["tokens_equal"] = p["tokens"] == m["tokens"]
-        print(f"[archs] {arch} ({n_params / 1e9:.2f} B parameters, D {a.head_dim}, "
-              f"H {a.n_heads} / HKV {a.n_kv_heads}, flash tile {tile.rows} rows x "
-              f"{tile.heads_per_cta} heads), {ARCH_REQUESTS} requests of prompt {ARCH_PROMPT}: "
-              f"paged {p['prefill_s_per_request']:.3f} s prefill per request, "
-              f"{p['tokens_per_s']:.2f} tokens/s ({p['decode']}); monolithic "
-              f"{m['prefill_s_per_request']:.3f} s, {m['tokens_per_s']:.2f} tokens/s "
-              f"({m['decode']}); peak {row['peak_mem_bytes'] / 2**30:.2f} GiB; "
-              f"tokens equal {row['tokens_equal']}, finite {p['finite'] and m['finite']}",
-              flush=True)
-        print(f"[archs] {arch} launches, paged run {p['launches']}", flush=True)
-        if not (p["finite"] and m["finite"]) or any(len(t) != GEN for t in p["tokens"]):
-            fail(f"archs phase: {arch} did not finish every request with finite logits")
-        if not row["tokens_equal"]:
-            fail(f"archs phase: {arch}'s paged tokens differ from its monolithic tokens")
-        for name in ARCH_KERNELS:
-            if p["launches"][name] <= 0:
-                fail(f"archs phase: {arch}'s paged run never launched the {name} kernel")
-        if m["launches"]["flash_attention"] <= 0:
-            fail(f"archs phase: {arch}'s monolithic run never launched flash_attention")
-        del params
-        gc.collect()  # the next model must not find this one's 20-49 GB still held
-        torch.cuda.empty_cache()
-        row["kernel_errs"] = _arch_kernel_checks(dev, cfg, seed=len(res))
+        row = _serve_both(dev, arch, n_sms, "archs")
+        row["kernel_errs"] = _arch_kernel_checks(dev, get_arch(arch).resolve(False),
+                                                 seed=len(res))
         torch.cuda.empty_cache()
         res[arch] = row
     res["check"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT)
                     for arch in ARCHS_NEW}
     res["errs"] = {name: max(res[arch]["kernel_errs"][name] for arch in ARCHS_NEW)
                    for name in res[ARCHS_NEW[0]]["kernel_errs"]}
-    res["launches"] = {name: sum(res[arch]["paged"]["launches"][name]
-                                 + res[arch]["monolithic"]["launches"][name]
-                                 for arch in ARCHS_NEW)
-                       for name in res[ARCHS_NEW[0]]["paged"]["launches"]}
+    res["launches"] = _sum_launches([res[arch][backend]["launches"] for arch in ARCHS_NEW
+                                     for backend in ("paged", "monolithic")])
     res["wall_s"] = time.monotonic() - t_phase
     print(f"[archs] phase 6i wall {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+# -- slice 13: the hybrid family and the qkv bias ------------------------------------
+
+# 6j: recurrentgemma-9b (12 x (rglru, rglru, local) + 2 rglru; local attention
+# D 256, 16 heads on one kv head, window 2048), 4 requests of prompt 2600
+# (past the window, not a multiple of a tile) on 4 slots, gen GEN; qwen2-7b
+# (qkv bias) as 6i's archs, its biases random and non-zero
+RG_ARCH, RG_REQUESTS, RG_PROMPT = "recurrentgemma-9b", 4, 2600
+RG_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy", "splitk_reduce",
+              "mask_pack", "flash_attention", "flash_attention_d256")
+QWEN_ARCH = "qwen2-7b"
+# the timed D 256 shape: B 1, S 4096 at recurrentgemma's local attention
+FA256_S = 4096
+HBM_80GB = 80e9
+
+
+def _live_pairs(s: int, window: int) -> int:
+    """Causal (query, key) pairs with key > query - window, over S queries."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def _fa256_row(dev, gen, a) -> dict:
+    """flash_attention at D 256 on ``a`` (recurrentgemma's local attention)
+    at S FA256_S, causal, its window, fp32, q/k/v as ``gqa_apply`` passes
+    them: the error against the plain version (atol 2e-5), a call's time (a
+    timed loop), its device time with L2 flushed and its host time, beside
+    the plain version, fp32 scaled_dot_product_attention with enable_gqa
+    and a boolean band mask, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention, plan
+
+    s, h, hkv, d, w = FA256_S, a.n_heads, a.n_kv_heads, a.head_dim, a.window
+    q = torch.randn(1, s, h, d, generator=gen).to(dev).transpose(1, 2)
+    k, v = (torch.randn(1, s, hkv, d, generator=gen).to(dev).transpose(1, 2) for _ in range(2))
+    idx = torch.arange(s, device=dev)
+    band = (idx[:, None] >= idx[None, :]) & (idx[None, :] > idx[:, None] - w)
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True, window=w)
+
+    def plain():
+        return attention_reference(q, k, v, causal=True, window=w)
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)
+
+    want = plain()
+    e, lib_e = _max_err(kernel(), want), _max_err(lib(), want)
+    del want
+    if not e <= 2e-5:
+        fail(f"flash_attention D {d} S {s} window {w} off by {e:.3g}")
+    ms, dev_ms = timed(kernel, 10), cold_device_ms(kernel, iters=10)
+    host = host_ms(kernel, iters=20, warmup=3)
+    plain_ms = timed(plain, 2, warmup=1)
+    lib_ms, lib_dev_ms = timed(lib, 10), cold_device_ms(lib, iters=10)
+    torch.cuda.empty_cache()
+    flops = 4.0 * h * _live_pairs(s, w) * d
+    b_ms, b_by = bound(4.0 * s * d * (2 * h + 2 * hkv), flops)
+    tile = plan(1, h, hkv, s, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    row = {"seq": s, "head_dim": d, "window": w, "tile": tile._asdict(), "ms": ms,
+           "device_ms": dev_ms, "host_ms": host, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_device_ms": lib_dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": e, "library_max_abs_err": lib_e, "tflops": flops / ms / 1e9,
+           "device_tflops": flops / dev_ms / 1e9}
+    print(f"[hybrid] flash_attention B1 H{h} HKV{hkv} D{d} S{s} causal window {w} fp32, tile "
+          f"{tile.rows} rows = {tile.heads_per_cta} heads x {tile.positions} positions, "
+          f"{tile.ctas} CTAs: err {e:.3g}; kernel {ms:.4f} ms ({row['tflops']:.2f} TFLOP/s), "
+          f"device {dev_ms:.4f} ms with L2 flushed, host {host:.4f} ms; plain {plain_ms:.4f} "
+          f"ms, sdpa {lib_ms:.4f} ms (device {lib_dev_ms:.4f}, err {lib_e:.3g}), bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    del q, k, v, band
+    return row
+
+
+def _tick_profile(eng, tag: str, ticks: int = 3, where: str = "") -> dict:
+    """``ticks`` decode ticks of an engine whose slots are all decoding,
+    under torch.profiler: wall and device ms a tick, launches a tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / ticks
+    per_tick = {k: v / ticks for k, v in kernels.launch_counts().items() if v}
+    rows = device_time_by_kernel(prof, ticks)
+    busy = sum(r[1] for r in rows)
+    print(f"[{tag}] decode tick, {eng.n_slots} slots{where}: {wall_ms:.2f} ms wall (profiled), "
+          "device "
+          + (f"{busy:.2f} ms = {busy / wall_ms:.1%}" if busy else "not measured")
+          + f"; launches a tick {per_tick}", flush=True)
+    for name, ms, n in rows[:8]:
+        print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
+    return {"tick_ms": wall_ms, "device_busy_ms": busy, "launches_per_tick": per_tick,
+            "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
+                        for n, ms, c in rows[:20]]}
+
+
+def _serve_recurrentgemma(dev, n_sms: int) -> dict:
+    """recurrentgemma-9b at full width, random weights from seed 0, on the
+    monolithic engine: RG_REQUESTS requests of prompt RG_PROMPT on as many
+    slots, the counters zeroed just before ``run()`` and read just after
+    (every kernel of RG_KERNELS must launch, the D 256 flash_attention among
+    them), finite logits, peak memory under the card's 80 GB.  Then a second
+    engine over the same parameters with the same prompts admitted in one
+    tick: slots 0-1's decode logits at 4 and 2 slots bit-equal (RG-LRU
+    state, rings and all), three profiled decode ticks.  The paged engine
+    must refuse the arch (no pageable leaf)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import plan
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paging import PagedServingEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    cfg = get_arch(RG_ARCH).resolve(False)
+    a = cfg.local_attn
+    tile = plan(1, a.n_heads, a.n_kv_heads, RG_PROMPT, a.head_dim, n_sms)
+    params = lm_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts = synthetic_prompts(RG_REQUESTS, RG_REQUESTS, RG_PROMPT, cfg.vocab, 0)
+    spring = serving_config("quant_sparse")
+    kw = dict(params=params, n_slots=RG_REQUESTS, max_len=RG_PROMPT + GEN + 1, device=dev)
+
+    eng = ServingEngine(cfg, spring, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit_prompt(p, GEN, seed=i)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    del eng
+    tokens = [r["tokens"] for r in out["per_request"]]
+    row = {"params": n_params, "init_s": init_s, "tile": tile._asdict(), "wall_s": wall,
+           "launches": launches, "tokens": tokens, "finite": out["finite"],
+           "tokens_per_s": out["tokens_per_s"],
+           "prefill_s_per_request": out["prefill_s"] / RG_REQUESTS,
+           "decode": _decode_split(out)}
+    print(f"[hybrid] {RG_ARCH} ({n_params / 1e9:.2f} B parameters, made in {init_s:.1f} s; "
+          f"local attention D {a.head_dim}, H {a.n_heads} / HKV {a.n_kv_heads}, window "
+          f"{a.window}, flash tile {tile.rows} rows x {tile.heads_per_cta} heads), "
+          f"{RG_REQUESTS} requests of prompt {RG_PROMPT}: {row['prefill_s_per_request']:.3f} s "
+          f"prefill per request, {row['tokens_per_s']:.2f} tokens/s ({row['decode']}), "
+          f"finite {out['finite']}, wall {wall:.1f} s", flush=True)
+    print(f"[hybrid] {RG_ARCH} launches {launches}", flush=True)
+    if not out["finite"] or any(len(t) != GEN for t in tokens):
+        fail(f"hybrid phase: {RG_ARCH} did not finish every request with finite logits")
+    for name in RG_KERNELS:
+        if launches[name] <= 0:
+            fail(f"hybrid phase: {RG_ARCH}'s run never launched the {name} kernel")
+
+    eng = ServingEngine(cfg, spring, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit_prompt(p, GEN, seed=i)
+    eng.step()  # admits all four, then their first decode tick
+    if len(eng._decode_slots()) != RG_REQUESTS:
+        fail(f"hybrid phase: {len(eng._decode_slots())} of {RG_REQUESTS} slots decode "
+             "after the admitting tick")
+    row["batch_invariance"] = _batch_invariance(eng, RG_ARCH, "hybrid")
+    row["decode_profile"] = _tick_profile(eng, "hybrid")
+    again = [r["tokens"] for r in eng.run()["per_request"]]
+    del eng
+    if again != tokens:
+        fail(f"hybrid phase: {RG_ARCH}'s tokens differ between two runs of the same requests")
+    row["peak_mem_bytes"] = peak = torch.cuda.max_memory_allocated()
+    print(f"[hybrid] {RG_ARCH} peak {peak / 2**30:.2f} GiB; the same tokens on a second "
+          "engine", flush=True)
+    if not peak < HBM_80GB:
+        fail(f"hybrid phase: {RG_ARCH} peaked at {peak / 1e9:.1f} GB")
+    try:
+        PagedServingEngine(cfg, spring, page_tokens=PAGE_TOKENS, **kw)
+    except ValueError as e:
+        row["paged_refusal"] = str(e)
+    else:
+        fail(f"hybrid phase: the paged engine took {RG_ARCH}, which has no pageable leaf")
+    if RG_ARCH not in row["paged_refusal"]:
+        fail(f"hybrid phase: the paged refusal does not name the arch: {row['paged_refusal']}")
+    print(f"[hybrid] paged engine refused: {row['paged_refusal']}", flush=True)
+    del params, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_hybrid(dev, gen) -> dict:
+    """(6j) the hybrid family and the qkv bias: full-width recurrentgemma-9b
+    (:func:`_serve_recurrentgemma`) and each kernel of its path against its
+    plain version at the shapes the path gives it (flash_attention at D 256
+    with the window at S RG_PROMPT, masked_matmul on every projection,
+    the RG-LRU's included, at M RG_PROMPT and RG_REQUESTS, kv_pack on the
+    ring leaf), the D 256 flash_attention timed at S FA256_S; full-width
+    qwen2-7b with random non-zero qkv biases as 6i's archs; then each
+    reduced model on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t_phase = time.monotonic()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res: dict = {RG_ARCH: _serve_recurrentgemma(dev, n_sms)}
+    cfg = get_arch(RG_ARCH).resolve(False)
+    a, dr = cfg.local_attn, cfg.rglru.d_rnn
+    ring = a.window * a.n_kv_heads * a.head_dim
+    res[RG_ARCH]["kernel_errs"] = errs = _arch_kernel_checks(
+        dev, cfg, seed=13, prompt=RG_PROMPT, decode_m=RG_REQUESTS, tag="hybrid", attn=a,
+        extra_projs={"wx": (cfg.d_model, dr), "wy": (cfg.d_model, dr), "wo": (dr, cfg.d_model)},
+        kv_blocks=((RG_REQUESTS, ring), (1, ring)), kv_layers=cfg.n_units)
+    errs["flash_attention_d256"] = errs["flash_attention"]
+    torch.cuda.empty_cache()
+    res["fa256"] = fa = _fa256_row(dev, gen, a)
+    errs["flash_attention_d256"] = max(errs["flash_attention_d256"], fa["max_abs_err"])
+
+    def random_biases(params):
+        g = torch.Generator(device=dev).manual_seed(23)
+        for layer in params["layers"]:
+            for name in ("wq", "wk", "wv"):
+                bias = layer["mixer"][name]["bias"]
+                bias.copy_(torch.randn(bias.shape, generator=g, device=dev).mul_(0.5))
+        if any(bool((layer["mixer"][n]["bias"] == 0).all()) for layer in params["layers"]
+               for n in ("wq", "wk", "wv")):
+            fail("hybrid phase: a qkv bias of qwen2-7b stayed zero")
+
+    res[QWEN_ARCH] = _serve_both(dev, QWEN_ARCH, n_sms, "hybrid", prepare=random_biases)
+    res[QWEN_ARCH]["kernel_errs"] = _arch_kernel_checks(
+        dev, get_arch(QWEN_ARCH).resolve(False), seed=14, tag="hybrid")
+    torch.cuda.empty_cache()
+    archs = (RG_ARCH, QWEN_ARCH)
+    res["check"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT, shared_cache=True)
+                    for arch in archs}
+    res["errs"] = {name: max(res[arch]["kernel_errs"].get(name, 0.0) for arch in archs)
+                   for name in errs}
+    q = res[QWEN_ARCH]
+    res["launches"] = _sum_launches([res[RG_ARCH]["launches"], q["paged"]["launches"],
+                                     q["monolithic"]["launches"]])
+    res["wall_s"] = time.monotonic() - t_phase
+    print(f"[hybrid] phase 6j wall {res['wall_s']:.1f} s", flush=True)
     return res
 
 
@@ -2796,6 +3100,9 @@ def main() -> None:
     report["paged"] = paged = phase_paged(dev)
     report["archs"] = archs = phase_archs(dev, gen)
 
+    # -- 6j. slice 13: recurrentgemma-9b (RG-LRU, D 256 windowed attention), qwen2-7b
+    report["hybrid"] = hybrid = phase_hybrid(dev, gen)
+
     # -- 7. slice 4: the kernel sweep and the paper evaluation -----------------
     report["dangling_filter"] = df = phase_dangling_filter(dev, gen)
     report["sweep"] = sweep = phase_sweep(dev)
@@ -2803,14 +3110,15 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
-    # train_lm, serve_long, serve_mamba2, survive, paged, archs, the kernel
-    # sweep, the paper path's probe), each zeroed just before its run and
-    # read just after (the comparisons above count in none)
+    # train_lm, serve_long, serve_mamba2, survive, paged, archs, hybrid, the
+    # kernel sweep, the paper path's probe), each zeroed just before its run
+    # and read just after (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
                       "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
                       "survive": survive["launches"][name],
                       "paged": paged["launches"][name], "archs": archs["launches"][name],
+                      "hybrid": hybrid["launches"][name],
                       "train": train["launches"][name],
                       "train_lm": train_lm["launches"][name], "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
@@ -2850,7 +3158,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"],
-                            spec_run["errs"]["masked_matmul"]),
+                            hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"]),
          **layer_entry(prefill_rows),
          "library_ms": sum(r["library_ms"] for r in prefill_rows),
          "shape": f"the tile kernel (masked_mm_kernel): one prefill layer, q,k,v,o,gate,up,down "
@@ -2863,6 +3171,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul_skinny"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"],
+                            hybrid["errs"]["masked_matmul_skinny"],
                             spec_run["errs"]["masked_matmul_skinny"]),
          **layer_entry(decode_rows),
          "library_ms": sum(r["library_ms"] for r in decode_rows),
@@ -2920,6 +3229,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:99",
          "launches": total["flash_attention"],
          "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"],
+                            hybrid["errs"]["flash_attention"],
                             spec_run["errs"]["flash_attention"]),
          **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "host_ms", "library_device_ms", "tile")},
@@ -2931,6 +3241,23 @@ def main() -> None:
                  "call; tile: the query tile the wrapper's plan chose; every row of 6a in "
                  "chip_smoke.json",
          "launches_by_path": by_path["flash_attention"]},
+        {"name": "flash_attention_d256", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:99",
+         "launches": total["flash_attention_d256"],
+         "max_abs_err": hybrid["errs"]["flash_attention_d256"],
+         **{k: hybrid["fa256"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "device_ms", "host_ms",
+                                            "library_device_ms", "tile")},
+         "shape": f"one recurrentgemma-9b local attention: B 1, H 16, HKV 1, D 256, "
+                  f"S {FA256_S}, causal, window 2048, fp32; library: fp32 "
+                  "scaled_dot_product_attention (enable_gqa, a boolean band mask)",
+         "note": "the D 256 instantiation of flash_attention.cu (D split over two warp "
+                 "groups); its launches are also counted under flash_attention; "
+                 "max_abs_err: here and at the served prompt (S 2600); ms and library_ms: "
+                 "a timed loop of calls; device_ms and library_device_ms: one call with L2 "
+                 "flushed ahead of it; host_ms: the host's time to queue a call",
+         "launches_by_path": by_path["flash_attention_d256"]},
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_kernel.py:71",
          "launches": total["ssd_scan"], **ssd, "library_ms": None,

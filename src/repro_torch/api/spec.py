@@ -630,21 +630,38 @@ class RunSpec:
                 "rounding only (stochastic rounding is a training device)")
         if self.serving.int8_cache:
             out.append("serving.int8_cache=true: the int8 KV cache is not "
-                       "ported (ROADMAP §1 item 2.3)")
+                       "ported (ROADMAP §1 item 2.2)")
+        if self.serving.pages and not self._pageable():
+            out.append(
+                f"serving.pages=true: arch.id {self.arch.id!r} has no pageable cache leaf "
+                "(its window rings and recurrent state stay slot state), so it cannot be "
+                "served paged, as in the reference (paging/store.py:141)")
         return out
+
+    def _pageable(self) -> bool:
+        """Does the arch keep full-attention k/v, the paged pool's leaves?"""
+        from repro_torch.configs import get_arch
+
+        cfg = get_arch(self.arch.id).config
+        return any(kind[0] == "attn" for _, _, kind in cfg.layer_plan)
 
     def _train_unsupported(self) -> list:
         from repro_torch.configs import get_arch
 
         out = []
         arch = get_arch(self.arch.id)
-        mixers = {mixer for mixer, _ in arch.config.pattern_unit}
+        mixers = {mixer for _, _, (mixer, _) in arch.config.layer_plan}
         if "ssm" in mixers:
             out.append(
                 f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
                 "port: its ssm blocks run ssd_scan, which raises on the card when a "
                 "gradient is wanted, and the reference has no backward kernel for it "
                 "(SSM and hybrid training, ROADMAP §1 item 3)")
+        elif mixers & {"rglru", "local"}:
+            out.append(
+                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
+                "port yet: its RG-LRU scan and sliding-window attention are ported for "
+                "serving only (hybrid training, ROADMAP §1 item 3)")
         if self.memstash.capacity != 1.0:
             out.append(
                 f"memstash.capacity={self.memstash.capacity}: the port's stash is the "

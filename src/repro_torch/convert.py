@@ -3,11 +3,14 @@ tree or CNN ``ParamStore.params`` -> port params; the reference's LM train
 state (``TrainState`` / a checkpoint's flat names) -> the port's.
 
 For the LMs, the reference stacks the layers of each scanned unit position along a
-leading axis (``unit_0/...`` leaves of shape ``(n_units, ...)``); the port
-keeps a list of per-layer dicts.  Dense kernels are ``(K, N)`` on both
-sides, so every other leaf maps one to one: attention blocks and Mamba-2
-blocks (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
-``d_skip``, ``norm``, ``out_proj``) alike.
+leading axis (``unit_0/...`` leaves of shape ``(n_units, ...)``) and keeps
+unrolled ``prefix_i`` / ``suffix_i`` layers; the port keeps a list of
+per-layer dicts in layer order (``LMConfig.layer_plan``).  Dense kernels
+are ``(K, N)`` on both sides, so every other leaf maps one to one:
+attention blocks (with qwen2's ``bias`` leaves), Mamba-2 blocks
+(``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``,
+``norm``, ``out_proj``) and RG-LRU blocks (``wx``, ``wy``, ``conv_w``,
+``conv_b``, ``w_r``, ``w_i``, ``lam``, ``wo``) alike.
 """
 
 from __future__ import annotations
@@ -32,8 +35,7 @@ def params_from_jax(tree: dict, cfg, *, device="cpu") -> dict:
     params = {
         "embed": _to_torch(tree["embed"], device),
         "final_norm": _to_torch(tree["final_norm"], device),
-        "layers": [_to_torch(tree[f"unit_{u}"], device, index=i)
-                   for i, u in cfg.layer_kinds],
+        "layers": [_to_torch(tree[key], device, index=i) for key, i, _ in cfg.layer_plan],
     }
     if "lm_head" in tree:
         params["lm_head"] = _to_torch(tree["lm_head"], device)
@@ -108,15 +110,19 @@ def train_state_from_flat(flat: dict, cfg, *, device="cpu", like=None):
 def _jax_layout(params: dict, cfg) -> dict:
     """The port's parameter tree in the reference's ``lm_init`` layout:
     each unit position's layers stacked along a leading axis (0-d leaves,
-    sgdm's v, are one scalar for the stack, as the reference keeps them)."""
+    sgdm's v, are one scalar for the stack, as the reference keeps them),
+    prefix / suffix layers under their own keys."""
     from repro_torch.optim.optimizers import tree_map
 
-    width = len(cfg.pattern_unit)
     tree = {k: v for k, v in params.items() if k != "layers"}
-    for u in range(width):
-        layers = params["layers"][u::width]
-        tree[f"unit_{u}"] = tree_map(lambda *xs: torch.stack(xs) if xs[0].ndim else xs[0],
-                                     *layers)
+    units: dict = {}
+    for (key, i, _), layer in zip(cfg.layer_plan, params["layers"]):
+        if i is None:
+            tree[key] = layer
+        else:
+            units.setdefault(key, []).append(layer)
+    for key, layers in units.items():
+        tree[key] = tree_map(lambda *xs: torch.stack(xs) if xs[0].ndim else xs[0], *layers)
     return tree
 
 

@@ -48,22 +48,35 @@
 //   block skips bound the loop, so skipped tiles are never loaded.
 // - exp2 (ex2.approx) on scores scaled by scale * log2(e); each lane keeps
 //   a partial l, summed across the row's lanes once at the end.
+// - D 256 (recurrentgemma's local attention) splits D over two warp
+//   groups: 8 warps, warps w and w + 4 own the same 16 rows, each half of
+//   the d axis.  A lane of one row at D 256 would hold 4 x 32 accumulators
+//   and spill; split, it holds 4 x 16, as at D 128.  Each group sums its
+//   half of Q K^T, the two partial score tiles are swapped through shared
+//   memory between the pair (two 64-thread named barriers a tile) and added
+//   (IEEE addition commutes, so both groups hold the same scores, maxima and
+//   sums); each group then accumulates P V for its half of the output
+//   columns.  The 64-row tile, 2 stages, one CTA (8 warps) per SM.
 // q/k/v are read through (b, h, s) strides with a contiguous D axis, so the
 // model's (B, S, H, D) projections are read in place; the output is
 // written in the input type.
 //
 // Shared memory per CTA (fp32): 101 KB for the 128-row tile at D 64; 108 KB
-// for the 64-row tile at D 128, 60 KB at D 64.  Registers (nvcc 12.8, no
-// spills): 219 a lane in the 128-row tile at D 64, 155 in the 64-row tile
-// at D 64 (three CTAs per SM), 238 at D 128; two CTAs per SM otherwise.
-// bf16 halves the K/V ring.
+// for the 64-row tile at D 128, 60 KB at D 64, 211 KB at D 256 (Q 64 KB, a
+// 2-stage K/V ring of 130 KB, a P / partial-score tile per warp group).
+// Registers (nvcc 12.8, no spills): 219 a lane in the 128-row tile at D 64,
+// 155 in the 64-row tile at D 64 (three CTAs per SM), 238 at D 128; two
+// CTAs per SM otherwise; 240 at D 256 (195 in bf16), one CTA of 8 warps
+// per SM.  bf16 halves the K/V ring.
 //
 // What bounds it on the H100: at llama3.2-1b's prefill (H 32, HKV 8, D 64,
 // S 4096, causal) it does 2 * 2 * H * S^2 * D / 2 = 68.7 GFLOP per layer on
 // 16.8 MB of q/k/v/out: bound by operations, 1.03 ms at 67 TFLOP/s of fp32
 // FMAs.  Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W
 // power limit: 1.79 ms there (38 TFLOP/s, 57% of that peak; the first
-// version of this kernel took 3.04 ms), 7.08 ms at S 8192, 3.73 ms at D 128.
+// version of this kernel took 3.04 ms), 7.08 ms at S 8192, 3.73 ms at D 128,
+// and 3.10 ms at recurrentgemma-9b's local attention (H 16, HKV 1, D 256,
+// S 4096, window 2048: 103.1 GFLOP, bound 1.54 ms; 33 TFLOP/s).
 // What is left is issue and latency: the inner loops issue 12 shared-memory
 // reads per 128 FMAs (Q K^T) and 4 per 64 (P V), plus about 40 softmax
 // instructions per lane and tile, from eight warps per SM.  No tensor
@@ -106,17 +119,21 @@ struct Params {
     float c;             // scale * log2(e)
 };
 
-// TM rows per lane; STAGES slots in the K/V ring
-template <int D, typename T, int TM, int STAGES>
+// TM rows per lane; STAGES slots in the K/V ring; DSPLIT warp groups, each
+// owning D / DSPLIT of the d axis for the same rows
+template <int D, typename T, int TM, int STAGES, int DSPLIT>
 struct Cfg {
+    static constexpr int NT = THREADS * DSPLIT;                 // threads per CTA
     static constexpr int BQ = WARPS * 4 * TM;                   // query rows per CTA
     static constexpr int WR = 4 * TM;                           // rows per warp
+    static constexpr int DH = D / DSPLIT;                       // d columns per warp group
     static constexpr int LD = D + 16 / (int)sizeof(T);          // staged K/V row, elements
     static constexpr int PLD = BQ + 4;                          // P^T row, floats
-    static constexpr int NC = D / 8;                            // output columns per lane
+    static constexpr int NC = DH / 8;                           // output columns per lane
     static constexpr int Q_BYTES = D * BQ * 4;                  // Q^T, fp32
     static constexpr int KV_BYTES = 2 * BKV * LD * (int)sizeof(T);  // one slot: K, then V
-    static constexpr int SMEM = Q_BYTES + STAGES * KV_BYTES + BKV * PLD * 4;
+    static constexpr int P_FLOATS = BKV * PLD;                  // one group's P^T
+    static constexpr int SMEM = Q_BYTES + STAGES * KV_BYTES + DSPLIT * P_FLOATS * 4;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -174,16 +191,21 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// barrier `id` (1..WARPS; 0 is __syncthreads) over the two warps of a pair
+__device__ __forceinline__ void pair_sync(int id) {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
 // Copy BKV rows of D elements into dst (row stride LD), BYTES per cp.async:
 // row r from base + (j0 + r) * stride, zeros at key j0 + r >= skv.  A thread
 // copies one column chunk of every STEP-th row, so its addresses advance by
 // a constant and few registers stay live across the kv loop.
-template <int BYTES, int D, int LD, typename T>
+template <int BYTES, int D, int LD, int NT, typename T>
 __device__ __forceinline__ void copy_rows(T* dst, const T* base, long long stride, int j0,
                                           int skv) {
     constexpr int CH = BYTES / (int)sizeof(T);  // elements per copy
-    constexpr int NCH = D / CH;                 // copies per row (a power of two <= THREADS)
-    constexpr int STEP = THREADS / NCH;         // rows between a thread's copies
+    constexpr int NCH = D / CH;                 // copies per row (a power of two <= NT)
+    constexpr int STEP = NT / NCH;              // rows between a thread's copies
     const int r0 = threadIdx.x / NCH, c = (threadIdx.x % NCH) * CH;
     if (STEP > BKV && r0 >= BKV) return;
     const T* src = base + (j0 + r0) * stride + c;
@@ -196,29 +218,31 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* base, long long strid
 }
 
 // Stage one K or V tile: 16- or 4-byte copies (mode), else plain loads
-template <int D, int LD, typename T>
+template <int D, int LD, int NT, typename T>
 __device__ __forceinline__ void stage_rows(T* dst, const T* base, long long stride, int j0,
                                            int skv, int mode) {
     if (mode == 16) {
-        copy_rows<16, D, LD>(dst, base, stride, j0, skv);
+        copy_rows<16, D, LD, NT>(dst, base, stride, j0, skv);
     } else if (mode == 4) {
-        copy_rows<4, D, LD>(dst, base, stride, j0, skv);
+        copy_rows<4, D, LD, NT>(dst, base, stride, j0, skv);
     } else {
-        for (int e = threadIdx.x; e < BKV * D; e += THREADS) {
+        for (int e = threadIdx.x; e < BKV * D; e += NT) {
             const int r = e / D, c = e % D;
             dst[r * LD + c] = j0 + r < skv ? base[(j0 + r) * stride + c] : zero<T>();
         }
     }
 }
 
-template <int D, typename T, int TM, int STAGES>
-__global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
-    using C = Cfg<D, T, TM, STAGES>;
-    constexpr int BQ = C::BQ, LD = C::LD, PLD = C::PLD, NC = C::NC;
+template <int D, typename T, int TM, int STAGES, int DSPLIT>
+__global__ void __launch_bounds__(THREADS * DSPLIT, DSPLIT == 1 ? 2 : 1) fa_kernel(const Params p) {
+    using C = Cfg<D, T, TM, STAGES, DSPLIT>;
+    constexpr int BQ = C::BQ, LD = C::LD, PLD = C::PLD, NC = C::NC, NT = C::NT, DH = C::DH;
     extern __shared__ __align__(16) unsigned char smem[];
     float* Qt = reinterpret_cast<float*>(smem);                  // [D][BQ]
     T* ring = reinterpret_cast<T*>(smem + C::Q_BYTES);           // [STAGES][K|V][BKV][LD]
-    float* Pt = reinterpret_cast<float*>(smem + C::Q_BYTES + STAGES * C::KV_BYTES);  // [BKV][PLD]
+    // [DSPLIT][BKV][PLD]: each warp group's P^T (and, with DSPLIT 2, its
+    // partial scores on their way to the other group)
+    float* Pt_all = reinterpret_cast<float*>(smem + C::Q_BYTES + STAGES * C::KV_BYTES);
 
     // the tile: latest positions first, over every head tile and batch
     const int lin = blockIdx.x;
@@ -239,8 +263,8 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
     auto load_kv = [&](int t) {
         T* ks = ring + (t % STAGES) * 2 * BKV * LD;
         const int j0 = kv_begin + t * BKV;
-        stage_rows<D, LD>(ks, kp, p.ks.s, j0, p.skv, p.kv_mode);
-        stage_rows<D, LD>(ks + BKV * LD, vp, p.vs.s, j0, p.skv, p.kv_mode);
+        stage_rows<D, LD, NT>(ks, kp, p.ks.s, j0, p.skv, p.kv_mode);
+        stage_rows<D, LD, NT>(ks + BKV * LD, vp, p.vs.s, j0, p.skv, p.kv_mode);
     };
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -252,11 +276,11 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
     // issued before the first store; lanes take consecutive rows, so the
     // transposed stores hit distinct banks
     {
-        constexpr int QIT = BQ * (D / 4) / THREADS;
+        constexpr int QIT = BQ * (D / 4) / NT;
         float4 x[QIT];
 #pragma unroll
         for (int it = 0; it < QIT; ++it) {
-            const int e = it * THREADS + threadIdx.x, i = e % BQ, d = (e / BQ) * 4;
+            const int e = it * NT + threadIdx.x, i = e % BQ, d = (e / BQ) * 4;
             const int pos = q0 + (i & (npos - 1));
             const T* src = qp + (i >> p.pos_shift) * p.qs.h + pos * p.qs.s + d;
             x[it] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -267,7 +291,7 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
         }
 #pragma unroll
         for (int it = 0; it < QIT; ++it) {
-            const int e = it * THREADS + threadIdx.x, i = e % BQ, d = (e / BQ) * 4;
+            const int e = it * NT + threadIdx.x, i = e % BQ, d = (e / BQ) * 4;
             Qt[(d + 0) * BQ + i] = x[it].x;
             Qt[(d + 1) * BQ + i] = x[it].y;
             Qt[(d + 2) * BQ + i] = x[it].z;
@@ -276,9 +300,21 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
     }
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int rw = warp % WARPS, dg = warp / WARPS;  // row warp, warp group (d half)
+    const int d0 = dg * DH;                          // the group's first d column
     const int ty = lane / 8, tx = lane % 8;
-    const int rbase = warp * C::WR + ty * 4;  // row(r) = rbase + (r / 4) * 16 + r % 4
+    const int rbase = rw * C::WR + ty * 4;  // row(r) = rbase + (r / 4) * 16 + r % 4
     auto row = [&](int r) { return rbase + (r / 4) * 16 + r % 4; };
+    float* Pt = Pt_all + dg * C::P_FLOATS;  // [BKV][PLD], this group's
+    // the partial score tile (TK keys x TM rows) through P^T's layout
+    auto put_t = [&](float* dst, const float (&x)[TM][TK]) {
+#pragma unroll
+        for (int u = 0; u < TK; ++u)
+#pragma unroll
+            for (int g = 0; g < TM / 4; ++g)
+                *reinterpret_cast<float4*>(&dst[(tx + 8 * u) * PLD + rbase + g * 16]) =
+                    make_float4(x[4 * g][u], x[4 * g + 1][u], x[4 * g + 2][u], x[4 * g + 3][u]);
+    };
 
     float m[TM], l[TM], acc[TM][NC];
 #pragma unroll
@@ -304,7 +340,8 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
 #pragma unroll
             for (int u = 0; u < TK; ++u) s[r][u] = 0.0f;
 #pragma unroll(UNROLL_D)
-        for (int d = 0; d < D; d += 4) {
+        for (int dd0 = 0; dd0 < DH; dd0 += 4) {
+            const int d = d0 + dd0;
             float4 kf[TK];
 #pragma unroll
             for (int u = 0; u < TK; ++u) kf[u] = ld4(ks + (tx + 8 * u) * LD + d);
@@ -324,6 +361,24 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
                     for (int r = 0; r < TM; ++r) s[r][u] = fmaf(qv[r], kd, s[r][u]);
                 }
             }
+        }
+
+        if constexpr (DSPLIT == 2) {
+            // swap partial scores with the other group's warp of these rows:
+            // own + other in both (addition commutes: the same bits)
+            put_t(Pt, s);
+            pair_sync(1 + rw);
+            const float* other = Pt_all + (1 - dg) * C::P_FLOATS;
+#pragma unroll
+            for (int u = 0; u < TK; ++u)
+#pragma unroll
+                for (int g = 0; g < TM / 4; ++g) {
+                    const float4 x = *reinterpret_cast<const float4*>(
+                        &other[(tx + 8 * u) * PLD + rbase + g * 16]);
+                    s[4 * g][u] += x.x, s[4 * g + 1][u] += x.y;
+                    s[4 * g + 2][u] += x.z, s[4 * g + 3][u] += x.w;
+                }
+            pair_sync(1 + rw);  // the other warp has read this one's partials
         }
 
         // online softmax; element masks only on a boundary tile
@@ -367,13 +422,8 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
             for (int e = 0; e < NC; ++e) acc[r][e] *= alpha;
         }
 
-        // P^T for this warp's rows, then acc += P V
-#pragma unroll
-        for (int u = 0; u < TK; ++u)
-#pragma unroll
-            for (int g = 0; g < TM / 4; ++g)
-                *reinterpret_cast<float4*>(&Pt[(tx + 8 * u) * PLD + rbase + g * 16]) =
-                    make_float4(s[4 * g][u], s[4 * g + 1][u], s[4 * g + 2][u], s[4 * g + 3][u]);
+        // P^T for this warp's rows, then acc += P V over the group's columns
+        put_t(Pt, s);
         __syncwarp();
 #pragma unroll(UNROLL_J)
         for (int j = 0; j < BKV; ++j) {
@@ -383,7 +433,7 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
                 const float4 x = *reinterpret_cast<const float4*>(&Pt[j * PLD + rbase + g * 16]);
                 pf[4 * g] = x.x, pf[4 * g + 1] = x.y, pf[4 * g + 2] = x.z, pf[4 * g + 3] = x.w;
             }
-            const T* vrow = vs + j * LD;
+            const T* vrow = vs + j * LD + d0;
             if constexpr (NC >= 4) {
 #pragma unroll
                 for (int g = 0; g < NC / 4; ++g) {
@@ -415,31 +465,37 @@ __global__ void __launch_bounds__(THREADS, 2) fa_kernel(const Params p) {
         T* dst = op + (i >> p.pos_shift) * p.os.h + pos * p.os.s;
 #pragma unroll
         for (int e = 0; e < NC; ++e) {
-            const int col = NC >= 4 ? (e / 4) * 32 + tx * 4 + e % 4 : tx * NC + e;
+            const int col = d0 + (NC >= 4 ? (e / 4) * 32 + tx * 4 + e % 4 : tx * NC + e);
             store(&dst[col], acc[r][e] * inv);
         }
     }
 }
 
-template <int D, typename T, int TM, int STAGES>
+template <int D, typename T, int TM, int STAGES, int DSPLIT>
 int launch(const Params& p, int n_ctas, cudaStream_t stream) {
-    using C = Cfg<D, T, TM, STAGES>;
-    auto kernel = fa_kernel<D, T, TM, STAGES>;
+    using C = Cfg<D, T, TM, STAGES, DSPLIT>;
+    auto kernel = fa_kernel<D, T, TM, STAGES, DSPLIT>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<n_ctas, THREADS, C::SMEM, stream>>>(p);
+    kernel<<<n_ctas, C::NT, C::SMEM, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-// The two query tiles: 128 rows (D <= 64, 3 stages) and 64 rows (2 stages).
+// The query tiles: 128 rows (D <= 64, 3 stages) and 64 rows (2 stages); at
+// D 256 only the 64-row tile, its d axis split over two warp groups.
 template <int D, typename T>
 int launch_rows(int rows, const Params& p, int n_ctas, cudaStream_t stream) {
-    if (rows == BIG_ROWS) {
-        if constexpr (D <= 64) return launch<D, T, BIG_TM, 3>(p, n_ctas, stream);
-        return (int)cudaErrorInvalidValue;
+    if constexpr (D > 128) {
+        if (rows != SMALL_ROWS) return (int)cudaErrorInvalidValue;
+        return launch<D, T, SMALL_TM, 2, 2>(p, n_ctas, stream);
+    } else {
+        if (rows == BIG_ROWS) {
+            if constexpr (D <= 64) return launch<D, T, BIG_TM, 3, 1>(p, n_ctas, stream);
+            return (int)cudaErrorInvalidValue;
+        }
+        return launch<D, T, SMALL_TM, 2, 1>(p, n_ctas, stream);
     }
-    return launch<D, T, SMALL_TM, 2>(p, n_ctas, stream);
 }
 
 template <typename T>
@@ -449,6 +505,7 @@ int launch_d(int head_dim, int rows, const Params& p, int n_ctas, cudaStream_t s
         case 32: return launch_rows<32, T>(rows, p, n_ctas, stream);
         case 64: return launch_rows<64, T>(rows, p, n_ctas, stream);
         case 128: return launch_rows<128, T>(rows, p, n_ctas, stream);
+        case 256: return launch_rows<256, T>(rows, p, n_ctas, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -467,7 +524,8 @@ int copy_mode(const void* ptr, const Strides& s, int elem) {
 extern "C" {
 
 // [rows of the big tile, rows of the small tile, MAX_HEADS_PER_CTA], which
-// the Python wrapper plans the query tiles with and checks
+// the Python wrapper plans the query tiles with and checks (D 256 takes the
+// small tile only)
 void flash_attention_config(int* out) {
     out[0] = BIG_ROWS;
     out[1] = SMALL_ROWS;
@@ -478,7 +536,8 @@ void flash_attention_config(int* out) {
 // of the (b, h, s) axes, D contiguous.  window <= 0 means no window.  The
 // tile plan: `rows` query rows per CTA (128, or 64; 64 at D 128) made of
 // `heads_per_cta` heads of one kv group (a power of two dividing the group,
-// at most 8) at rows / heads_per_cta positions each.
+// at most 8) at rows / heads_per_cta positions each.  head_dim: 16, 32, 64,
+// 128 or 256.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int batch,
                            int n_heads, int n_kv_heads, int sq, int skv, int head_dim,
                            int is_bf16, long long q_sb, long long q_sh, long long q_ss,

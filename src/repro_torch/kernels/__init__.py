@@ -9,7 +9,9 @@ the skinny kernel), ``tile_occupancy`` (the tile kernel's occupancy
 pre-pass, two per product with M > 32),
 ``splitk_reduce`` (the split-K reduce, one per product with K > 8192),
 ``mask_pack``, ``stochastic_round``, ``flash_attention`` (one per prefill
-attention), ``ssd_scan`` (one per SSD scan, four stage kernels) and
+attention; ``flash_attention_d256`` counts again those at head dim 256,
+recurrentgemma's local attention), ``ssd_scan`` (one per SSD scan, four
+stage kernels) and
 ``dangling_filter`` (the pre-compute filter, on the kernel sweep's path
 alone).  Importing this package builds nothing.
 """
@@ -33,10 +35,15 @@ WRAPPERS = {"masked_matmul": masked_matmul, "masked_matmul_dx": masked_matmul_dx
             "ssd_scan": ssd_scan, "dangling_filter": dangling_filter}
 
 
+#: kernel name -> (its wrapper, the attribute that counts its launches)
+COUNTERS = {**{name: (fn, "launches") for name, fn in WRAPPERS.items()},
+            "flash_attention_d256": (flash_attention, "launches_d256")}
+
+
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)

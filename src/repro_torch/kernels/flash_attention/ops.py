@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 __all__ = ["flash_attention", "attention_reference", "plan"]
 
 #: head dims the CUDA kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 #: query rows of the kernel's two tiles and the most heads of one kv group
 #: it packs into a tile (checked against the library's when it loads)
@@ -60,7 +60,9 @@ def plan(batch: int, n_heads: int, n_kv_heads: int, sq: int, head_dim: int, n_sm
     at the same positions, so a K/V tile is fetched once per group.  128
     rows where that gives :data:`BIG_TILE_CTAS_PER_SM` CTAs per SM and the
     head dim is at most 64; 64 rows otherwise (D 128 always: its 128-row
-    tile does not fit two CTAs per SM).  Cached per shape: the wrapper asks
+    tile does not fit two CTAs per SM; D 256 too, where the kernel splits
+    the d axis over two warp groups of the 64 rows: recurrentgemma's group
+    of 16 is 8 heads x 8 positions).  Cached per shape: the wrapper asks
     on every call."""
     group = n_heads // n_kv_heads
     hpc = min(group & -group, MAX_HEADS_PER_CTA)
@@ -134,6 +136,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int], rows: Optional[int] = 
             int(causal), 0 if window is None else int(window), 1.0 / (d**0.5),
             rows or tile.rows, tile.heads_per_cta, cuda.stream(q.device)), "flash_attention")
     flash_attention.launches += 1
+    if d == 256:
+        flash_attention.launches_d256 += 1
     return out
 
 
@@ -146,5 +150,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention_reference(q, k, v, causal=causal, window=window)
 
 
-#: kernel launches made by this wrapper (the CPU path counts nothing)
+#: kernel launches made by this wrapper (the CPU path counts nothing), and
+#: those of them at head dim 256
 flash_attention.launches = 0
+flash_attention.launches_d256 = 0

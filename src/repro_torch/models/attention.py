@@ -1,4 +1,5 @@
-"""GQA attention (port of ``repro/models/attention.py``).
+"""GQA attention, full and sliding-window (port of
+``repro/models/attention.py``).
 
 Two regimes, as in the reference:
 
@@ -18,9 +19,17 @@ Two regimes, as in the reference:
     there, so the current token's key is bf16-rounded exactly as in the
     reference (``_row_update``, ``attention.py:41-45``).
 
+A window spec (recurrentgemma's local attention) keeps ring caches,
+``k_ring`` / ``v_ring`` of ``window`` rows with slot(p) = p % window for
+any prompt length: prefill scatters its last ``window`` rows there (zero
+padded below the window), decode writes at ``pos % window`` and masks by
+each slot's absolute position (``attention.py:184-201``, ``:228-253``).
+A ``qkv_bias`` spec (qwen2) gives ``wq`` / ``wk`` / ``wv`` a bias, which
+``dense_apply`` adds.
+
 Decode attention stays plain torch, as in the reference; its score
 product runs in fixed row blocks (``layers.fixed_rows``) so that a row's
-result does not depend on the batch's size.  MLA, sliding windows, the qkv bias and the int8 cache are
+result does not depend on the batch's size.  MLA and the int8 cache are
 not ported yet.
 """
 
@@ -55,16 +64,26 @@ def _scores(qh: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgd,bskd->bkgs", qh, ck)
 
 
+def _valid(pos_v: torch.Tensor, s_max: int, window: Optional[int]) -> torch.Tensor:
+    """(B, S) live cache slots of each row at position ``pos_v``: slots up to
+    it, or for a ring the slots whose absolute position p = pos - ((pos - i)
+    mod S) is real (>= 0) and inside the window."""
+    idx = torch.arange(s_max, device=pos_v.device)[None, :]
+    if window is None:
+        return idx <= pos_v[:, None]
+    abs_pos = pos_v[:, None] - torch.remainder(pos_v[:, None] - idx, s_max)
+    return (abs_pos >= 0) & (abs_pos > pos_v[:, None] - window)
+
+
 def _decode_attend(qh: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                   pos_v: torch.Tensor) -> torch.Tensor:
-    """fp32 attention of (B, KV, G, D) queries over the (B, S, KV, D) cache
-    up to each row's position.  The score product runs in fixed row blocks
+                   valid: torch.Tensor) -> torch.Tensor:
+    """fp32 attention of (B, KV, G, D) queries over the (B, S, KV, D) cache's
+    ``valid`` (B, S) slots.  The score product runs in fixed row blocks
     (``fixed_rows``): on the card its batched GEMM's sums differ with the
     batch's size.  The softmax and the value product read equal at 4 and at
     2 rows there, so they run batched."""
-    d, s_max = qh.shape[-1], ck.shape[1]
+    d = qh.shape[-1]
     scores = fixed_rows(_scores, qh.to(torch.float32), ck.to(torch.float32)) / (d**0.5)
-    valid = torch.arange(s_max, device=qh.device)[None, :] <= pos_v[:, None]
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full((), -1e30, device=qh.device))
     p = torch.softmax(scores, dim=-1)
@@ -138,15 +157,25 @@ class AttnSpec:
 
 
 def gqa_init(gen: torch.Generator, d: int, spec: AttnSpec, *, device=None) -> dict:
-    if spec.window is not None or spec.qkv_bias:
-        raise NotImplementedError("sliding-window and qkv-bias attention are not ported")
-    h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    h, kv, hd, bias = spec.n_heads, spec.n_kv_heads, spec.head_dim, spec.qkv_bias
     return {
-        "wq": dense_init(gen, d, h * hd, device=device),
-        "wk": dense_init(gen, d, kv * hd, device=device),
-        "wv": dense_init(gen, d, kv * hd, device=device),
+        "wq": dense_init(gen, d, h * hd, device=device, bias=bias),
+        "wk": dense_init(gen, d, kv * hd, device=device, bias=bias),
+        "wv": dense_init(gen, d, kv * hd, device=device, bias=bias),
         "wo": dense_init(gen, h * hd, d, device=device),
     }
+
+
+def _ring(x: torch.Tensor, window: int) -> torch.Tensor:
+    """A prefill's (B, S, KV, D) rows as a ``window``-row ring with slot(p)
+    = p % window: zero-padded when S < window, else the last ``window``
+    rows scattered to their slots."""
+    b, s = x.shape[:2]
+    if s < window:
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, window - s))
+    ring = torch.zeros((b, window, *x.shape[2:]), dtype=x.dtype, device=x.device)
+    ring[:, torch.arange(s - window, s, device=x.device) % window] = x[:, s - window:]
+    return ring
 
 
 def gqa_apply(
@@ -176,19 +205,27 @@ def gqa_apply(
             # (B,S,H,D) -> (B,H,S,D) views; the output comes back in q's
             # layout, so the transpose back is contiguous again
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=spec.causal).transpose(1, 2)
-        new_cache = ({"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-                     if return_cache else None)
+                                  causal=spec.causal, window=spec.window).transpose(1, 2)
+        new_cache = None
+        if return_cache:
+            kc, vc = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            if spec.window is None:
+                new_cache = {"k": kc, "v": vc}
+            else:
+                new_cache = {"k_ring": _ring(kc, spec.window), "v_ring": _ring(vc, spec.window)}
     else:
         if s != 1:
             raise ValueError("decode processes one token per step")
         pos_v = _pos_vec(pos, b, x.device)
-        ck = _row_update(cache["k"], k, pos_v)
-        cv = _row_update(cache["v"], v, pos_v)
+        kn, vn = ("k", "v") if spec.window is None else ("k_ring", "v_ring")
+        s_max = cache[kn].shape[1]
+        slot_v = pos_v if spec.window is None else torch.remainder(pos_v, s_max)
+        ck = _row_update(cache[kn], k, slot_v)
+        cv = _row_update(cache[vn], v, slot_v)
         qh = q.reshape(b, kv, h // kv, d)
-        out = _decode_attend(qh, ck, cv, pos_v)
+        out = _decode_attend(qh, ck, cv, _valid(pos_v, s_max, spec.window))
         out = out.reshape(b, 1, h, d).to(x.dtype)
-        new_cache = {"k": ck, "v": cv}
+        new_cache = {kn: ck, vn: cv}
 
     out = dense_apply(params["wo"], out.reshape(b, s, h * d), ctx)
     return out, new_cache
@@ -196,6 +233,11 @@ def gqa_apply(
 
 def gqa_init_cache(batch: int, spec: AttnSpec, max_len: int, dtype=torch.bfloat16,
                    *, device=None) -> dict:
-    shape = (batch, max_len, spec.n_kv_heads, spec.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Zero k/v caches of ``max_len`` rows, or for a window spec its
+    ``window``-row rings."""
+    if spec.window is None:
+        names, rows = ("k", "v"), max_len
+    else:
+        names, rows = ("k_ring", "v_ring"), spec.window
+    shape = (batch, rows, spec.n_kv_heads, spec.head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device) for n in names}

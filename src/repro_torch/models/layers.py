@@ -54,11 +54,14 @@ class SpringContext:
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device=None,
-               scale: float | None = None) -> dict:
+               scale: float | None = None, bias: bool = False) -> dict:
     if scale is None:
         scale = 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
-    return {"kernel": w.mul_(scale)}
+    p = {"kernel": w.mul_(scale)}
+    if bias:
+        p["bias"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
+    return p
 
 
 def dense_apply(params: dict, x: torch.Tensor, ctx: SpringContext) -> torch.Tensor:

@@ -1,30 +1,39 @@
 """Decoder-LM stack (port of ``repro/models/lm.py``): serving's prefill
 and decode, and training's :func:`lm_hidden` / :func:`lm_loss`.
 
-Covers two block kinds: ``("attn", "swiglu")`` (the llama family) and
-``("ssm", "none")`` (Mamba-2, no FFN); other mixers and FFNs raise
-``NotImplementedError``.  The reference scans a stacked ``unit_0``
-parameter tree; here the layers are a Python list of per-layer dicts,
-walked in order.  Caches keep the reference's stacked layout,
-``{"pos", "unit_0": {...}}`` with leaves ``(n_units, B, ...)``: attention
-``{"k", "v"}`` of ``(n_units, B, S, KV, D)``, so the packed slot pool is
-laid out exactly as the reference's, and SSM ``{"conv", "ssm"}`` states.
+Covers the block kinds of :data:`SUPPORTED_KINDS`: ``("attn", "swiglu")``
+(the llama family, qwen2's qkv bias included), ``("ssm", "none")``
+(Mamba-2, no FFN), and recurrentgemma's ``("rglru", "swiglu")`` and
+``("local", "swiglu")`` (sliding-window attention, ``cfg.local_attn``);
+other mixers and FFNs raise ``NotImplementedError``.  The reference scans
+a stacked ``unit_u`` parameter tree per position of its repeating unit,
+plus unrolled ``prefix_i`` / ``suffix_i`` layers; here the layers are a
+Python list of per-layer dicts, walked in order (:attr:`LMConfig.layer_plan`:
+the prefix, then units 0, 1, ... of each repeat, then the suffix).
+Caches keep the reference's layout, ``{"pos", "unit_u": {...},
+"suffix_i": {...}}``: unit leaves stack the repeats in front,
+``(n_units, B, ...)`` (attention ``{"k", "v"}`` of ``(n_units, B, S, KV,
+D)``, window rings ``{"k_ring", "v_ring"}``, SSM ``{"conv", "ssm"}`` and
+RG-LRU ``{"conv", "h"}`` states), prefix and suffix leaves have none, so
+the packed slot pool is laid out exactly as the reference's.
 
 Training recomputes a unit of layers in the backward pass under
 ``remat_policy``, as the reference's scan does: ``"full"`` checkpoints
 each unit (``torch.utils.checkpoint``), ``"block_io"`` each block, and
 ``"stash"`` stores the unit's residual-stream input binary-mask compressed
 (``memstash.stash_apply``, stash point ``"lm/residual"``) unless the
-``MemstashConfig`` resolves that point to "remat" or "none".  A recompute
-re-draws its SR (the ``KeyGen`` moves on), as the reference's re-traced
-keys do.  The loss is the chunked cross-entropy of ``models/losses.py``.
+``MemstashConfig`` resolves that point to "remat" or "none"; prefix and
+suffix layers run plain, as in the reference.  A recompute re-draws its
+SR (the ``KeyGen`` moves on), as the reference's re-traced keys do.  The
+loss is the chunked cross-entropy of ``models/losses.py``.
 
 The tied-embedding logits product stays ``torch.matmul`` in fp32: the
 reference computes it outside any kernel too (``lm.py:412-415``).  The
 decode's plain reductions that are not batch-invariant on the card (this
 product, RMSNorm's mean, decode attention's score product, the SSM state
-readout) run in fixed row blocks (``layers.fixed_rows``), so a request's
-tokens do not depend on how many slots the pool has.
+readout, the RG-LRU's conv sum and gate products) run in fixed row blocks
+(``layers.fixed_rows``), so a request's tokens do not depend on how many
+slots the pool has.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch.utils.checkpoint
 from repro_torch.memstash.config import MemstashConfig
 from repro_torch.memstash.stash import stash_apply
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.layers import (
@@ -52,10 +62,12 @@ from repro_torch.models.layers import (
     swiglu_init,
 )
 from repro_torch.models.losses import chunked_softmax_xent
+from repro_torch.models.recurrent import RGLRUSpec
 from repro_torch.models.ssm import SSMSpec
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-SUPPORTED_KINDS = (("attn", "swiglu"), ("ssm", "none"))
+SUPPORTED_KINDS = (("attn", "swiglu"), ("ssm", "none"), ("local", "swiglu"),
+                   ("rglru", "swiglu"))
 REMAT_POLICIES = ("full", "block_io", "stash")
 
 
@@ -70,7 +82,9 @@ class LMConfig:
     prefix: tuple = ()
     suffix: tuple = ()
     attn: Optional[AttnSpec] = None
+    local_attn: Optional[AttnSpec] = None  # the "local" mixer's (windowed) spec
     ssm: Optional[SSMSpec] = None
+    rglru: Optional[RGLRUSpec] = None
     d_ff: int = 0
     norm: str = "rms"
     tie_embeddings: bool = False
@@ -80,6 +94,8 @@ class LMConfig:
     bf16_logits: bool = False
     # "full" | "block_io" | "stash" (the module docstring)
     remat_policy: str = "full"
+    # set by configs: families where 500k-token full attention is intractable
+    supports_long_context: bool = False
 
     def __post_init__(self):
         n = len(self.prefix) + len(self.pattern_unit) * self.n_units + len(self.suffix)
@@ -90,25 +106,36 @@ class LMConfig:
                              f"{REMAT_POLICIES}")
 
     def check_supported(self) -> None:
-        kinds = set(self.pattern_unit)
-        if (not kinds <= set(SUPPORTED_KINDS) or self.prefix or self.suffix
-                or self.norm != "rms" or self.n_units < 1):
+        kinds = set(self.pattern_unit) | set(self.prefix) | set(self.suffix)
+        if not kinds <= set(SUPPORTED_KINDS) or self.norm != "rms" or self.n_units < 1:
             raise NotImplementedError(
-                f"{self.name}: only a repeated unit of {SUPPORTED_KINDS} blocks with rms "
-                f"norm is ported (got pattern {self.pattern_unit}, prefix {self.prefix}, "
-                f"suffix {self.suffix}, norm {self.norm})")
+                f"{self.name}: only a repeated unit (with prefix / suffix layers) of "
+                f"{SUPPORTED_KINDS} blocks with rms norm is ported (got pattern "
+                f"{self.pattern_unit}, prefix {self.prefix}, suffix {self.suffix}, "
+                f"norm {self.norm})")
 
     @property
-    def layer_kinds(self) -> list:
-        """(unit index, position in unit) of every layer, in order."""
-        return [(i, u) for i in range(self.n_units) for u in range(len(self.pattern_unit))]
+    def layer_plan(self) -> list:
+        """(cache key, index in that key's stack or None, kind) of every layer,
+        in order: ``prefix_i``, then ``unit_u`` of each repeat i, then
+        ``suffix_i``."""
+        return ([(f"prefix_{i}", None, kind) for i, kind in enumerate(self.prefix)]
+                + [(f"unit_{u}", i, kind) for i in range(self.n_units)
+                   for u, kind in enumerate(self.pattern_unit)]
+                + [(f"suffix_{i}", None, kind) for i, kind in enumerate(self.suffix)])
+
+
+def _attn_spec(cfg: LMConfig, mixer: str) -> AttnSpec:
+    return cfg.attn if mixer == "attn" else cfg.local_attn
 
 
 def block_init(gen: torch.Generator, cfg: LMConfig, kind: tuple, *, device=None) -> dict:
     mixer, ffn = kind
     p = {"norm1": rmsnorm_init(cfg.d_model, device=device)}
-    if mixer == "attn":
-        p["mixer"] = attn_mod.gqa_init(gen, cfg.d_model, cfg.attn, device=device)
+    if mixer in ("attn", "local"):
+        p["mixer"] = attn_mod.gqa_init(gen, cfg.d_model, _attn_spec(cfg, mixer), device=device)
+    elif mixer == "rglru":
+        p["mixer"] = rec_mod.rglru_block_init(gen, cfg.d_model, cfg.rglru, device=device)
     else:
         p["mixer"] = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm, device=device)
     if ffn != "none":
@@ -123,9 +150,12 @@ def block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, cfg: LMConfig
     """Pre-norm residual block.  Returns (x, new_cache)."""
     mixer, ffn = kind
     h = rmsnorm_apply(params["norm1"], x)
-    if mixer == "attn":
-        out, new_cache = attn_mod.gqa_apply(params["mixer"], h, ctx, cfg.attn, positions,
-                                            cache, pos, return_cache)
+    if mixer in ("attn", "local"):
+        out, new_cache = attn_mod.gqa_apply(params["mixer"], h, ctx, _attn_spec(cfg, mixer),
+                                            positions, cache, pos, return_cache)
+    elif mixer == "rglru":
+        out, new_cache = rec_mod.rglru_block_apply(params["mixer"], h, ctx, cfg.rglru, cache,
+                                                   return_cache)
     else:
         out, new_cache = ssm_mod.ssm_apply(params["mixer"], h, ctx, cfg.ssm, cache)
     x = (x + out).to(x.dtype)
@@ -137,8 +167,12 @@ def block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, cfg: LMConfig
 
 def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
                      dtype=torch.bfloat16, *, device=None) -> dict:
-    if kind[0] == "attn":
-        return attn_mod.gqa_init_cache(batch, cfg.attn, max_len, dtype, device=device)
+    mixer = kind[0]
+    if mixer in ("attn", "local"):
+        return attn_mod.gqa_init_cache(batch, _attn_spec(cfg, mixer), max_len, dtype,
+                                       device=device)
+    if mixer == "rglru":
+        return rec_mod.rglru_init_cache(batch, cfg.rglru, dtype, device=device)
     return ssm_mod.ssm_init_cache(batch, cfg.ssm, dtype, device=device)
 
 
@@ -152,8 +186,7 @@ def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
     params: dict = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, device=device),
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
-        "layers": [block_init(gen, cfg, cfg.pattern_unit[u], device=device)
-                   for _, u in cfg.layer_kinds],
+        "layers": [block_init(gen, cfg, kind, device=device) for _, _, kind in cfg.layer_plan],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=device)
@@ -185,7 +218,7 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
     scfg = ctx.memstash if ctx.memstash is not None else MemstashConfig(policy="stash")
     stash_policy = (scfg.policy_for("lm/residual", int(x.numel()))
                     if cfg.remat_policy == "stash" else "none")
-    width = len(cfg.pattern_unit)
+    width, n_pre = len(cfg.pattern_unit), len(cfg.prefix)
 
     def block(h, p, u):
         return block_apply(p, h, ctx, cfg, cfg.pattern_unit[u], positions)[0]
@@ -193,8 +226,10 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
     def checkpointed(fn, *args):
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
+    for p, kind in zip(params["layers"], cfg.prefix):
+        x = block_apply(p, x, ctx, cfg, kind, positions)[0]
     for i in range(cfg.n_units):
-        unit = params["layers"][i * width:(i + 1) * width]
+        unit = params["layers"][n_pre + i * width:n_pre + (i + 1) * width]
 
         def run(h, unit=unit):
             for u, p in enumerate(unit):
@@ -216,6 +251,8 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
             x = checkpointed(run, x)
         else:
             x = run(x)
+    for p, kind in zip(params["layers"][n_pre + cfg.n_units * width:], cfg.suffix):
+        x = block_apply(p, x, ctx, cfg, kind, positions)[0]
     x = rmsnorm_apply(params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -246,6 +283,10 @@ def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   *, device=None) -> dict:
     cfg.check_supported()
     cache: dict = {"pos": torch.zeros((), dtype=torch.int64, device=device)}
+    for i, kind in enumerate(cfg.prefix):
+        cache[f"prefix_{i}"] = block_init_cache(cfg, kind, batch, max_len, dtype, device=device)
+    for i, kind in enumerate(cfg.suffix):
+        cache[f"suffix_{i}"] = block_init_cache(cfg, kind, batch, max_len, dtype, device=device)
     for u, kind in enumerate(cfg.pattern_unit):
         one = block_init_cache(cfg, kind, batch, max_len, dtype, device=device)
         cache[f"unit_{u}"] = {name: leaf[None].repeat(cfg.n_units, *([1] * leaf.ndim))
@@ -255,17 +296,32 @@ def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def pad_cache(cache: dict, extra: int) -> dict:
     """Grow the k/v caches by ``extra`` decode positions (prefill builds
-    caches sized to the prompt; decoding needs headroom).  The O(1) SSM
-    state leaves pass through."""
+    caches sized to the prompt; decoding needs headroom).  Window rings keep
+    their fixed size and the O(1) SSM / RG-LRU state leaves pass through."""
     if extra <= 0:
         return cache
     out = dict(cache)
-    for unit in (name for name in cache if name.startswith("unit_")):
-        # k/v leaves (n_units, B, S, KV, D): pad the seq axis, third from the end
-        out[unit] = {name: (torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, extra))
-                            if name in ("k", "v") else leaf)
-                     for name, leaf in cache[unit].items()}
+    for key in (k for k, v in cache.items() if isinstance(v, dict)):
+        # k/v leaves (..., S, KV, D): pad the seq axis, third from the end
+        out[key] = {name: (torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, extra))
+                           if name in ("k", "v") else leaf)
+                    for name, leaf in cache[key].items()}
     return out
+
+
+def _gather_caches(plan: list, caches: list) -> dict:
+    """Per-layer caches in ``layer_plan`` order as the cache tree: a unit's
+    layers stacked along a leading axis, prefix / suffix layers as they are."""
+    tree: dict = {}
+    per_unit: dict = {}
+    for (key, i, _), c in zip(plan, caches):
+        if i is None:
+            tree[key] = c
+        else:
+            per_unit.setdefault(key, []).append(c)
+    for key, cs in per_unit.items():
+        tree[key] = {name: torch.stack([c[name] for c in cs]) for name in cs[0]}
+    return tree
 
 
 def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
@@ -276,13 +332,12 @@ def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     x = embed_apply(params["embed"], tokens, ctx)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    per_unit: dict = {u: [] for u in range(len(cfg.pattern_unit))}
-    for (_, u), p in zip(cfg.layer_kinds, params["layers"]):
-        x, c = block_apply(p, x, ctx, cfg, cfg.pattern_unit[u], positions, return_cache=True)
-        per_unit[u].append(c)
+    plan, caches = cfg.layer_plan, []
+    for (_, _, kind), p in zip(plan, params["layers"]):
+        x, c = block_apply(p, x, ctx, cfg, kind, positions, return_cache=True)
+        caches.append(c)
     cache: dict = {"pos": torch.tensor(s, dtype=torch.int64, device=x.device)}
-    for u, cs in per_unit.items():
-        cache[f"unit_{u}"] = {name: torch.stack([c[name] for c in cs]) for name in cs[0]}
+    cache.update(_gather_caches(plan, caches))
     x = rmsnorm_apply(params["final_norm"], x)
     return _logits(params, cfg, x[:, -1]), cache
 
@@ -296,13 +351,13 @@ def lm_decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor, cache: dic
     x = embed_apply(params["embed"], tokens[:, None], ctx)
     b = x.shape[0]
     positions = (pos.reshape(-1, 1) if pos.ndim else pos).expand(b, 1)
-    per_unit: dict = {u: [] for u in range(len(cfg.pattern_unit))}
-    for (i, u), p in zip(cfg.layer_kinds, params["layers"]):
-        layer_cache = {name: leaf[i] for name, leaf in cache[f"unit_{u}"].items()}
-        x, c = block_apply(p, x, ctx, cfg, cfg.pattern_unit[u], positions, layer_cache, pos)
-        per_unit[u].append(c)
+    plan, caches = cfg.layer_plan, []
+    for (key, i, kind), p in zip(plan, params["layers"]):
+        layer_cache = (cache[key] if i is None
+                       else {name: leaf[i] for name, leaf in cache[key].items()})
+        x, c = block_apply(p, x, ctx, cfg, kind, positions, layer_cache, pos)
+        caches.append(c)
     new_cache: dict = {"pos": pos + 1}
-    for u, cs in per_unit.items():
-        new_cache[f"unit_{u}"] = {name: torch.stack([c[name] for c in cs]) for name in cs[0]}
+    new_cache.update(_gather_caches(plan, caches))
     x = rmsnorm_apply(params["final_norm"], x)
     return _logits(params, cfg, x[:, 0]), new_cache

@@ -9,9 +9,10 @@ pool) and runs one pooled decode step: unpack the pool, decode every slot,
 keep the updates of active slots, repack.  On the card every projection is
 a ``masked_matmul`` kernel launch, every pack a ``mask_pack`` launch,
 every prefill attention a ``flash_attention`` launch and every prefill SSM
-mixer an ``ssd_scan`` launch.  The models are llama3.2-1b (attention,
-packed k/v) and mamba2-780m (SSM, whose O(1) state leaves the pool keeps
-dense).
+mixer an ``ssd_scan`` launch.  The models' caches: attention's packed
+k/v (the llama family, qwen2), window rings packed the same way and the
+RG-LRU's O(1) state (recurrentgemma, with its unrolled suffix layers), and
+Mamba-2's O(1) state; the pool keeps the O(1) leaves dense.
 
 Serving numerics: quantized modes round to nearest, so a request's tokens
 are a function of the request alone, never of its batch co-tenants.

@@ -3,7 +3,9 @@
 
 The pool mirrors the ``lm_init_cache`` tree — ``{"pos": (S,) per-slot
 positions, "unit_u": {"k", "v"}}`` with ``(n_units, S, max_len, KV, D)``
-leaves — with every k/v leaf replaced by a :class:`PackedKV`: per
+leaves, plus ``"suffix_i"`` / ``"prefix_i"`` subtrees of unrolled layers
+— with every seq-bearing leaf (full-attention ``k`` / ``v``, window rings
+``k_ring`` / ``v_ring``) replaced by a :class:`PackedKV`: per
 (layer, slot) block, the non-zeros collapsed to the front of a
 dense-length value buffer plus one occupancy bit per element.  Packing a
 leaf is one ``kv_pack`` call over all its blocks, so on the card its mask
@@ -11,19 +13,21 @@ words come from one ``mask_pack`` kernel launch.  Unpack and pack
 round-trip bit-exactly, so decoding against the unpacked pool is
 numerically identical to decoding against the dense cache.
 
-The O(1) SSM state leaves (``conv``, ``ssm``) and the per-slot position
-vector pass through dense, as in the reference (``kvpool.py:1-18``):
-installed per slot, merged per active row, never packed.  Every cache leaf
-sits under a ``unit_*`` key with the layers stacked in front, so its slot
-axis is axis 1.
+The O(1) state leaves (SSM ``conv`` / ``ssm``, RG-LRU ``conv`` / ``h``)
+and the per-slot position vector pass through dense, as in the reference
+(``kvpool.py:1-18``): installed per slot, merged per active row, never
+packed.  Rings are packed like any block and never padded (they are
+``window`` rows from the prefill on).  A leaf under a ``unit_*`` key has
+the layers stacked in front, so its slot axis is axis 1; under a
+``prefix_*`` / ``suffix_*`` key it is axis 0 (:func:`slot_axis`).
 
 Slot surgery (install, release, restore) writes the pool in place; the
 reference's versions are pure functions inside jitted programs.  So what
 must outlive the next surgery is copied out: a spilled slot's payload
 (:func:`extract_slot_packed`) and a snapshot's leaves
 (:func:`pool_leaves`) are host copies, never views of the pool.  Mask
-words move through an int32 view (torch has few uint32 kernels).
-Sliding-window rings and MLA latents are not ported yet.
+words move through an int32 view (torch has few uint32 kernels).  MLA
+latents are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from repro_torch.kernels.kv_cache.ops import KV_VALUE_BITS, kv_pack, kv_unpack
 
 #: seq axis (negative, from the end) of each packable cache leaf; the slot
 #: axis is the one just before it
-PACKED_SEQ_AXIS = {"k": -3, "v": -3}
+PACKED_SEQ_AXIS = {"k": -3, "v": -3, "k_ring": -3, "v_ring": -3}
 
 
 @dataclasses.dataclass
@@ -62,7 +66,15 @@ class PackedKV:
 
 
 def _units(tree: dict) -> list:
-    return [name for name in tree if name.startswith("unit_")]
+    """The layer subtrees of a cache or pool tree (``unit_*``, ``prefix_*``,
+    ``suffix_*``): every key but ``pos``."""
+    return [name for name in tree if name != "pos"]
+
+
+def _at(t: torch.Tensor, ax: int, slot: int) -> torch.Tensor:
+    """The view of ``t`` at index ``slot`` of axis ``ax`` (int32 words for
+    uint32)."""
+    return word_view(t).select(ax, slot)
 
 
 def pack_leaf(leaf: torch.Tensor, name: str) -> PackedKV:
@@ -118,16 +130,16 @@ def install_packed(pool: dict, prefill_cache: dict, slot: int, prompt_len: int) 
     keeps nothing of its previous tenant.  State leaves are copied in."""
     pool["pos"][slot] = prompt_len
     for unit in _units(pool):
+        ax = slot_axis((unit,))
         for name, leaf in pool[unit].items():
             if not isinstance(leaf, PackedKV):
-                leaf[:, slot] = prefill_cache[unit][name][:, 0].to(leaf.dtype)
+                _at(leaf, ax, slot).copy_(prefill_cache[unit][name].select(ax, 0))
                 continue
             row = _pad_seq(prefill_cache[unit][name].to(leaf.dtype), name,
                            leaf.shape[len(leaf.shape) + PACKED_SEQ_AXIS[name]])
-            packed = pack_leaf(row, name)  # lead (n_units, 1)
-            leaf.values[:, slot] = packed.values[:, 0]
-            leaf.mask.view(torch.int32)[:, slot] = packed.mask.view(torch.int32)[:, 0]
-            leaf.nnz[:, slot] = packed.nnz[:, 0]
+            packed = pack_leaf(row, name)  # lead (n_units, 1) or (1,)
+            for part in ("values", "mask", "nnz"):
+                _at(getattr(leaf, part), ax, slot).copy_(_at(getattr(packed, part), ax, 0))
     return pool
 
 
@@ -136,13 +148,12 @@ def release_packed(pool: dict, slot: int) -> dict:
     request stops counting toward density and wire accounting."""
     pool["pos"][slot] = 0
     for unit in _units(pool):
+        ax = slot_axis((unit,))
         for leaf in pool[unit].values():
-            if not isinstance(leaf, PackedKV):
-                leaf[:, slot] = 0
-                continue
-            leaf.values[:, slot] = 0
-            leaf.mask.view(torch.int32)[:, slot] = 0
-            leaf.nnz[:, slot] = 0
+            parts = ([getattr(leaf, p) for p in ("values", "mask", "nnz")]
+                     if isinstance(leaf, PackedKV) else [leaf])
+            for t in parts:
+                _at(t, ax, slot).zero_()
     return pool
 
 
@@ -167,13 +178,14 @@ def install_prefill(dense_pool: dict, prefill_cache: dict, slot: int, prompt_len
     skipped."""
     dense_pool["pos"][slot] = prompt_len
     for unit in _units(dense_pool):
+        ax = slot_axis((unit,))
         for name, leaf in dense_pool[unit].items():
             if leaf is None:
                 continue
             row = lookup(prefill_cache, (unit, name)).to(leaf.dtype)
             if name in PACKED_SEQ_AXIS:
                 row = _pad_seq(row, name, leaf.shape[leaf.ndim + PACKED_SEQ_AXIS[name]])
-            leaf[:, slot] = row[:, 0]
+            leaf.select(ax, slot).copy_(row.select(ax, 0))
     return dense_pool
 
 
@@ -193,7 +205,7 @@ def merge_active(new_cache: dict, old_cache: dict, active: torch.Tensor) -> dict
         out[unit] = {}
         for name, new in new_cache[unit].items():
             shape = [1] * new.ndim
-            shape[1] = active.shape[0]  # the slot axis
+            shape[slot_axis((unit,))] = active.shape[0]
             out[unit][name] = torch.where(active.reshape(shape), new, old_cache[unit][name])
     return out
 
@@ -203,7 +215,9 @@ def merge_active(new_cache: dict, old_cache: dict, active: torch.Tensor) -> dict
 
 def slot_axis(path: tuple) -> int:
     """Slot (batch) axis of the cache leaf at ``path`` (its keys from the
-    root): leaves under a ``unit_*`` key stack the layers in front of it."""
+    root): leaves under a ``unit_*`` key stack the layers in front of it;
+    ``prefix_*`` / ``suffix_*`` leaves (one layer each) and ``pos`` have it
+    first."""
     return 1 if path and str(path[0]).startswith("unit_") else 0
 
 

@@ -12,8 +12,8 @@ binary-mask packed on its own with ``kv_pack``:
 
 One logical frame id addresses the same page slot across all leaves and
 layers, so the whole mapping is one ``(n_slots, max_blocks)`` frame
-table.  Everything else (the SSM state of a hybrid unit, the per-slot
-``pos`` vector) is *slot state*: a dense slot-indexed tree in which the
+table.  Everything else (SSM and RG-LRU state, window rings, the
+per-slot ``pos`` vector) is *slot state*: a dense slot-indexed tree in which the
 paged leaves are ``None`` holes (``strip``; ``assemble`` fills them back
 in).  The reference also pages MLA's ``ckv``/``krope``; the port has no
 MLA.
@@ -49,8 +49,10 @@ from repro_torch.serving.kvpool import (PACKED_SEQ_AXIS, as_tensor, host_copy, l
                                         pool_leaves, word_view)
 
 #: cache leaf kinds stored paged: token-indexed content (the port's
-#: attention leaves; the reference adds MLA's ckv/krope)
-PAGED_LEAVES = tuple(PACKED_SEQ_AXIS)
+#: attention leaves; the reference adds MLA's ckv/krope).  Window rings are
+#: fixed-size per-slot windows and stay slot state, like the O(1)
+#: SSM / RG-LRU leaves (the reference's ``store.py:44-47``)
+PAGED_LEAVES = ("k", "v")
 
 _PARTS = ("values", "mask", "nnz")
 
@@ -142,8 +144,11 @@ class PagedKVStore:
                             words=_n_words(elems))
             self.leaves[spec.key] = spec
         if not self.leaves:
+            # recurrentgemma: rings and RG-LRU state only (the reference
+            # refuses it too, store.py:141)
             raise ValueError(f"{cfg.name}: no pageable cache leaves (the paged pool "
-                             f"stores {PAGED_LEAVES})")
+                             f"stores {PAGED_LEAVES}; window rings and recurrent state "
+                             f"stay slot state), so it cannot be served paged")
 
         #: dense elems / stored mask bits of one logical page, summed over
         #: every paged leaf: the admission controller's page unit

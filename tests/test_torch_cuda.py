@@ -422,6 +422,60 @@ def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, d, causal, win
     assert float((got.float() - want.float()).abs().max()) <= atol
 
 
+# D 256 (recurrentgemma's local attention: 16 heads on one kv head, a
+# window): ragged and aligned S, windows inside one kv tile, across tiles and
+# longer than S, and no window
+_FA_D256_CASES = [(1, 16, 1, s, w, causal) for s, w, causal in (
+    (300, 70, True), (256, 128, True), (512, 128, True), (130, 2048, True), (200, None, True),
+    (33, 16, True), (200, None, False))] + [(2, 4, 2, 97, 40, True), (1, 8, 8, 64, 20, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,hkv,s,window,causal", _FA_D256_CASES)
+def test_flash_attention_kernel_at_head_dim_256(card, b, h, hkv, s, window, causal, dtype):
+    """The D 256 instantiation (two warp groups, each half of the d axis)
+    against the plain version, q/k/v as transposed (B,S,H,D) projections;
+    fp32 atol 2e-5, bf16 2e-2."""
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator().manual_seed(s + h)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, h, 256, generator=gen).to(card, dt).transpose(1, 2)
+    k = torch.randn(b, s, hkv, 256, generator=gen).to(card, dt).transpose(1, 2)
+    v = torch.randn(b, s, hkv, 256, generator=gen).to(card, dt).transpose(1, 2)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ops.attention_reference(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert float((got.float() - want.float()).abs().max()) <= atol
+    with pytest.raises(RuntimeError):
+        ops._launch(q, k, v, causal, window, rows=128)  # D 256 has the 64-row tile only
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_flash_attention_d256_on_unaligned_views(card, dtype, offset):
+    """D 256 through 4-byte copies (fp32) or plain loads (bf16, odd offset)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator().manual_seed(offset)
+    dt = getattr(torch, dtype)
+
+    def view(shape):
+        flat = torch.randn(int(torch.tensor(shape).prod()) + offset, generator=gen)
+        return flat.to(card, dt)[offset:].view(shape)
+
+    q, k, v = view((1, 16, 150, 256)), view((1, 1, 150, 256)), view((1, 1, 150, 256))
+    got = ops.flash_attention(q, k, v, causal=True, window=50)
+    want = ops.attention_reference(q, k, v, causal=True, window=50)
+    torch.cuda.synchronize()
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("offset", [0, 1, 2])
 @pytest.mark.parametrize("sq,skv,causal", [(50, 77, True), (50, 77, False), (90, 40, True)])

@@ -31,3 +31,18 @@ def test_plan_packs_the_largest_power_of_two_of_the_group(h, hkv, hpc):
 def test_plan_keeps_head_dim_128_on_the_64_row_tile():
     assert fa.plan(1, 32, 8, 4096, 128, H100_SMS).rows == 64
     assert fa.plan(1, 32, 8, 4096, 64, H100_SMS).rows == 128
+
+
+@pytest.mark.parametrize("sq,want", [(2600, (64, 8, 8, 650)), (4096, (64, 8, 8, 1024)),
+                                     (40, (64, 8, 8, 10)), (1, (64, 8, 8, 2))])
+def test_plan_takes_the_64_row_tile_at_head_dim_256(sq, want):
+    """recurrentgemma-9b's local attention (H 16, HKV 1, D 256): 8 of the
+    group's 16 heads at 8 positions a tile, two head tiles a strip, on the
+    64-row tile whatever the prompt (the kernel splits D 256 over two warp
+    groups of those rows)."""
+    assert tuple(fa.plan(1, 16, 1, sq, 256, H100_SMS)) == want
+
+
+def test_head_dim_256_is_instantiated():
+    assert 256 in fa.HEAD_DIMS
+    assert fa.plan(2, 4, 2, 300, 256, H100_SMS).rows == 64
