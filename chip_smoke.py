@@ -206,6 +206,27 @@ failure:
                full-width qwen2-7b with random non-zero qkv biases as 6i's
                archs (paged tokens = monolithic tokens); each reduced model
                on the card against the CPU;
+  6k. moe    — full-width olmoe-1b-7b (16 x (attn, moe): 64 experts top-8,
+               MHA D 128) and deepseek-v2-lite-16b (an MLA layer with a
+               dense SwiGLU, then 26 x (mla, moe): 64 routed experts top-6
+               and 2 shared), quant_sparse, random weights from seed 0, 4
+               requests of prompt 512, gen 16, 4 slots, max_len 530, on the
+               monolithic and then the paged engine (page 8, whole-prompt
+               installs) over the same parameters: counters zeroed just before each run() and read
+               just after (every kernel of the path launched; deepseek's
+               MLA prefill runs the chunked attention, so flash_attention
+               launches 0 times there), paged tokens = monolithic tokens;
+               a third engine admits the four at once: decode logits of
+               slots 0-1 at 4 and 2 slots bit-equal, three profiled decode
+               ticks, then one decode tick (where none may drop) and one
+               request's prefill under moe.record_routing (tokens per
+               expert, assignments dropped, dispatch rows left zero, the
+               experts' skipped tile steps); peak memory; every path kernel at the
+               path's shapes (the experts' products at M 4 and at the
+               prefill capacity 80 / 60, flash_attention at D 128 with 16
+               heads on 16 kv heads, kv_pack and mask_pack's route on the
+               k/v, ckv and krope leaves); each reduced model on the card
+               against the CPU;
   7a. dangling_filter — bit-equal to its plain version on the registry's
                examples, -0.0 / NaN / inf entries at a length with a scalar
                tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
@@ -1641,6 +1662,7 @@ def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
     from repro_torch.launch.serve import serving_config
     from repro_torch.models.layers import SpringContext
     from repro_torch.models.lm import lm_decode_step, lm_init, lm_prefill, pad_cache
+    from repro_torch.models.moe import record_routing
 
     cfg = get_arch(arch).resolve(reduced=True)
     ctx = SpringContext(cfg=serving_config("quant_sparse"))
@@ -1654,8 +1676,14 @@ def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
         return tree.to(device)
 
     toks = torch.randint(0, cfg.vocab, (2, prompt_len), generator=gen)
-    lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx)
-    lg_gpu, c_gpu = lm_prefill(to(p_cpu, dev), cfg, toks.to(dev), ctx)
+    with record_routing() as r_cpu:
+        lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx)
+    with record_routing() as r_gpu:
+        lg_gpu, c_gpu = lm_prefill(to(p_cpu, dev), cfg, toks.to(dev), ctx)
+    # an MoE model's routing first: a near-tie that flips under another
+    # summation order sends a token to another expert
+    flips = sum(int((a["gate_idx"].cpu() != b["gate_idx"].cpu()).sum())
+                for a, b in zip(r_cpu, r_gpu))
     cache_ulps = 0.0
     if shared_cache:
         for key in (k for k in c_cpu if k != "pos"):
@@ -1674,12 +1702,14 @@ def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
           f"max_abs_err={e_pre:.3g}, decode {e_dec:.3g}"
           + (f" (from the CPU's cache; the caches {cache_ulps:.3g} ulps apart at their "
              "largest magnitudes)" if shared_cache else "")
-          + f" (atol 1e-3), argmax equal {bool(torch.equal(lg_gpu.argmax(-1).cpu(), nxt))}",
+          + f" (atol 1e-3), argmax equal {bool(torch.equal(lg_gpu.argmax(-1).cpu(), nxt))}"
+          + (f"; prefill router assignments that differ: {flips}" if r_cpu else ""),
           flush=True)
     if not (e_pre <= 1e-3 and e_dec <= 1e-3 and cache_ulps <= 1.0):
         fail(f"the reduced {arch} on the card disagrees with the CPU plain versions")
     return {"prefill_max_abs_err": e_pre, "decode_max_abs_err": e_dec,
-            "cache_max_ulps": cache_ulps if shared_cache else None}
+            "cache_max_ulps": cache_ulps if shared_cache else None,
+            "router_flips": flips if r_cpu else None}
 
 
 def profile_prefill(dev, arch: str, prompt: int) -> dict:
@@ -2225,6 +2255,68 @@ def phase_paged(dev) -> dict:
     return res
 
 
+def _flash_err(g, a, prompt: int, tag: str) -> float:
+    """flash_attention at (1, H, HKV, ``prompt``, D) of the attention spec
+    ``a`` (its window if it has one), causal fp32, q/k/v as ``gqa_apply``
+    passes them, against its plain version at atol 2e-5 (the registry's
+    compare): the largest error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+
+    dev, hd = g.device, a.head_dim
+    q = torch.randn(1, prompt, a.n_heads, hd, generator=g, device=dev).transpose(1, 2)
+    k, v = (torch.randn(1, prompt, a.n_kv_heads, hd, generator=g, device=dev)
+            .transpose(1, 2) for _ in range(2))
+    e = _max_err(flash_attention(q, k, v, window=a.window),
+                 attention_reference(q, k, v, window=a.window))
+    if not e <= 2e-5:
+        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{prompt},{hd}) window "
+             f"{a.window} off by {e:.3g}")
+    return e
+
+
+def _product_err(g, m: int, kk: int, n: int, tag: str) -> float:
+    """masked_matmul on an (m, kk) @ (kk, n) product of card tensors from
+    ``g`` against its plain version within 2b's bound 2 K 2**-24 (|x| @
+    |w|), with x's first quarter of K and half of w's (32, 64) tiles zero
+    so that a misread flag shows; on the tile kernel's route both
+    operands' occupancy flags exact.  Returns the largest error."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.masked_matmul.ops import (KERNEL_TILES, masked_matmul,
+                                                       masked_matmul_reference, route,
+                                                       tile_occupancy, tile_occupancy_reference)
+
+    dev = g.device
+    tm, tn, tk = KERNEL_TILES
+
+    def occ_exact(t, rows, cols) -> None:
+        if not torch.equal(tile_occupancy(t, rows, cols), tile_occupancy_reference(t, rows, cols)):
+            fail(f"{tag}: tile_occupancy {tuple(t.shape)} disagrees with its plain version")
+
+    x = quantize_nearest(torch.randn(m, kk, generator=g, device=dev))
+    x[:, : kk // 4] = 0.0
+    keep = torch.rand(-(-kk // tk), -(-n // tn), generator=g, device=dev) > 0.5
+    w = torch.randn(kk, n, generator=g, device=dev).div_(kk**0.5)
+    w.masked_fill_(~keep.repeat_interleave(tk, 0).repeat_interleave(tn, 1)[:kk, :n], 0.0)
+    w = quantize_nearest(w)
+    del keep
+    if route(m, n, kk) == "tile":
+        occ_exact(x, tm, tk)
+        occ_exact(w, tk, tn)
+    got = masked_matmul(x, w, apply_sr=False)
+    want = masked_matmul_reference(x, w, apply_sr=False)
+    err = (got - want).abs_()
+    del got, want
+    ok = bool((err <= (x.abs() @ w.abs()).mul_(2 * kk * 2.0**-24)).all())
+    e = float(err.max())
+    if not ok:
+        fail(f"{tag}: masked_matmul ({m},{kk})@({kk},{n}) off by {e:.3g}")
+    return e
+
+
 def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
                         decode_m: int = ARCH_REQUESTS, kv_blocks=None,
                         tag: str = "archs", attn=None, extra_projs=None,
@@ -2250,68 +2342,30 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     import torch
 
     from repro_torch.core.fixedpoint import quantize_nearest
-    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
     from repro_torch.kernels.kv_cache.ops import kv_pack, kv_pack_reference
-    from repro_torch.kernels.masked_matmul.ops import (
-        KERNEL_TILES, masked_matmul, masked_matmul_reference, route, split_k, splitk_reduce,
-        splitk_reduce_reference, tile_occupancy, tile_occupancy_reference)
+    from repro_torch.kernels.masked_matmul.ops import (route, split_k, splitk_reduce,
+                                                       splitk_reduce_reference)
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    tm, tn, tk = KERNEL_TILES
     a, d, ff = attn or cfg.attn, cfg.d_model, cfg.d_ff
     hd = a.head_dim
     errs = dict.fromkeys(("flash_attention", "masked_matmul", "masked_matmul_skinny",
                           "tile_occupancy", "splitk_reduce", "mask_pack"), 0.0)
     label, tag = tag, f"{cfg.name} check"
-
-    q = torch.randn(1, prompt, a.n_heads, hd, generator=g, device=dev).transpose(1, 2)
-    k, v = (torch.randn(1, prompt, a.n_kv_heads, hd, generator=g, device=dev)
-            .transpose(1, 2) for _ in range(2))
-    errs["flash_attention"] = e = _max_err(flash_attention(q, k, v, window=a.window),
-                                           attention_reference(q, k, v, window=a.window))
-    if not e <= 2e-5:
-        fail(f"{tag}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{prompt},{hd}) window "
-             f"{a.window} off by {e:.3g}")
-    del q, k, v
-
-    def occ_exact(t, rows, cols) -> None:
-        if not torch.equal(tile_occupancy(t, rows, cols), tile_occupancy_reference(t, rows, cols)):
-            fail(f"{tag}: tile_occupancy {tuple(t.shape)} disagrees with its plain version")
-
-    def product(m: int, kk: int, n: int) -> float:
-        x = quantize_nearest(torch.randn(m, kk, generator=g, device=dev))
-        x[:, : kk // 4] = 0.0
-        keep = torch.rand(-(-kk // tk), -(-n // tn), generator=g, device=dev) > 0.5
-        w = torch.randn(kk, n, generator=g, device=dev).div_(kk**0.5)
-        w.masked_fill_(~keep.repeat_interleave(tk, 0).repeat_interleave(tn, 1)[:kk, :n], 0.0)
-        w = quantize_nearest(w)
-        del keep
-        if route(m, n, kk) == "tile":
-            occ_exact(x, tm, tk)
-            occ_exact(w, tk, tn)
-        got = masked_matmul(x, w, apply_sr=False)
-        want = masked_matmul_reference(x, w, apply_sr=False)
-        err = (got - want).abs_()
-        del got, want
-        ok = bool((err <= (x.abs() @ w.abs()).mul_(2 * kk * 2.0**-24)).all())
-        e = float(err.max())
-        if not ok:
-            fail(f"{tag}: masked_matmul ({m},{kk})@({kk},{n}) off by {e:.3g}")
-        return e
-
+    errs["flash_attention"] = _flash_err(g, a, prompt, tag)
     projs = {"q": (d, a.n_heads * hd), "k": (d, a.n_kv_heads * hd), "v": (d, a.n_kv_heads * hd),
              "o": (a.n_heads * hd, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d),
              **(extra_projs or {})}
     for m in (prompt, decode_m):
         key = "masked_matmul" if route(m, 1, 1) == "tile" else "masked_matmul_skinny"
         for kk, n in projs.values():
-            errs[key] = max(errs[key], product(m, kk, n))
+            errs[key] = max(errs[key], _product_err(g, m, kk, n, tag))
         if split_k(ff)[1] > 1:
             part = quantize_nearest(torch.randn(split_k(ff)[1], m, d, generator=g, device=dev))
             if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
                 fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain version")
     vocab = cfg.vocab
-    errs["masked_matmul"] = max(errs["masked_matmul"], product(prompt, d, vocab))
+    errs["masked_matmul"] = max(errs["masked_matmul"], _product_err(g, prompt, d, vocab, tag))
     torch.cuda.empty_cache()
 
     page = PAGE_TOKENS * a.n_kv_heads * hd
@@ -2703,6 +2757,302 @@ def phase_hybrid(dev, gen) -> dict:
                                      q["monolithic"]["launches"]])
     res["wall_s"] = time.monotonic() - t_phase
     print(f"[hybrid] phase 6j wall {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+# -- slice 14: the MoE family ----------------------------------------------------------
+
+# 6k: olmoe-1b-7b (16 x (attn, moe): MHA D 128, 64 experts top-8 of d_ff 1024) and
+# deepseek-v2-lite-16b (an MLA layer with a dense SwiGLU of d_ff 10944, then 26 x
+# (mla, moe): 64 routed experts top-6 of d_ff 1408 and 2 shared), 4 requests of
+# prompt 512 on 4 slots, gen GEN, max_len 530, PAGE_TOKENS a page, monolithic then
+# paged.  Capacity max(int(T k / E 1.25 + 0.999), 4): 80 (olmoe) and 60 (deepseek)
+# at a prompt-512 prefill, 4 at a decode tick of 4 slots
+MOE_ARCHS, MOE_REQUESTS, MOE_PROMPT = ("olmoe-1b-7b", "deepseek-v2-lite-16b"), 4, 512
+MOE_MAX_LEN = MOE_PROMPT + GEN + 2
+MOE_KERNELS = {"olmoe-1b-7b": ("masked_matmul_skinny", "masked_matmul", "tile_occupancy",
+                               "mask_pack", "flash_attention"),
+               "deepseek-v2-lite-16b": ("masked_matmul_skinny", "masked_matmul",
+                                        "tile_occupancy", "splitk_reduce", "mask_pack")}
+
+
+def _capacity(spec, t: int) -> int:
+    return max(int((t * spec.top_k / spec.n_experts) * spec.capacity_factor + 0.999), 4)
+
+
+def _routing_stats(rec: list, n_experts: int) -> dict:
+    """A ``moe.record_routing`` list of one kind of call (prefill or decode)
+    summed: assignments dropped, tokens per expert (min / mean / max over
+    experts and calls), the share of (call, expert) pairs no token reached,
+    the share of the dispatch buffers' rows left zero (capacity no
+    assignment used), and the expert products' share of skipped tile steps
+    at the kernel's tiles."""
+    import torch
+
+    counts = torch.stack([torch.bincount(r["gate_idx"].reshape(-1), minlength=n_experts)
+                          for r in rec]).cpu()
+    caps = torch.tensor([r["capacity"] for r in rec])
+    used = torch.minimum(counts, caps[:, None]).sum()
+    issued = sum(r["tile_steps"][0] for r in rec)
+    total = sum(r["tile_steps"][1] for r in rec)
+    return {"calls": len(rec), "tokens": rec[0]["tokens"], "capacity": int(caps[0]),
+            "dropped": int(sum(int((~r["keep"]).sum()) for r in rec)),
+            "assignments": int(counts.sum()),
+            "tokens_per_expert": [int(counts.min()), float(counts.float().mean()),
+                                  int(counts.max())],
+            "idle_expert_share": float((counts == 0).float().mean()),
+            "zero_row_share": 1.0 - float(used) / float(caps.sum() * n_experts),
+            "tile_skip_share": 1.0 - issued / total}
+
+
+def _moe_kernel_checks(dev, cfg, seed: int) -> dict:
+    """Each kernel of ``cfg``'s served path against its plain version at
+    6k's shapes: masked_matmul on the expert products at decode (M 4, the
+    skinny kernel) and at a prompt-512 prefill's capacity (the tile kernel
+    after tile_occupancy), on the attention or MLA projections and the
+    dense / shared SwiGLU at M MOE_PROMPT and MOE_REQUESTS; splitk_reduce
+    on the partial sums of a K > 8192 reduction (deepseek's dense layer);
+    flash_attention at olmoe's prefill (D 128, H 16 on 16 kv heads: one
+    head a tile); kv_pack bit-equal (one mask_pack launch a call) on every
+    pool leaf at a decode tick (one block per (layer, slot)) and at the
+    pages of a tick and an install, with mask_pack's route for each.
+    Returns the largest error of each kernel."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.flash_attention.ops import plan as fa_plan
+    from repro_torch.kernels.kv_cache.ops import kv_pack, kv_pack_reference
+    from repro_torch.kernels.mask_compress.ops import plan as mp_plan
+    from repro_torch.kernels.masked_matmul.ops import (route, split_k, splitk_reduce,
+                                                       splitk_reduce_reference)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tag, d, moe = f"{cfg.name} check", cfg.d_model, cfg.moe
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = dict.fromkeys(("flash_attention", "masked_matmul", "masked_matmul_skinny",
+                          "tile_occupancy", "splitk_reduce", "mask_pack"), 0.0)
+    cap = _capacity(moe, MOE_PROMPT)
+    experts = {"expert gate/up": (d, moe.d_ff), "expert down": (moe.d_ff, d)}
+    if cfg.attn is not None:
+        a = cfg.attn
+        projs = {"q": (d, a.n_heads * a.head_dim), "kv": (d, a.n_kv_heads * a.head_dim),
+                 "o": (a.n_heads * a.head_dim, d)}
+        errs["flash_attention"] = _flash_err(g, a, MOE_PROMPT, tag)
+        tile = fa_plan(1, a.n_heads, a.n_kv_heads, MOE_PROMPT, a.head_dim, n_sms)
+        print(f"[moe] {cfg.name}: flash_attention (1,{a.n_heads},{a.n_kv_heads},{MOE_PROMPT},"
+              f"{a.head_dim}) err {errs['flash_attention']:.3g}, tile {tile.rows} rows x "
+              f"{tile.heads_per_cta} heads", flush=True)
+    else:
+        m = cfg.mla
+        projs = {"wq": (d, m.n_heads * (m.qk_nope_dim + m.qk_rope_dim)),
+                 "wdkv": (d, m.kv_lora_rank), "wkr": (d, m.qk_rope_dim),
+                 "wo": (m.n_heads * m.v_head_dim, d)}
+    ffns = [cfg.d_ff] if cfg.d_ff else []
+    if moe.n_shared:
+        ffns.append(moe.shared_d_ff * moe.n_shared)
+    for ff in ffns:
+        projs.update({f"swiglu {ff} gate/up": (d, ff), f"swiglu {ff} down": (ff, d)})
+    for m_rows, shapes in ((MOE_REQUESTS, {**projs, **experts}), (cap, experts),
+                           (MOE_PROMPT, projs)):
+        key = "masked_matmul" if route(m_rows, 1, 1) == "tile" else "masked_matmul_skinny"
+        for kk, n in shapes.values():
+            errs[key] = max(errs[key], _product_err(g, m_rows, kk, n, tag))
+    for ff in ffns:
+        if split_k(ff)[1] > 1:
+            for m_rows in (MOE_REQUESTS, MOE_PROMPT):
+                part = quantize_nearest(torch.randn(split_k(ff)[1], m_rows, d, generator=g,
+                                                    device=dev))
+                if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
+                    fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain "
+                         "version")
+    torch.cuda.empty_cache()
+
+    # every pool leaf: (layers, per-(layer, slot) row width) of its block
+    if cfg.attn is not None:
+        leaves = {"k/v": (cfg.n_layers, cfg.attn.n_kv_heads * cfg.attn.head_dim)}
+    else:
+        leaves = {"ckv": (cfg.n_layers, cfg.mla.kv_lora_rank),
+                  "krope": (cfg.n_layers, cfg.mla.qk_rope_dim)}
+    routes = {}
+    for name, (layers, row) in leaves.items():
+        cases = {"decode tick": (MOE_REQUESTS, MOE_MAX_LEN * row),
+                 "tick pages": (MOE_REQUESTS, PAGE_TOKENS * row),
+                 "install pages": (MOE_PROMPT // PAGE_TOKENS, PAGE_TOKENS * row)}
+        for case, (blocks, block_len) in cases.items():
+            leaf = torch.relu(torch.randn(layers, blocks, block_len, generator=g, device=dev))
+            leaf = leaf.to(torch.bfloat16)
+            got, want = kv_pack(leaf), kv_pack_reference(leaf)
+            if not all(torch.equal(got[p], want[p]) for p in ("values", "mask", "nnz")):
+                fail(f"{tag}: kv_pack {tuple(leaf.shape)} bf16 ({name}, {case}) differs from "
+                     "its plain version")
+            routes[f"{name} {case}"] = mp_plan(layers * blocks, block_len, 2, True,
+                                               n_sms).route
+    print(f"[moe] {cfg.name} kernels at the path's shapes against their plain versions: tile "
+          f"{errs['masked_matmul']:.3g} (experts at M {cap}, projections at M {MOE_PROMPT}), "
+          f"skinny {errs['masked_matmul_skinny']:.3g} (M {MOE_REQUESTS}), over "
+          f"{sorted(projs) + sorted(experts)}; tile_occupancy, splitk_reduce and kv_pack "
+          f"bit-equal; mask_pack routes {routes}", flush=True)
+    return {"errs": errs, "mask_pack_routes": routes}
+
+
+def _serve_moe(dev, arch: str) -> dict:
+    """Full-width ``arch``, quant_sparse, random weights from seed 0:
+    MOE_REQUESTS requests of prompt MOE_PROMPT on as many slots through the
+    monolithic and then the paged engine (whole-prompt installs) over the
+    same parameters, the
+    launch counters zeroed just before each ``run()`` and read just after
+    (every kernel of MOE_KERNELS launched in each; flash_attention never
+    for deepseek's MLA), paged tokens equal to the monolithic ones.  Then
+    a third engine admits the four at once, holds slots 0-1's decode
+    logits at 4 and 2 slots bit-equal, profiles three decode ticks, and
+    runs one more tick and one request's prefill under
+    ``moe.record_routing`` (routing, drops and the experts' skipped tile
+    steps).  Peak memory under the card's 80 GB.  The parameters are
+    freed before it returns."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_init, lm_prefill
+    from repro_torch.models.moe import record_routing
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paging import PagedServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch).resolve(False)
+    t0 = time.monotonic()
+    params = lm_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts = synthetic_prompts(MOE_REQUESTS, MOE_REQUESTS, MOE_PROMPT, cfg.vocab, 0)
+    spring = serving_config("quant_sparse")
+    kw = dict(params=params, n_slots=MOE_REQUESTS, max_len=MOE_MAX_LEN, device=dev)
+    row: dict = {"params": n_params, "init_s": init_s,
+                 "capacity": {"prefill": _capacity(cfg.moe, MOE_PROMPT),
+                              "decode": _capacity(cfg.moe, MOE_REQUESTS)}}
+    for backend in ("monolithic", "paged"):
+        # the paged engine installs whole prompts at admission: its chunked
+        # installs (6h, 6i) would hold decode at 0.4 occupancy and double
+        # the phase's time on host-bound ticks
+        eng = (ServingEngine(cfg, spring, **kw) if backend == "monolithic"
+               else PagedServingEngine(cfg, spring, page_tokens=PAGE_TOKENS, prefill_chunk=None,
+                                       **kw))
+        for i, p in enumerate(prompts):
+            eng.submit_prompt(p, GEN, seed=i)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = eng.run()
+        torch.cuda.synchronize()
+        row[backend] = {"wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+                        "tokens": [r["tokens"] for r in out["per_request"]],
+                        "finite": out["finite"], "tokens_per_s": out["tokens_per_s"],
+                        "prefill_s_per_request": out["prefill_s"] / MOE_REQUESTS,
+                        "decode": _decode_split(out)}
+        del eng, out
+    m, p = row["monolithic"], row["paged"]
+    row["tokens_equal"] = p["tokens"] == m["tokens"]
+    print(f"[moe] {arch} ({n_params / 1e9:.2f} B parameters, made in {init_s:.1f} s; capacity "
+          f"{row['capacity']['prefill']} at prefill, {row['capacity']['decode']} at decode), "
+          f"{MOE_REQUESTS} requests of prompt {MOE_PROMPT}: monolithic "
+          f"{m['prefill_s_per_request']:.3f} s prefill per request, {m['tokens_per_s']:.2f} "
+          f"tokens/s ({m['decode']}), wall {m['wall_s']:.1f} s; paged "
+          f"{p['prefill_s_per_request']:.3f} s, {p['tokens_per_s']:.2f} tokens/s "
+          f"({p['decode']}), wall {p['wall_s']:.1f} s; tokens equal {row['tokens_equal']}, "
+          f"finite {m['finite'] and p['finite']}", flush=True)
+    print(f"[moe] {arch} launches, monolithic run {m['launches']}", flush=True)
+    print(f"[moe] {arch} launches, paged run {p['launches']}", flush=True)
+    if not (m["finite"] and p["finite"]) or any(len(t) != GEN for t in m["tokens"]):
+        fail(f"moe phase: {arch} did not finish every request with finite logits")
+    if not row["tokens_equal"]:
+        fail(f"moe phase: {arch}'s paged tokens differ from its monolithic tokens")
+    for backend in ("monolithic", "paged"):
+        launches = row[backend]["launches"]
+        for name in MOE_KERNELS[arch]:
+            if launches[name] <= 0:
+                fail(f"moe phase: {arch}'s {backend} run never launched the {name} kernel")
+        if cfg.attn is None and launches["flash_attention"] != 0:
+            fail(f"moe phase: {arch}'s {backend} run launched flash_attention "
+                 f"{launches['flash_attention']} times: MLA prefill is the chunked attention")
+
+    t0 = time.monotonic()
+    eng = ServingEngine(cfg, spring, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit_prompt(p, GEN, seed=i)
+    eng.step()  # admits all four, then their first decode tick
+    if len(eng._decode_slots()) != MOE_REQUESTS:
+        fail(f"moe phase: {len(eng._decode_slots())} of {MOE_REQUESTS} slots decode after "
+             "the admitting tick")
+    row["batch_invariance"] = _batch_invariance(eng, arch, "moe")
+    row["decode_profile"] = _tick_profile(eng, "moe", where=f" ({arch})")
+    # the routing of one decode tick and of one request's prefill (each
+    # recorded product syncs the host)
+    with record_routing() as rec_decode:
+        eng.step()
+    del eng
+    with record_routing() as rec_prefill:
+        lm_prefill(params, cfg, torch.tensor([prompts[0]], device=dev), SpringContext(cfg=spring))
+    e = cfg.moe.n_experts
+    row["routing"] = {"prefill": _routing_stats(rec_prefill, e),
+                      "decode": _routing_stats(rec_decode, e)}
+    del rec_prefill, rec_decode
+    for kind, st in row["routing"].items():
+        what = "a decode tick" if kind == "decode" else "one prefill"
+        print(f"[moe] {arch} {kind} routing ({what}: {st['calls']} MoE calls of {st['tokens']} "
+              f"tokens, capacity {st['capacity']}): {st['dropped']} of {st['assignments']} "
+              f"assignments dropped; tokens per expert min/mean/max {st['tokens_per_expert']}; "
+              f"experts no token reached {st['idle_expert_share']:.1%}; dispatch rows left "
+              f"zero {st['zero_row_share']:.1%}; expert products' tile steps skipped "
+              f"{st['tile_skip_share']:.1%}", flush=True)
+    if row["routing"]["decode"]["dropped"]:
+        fail(f"moe phase: {arch} dropped a decode assignment at {MOE_REQUESTS} slots "
+             f"(capacity {row['capacity']['decode']})")
+    row["third_engine_s"] = time.monotonic() - t0
+    row["peak_mem_bytes"] = peak = torch.cuda.max_memory_allocated()
+    print(f"[moe] {arch} peak {peak / 2**30:.2f} GiB; the third engine (admission, invariance, "
+          f"profiled and recorded ticks, a recorded prefill) took {row['third_engine_s']:.1f} s",
+          flush=True)
+    if not peak < HBM_80GB:
+        fail(f"moe phase: {arch} peaked at {peak / 1e9:.1f} GB")
+    del params, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe(dev, gen) -> dict:
+    """(6k) the MoE family: full-width olmoe-1b-7b and deepseek-v2-lite-16b
+    through both engines (:func:`_serve_moe`), each kernel of their paths
+    against its plain version at the shapes the path gives it
+    (:func:`_moe_kernel_checks`), then each reduced model on the card
+    against the CPU (the decode from the CPU's cache)."""
+    from repro_torch.configs import get_arch
+
+    t_phase = time.monotonic()
+    res: dict = {}
+    for i, arch in enumerate(MOE_ARCHS):
+        res[arch] = _serve_moe(dev, arch)
+        t0 = time.monotonic()
+        res[arch].update(_moe_kernel_checks(dev, get_arch(arch).resolve(False), seed=24 + i))
+        res[arch]["kernel_checks_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["check"] = {arch: check_lm_card_vs_cpu(dev, gen, arch, CHECK_PROMPT, shared_cache=True)
+                    for arch in MOE_ARCHS}
+    res["check_s"] = time.monotonic() - t0
+    print(f"[moe] kernel checks {[round(res[a]['kernel_checks_s'], 1) for a in MOE_ARCHS]} s, "
+          f"card-vs-CPU checks {res['check_s']:.1f} s", flush=True)
+    res["errs"] = {name: max(res[arch]["errs"][name] for arch in MOE_ARCHS)
+                   for name in res[MOE_ARCHS[0]]["errs"]}
+    res["launches"] = _sum_launches([res[arch][backend]["launches"] for arch in MOE_ARCHS
+                                     for backend in ("monolithic", "paged")])
+    res["wall_s"] = time.monotonic() - t_phase
+    print(f"[moe] phase 6k wall {res['wall_s']:.1f} s", flush=True)
     return res
 
 
@@ -3103,6 +3453,9 @@ def main() -> None:
     # -- 6j. slice 13: recurrentgemma-9b (RG-LRU, D 256 windowed attention), qwen2-7b
     report["hybrid"] = hybrid = phase_hybrid(dev, gen)
 
+    # -- 6k. slice 14: olmoe-1b-7b and deepseek-v2-lite-16b (MoE FFN, MLA) -------
+    report["moe"] = moe = phase_moe(dev, gen)
+
     # -- 7. slice 4: the kernel sweep and the paper evaluation -----------------
     report["dangling_filter"] = df = phase_dangling_filter(dev, gen)
     report["sweep"] = sweep = phase_sweep(dev)
@@ -3110,7 +3463,7 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
-    # train_lm, serve_long, serve_mamba2, survive, paged, archs, hybrid, the
+    # train_lm, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe, the
     # kernel sweep, the paper path's probe), each zeroed just before its run
     # and read just after (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
@@ -3118,7 +3471,7 @@ def main() -> None:
                       "serve_mamba2": serve_mamba2["launches"][name],
                       "survive": survive["launches"][name],
                       "paged": paged["launches"][name], "archs": archs["launches"][name],
-                      "hybrid": hybrid["launches"][name],
+                      "hybrid": hybrid["launches"][name], "moe": moe["launches"][name],
                       "train": train["launches"][name],
                       "train_lm": train_lm["launches"][name], "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
@@ -3158,7 +3511,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"],
-                            hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"]),
+                            hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"],
+                            moe["errs"]["masked_matmul"]),
          **layer_entry(prefill_rows),
          "library_ms": sum(r["library_ms"] for r in prefill_rows),
          "shape": f"the tile kernel (masked_mm_kernel): one prefill layer, q,k,v,o,gate,up,down "
@@ -3172,7 +3526,8 @@ def main() -> None:
          "launches": total["masked_matmul_skinny"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"],
                             hybrid["errs"]["masked_matmul_skinny"],
-                            spec_run["errs"]["masked_matmul_skinny"]),
+                            spec_run["errs"]["masked_matmul_skinny"],
+                            moe["errs"]["masked_matmul_skinny"]),
          **layer_entry(decode_rows),
          "library_ms": sum(r["library_ms"] for r in decode_rows),
          "tile_ms": sum(r["tile_ms"] for r in decode_rows),
@@ -3230,7 +3585,7 @@ def main() -> None:
          "launches": total["flash_attention"],
          "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"],
                             hybrid["errs"]["flash_attention"],
-                            spec_run["errs"]["flash_attention"]),
+                            spec_run["errs"]["flash_attention"], moe["errs"]["flash_attention"]),
          **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "host_ms", "library_device_ms", "tile")},
          "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "

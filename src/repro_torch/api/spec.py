@@ -639,19 +639,30 @@ class RunSpec:
         return out
 
     def _pageable(self) -> bool:
-        """Does the arch keep full-attention k/v, the paged pool's leaves?"""
+        """Does the arch keep full-attention k/v or MLA's ckv/krope, the
+        paged pool's leaves?"""
         from repro_torch.configs import get_arch
 
         cfg = get_arch(self.arch.id).config
-        return any(kind[0] == "attn" for _, _, kind in cfg.layer_plan)
+        return any(kind[0] in ("attn", "mla") for _, _, kind in cfg.layer_plan)
 
     def _train_unsupported(self) -> list:
         from repro_torch.configs import get_arch
 
         out = []
         arch = get_arch(self.arch.id)
-        mixers = {mixer for _, _, (mixer, _) in arch.config.layer_plan}
-        if "ssm" in mixers:
+        kinds = {kind for _, _, kind in arch.config.layer_plan}
+        mixers = {mixer for mixer, _ in kinds}
+        serving_only = [part for part, there in (
+            ("MoE FFN", any(ffn == "moe" for _, ffn in kinds)), ("MLA mixer", "mla" in mixers))
+            if there]
+        if serving_only:
+            out.append(
+                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
+                f"port yet: its {' and '.join(serving_only)} "
+                f"{'are' if len(serving_only) > 1 else 'is'} ported for serving only "
+                "(MoE training, ROADMAP §1 item 3)")
+        elif "ssm" in mixers:
             out.append(
                 f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
                 "port: its ssm blocks run ssd_scan, which raises on the card when a "

@@ -47,7 +47,7 @@ def _ops(cfg_llama, cfg_mamba, dev, gen):
     """(name, fn, inputs, shipped row by row) for each plain reduction."""
     import torch
 
-    from repro_torch.models.attention import _scores
+    from repro_torch.models.attention import _scores, _values
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
@@ -66,10 +66,9 @@ def _ops(cfg_llama, cfg_mamba, dev, gen):
                      randn(b, n, a.n_kv_heads, a.head_dim)), True))
         ops.append((f"decode softmax S{n}", lambda x: torch.softmax(x, dim=-1),
                     (randn(b, a.n_kv_heads, g, n),), False))
-        ops.append((f"decode pv einsum S{n}",
-                    lambda p, v: torch.einsum("bkgs,bskd->bkgd", p, v),
+        ops.append((f"decode pv einsum S{n}", _values,
                     (torch.softmax(randn(b, a.n_kv_heads, g, n), -1),
-                     randn(b, n, a.n_kv_heads, a.head_dim)), False))
+                     randn(b, n, a.n_kv_heads, a.head_dim)), True))
     for cfg in (cfg_llama, cfg_mamba):
         w = randn(cfg.d_model, cfg.vocab) * 0.02
         ops.append((f"logits {cfg.d_model}x{cfg.vocab}", lambda h, w=w: torch.matmul(h, w),

@@ -4,15 +4,17 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchDef
+from repro_torch.configs.deepseek_v2_lite_16b import ARCH as _deepseek
 from repro_torch.configs.llama3_2_1b import ARCH as _llama
 from repro_torch.configs.mamba2_780m import ARCH as _mamba2
 from repro_torch.configs.minitron_4b import ARCH as _minitron
 from repro_torch.configs.mistral_nemo_12b import ARCH as _nemo
+from repro_torch.configs.olmoe_1b_7b import ARCH as _olmoe
 from repro_torch.configs.qwen2_7b import ARCH as _qwen2
 from repro_torch.configs.recurrentgemma_9b import ARCH as _rgemma
 
 ARCHS: dict[str, ArchDef] = {a.arch_id: a for a in [_qwen2, _rgemma, _minitron, _nemo,
-                                                    _llama, _mamba2]}
+                                                    _llama, _deepseek, _olmoe, _mamba2]}
 
 
 def get_arch(arch_id: str) -> ArchDef:

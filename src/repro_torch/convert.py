@@ -7,10 +7,13 @@ leading axis (``unit_0/...`` leaves of shape ``(n_units, ...)``) and keeps
 unrolled ``prefix_i`` / ``suffix_i`` layers; the port keeps a list of
 per-layer dicts in layer order (``LMConfig.layer_plan``).  Dense kernels
 are ``(K, N)`` on both sides, so every other leaf maps one to one:
-attention blocks (with qwen2's ``bias`` leaves), Mamba-2 blocks
+attention blocks (with qwen2's ``bias`` leaves), MLA blocks (``wq``,
+``wdkv``, ``wkr``, ``wuk``, ``wuv``, ``wo``), Mamba-2 blocks
 (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``,
-``norm``, ``out_proj``) and RG-LRU blocks (``wx``, ``wy``, ``conv_w``,
-``conv_b``, ``w_r``, ``w_i``, ``lam``, ``wo``) alike.
+``norm``, ``out_proj``), RG-LRU blocks (``wx``, ``wy``, ``conv_w``,
+``conv_b``, ``w_r``, ``w_i``, ``lam``, ``wo``) and MoE FFNs (``router``,
+the (E, d, f) / (E, f, d) ``w_gate`` / ``w_up`` / ``w_down`` and the
+``shared`` SwiGLU) alike.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""GQA attention, full and sliding-window (port of
-``repro/models/attention.py``).
+"""GQA attention, full and sliding-window, and DeepSeek's multi-head
+latent attention (port of ``repro/models/attention.py``).
 
 Two regimes, as in the reference:
 
@@ -29,8 +29,17 @@ A ``qkv_bias`` spec (qwen2) gives ``wq`` / ``wk`` / ``wv`` a bias, which
 
 Decode attention stays plain torch, as in the reference; its score
 product runs in fixed row blocks (``layers.fixed_rows``) so that a row's
-result does not depend on the batch's size.  MLA and the int8 cache are
-not ported yet.
+result does not depend on the batch's size.
+
+MLA (deepseek-v2-lite-16b, ``attention.py:291-381``) caches the 512-wide
+latent ``ckv`` and the shared rope key ``krope`` (bf16, seq axis -2).
+Prefill expands the latent to per-head keys and values (the standard
+form) and attends through :func:`_chunked_attention` (q/k D 192, v D
+128), as the reference does: it never calls ``flash_attention``.  Decode
+writes the new latent and rope rows into the cache first and attends in
+the latent space (the absorbed form), every product in fixed row blocks.
+The up-projections ``wuk`` / ``wuv`` are raw fp32 kernels in every mode,
+never quantized.  The int8 cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -64,6 +73,10 @@ def _scores(qh: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgd,bskd->bkgs", qh, ck)
 
 
+def _values(p: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bkgs,bskd->bkgd", p, cv)
+
+
 def _valid(pos_v: torch.Tensor, s_max: int, window: Optional[int]) -> torch.Tensor:
     """(B, S) live cache slots of each row at position ``pos_v``: slots up to
     it, or for a ring the slots whose absolute position p = pos - ((pos - i)
@@ -78,16 +91,17 @@ def _valid(pos_v: torch.Tensor, s_max: int, window: Optional[int]) -> torch.Tens
 def _decode_attend(qh: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """fp32 attention of (B, KV, G, D) queries over the (B, S, KV, D) cache's
-    ``valid`` (B, S) slots.  The score product runs in fixed row blocks
-    (``fixed_rows``): on the card its batched GEMM's sums differ with the
-    batch's size.  The softmax and the value product read equal at 4 and at
-    2 rows there, so they run batched."""
+    ``valid`` (B, S) slots.  The score and value products run in fixed row
+    blocks (``fixed_rows``): on the card their batched GEMMs' sums differ
+    with the batch's size (the value product's at one query head a kv head,
+    olmoe's MHA).  The softmax reads equal at 4 and at 2 rows there, so it
+    runs batched."""
     d = qh.shape[-1]
     scores = fixed_rows(_scores, qh.to(torch.float32), ck.to(torch.float32)) / (d**0.5)
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full((), -1e30, device=qh.device))
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgs,bskd->bkgd", p, cv.to(torch.float32))
+    return fixed_rows(_values, p, cv.to(torch.float32))
 
 
 #: query rows per chunk of :func:`_chunked_attention` (the reference's)
@@ -241,3 +255,111 @@ def gqa_init_cache(batch: int, spec: AttnSpec, max_len: int, dtype=torch.bfloat1
         names, rows = ("k_ring", "v_ring"), spec.window
     shape = (batch, rows, spec.n_kv_heads, spec.head_dim)
     return {n: torch.zeros(shape, dtype=dtype, device=device) for n in names}
+
+
+# -- DeepSeek-V2 multi-head latent attention ----------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def mla_init(gen: torch.Generator, d: int, spec: MLASpec, *, device=None) -> dict:
+    h, rank = spec.n_heads, spec.kv_lora_rank
+    return {
+        "wq": dense_init(gen, d, h * (spec.qk_nope_dim + spec.qk_rope_dim), device=device),
+        "wdkv": dense_init(gen, d, rank, device=device),
+        "wkr": dense_init(gen, d, spec.qk_rope_dim, device=device),
+        "wuk": dense_init(gen, rank, h * spec.qk_nope_dim, device=device),
+        "wuv": dense_init(gen, rank, h * spec.v_head_dim, device=device),
+        "wo": dense_init(gen, h * spec.v_head_dim, d, device=device),
+    }
+
+
+def _mla_decode_attend(qn: torch.Tensor, qr: torch.Tensor, ck: torch.Tensor,
+                       cr: torch.Tensor, wuk: torch.Tensor, wuv: torch.Tensor,
+                       valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """The absorbed form: fp32 (B, H, dn) / (B, H, dr) queries against the
+    (B, S, rank) latent and (B, S, dr) rope caches' ``valid`` slots, the
+    scores and values in the latent space; returns (B, H, dv).  Every
+    product runs in fixed row blocks (``fixed_rows``); the softmax runs
+    batched."""
+    ckf, crf = ck.to(torch.float32), cr.to(torch.float32)
+    q_lat = fixed_rows(lambda q: torch.einsum("bhd,rhd->bhr", q, wuk), qn)
+    s_lat = fixed_rows(lambda q, c: torch.einsum("bhr,bsr->bhs", q, c), q_lat, ckf)
+    s_rope = fixed_rows(lambda q, c: torch.einsum("bhd,bsd->bhs", q, c), qr, crf)
+    scores = (s_lat + s_rope) * scale
+    scores = torch.where(valid[:, None, :], scores, torch.full((), -1e30, device=qn.device))
+    p = torch.softmax(scores, dim=-1)
+    ctx_lat = fixed_rows(lambda p, c: torch.einsum("bhs,bsr->bhr", p, c), p, ckf)
+    return fixed_rows(lambda c: torch.einsum("bhr,rhd->bhd", c, wuv), ctx_lat)
+
+
+def mla_apply(
+    params: dict,
+    x: torch.Tensor,
+    ctx: SpringContext,
+    spec: MLASpec,
+    positions: torch.Tensor,
+    cache: Optional[dict] = None,
+    pos=None,
+    return_cache: bool = False,
+):
+    """Full-sequence MLA (cache None) or one-token decode against the
+    ``{"ckv": (B, S, rank), "krope": (B, S, dr)}`` cache.  Returns
+    ``(out, new_cache)``."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = spec.n_heads, spec.qk_nope_dim, spec.qk_rope_dim, spec.v_head_dim
+    rank = spec.kv_lora_rank
+    scale = 1.0 / ((dn + dr) ** 0.5)
+
+    q = dense_apply(params["wq"], x, ctx).reshape(b, s, h, dn + dr)
+    qn, qr = q[..., :dn], rope_apply(q[..., dn:], positions, spec.rope_theta)
+    ckv = dense_apply(params["wdkv"], x, ctx)  # (B, S, rank)
+    krope = rope_apply(dense_apply(params["wkr"], x, ctx)[:, :, None, :], positions,
+                       spec.rope_theta)[:, :, 0, :]  # (B, S, dr), shared across heads
+    # the up-projections stay fp32 and unquantized in every mode, as in
+    # the reference (raw kernels in einsums, never dense_apply)
+    wuk = params["wuk"]["kernel"].reshape(rank, h, dn)
+    wuv = params["wuv"]["kernel"].reshape(rank, h, dv)
+
+    if cache is None:
+        # the standard form: the latent expanded to per-head keys and
+        # values, through the chunked attention (q/k D dn + dr, v D dv)
+        ckf = ckv.to(torch.float32)
+        k_nope = torch.einsum("bsr,rhd->bshd", ckf, wuk).to(x.dtype)
+        vh = torch.einsum("bsr,rhd->bshd", ckf, wuv).to(x.dtype)
+        k_full = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, dr).to(x.dtype)], -1)
+        q_full = torch.cat([qn, qr], -1)
+        out = _chunked_attention(q_full, k_full, vh, causal=True, window=None)
+        out = out.reshape(b, s, h * dv)
+        new_cache = None
+        if return_cache:
+            new_cache = {"ckv": ckv.to(torch.bfloat16), "krope": krope.to(torch.bfloat16)}
+    else:
+        if s != 1:
+            raise ValueError("decode processes one token per step")
+        pos_v = _pos_vec(pos, b, x.device)
+        ck = _row_update(cache["ckv"], ckv, pos_v)
+        cr = _row_update(cache["krope"], krope, pos_v)
+        out = _mla_decode_attend(qn[:, 0].to(torch.float32), qr[:, 0].to(torch.float32), ck, cr,
+                                 wuk, wuv, _valid(pos_v, ck.shape[1], None), scale)
+        out = out.reshape(b, 1, h * dv).to(x.dtype)
+        new_cache = {"ckv": ck, "krope": cr}
+
+    out = dense_apply(params["wo"], out, ctx)
+    return out, new_cache
+
+
+def mla_init_cache(batch: int, spec: MLASpec, max_len: int, dtype=torch.bfloat16,
+                   *, device=None) -> dict:
+    """Zero latent and rope-key caches of ``max_len`` rows."""
+    return {"ckv": torch.zeros((batch, max_len, spec.kv_lora_rank), dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, spec.qk_rope_dim), dtype=dtype,
+                                 device=device)}

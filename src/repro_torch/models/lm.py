@@ -3,9 +3,13 @@ and decode, and training's :func:`lm_hidden` / :func:`lm_loss`.
 
 Covers the block kinds of :data:`SUPPORTED_KINDS`: ``("attn", "swiglu")``
 (the llama family, qwen2's qkv bias included), ``("ssm", "none")``
-(Mamba-2, no FFN), and recurrentgemma's ``("rglru", "swiglu")`` and
-``("local", "swiglu")`` (sliding-window attention, ``cfg.local_attn``);
-other mixers and FFNs raise ``NotImplementedError``.  The reference scans
+(Mamba-2, no FFN), recurrentgemma's ``("rglru", "swiglu")`` and
+``("local", "swiglu")`` (sliding-window attention, ``cfg.local_attn``),
+olmoe's ``("attn", "moe")`` and deepseek's ``("mla", "moe")`` with its
+dense ``("mla", "swiglu")`` first layer (``models/moe.py``, MLA in
+``attention.py``); the other mixers and FFNs (``gelu``, layer norm) raise
+``NotImplementedError``.  ``block_apply`` returns the MoE FFN's
+load-balancing loss, which :func:`lm_hidden` sums.  The reference scans
 a stacked ``unit_u`` parameter tree per position of its repeating unit,
 plus unrolled ``prefix_i`` / ``suffix_i`` layers; here the layers are a
 Python list of per-layer dicts, walked in order (:attr:`LMConfig.layer_plan`:
@@ -13,8 +17,9 @@ the prefix, then units 0, 1, ... of each repeat, then the suffix).
 Caches keep the reference's layout, ``{"pos", "unit_u": {...},
 "suffix_i": {...}}``: unit leaves stack the repeats in front,
 ``(n_units, B, ...)`` (attention ``{"k", "v"}`` of ``(n_units, B, S, KV,
-D)``, window rings ``{"k_ring", "v_ring"}``, SSM ``{"conv", "ssm"}`` and
-RG-LRU ``{"conv", "h"}`` states), prefix and suffix leaves have none, so
+D)``, MLA ``{"ckv", "krope"}`` of ``(n_units, B, S, width)``, window rings
+``{"k_ring", "v_ring"}``, SSM ``{"conv", "ssm"}`` and RG-LRU ``{"conv",
+"h"}`` states), prefix and suffix leaves have none, so
 the packed slot pool is laid out exactly as the reference's.
 
 Training recomputes a unit of layers in the backward pass under
@@ -30,10 +35,10 @@ loss is the chunked cross-entropy of ``models/losses.py``.
 The tied-embedding logits product stays ``torch.matmul`` in fp32: the
 reference computes it outside any kernel too (``lm.py:412-415``).  The
 decode's plain reductions that are not batch-invariant on the card (this
-product, RMSNorm's mean, decode attention's score product, the SSM state
-readout, the RG-LRU's conv sum and gate products) run in fixed row blocks
-(``layers.fixed_rows``), so a request's tokens do not depend on how many
-slots the pool has.
+product, RMSNorm's mean, decode attention's score and value products, MLA's
+absorbed products, the MoE router, the SSM state readout, the RG-LRU's conv
+sum and gate products) run in fixed row blocks (``layers.fixed_rows``), so
+a request's tokens do not depend on how many slots the pool has.
 """
 
 from __future__ import annotations
@@ -47,9 +52,10 @@ import torch.utils.checkpoint
 from repro_torch.memstash.config import MemstashConfig
 from repro_torch.memstash.stash import stash_apply
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import AttnSpec
+from repro_torch.models.attention import AttnSpec, MLASpec
 from repro_torch.models.layers import (
     SpringContext,
     dense_init,
@@ -62,12 +68,13 @@ from repro_torch.models.layers import (
     swiglu_init,
 )
 from repro_torch.models.losses import chunked_softmax_xent
+from repro_torch.models.moe import MoESpec
 from repro_torch.models.recurrent import RGLRUSpec
 from repro_torch.models.ssm import SSMSpec
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 SUPPORTED_KINDS = (("attn", "swiglu"), ("ssm", "none"), ("local", "swiglu"),
-                   ("rglru", "swiglu"))
+                   ("rglru", "swiglu"), ("attn", "moe"), ("mla", "moe"), ("mla", "swiglu"))
 REMAT_POLICIES = ("full", "block_io", "stash")
 
 
@@ -83,8 +90,10 @@ class LMConfig:
     suffix: tuple = ()
     attn: Optional[AttnSpec] = None
     local_attn: Optional[AttnSpec] = None  # the "local" mixer's (windowed) spec
+    mla: Optional[MLASpec] = None
     ssm: Optional[SSMSpec] = None
     rglru: Optional[RGLRUSpec] = None
+    moe: Optional[MoESpec] = None
     d_ff: int = 0
     norm: str = "rms"
     tie_embeddings: bool = False
@@ -134,35 +143,51 @@ def block_init(gen: torch.Generator, cfg: LMConfig, kind: tuple, *, device=None)
     p = {"norm1": rmsnorm_init(cfg.d_model, device=device)}
     if mixer in ("attn", "local"):
         p["mixer"] = attn_mod.gqa_init(gen, cfg.d_model, _attn_spec(cfg, mixer), device=device)
+    elif mixer == "mla":
+        p["mixer"] = attn_mod.mla_init(gen, cfg.d_model, cfg.mla, device=device)
     elif mixer == "rglru":
         p["mixer"] = rec_mod.rglru_block_init(gen, cfg.d_model, cfg.rglru, device=device)
     else:
         p["mixer"] = ssm_mod.ssm_init(gen, cfg.d_model, cfg.ssm, device=device)
     if ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device=device)
-        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device)
+        p["ffn"] = (moe_mod.moe_init(gen, cfg.d_model, cfg.moe, device=device) if ffn == "moe"
+                    else swiglu_init(gen, cfg.d_model, cfg.d_ff, device=device))
     return p
 
 
 def block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, cfg: LMConfig,
                 kind: tuple, positions: torch.Tensor, cache: Optional[dict] = None, pos=None,
                 return_cache: bool = False):
-    """Pre-norm residual block.  Returns (x, new_cache)."""
+    """Pre-norm residual block.  Returns (x, new_cache, aux): aux is the
+    MoE FFN's load-balancing loss, else 0."""
     mixer, ffn = kind
     h = rmsnorm_apply(params["norm1"], x)
     if mixer in ("attn", "local"):
         out, new_cache = attn_mod.gqa_apply(params["mixer"], h, ctx, _attn_spec(cfg, mixer),
                                             positions, cache, pos, return_cache)
+    elif mixer == "mla":
+        out, new_cache = attn_mod.mla_apply(params["mixer"], h, ctx, cfg.mla, positions, cache,
+                                            pos, return_cache)
     elif mixer == "rglru":
         out, new_cache = rec_mod.rglru_block_apply(params["mixer"], h, ctx, cfg.rglru, cache,
                                                    return_cache)
     else:
         out, new_cache = ssm_mod.ssm_apply(params["mixer"], h, ctx, cfg.ssm, cache)
-    x = (x + out).to(x.dtype)
+    # the reference's jitted program normalizes the unrounded fp32 sum (XLA
+    # drops the bf16 round trip between the add and rmsnorm's upcast); the
+    # residual stream itself is rounded
+    xf = x.to(torch.float32) + out.to(torch.float32)
+    x = xf.to(x.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
-        h = rmsnorm_apply(params["norm2"], x)
-        x = (x + swiglu_apply(params["ffn"], h, ctx)).to(x.dtype)
-    return x, new_cache
+        h = rmsnorm_apply(params["norm2"], xf).to(x.dtype)
+        if ffn == "moe":
+            out, aux = moe_mod.moe_apply(params["ffn"], h, ctx, cfg.moe)
+        else:
+            out = swiglu_apply(params["ffn"], h, ctx)
+        x = (x + out).to(x.dtype)
+    return x, new_cache, aux
 
 
 def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
@@ -171,6 +196,8 @@ def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
     if mixer in ("attn", "local"):
         return attn_mod.gqa_init_cache(batch, _attn_spec(cfg, mixer), max_len, dtype,
                                        device=device)
+    if mixer == "mla":
+        return attn_mod.mla_init_cache(batch, cfg.mla, max_len, dtype, device=device)
     if mixer == "rglru":
         return rec_mod.rglru_init_cache(batch, cfg.rglru, dtype, device=device)
     return ssm_mod.ssm_init_cache(batch, cfg.ssm, dtype, device=device)
@@ -204,8 +231,9 @@ def _logits(params: dict, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
 def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContext,
               img_embeds: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Token ids (B, S) -> the final hidden states (B, S, d) and the
-    auxiliary loss (0: no MoE is ported), each unit recomputed in the
-    backward pass under ``cfg.remat`` / ``cfg.remat_policy``."""
+    auxiliary loss (the MoE layers' load-balancing losses summed; 0
+    without MoE), each unit recomputed in the backward pass under
+    ``cfg.remat`` / ``cfg.remat_policy``."""
     cfg.check_supported()
     if cfg.vlm_prefix_len or img_embeds is not None:
         raise NotImplementedError(f"{cfg.name}: the image-embedding prefix (vlm_prefix_len, "
@@ -219,42 +247,50 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
     stash_policy = (scfg.policy_for("lm/residual", int(x.numel()))
                     if cfg.remat_policy == "stash" else "none")
     width, n_pre = len(cfg.pattern_unit), len(cfg.prefix)
+    if stash_policy == "stash" and any(ffn == "moe" for _, ffn in cfg.pattern_unit):
+        raise NotImplementedError(f"{cfg.name}: the stashed unit returns no MoE aux loss "
+                                  "(MoE training, ROADMAP §1 item 3)")
 
     def block(h, p, u):
-        return block_apply(p, h, ctx, cfg, cfg.pattern_unit[u], positions)[0]
+        return block_apply(p, h, ctx, cfg, cfg.pattern_unit[u], positions)[::2]
 
     def checkpointed(fn, *args):
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.prefix):
-        x = block_apply(p, x, ctx, cfg, kind, positions)[0]
+        x, _, a = block_apply(p, x, ctx, cfg, kind, positions)
+        aux = aux + a
     for i in range(cfg.n_units):
         unit = params["layers"][n_pre + i * width:n_pre + (i + 1) * width]
 
         def run(h, unit=unit):
+            aux_u = torch.zeros((), dtype=torch.float32, device=h.device)
             for u, p in enumerate(unit):
-                h = block(h, p, u)
-            return h
+                h, a = block(h, p, u)
+                aux_u = aux_u + a
+            return h, aux_u
 
         if cfg.remat and cfg.remat_policy == "block_io":
             for u, p in enumerate(unit):
-                x = checkpointed(block, x, p, u)
+                x, a = checkpointed(block, x, p, u)
+                aux = aux + a
         elif stash_policy == "stash":
             # the unit's input is kept compressed; its parameters ride along
             # as the stash's dense aux tensors, so their gradients flow
-            def run_aux(h, aux, unit=unit):
-                leaves = iter(aux)
-                return run(h, tree_map(lambda _: next(leaves), unit))
+            def run_aux(h, leaves, unit=unit):
+                leaves = iter(leaves)
+                return run(h, tree_map(lambda _: next(leaves), unit))[0]
 
             x = stash_apply(run_aux, scfg, "lm/residual", x, tuple(tree_leaves(unit)))
-        elif cfg.remat or stash_policy == "remat":
-            x = checkpointed(run, x)
         else:
-            x = run(x)
+            x, a = (checkpointed(run, x) if cfg.remat or stash_policy == "remat" else run(x))
+            aux = aux + a
     for p, kind in zip(params["layers"][n_pre + cfg.n_units * width:], cfg.suffix):
-        x = block_apply(p, x, ctx, cfg, kind, positions)[0]
+        x, _, a = block_apply(p, x, ctx, cfg, kind, positions)
+        aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _logits_kernel(params: dict, cfg: LMConfig) -> torch.Tensor:
@@ -294,17 +330,22 @@ def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return cache
 
 
+#: seq axis (from the end) of each cache leaf that :func:`pad_cache` grows
+_CACHE_SEQ_AXIS = {"k": -3, "v": -3, "ckv": -2, "krope": -2}
+
+
 def pad_cache(cache: dict, extra: int) -> dict:
-    """Grow the k/v caches by ``extra`` decode positions (prefill builds
-    caches sized to the prompt; decoding needs headroom).  Window rings keep
-    their fixed size and the O(1) SSM / RG-LRU state leaves pass through."""
+    """Grow the k/v and MLA latent caches by ``extra`` decode positions
+    (prefill builds caches sized to the prompt; decoding needs headroom).
+    Window rings keep their fixed size and the O(1) SSM / RG-LRU state
+    leaves pass through."""
     if extra <= 0:
         return cache
     out = dict(cache)
     for key in (k for k, v in cache.items() if isinstance(v, dict)):
-        # k/v leaves (..., S, KV, D): pad the seq axis, third from the end
-        out[key] = {name: (torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, extra))
-                           if name in ("k", "v") else leaf)
+        out[key] = {name: (torch.nn.functional.pad(
+                        leaf, (0, 0) * (-_CACHE_SEQ_AXIS[name] - 1) + (0, extra))
+                           if name in _CACHE_SEQ_AXIS else leaf)
                     for name, leaf in cache[key].items()}
     return out
 
@@ -334,7 +375,7 @@ def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     positions = torch.arange(s, device=x.device).expand(b, s)
     plan, caches = cfg.layer_plan, []
     for (_, _, kind), p in zip(plan, params["layers"]):
-        x, c = block_apply(p, x, ctx, cfg, kind, positions, return_cache=True)
+        x, c, _ = block_apply(p, x, ctx, cfg, kind, positions, return_cache=True)
         caches.append(c)
     cache: dict = {"pos": torch.tensor(s, dtype=torch.int64, device=x.device)}
     cache.update(_gather_caches(plan, caches))
@@ -355,7 +396,7 @@ def lm_decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor, cache: dic
     for (key, i, kind), p in zip(plan, params["layers"]):
         layer_cache = (cache[key] if i is None
                        else {name: leaf[i] for name, leaf in cache[key].items()})
-        x, c = block_apply(p, x, ctx, cfg, kind, positions, layer_cache, pos)
+        x, c, _ = block_apply(p, x, ctx, cfg, kind, positions, layer_cache, pos)
         caches.append(c)
     new_cache: dict = {"pos": pos + 1}
     new_cache.update(_gather_caches(plan, caches))

@@ -4,8 +4,9 @@
 The pool mirrors the ``lm_init_cache`` tree — ``{"pos": (S,) per-slot
 positions, "unit_u": {"k", "v"}}`` with ``(n_units, S, max_len, KV, D)``
 leaves, plus ``"suffix_i"`` / ``"prefix_i"`` subtrees of unrolled layers
-— with every seq-bearing leaf (full-attention ``k`` / ``v``, window rings
-``k_ring`` / ``v_ring``) replaced by a :class:`PackedKV`: per
+— with every seq-bearing leaf (full-attention ``k`` / ``v``, MLA's
+``ckv`` / ``krope`` with the seq axis at -2, window rings ``k_ring`` /
+``v_ring``) replaced by a :class:`PackedKV`: per
 (layer, slot) block, the non-zeros collapsed to the front of a
 dense-length value buffer plus one occupancy bit per element.  Packing a
 leaf is one ``kv_pack`` call over all its blocks, so on the card its mask
@@ -26,8 +27,7 @@ reference's versions are pure functions inside jitted programs.  So what
 must outlive the next surgery is copied out: a spilled slot's payload
 (:func:`extract_slot_packed`) and a snapshot's leaves
 (:func:`pool_leaves`) are host copies, never views of the pool.  Mask
-words move through an int32 view (torch has few uint32 kernels).  MLA
-latents are not ported yet.
+words move through an int32 view (torch has few uint32 kernels).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from repro_torch.kernels.kv_cache.ops import KV_VALUE_BITS, kv_pack, kv_unpack
 
 #: seq axis (negative, from the end) of each packable cache leaf; the slot
 #: axis is the one just before it
-PACKED_SEQ_AXIS = {"k": -3, "v": -3, "k_ring": -3, "v_ring": -3}
+PACKED_SEQ_AXIS = {"k": -3, "v": -3, "ckv": -2, "krope": -2, "k_ring": -3, "v_ring": -3}
 
 
 @dataclasses.dataclass

@@ -15,8 +15,8 @@ layers, so the whole mapping is one ``(n_slots, max_blocks)`` frame
 table.  Everything else (SSM and RG-LRU state, window rings, the
 per-slot ``pos`` vector) is *slot state*: a dense slot-indexed tree in which the
 paged leaves are ``None`` holes (``strip``; ``assemble`` fills them back
-in).  The reference also pages MLA's ``ckv``/``krope``; the port has no
-MLA.
+in).  MLA's ``ckv`` / ``krope`` (seq axis -2) are paged like k/v, under
+``unit_*`` (layers stacked in front) and under deepseek's ``prefix_0``.
 
 The decode tick is gather -> compute -> scatter, without the
 reference's per-slot ``vmap``:
@@ -48,11 +48,11 @@ from repro_torch.kernels.kv_cache.ops import KV_VALUE_BITS, kv_pack, kv_unpack
 from repro_torch.serving.kvpool import (PACKED_SEQ_AXIS, as_tensor, host_copy, lookup,
                                         pool_leaves, word_view)
 
-#: cache leaf kinds stored paged: token-indexed content (the port's
-#: attention leaves; the reference adds MLA's ckv/krope).  Window rings are
+#: cache leaf kinds stored paged: token-indexed content (attention k/v and
+#: MLA's latent and rope key).  Window rings are
 #: fixed-size per-slot windows and stay slot state, like the O(1)
 #: SSM / RG-LRU leaves (the reference's ``store.py:44-47``)
-PAGED_LEAVES = ("k", "v")
+PAGED_LEAVES = ("k", "v", "ckv", "krope")
 
 _PARTS = ("values", "mask", "nnz")
 

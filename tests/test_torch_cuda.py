@@ -751,3 +751,125 @@ def test_sparsity_probe_runs_the_kernels(card):
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"))
     assert on_card == sparsity_probe(device="cpu")
+
+
+# -- the MoE family: the MoE FFN, MLA and the latent pool on the card ----------------
+
+
+def _moe_ctx():
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.layers import SpringContext
+
+    return SpringContext(cfg=serving_config("quant_sparse"))
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 64), (4, 1, 64)], ids=["prefill", "decode"])
+def test_moe_apply_on_the_card_matches_the_cpu(card, shape):
+    """A reduced MoE FFN (8 experts, top-2, 2 shared, capacity factor 0.5,
+    so a prefill of 512 tokens drops assignments and fills a capacity of
+    64 rows: the tile kernel; a decode step of 4 rows: the skinny kernel),
+    quant_sparse, on the card against its CPU run: the same experts and
+    kept assignments, y within 1e-3 (fp32 sums in another order move a
+    quantized activation by one 2**-16 step at most), the aux loss at rel
+    1e-5; the experts' products launched masked_matmul."""
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.models.moe import MoESpec, moe_apply, moe_init, record_routing
+
+    spec = MoESpec(n_experts=8, top_k=2, d_ff=48, n_shared=2, shared_d_ff=48,
+                   capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(7)
+    params = moe_init(gen, 64, spec, device="cpu")
+    x = torch.randn(shape, generator=gen)
+    ctx = _moe_ctx()
+    with record_routing() as r_cpu:
+        want, want_aux = moe_apply(params, x, ctx, spec)
+    before = masked_matmul.launches
+    with record_routing() as r_gpu:
+        got, aux = moe_apply(_to(params, card), x.to(card), ctx, spec)
+    torch.cuda.synchronize()
+    assert masked_matmul.launches - before >= 3 * spec.n_experts
+    assert torch.equal(r_gpu[0]["gate_idx"].cpu(), r_cpu[0]["gate_idx"])
+    assert torch.equal(r_gpu[0]["keep"].cpu(), r_cpu[0]["keep"])
+    assert bool((~r_cpu[0]["keep"]).any()) == (shape[1] > 1)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+
+
+def test_mla_apply_on_the_card_matches_the_cpu(card):
+    """Reduced MLA, quant_sparse: a prefill of 2 x 40 tokens (the chunked
+    attention: flash_attention never launches), then two absorbed decode
+    steps at per-row positions, on the card against the CPU: outputs within
+    1e-3, the bf16 latent caches within 1 bf16 ulp at their largest
+    magnitudes."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.attention import MLASpec, mla_apply, mla_init
+
+    spec = MLASpec(n_heads=4, kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
+    gen = torch.Generator().manual_seed(8)
+    params = mla_init(gen, 64, spec, device="cpu")
+    ctx = _moe_ctx()
+    x = torch.randn(2, 40, 64, generator=gen)
+    positions = torch.arange(40).expand(2, 40)
+
+    def close_caches(got, want):
+        for name in ("ckv", "krope"):
+            w = want[name].float()
+            ulp = 2.0 ** (torch.floor(torch.log2(w.abs().max())) - 7)
+            assert float((got[name].float().cpu() - w).abs().max()) <= float(ulp), name
+
+    before = flash_attention.launches
+    want, c_cpu = mla_apply(params, x, ctx, spec, positions, return_cache=True)
+    got, c_gpu = mla_apply(_to(params, card), x.to(card), ctx, spec, positions.to(card),
+                           return_cache=True)
+    assert flash_attention.launches == before
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+    close_caches(c_gpu, c_cpu)
+    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 4)) for n, c in c_cpu.items()}
+    pos = torch.tensor([40, 37])
+    for i in range(2):
+        xs = torch.randn(2, 1, 64, generator=gen)
+        want, c_cpu = mla_apply(params, xs, ctx, spec, pos[:, None], cache=cache, pos=pos)
+        got, c_gpu = mla_apply(_to(params, card), xs.to(card), ctx, spec, pos[:, None].to(card),
+                               cache=_to(cache, card), pos=pos.to(card))
+        assert float((got.cpu() - want).abs().max()) <= 1e-3
+        close_caches(c_gpu, c_cpu)
+        cache, pos = c_cpu, pos + 1
+
+
+def test_latent_pool_packs_on_the_card_as_on_the_cpu(card):
+    """Reduced deepseek-v2-lite-16b's packed pool (the ckv / krope leaves
+    under prefix_0, slot axis 0, and unit_0, slot axis 1): one prefill
+    cache installed in slot 1 on the card and on the CPU gives the same
+    values, mask words and nnz, bit for bit; the card's pool unpacks to
+    the cache's bits, and a slot payload moved to slot 2 reads back the
+    same."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import lm_init, lm_prefill
+    from repro_torch.serving import kvpool
+
+    cfg = get_arch("deepseek-v2-lite-16b").resolve(reduced=True)
+    params = lm_init(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 21), generator=torch.Generator().manual_seed(9))
+    _, pc = lm_prefill(params, cfg, toks, _moe_ctx())
+    pools = {}
+    for device in ("cpu", card):
+        pools[str(device)] = pool = kvpool.init_pool(cfg, 3, 32, device=device)
+        kvpool.install_packed(pool, _to(pc, device), 1, 21)
+    cpu_pool, card_pool = pools["cpu"], pools[str(card)]
+    for key in ("prefix_0", "unit_0"):
+        for name in ("ckv", "krope"):
+            for part in ("values", "mask", "nnz"):
+                a = kvpool.word_view(getattr(card_pool[key][name], part)).cpu()
+                b = kvpool.word_view(getattr(cpu_pool[key][name], part))
+                assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                                   b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+    kvpool.restore_slot_packed(card_pool, kvpool.extract_slot_packed(card_pool, 1), 2)
+    dense = kvpool.unpack_cache(card_pool)
+    for key, ax in (("prefix_0", 0), ("unit_0", 1)):
+        for name in ("ckv", "krope"):
+            for slot in (1, 2):
+                row = dense[key][name].select(ax, slot).cpu()
+                want = pc[key][name].select(ax, 0)
+                assert torch.equal(row.narrow(-2, 0, 21).view(torch.int16),
+                                   want.view(torch.int16))
+                assert not row.narrow(-2, 21, 11).any()

@@ -248,7 +248,7 @@ REFUSED_FIELDS = [
     (["serving.int8_cache=true"], "serving.int8_cache"),
     (["shape.mesh=debug"], "shape.mesh"),
     (["shape.mesh.data=2"], "shape.mesh"),
-    (["arch.id=deepseek-v2-lite-16b"], "arch.id"),
+    (["arch.id=internvl2-26b"], "arch.id"),
     (["numerics.stochastic=on", "numerics.mode=quant_sparse"], "numerics.stochastic"),
 ]
 
