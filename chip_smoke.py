@@ -227,6 +227,31 @@ failure:
                heads on 16 kv heads, kv_pack and mask_pack's route on the
                k/v, ckv and krope leaves); each reduced model on the card
                against the CPU;
+  6l. slice15 — full-width whisper-medium (24 + 24 layers, d 1024, 16
+               heads, enc_seq 1500), quant_sparse, from a spec through the
+               launcher as a subprocess (``--set arch.id=whisper-medium
+               --set arch.reduced=false ...``; batch 4, prompt 16, gen 16, the
+               static path, whose encoder and cross-K/V run dense as in the
+               reference), then an in-process ServeSession over the same
+               spec (counters zeroed just before, read just after: the
+               skinny kernel launched; tokens equal the launcher's);
+               internvl2-26b at every width and 45 of its 48 layers (all 48
+               do not fit the card beside a decode tick's repack), 4
+               requests of 512 text tokens behind the 256-position image
+               prefix, gen 16, 4 slots, monolithic then paged (whole-prompt
+               installs): every path kernel launched in each (flash_attention
+               at a GQA group of 6, 2 heads a tile; mask_pack on the pool's
+               leaves; splitk_reduce for d_ff 16384), paged tokens =
+               monolithic tokens, decode logits at 4 and 2 slots bit-equal,
+               three profiled ticks, at least 3 GiB of the card free at the
+               peak; llama3.2-1b's int8 KV cache on the static path (4 x 512,
+               gen 16): tokens agreeing with the bf16 cache's, the caches'
+               bytes, the path kernels launched; every path kernel against
+               its plain version at those shapes (whisper's products at M 4
+               and at the encoder's M 6000, internvl2's at M 768 and 4 and
+               its lm_head, flash at S 768, kv_pack on its leaves; llama's at
+               M 512); the reduced whisper-medium, internvl2-26b and the int8
+               static path on the card against the CPU;
   7a. dangling_filter — bit-equal to its plain version on the registry's
                examples, -0.0 / NaN / inf entries at a length with a scalar
                tail, unaligned views, bf16 and 32x224x224x64 fp32; timed there
@@ -1643,6 +1668,14 @@ def phase_spec(dev) -> dict:
             "tokens": tokens(main_out)}
 
 
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
                          shared_cache: bool = False) -> dict:
     """The reduced ``arch`` on the card against the same model on the CPU
@@ -1667,19 +1700,15 @@ def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
     cfg = get_arch(arch).resolve(reduced=True)
     ctx = SpringContext(cfg=serving_config("quant_sparse"))
     p_cpu = lm_init(cfg, 0, device="cpu")
-
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
     toks = torch.randint(0, cfg.vocab, (2, prompt_len), generator=gen)
+    # a VLM's image prefix ahead of the tokens
+    img = (torch.randn(2, cfg.vlm_prefix_len, cfg.d_model, generator=gen).to(torch.bfloat16)
+           if cfg.vlm_prefix_len else None)
     with record_routing() as r_cpu:
-        lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx)
+        lg_cpu, c_cpu = lm_prefill(p_cpu, cfg, toks, ctx, img)
     with record_routing() as r_gpu:
-        lg_gpu, c_gpu = lm_prefill(to(p_cpu, dev), cfg, toks.to(dev), ctx)
+        lg_gpu, c_gpu = lm_prefill(_to(p_cpu, dev), cfg, toks.to(dev), ctx,
+                                   None if img is None else img.to(dev))
     # an MoE model's routing first: a near-tie that flips under another
     # summation order sends a token to another expert
     flips = sum(int((a["gate_idx"].cpu() != b["gate_idx"].cpu()).sum())
@@ -1692,10 +1721,10 @@ def check_lm_card_vs_cpu(dev, gen, arch: str, prompt_len: int,
                 ulp = 2.0 ** (torch.floor(torch.log2(want.abs().max())) - 7)
                 cache_ulps = max(cache_ulps, float((c_gpu[key][name].float().cpu() - want)
                                                    .abs().max() / ulp))
-        c_gpu = to(c_cpu, dev)
+        c_gpu = _to(c_cpu, dev)
     nxt = lg_cpu.argmax(-1)
     d_cpu, _ = lm_decode_step(p_cpu, cfg, nxt, pad_cache(c_cpu, 1), ctx)
-    d_gpu, _ = lm_decode_step(to(p_cpu, dev), cfg, nxt.to(dev), pad_cache(c_gpu, 1), ctx)
+    d_gpu, _ = lm_decode_step(_to(p_cpu, dev), cfg, nxt.to(dev), pad_cache(c_gpu, 1), ctx)
     e_pre = float((lg_gpu.cpu() - lg_cpu).abs().max())
     e_dec = float((d_gpu.cpu() - d_cpu).abs().max())
     print(f"[check] reduced {arch} card vs CPU, prompt {prompt_len}: prefill logits "
@@ -3064,6 +3093,369 @@ def _tensors(tree) -> list:
     return [tree]
 
 
+# -- slice 15: whisper-medium, internvl2-26b's image prefix, the int8 KV cache --------
+
+# 6l: whisper-medium (24 + 24 layers, d 1024, 16 heads, enc_seq 1500) from a
+# spec through the launcher, batch 4, prompt 16, gen 16; internvl2-26b at
+# every width (d 6144, 48 heads on 8 kv heads: a GQA group of 6), 4 requests
+# of 512 text tokens behind the 256-position image prefix, gen 16, 4 slots,
+# monolithic then paged; llama3.2-1b's int8 KV cache on the static path
+S15_BATCH, WHISPER_PROMPT = 4, 16
+WHISPER_SETS = ("arch.id=whisper-medium", "arch.reduced=false", "numerics.mode=quant_sparse",
+                f"shape.batch={S15_BATCH}", f"shape.prompt_len={WHISPER_PROMPT}",
+                f"shape.gen={GEN}")
+# the encoder and the cross-K/V projections run under a default (dense)
+# SpringContext in both packages' static path: only decode's products
+# take the kernels
+WHISPER_KERNELS = ("masked_matmul_skinny",)
+VLM_ARCH, VLM_PROMPT = "internvl2-26b", 512
+# 45 of its 48 layers (18.69 B parameters, 69.63 GiB of fp32 weights): all
+# 48 (73.99 GiB) ran out of the card's 79.18 GiB at the first decode tick's
+# repack and 46 left 2.91 GiB free at the peak, 45 left 4.48 (H100 80GB
+# HBM3); the phase fails unless VLM_HEADROOM bytes stay free at its peak
+VLM_LAYERS, VLM_HEADROOM = 45, 3 * 2**30
+VLM_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy", "splitk_reduce",
+               "flash_attention", "mask_pack")
+INT8_PROMPT = 512
+INT8_SETS = ("arch.reduced=false", "numerics.mode=quant_sparse", "serving.static=true",
+             f"shape.batch={S15_BATCH}", f"shape.prompt_len={INT8_PROMPT}", f"shape.gen={GEN}")
+INT8_KERNELS = ("masked_matmul_skinny", "masked_matmul", "tile_occupancy", "flash_attention")
+
+
+def _serve_whisper(dev) -> dict:
+    """Full-width whisper-medium from a spec: ``python -m
+    repro_torch.launch.serve --set arch.id=whisper-medium ...`` as a
+    subprocess, then an in-process ``ServeSession`` over the same spec with
+    the counters zeroed just before and read just after: tokens equal,
+    finite, every kernel of WHISPER_KERNELS launched.  Printed: the
+    encoder and cross-K/V seconds (the static path's prefill_s), tokens/s,
+    peak memory."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.launch.serve import CLI_BASE
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_whisper_") as tmp:
+        out_json = pathlib.Path(tmp) / "whisper.json"
+        argv = [sys.executable, "-m", "repro_torch.launch.serve",
+                *[a for item in WHISPER_SETS for a in ("--set", item)], "--json", str(out_json)]
+        t0 = time.monotonic()
+        p = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=SPEC_TIMEOUT_S)
+        launcher_wall = time.monotonic() - t0
+        if p.returncode != 0:
+            fail(f"slice15 phase: the whisper-medium launcher run exited {p.returncode}:\n"
+                 f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+        launched = json.loads(out_json.read_text())
+    spec = build_spec("serve", data=CLI_BASE, data_label="launcher-default",
+                      sets=list(WHISPER_SETS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = ServeSession(spec, device=dev).run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    tokens = out["generated"].tolist()
+    row = {"launcher_wall_s": launcher_wall, "launcher_prefill_s": launched["prefill_s"],
+           "launcher_tokens_per_s": launched["tokens_per_s"], "wall_s": wall,
+           "encoder_cross_kv_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "tokens_per_s": out["tokens_per_s"], "finite": out["finite"], "launches": launches,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "tokens": tokens,
+           "tokens_equal": launched["generated"] == tokens,
+           "spec_hash": launched["spec_hash"]}
+    print(f"[slice15] whisper-medium from the spec through the launcher: "
+          f"{launched['tokens_per_s']:.2f} tokens/s, encoder + cross-K/V "
+          f"{launched['prefill_s']:.3f} s, wall {launcher_wall:.1f} s; in process: encoder + "
+          f"cross-K/V {out['prefill_s']:.3f} s for {S15_BATCH} x 1500 frames, "
+          f"{out['tokens_per_s']:.2f} tokens/s ({GEN} steps of {S15_BATCH}), peak "
+          f"{row['peak_mem_bytes'] / 2**30:.2f} GiB; tokens equal the launcher's "
+          f"{row['tokens_equal']}, finite {out['finite']}; launches {launches}", flush=True)
+    if not (row["tokens_equal"] and out["finite"] and launched["finite"]):
+        fail("slice15 phase: whisper-medium's in-process tokens differ from the launcher's "
+             "(or a logit is not finite)")
+    for name in WHISPER_KERNELS:
+        if launches[name] <= 0:
+            fail(f"slice15 phase: whisper-medium never launched the {name} kernel")
+    return row
+
+
+def _whisper_card_vs_cpu(dev, gen) -> dict:
+    """The reduced whisper-medium from one CPU init on both devices: the
+    cross K/V each device builds (the encoder runs dense, bf16: the
+    roundings of another sum order flip, so rel 3e-2 of the largest
+    magnitude, ``tests/test_torch_encdec.py``'s dense tolerance), the first
+    decode step's logits from the CPU's cache (atol 1e-3, as the LM
+    checks; from each device's own cache they are printed), and the static
+    session's greedy tokens (equal)."""
+    import torch
+
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.encdec import encdec_decode_step, encdec_init, encdec_init_cache
+    from repro_torch.models.layers import SpringContext
+
+    cfg = get_arch("whisper-medium").resolve(reduced=True)
+    p_cpu = encdec_init(cfg, 0, device="cpu")
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2,), generator=gen)
+    ctx = SpringContext(cfg=serving_config("quant_sparse"))
+    caches = {d: encdec_init_cache(_to(p_cpu, d), cfg, frames.to(d), SpringContext(), 9)
+              for d in ("cpu", dev)}
+    cross = max(float((caches[dev]["cross"][n].float().cpu() - caches["cpu"]["cross"][n].float())
+                      .abs().max() / caches["cpu"]["cross"][n].float().abs().max())
+                for n in ("k", "v"))
+
+    def first_step(d, cache):
+        return encdec_decode_step(_to(p_cpu, d), cfg, toks.to(d), _to(cache, d), ctx)[0].cpu()
+
+    want = first_step("cpu", caches["cpu"])
+    err = float((first_step(dev, caches["cpu"]) - want).abs().max())
+    own = float((first_step(dev, caches[dev]) - want).abs().max())
+    spec = build_spec("serve", sets=["arch.id=whisper-medium", "numerics.mode=quant_sparse",
+                                     "shape.batch=2", "shape.prompt_len=8", "shape.gen=8"])
+    tokens = [ServeSession(spec, params=_to(p_cpu, d), device=d).run()["generated"].tolist()
+              for d in ("cpu", dev)]
+    print(f"[slice15] reduced whisper-medium card vs CPU: cross K/V rel {cross:.3g} (3e-2); "
+          f"first decode step's logits from the CPU's cache max_abs_err={err:.3g} (atol 1e-3), "
+          f"from the card's own cache {own:.3g}; static tokens equal {tokens[0] == tokens[1]}",
+          flush=True)
+    if not (cross <= 3e-2 and err <= 1e-3 and tokens[0] == tokens[1]):
+        fail("slice15 phase: the reduced whisper-medium on the card disagrees with the CPU")
+    return {"cross_kv_rel_err": cross, "decode_max_abs_err": err,
+            "decode_max_abs_err_own_cache": own, "tokens_equal": True}
+
+
+def _serve_vlm(dev) -> dict:
+    """internvl2-26b at every width and VLM_LAYERS layers, random weights from
+    seed 0: S15_BATCH requests of VLM_PROMPT text tokens behind their
+    synthetic image prefixes on the monolithic and then the paged engine
+    (whole-prompt installs) over the same parameters, counters zeroed just
+    before each run() and read just after (every kernel of VLM_KERNELS in
+    each), paged tokens = monolithic tokens; a third engine admits the four
+    at once: decode logits of slots 0-1 at 4 and 2 slots bit-equal, three
+    profiled ticks.  At least VLM_HEADROOM of the card free at the peak."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api.sessions import synthetic_images, synthetic_prompts
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paging import PagedServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(VLM_ARCH).resolve(False), n_layers=VLM_LAYERS,
+                              n_units=VLM_LAYERS)
+    t0 = time.monotonic()
+    params = lm_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts = synthetic_prompts(S15_BATCH, S15_BATCH, VLM_PROMPT, cfg.vocab, 0)
+    images = synthetic_images(S15_BATCH, S15_BATCH, cfg.vlm_prefix_len, cfg.d_model, 0)
+    spring = serving_config("quant_sparse")
+    max_len = cfg.vlm_prefix_len + VLM_PROMPT + GEN + 1
+    kw = dict(params=params, n_slots=S15_BATCH, max_len=max_len, device=dev)
+    row: dict = {"layers": VLM_LAYERS, "params": n_params, "init_s": init_s,
+                 "weight_bytes": 4 * n_params}
+
+    def submitted(eng):
+        for i, p in enumerate(prompts):
+            eng.submit_prompt(p, GEN, seed=i, img_embeds=images[i])
+        return eng
+
+    for backend in ("monolithic", "paged"):
+        eng = submitted(ServingEngine(cfg, spring, **kw) if backend == "monolithic"
+                        else PagedServingEngine(cfg, spring, page_tokens=PAGE_TOKENS,
+                                                prefill_chunk=None, **kw))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = eng.run()
+        torch.cuda.synchronize()
+        row[backend] = {"wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+                        "tokens": [r["tokens"] for r in out["per_request"]],
+                        "finite": out["finite"], "tokens_per_s": out["tokens_per_s"],
+                        "prefill_s_per_request": out["prefill_s"] / S15_BATCH,
+                        "decode": _decode_split(out)}
+        del eng, out
+    m, p = row["monolithic"], row["paged"]
+    row["tokens_equal"] = p["tokens"] == m["tokens"]
+    print(f"[slice15] {VLM_ARCH} at {VLM_LAYERS} layers ({n_params / 1e9:.2f} B parameters, "
+          f"{4 * n_params / 2**30:.2f} GiB fp32, made in {init_s:.1f} s), {S15_BATCH} requests "
+          f"of {cfg.vlm_prefix_len} image + {VLM_PROMPT} text positions: monolithic "
+          f"{m['prefill_s_per_request']:.3f} s prefill per request, {m['tokens_per_s']:.2f} "
+          f"tokens/s ({m['decode']}), wall {m['wall_s']:.1f} s; paged "
+          f"{p['prefill_s_per_request']:.3f} s, {p['tokens_per_s']:.2f} tokens/s "
+          f"({p['decode']}), wall {p['wall_s']:.1f} s; tokens equal {row['tokens_equal']}, "
+          f"finite {m['finite'] and p['finite']}", flush=True)
+    print(f"[slice15] {VLM_ARCH} launches, monolithic run {m['launches']}", flush=True)
+    print(f"[slice15] {VLM_ARCH} launches, paged run {p['launches']}", flush=True)
+    if not (m["finite"] and p["finite"]) or any(len(t) != GEN for t in m["tokens"]):
+        fail(f"slice15 phase: {VLM_ARCH} did not finish every request with finite logits")
+    if not row["tokens_equal"]:
+        fail(f"slice15 phase: {VLM_ARCH}'s paged tokens differ from its monolithic tokens")
+    for backend in ("monolithic", "paged"):
+        for name in VLM_KERNELS:
+            if row[backend]["launches"][name] <= 0:
+                fail(f"slice15 phase: {VLM_ARCH}'s {backend} run never launched the {name} "
+                     "kernel")
+
+    eng = submitted(ServingEngine(cfg, spring, **kw))
+    eng.step()  # admits all four, then their first decode tick
+    if len(eng._decode_slots()) != S15_BATCH:
+        fail(f"slice15 phase: {len(eng._decode_slots())} of {S15_BATCH} slots decode after "
+             "the admitting tick")
+    row["batch_invariance"] = _batch_invariance(eng, VLM_ARCH, "slice15")
+    row["decode_profile"] = _tick_profile(eng, "slice15", where=f" ({VLM_ARCH})")
+    del eng
+    row["peak_mem_bytes"] = peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    row["free_at_peak_bytes"] = total - peak
+    print(f"[slice15] {VLM_ARCH} peak {peak / 2**30:.2f} GiB of the card's "
+          f"{total / 2**30:.2f} GiB: {(total - peak) / 2**30:.2f} GiB free at the peak",
+          flush=True)
+    if total - peak < VLM_HEADROOM:
+        fail(f"slice15 phase: {VLM_ARCH} at {VLM_LAYERS} layers left "
+             f"{(total - peak) / 2**30:.2f} GiB of the card free (needs "
+             f"{VLM_HEADROOM / 2**30:.0f})")
+    del params, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _serve_int8(dev) -> dict:
+    """llama3.2-1b at full width on the static path, S15_BATCH prompts of
+    INT8_PROMPT, gen GEN: the bf16 cache and then the int8 cache over the
+    same parameters, the counters zeroed just before the int8 run and read
+    just after (every kernel of INT8_KERNELS); how many tokens agree (no
+    gate: the int8 cache is lossy) and the caches' bytes.  Then the reduced
+    model's int8 static tokens on the card and on the CPU from one CPU init
+    (equal)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import lm_init, lm_init_cache
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("llama3.2-1b").resolve(False)
+    params = lm_init(cfg, 0, device=dev)
+    runs = {}
+    for cache in ("bf16", "int8"):
+        spec = build_spec("serve", sets=[*INT8_SETS,
+                                         f"serving.int8_cache={str(cache == 'int8').lower()}"])
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = ServeSession(spec, params=params, device=dev).run()
+        runs[cache] = {"tokens": out["generated"].tolist(), "finite": out["finite"],
+                       "prefill_s": out["prefill_s"], "tokens_per_s": out["tokens_per_s"],
+                       "launches": kernels.launch_counts()}
+    del params
+    agree = sum(a == b for ra, rb in zip(runs["bf16"]["tokens"], runs["int8"]["tokens"])
+                for a, b in zip(ra, rb))
+    rows = INT8_PROMPT + GEN
+    nbytes = {c: sum(t.nbytes for u in (v for k, v in lm_init_cache(
+        cfg, S15_BATCH, rows, "int8" if c == "int8" else torch.bfloat16, device="meta").items()
+        if k != "pos") for t in u.values()) for c in ("bf16", "int8")}
+    launches = runs["int8"]["launches"]
+    print(f"[slice15] llama3.2-1b static path, {S15_BATCH} x prompt {INT8_PROMPT}, gen {GEN}: "
+          f"int8 cache {runs['int8']['tokens_per_s']:.2f} tokens/s, bf16 "
+          f"{runs['bf16']['tokens_per_s']:.2f}; {agree} of {S15_BATCH * GEN} tokens agree with "
+          f"the bf16 cache's; cache at {rows} rows {nbytes['int8']} B int8 against "
+          f"{nbytes['bf16']} B bf16 ({nbytes['int8'] / nbytes['bf16']:.4f}); launches {launches}",
+          flush=True)
+    if not (runs["int8"]["finite"] and runs["bf16"]["finite"]):
+        fail("slice15 phase: the int8 static run's logits are not finite")
+    for name in INT8_KERNELS:
+        if launches[name] <= 0:
+            fail(f"slice15 phase: the int8 static run never launched the {name} kernel")
+
+    small = get_arch("llama3.2-1b").resolve(True)
+    p_cpu = lm_init(small, 0, device="cpu")
+    spec = build_spec("serve", sets=["numerics.mode=quant_sparse", "serving.static=true",
+                                     "serving.int8_cache=true", "shape.batch=2",
+                                     "shape.prompt_len=12", "shape.gen=8"])
+    reduced = [ServeSession(spec, params=_to(p_cpu, d), device=d).run()["generated"].tolist()
+               for d in ("cpu", dev)]
+    print(f"[slice15] reduced llama3.2-1b int8 static tokens, card vs CPU: equal "
+          f"{reduced[0] == reduced[1]}", flush=True)
+    if reduced[0] != reduced[1]:
+        fail("slice15 phase: the reduced int8 static tokens differ between the card and the CPU")
+    return {"runs": runs, "tokens_agree": agree, "tokens": S15_BATCH * GEN,
+            "cache_bytes": nbytes, "launches": launches, "reduced_tokens_equal": True}
+
+
+def phase_slice15(dev, gen) -> dict:
+    """(6l) whisper-medium from a spec (:func:`_serve_whisper`),
+    internvl2-26b monolithic and paged (:func:`_serve_vlm`), the int8
+    cache (:func:`_serve_int8`); every kernel of those paths against its
+    plain version at the shapes they give it; the reduced whisper-medium
+    and internvl2-26b on the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t_phase = time.monotonic()
+    res: dict = {"whisper": _serve_whisper(dev), "vlm": _serve_vlm(dev), "int8": _serve_int8(dev)}
+    t0 = time.monotonic()
+    g = torch.Generator(device=dev).manual_seed(25)
+    errs = {"masked_matmul": 0.0, "masked_matmul_skinny": 0.0}
+    # whisper: decode's products at M = batch (skinny), and the encoder's
+    # and cross-K/V's at M = batch x 1500 (the tile kernel; the static path
+    # runs them dense)
+    for m in (S15_BATCH, S15_BATCH * 1500):
+        key = "masked_matmul_skinny" if m <= 32 else "masked_matmul"
+        for kk, n in ((1024, 1024), (1024, 4096), (4096, 1024)):
+            errs[key] = max(errs[key], _product_err(g, m, kk, n, "whisper-medium check"))
+    vlm = dataclasses.replace(get_arch(VLM_ARCH).resolve(False), n_layers=VLM_LAYERS,
+                              n_units=VLM_LAYERS)
+    a, rows = vlm.attn, vlm.vlm_prefix_len + VLM_PROMPT
+    row_len = (rows + GEN + 1) * a.n_kv_heads * a.head_dim
+    page = PAGE_TOKENS * a.n_kv_heads * a.head_dim
+    vlm_errs = _arch_kernel_checks(dev, vlm, seed=26, prompt=rows, decode_m=S15_BATCH,
+                                   tag="slice15", kv_blocks=((S15_BATCH, row_len),
+                                                             (S15_BATCH, page),
+                                                             (-(-rows // PAGE_TOKENS), page)))
+    llama = get_arch("llama3.2-1b").resolve(False)
+    int8_errs = _arch_kernel_checks(dev, llama, seed=27, prompt=INT8_PROMPT, decode_m=S15_BATCH,
+                                    tag="slice15", kv_blocks=())
+    res["errs"] = {name: max(errs.get(name, 0.0), vlm_errs[name], int8_errs[name])
+                   for name in vlm_errs}
+    res["kernel_checks_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["check"] = {"whisper-medium": _whisper_card_vs_cpu(dev, gen),
+                    VLM_ARCH: check_lm_card_vs_cpu(dev, gen, VLM_ARCH, CHECK_PROMPT)}
+    res["check_s"] = time.monotonic() - t0
+    res["launches"] = _sum_launches([res["whisper"]["launches"],
+                                     res["vlm"]["monolithic"]["launches"],
+                                     res["vlm"]["paged"]["launches"], res["int8"]["launches"]])
+    res["wall_s"] = time.monotonic() - t_phase
+    print(f"[slice15] kernel checks {res['kernel_checks_s']:.1f} s, card-vs-CPU checks "
+          f"{res['check_s']:.1f} s; phase 6l wall {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
 # -- slice 4: the kernel sweep and the paper evaluation ----------------------------
 
 # the dangling filter at VGG-19's first activation at batch 32 (the size
@@ -3456,6 +3848,9 @@ def main() -> None:
     # -- 6k. slice 14: olmoe-1b-7b and deepseek-v2-lite-16b (MoE FFN, MLA) -------
     report["moe"] = moe = phase_moe(dev, gen)
 
+    # -- 6l. slice 15: whisper-medium, internvl2-26b's image prefix, the int8 cache
+    report["slice15"] = s15 = phase_slice15(dev, gen)
+
     # -- 7. slice 4: the kernel sweep and the paper evaluation -----------------
     report["dangling_filter"] = df = phase_dangling_filter(dev, gen)
     report["sweep"] = sweep = phase_sweep(dev)
@@ -3463,8 +3858,8 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
-    # train_lm, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe, the
-    # kernel sweep, the paper path's probe), each zeroed just before its run
+    # train_lm, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe,
+    # slice15, the kernel sweep, the paper path's probe), each zeroed just before its run
     # and read just after (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
                       "serve_long": serve_long["launches"][name],
@@ -3472,6 +3867,7 @@ def main() -> None:
                       "survive": survive["launches"][name],
                       "paged": paged["launches"][name], "archs": archs["launches"][name],
                       "hybrid": hybrid["launches"][name], "moe": moe["launches"][name],
+                      "slice15": s15["launches"][name],
                       "train": train["launches"][name],
                       "train_lm": train_lm["launches"][name], "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
@@ -3512,7 +3908,7 @@ def main() -> None:
          "launches": total["masked_matmul"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"],
                             hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"],
-                            moe["errs"]["masked_matmul"]),
+                            moe["errs"]["masked_matmul"], s15["errs"]["masked_matmul"]),
          **layer_entry(prefill_rows),
          "library_ms": sum(r["library_ms"] for r in prefill_rows),
          "shape": f"the tile kernel (masked_mm_kernel): one prefill layer, q,k,v,o,gate,up,down "
@@ -3527,7 +3923,8 @@ def main() -> None:
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"],
                             hybrid["errs"]["masked_matmul_skinny"],
                             spec_run["errs"]["masked_matmul_skinny"],
-                            moe["errs"]["masked_matmul_skinny"]),
+                            moe["errs"]["masked_matmul_skinny"],
+                            s15["errs"]["masked_matmul_skinny"]),
          **layer_entry(decode_rows),
          "library_ms": sum(r["library_ms"] for r in decode_rows),
          "tile_ms": sum(r["tile_ms"] for r in decode_rows),
@@ -3585,7 +3982,8 @@ def main() -> None:
          "launches": total["flash_attention"],
          "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"],
                             hybrid["errs"]["flash_attention"],
-                            spec_run["errs"]["flash_attention"], moe["errs"]["flash_attention"]),
+                            spec_run["errs"]["flash_attention"], moe["errs"]["flash_attention"],
+                            s15["errs"]["flash_attention"]),
          **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "host_ms", "library_device_ms", "tile")},
          "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "

@@ -13,10 +13,13 @@ drawn by the numpy threefry of :mod:`repro_torch.api.threefry`.
 
 ``serving.static=true`` runs the pre-engine static path (one batch,
 prefill once, ``gen`` decode steps), the oracle the engine is held
-against.  Its greedy tokens are the reference's; sampled static tokens
-come from the port's own per-request draws (``serving.engine``'s
-``sample_token``: request ``seed + row``, draw ``1 + step``), as the
-engine's sampled decode does.
+against; an encoder-decoder (whisper-medium) always takes it, as in the
+reference, and ``serving.int8_cache`` is served there.  Its greedy
+tokens are the reference's; sampled static tokens come from the port's
+own per-request draws (``serving.engine``'s ``sample_token``: request
+``seed + row``, draw ``1 + step``), as the engine's sampled decode does.
+A VLM's requests carry the reference's synthetic image prefixes
+(``threefry.normal_bf16`` under each prompt's key).
 
 ``device`` is not a spec field and never enters a hash: ``"cuda"`` (the
 default) runs the CUDA kernels and raises without a card, ``"cpu"`` the
@@ -241,12 +244,17 @@ def check_backward(backward: str, device) -> None:
 
 
 def synthetic_batch(arch, cfg, batch: int, prompt_len: int, key) -> dict:
-    """The serving sessions' stand-in traffic: ``{"tokens": (batch,
-    prompt_len) int32}``, bit-equal to the reference's ``synthetic_batch``
-    under the same threefry ``key``.  ``arch`` keeps the reference's
-    signature (every ported arch is a decoder-only LM without an image
-    prefix)."""
-    return {"tokens": threefry.randint(key, (batch, prompt_len), 0, cfg.vocab)}
+    """The serving sessions' stand-in traffic, bit-equal to the reference's
+    ``synthetic_batch`` under the same threefry ``key``: ``"tokens"``
+    (batch, prompt_len) int32, with an encoder-decoder's ``"frames"``
+    (batch, enc_seq, d) or a VLM's ``"img_embeds"`` (batch, prefix, d),
+    bf16 CPU tensors drawn under the same key (``threefry.normal_bf16``)."""
+    out = {"tokens": threefry.randint(key, (batch, prompt_len), 0, cfg.vocab)}
+    if arch.is_encdec:
+        out["frames"] = threefry.normal_bf16(key, (batch, cfg.enc_seq, cfg.d_model))
+    elif cfg.vlm_prefix_len:
+        out["img_embeds"] = threefry.normal_bf16(key, (batch, cfg.vlm_prefix_len, cfg.d_model))
+    return out
 
 
 def synthetic_prompts(n_requests: int, batch: int, prompt_len: int, vocab: int,
@@ -260,6 +268,19 @@ def synthetic_prompts(n_requests: int, batch: int, prompt_len: int, vocab: int,
         k = threefry.fold_in(key, chunk) if chunk else key
         prompts += threefry.randint(k, (batch, prompt_len), 0, vocab).tolist()
     return prompts[:n_requests]
+
+
+def synthetic_images(n_requests: int, batch: int, prefix_len: int, d_model: int,
+                     seed: int) -> list:
+    """The image prefixes of :func:`synthetic_prompts`' requests, (prefix_len,
+    d_model) bf16 each, drawn under the same keys as their prompts (the
+    reference's ``synthetic_batch``)."""
+    key = threefry.prng_key(seed)
+    images: list = []
+    for chunk in range((n_requests + batch - 1) // batch):
+        k = threefry.fold_in(key, chunk) if chunk else key
+        images += list(threefry.normal_bf16(k, (batch, prefix_len, d_model)))
+    return images[:n_requests]
 
 
 def _sync(device: torch.device) -> None:
@@ -284,34 +305,50 @@ class ServeSession(Session):
 
     def run(self) -> dict:
         with self.telemetry_scope():
-            if self.spec.serving.static:
+            if self.spec.serving.static or self.resolved.arch.is_encdec:
+                # encoder-decoder archs keep the static loop, as in the reference
                 return self._with_payload(self._static())
             return self._with_payload(self._engine())
 
     def _static(self) -> dict:
         """One fixed batch, prefill once, decode ``gen`` steps, throw the
-        cache away (the reference's ``_static`` for decoder-only LMs)."""
+        cache away (the reference's ``_static``).  An encoder-decoder never
+        calls the prefill step: the cache is ``encdec_init_cache`` of the
+        frames under a default (dense) ``SpringContext`` with ``prompt_len +
+        gen`` self rows, and decoding starts from the prompt's first token,
+        as the reference's does.  ``serving.int8_cache`` keeps the
+        full-attention caches as int8 lines."""
+        from repro_torch.models import encdec as ed_mod
+        from repro_torch.models.layers import SpringContext
         from repro_torch.models.lm import lm_init, pad_cache
         from repro_torch.serving.engine import sample_token
         from repro_torch.serving.steps import make_decode_step, make_prefill_step
 
         spec, r = self.spec, self.resolved
-        cfg, seed = r.config, spec.seeds.seed
+        cfg, seed, encdec = r.config, spec.seeds.seed, r.arch.is_encdec
         batch, prompt_len, gen = (spec.shape.batch, spec.shape.prompt_len,
                                   spec.shape.gen)
+        init = ed_mod.encdec_init if encdec else lm_init
         params = (self.params if self.params is not None
-                  else lm_init(cfg, seed, device=self.device))
-        prompts = synthetic_batch(r.arch, cfg, batch, prompt_len,
-                                  threefry.prng_key(seed))["tokens"]
-        tokens = torch.as_tensor(prompts, dtype=torch.int64, device=self.device)
-        prefill = make_prefill_step(cfg, r.spring)
-        decode = make_decode_step(cfg, r.spring)
+                  else init(cfg, seed, device=self.device))
+        inputs = {name: torch.as_tensor(t).to(self.device) for name, t in synthetic_batch(
+            r.arch, cfg, batch, prompt_len, threefry.prng_key(seed)).items()}
+        tokens = inputs["tokens"].to(torch.int64)
+        int8 = spec.serving.int8_cache
+        prefill = make_prefill_step(cfg, r.spring, int8)
+        decode = make_decode_step(cfg, r.spring, int8)
 
         t0 = time.monotonic()
-        logits, cache = prefill(params, tokens)
-        # decode continues past the prompt: extend the cache buffers
-        cache = pad_cache(cache, gen)
-        next_tok = logits.argmax(-1)
+        if encdec:
+            cache = ed_mod.encdec_init_cache(params, cfg, inputs["frames"], SpringContext(),
+                                             max_len=prompt_len + gen)
+            logits = torch.zeros((batch, cfg.vocab), device=self.device)
+            next_tok = tokens[:, 0]
+        else:
+            logits, cache = prefill(params, tokens, img_embeds=inputs.get("img_embeds"))
+            # decode continues past the prompt: extend the cache buffers
+            cache = pad_cache(cache, gen)
+            next_tok = logits.argmax(-1)
         _sync(self.device)
         t_prefill = time.monotonic() - t0
 
@@ -358,10 +395,12 @@ class ServeSession(Session):
             # instead of submitting fresh requests
             engine.restore_file(spec.serving.restore_path)
         else:
-            prompts = synthetic_prompts(n_requests, batch, prompt_len,
-                                        r.config.vocab, seed)
+            cfg = r.config
+            prompts = synthetic_prompts(n_requests, batch, prompt_len, cfg.vocab, seed)
+            images = (synthetic_images(n_requests, batch, cfg.vlm_prefix_len, cfg.d_model, seed)
+                      if cfg.vlm_prefix_len else [None] * n_requests)
             for i, p in enumerate(prompts):
-                engine.submit_prompt(p, gen, seed=seed + i)
+                engine.submit_prompt(p, gen, seed=seed + i, img_embeds=images[i])
         out = engine.run()
         # token lists may be ragged (EOS finishes / typed rejections):
         # stack only the uniform case, keep exact lists otherwise

@@ -542,8 +542,7 @@ class RunSpec:
     def resolve(self) -> "ResolvedRun":
         """The port's config objects for a ``run="serve"`` or ``run="train"``
         spec.  Raises :class:`SpecError` for a dryrun spec (it has no twin),
-        an arch the port does not build, and each field it cannot honour
-        (:meth:`unsupported`)."""
+        an unknown arch, and each field it cannot honour (:meth:`unsupported`)."""
         self.validate()
         if self.run == "dryrun":
             raise SpecError(_DRYRUN_NOT_PORTED)
@@ -551,8 +550,8 @@ class RunSpec:
 
         try:
             arch = get_arch(self.arch.id)
-        except NotImplementedError as e:
-            raise SpecError(f"arch.id: {e}") from None
+        except KeyError as e:
+            raise SpecError(str(e)) from None
         problems = self.unsupported()
         if problems:
             raise SpecError("; ".join(problems))
@@ -560,9 +559,9 @@ class RunSpec:
         # the reference (full width is arch.reduced=false)
         use_reduced = True if self.arch.reduced is None else self.arch.reduced
         cfg = dataclasses.replace(arch.reduced() if use_reduced else arch.config)
-        if self.arch.remat_policy:
+        if self.arch.remat_policy and hasattr(cfg, "remat_policy"):
             cfg = dataclasses.replace(cfg, remat_policy=self.arch.remat_policy)
-        if self.arch.bf16_logits:
+        if self.arch.bf16_logits and hasattr(cfg, "bf16_logits"):
             cfg = dataclasses.replace(cfg, bf16_logits=True)
         ms_policy = self.resolved_memstash_policy(arch.family)
         memstash = MemstashConfig(policy=ms_policy,
@@ -628,35 +627,44 @@ class RunSpec:
             out.append(
                 "numerics.stochastic='on': the port serves with nearest "
                 "rounding only (stochastic rounding is a training device)")
-        if self.serving.int8_cache:
-            out.append("serving.int8_cache=true: the int8 KV cache is not "
-                       "ported (ROADMAP §1 item 2.2)")
-        if self.serving.pages and not self._pageable():
+        from repro_torch.configs import get_arch
+
+        arch = get_arch(self.arch.id)
+        if self.serving.int8_cache and not (self.serving.static or arch.is_encdec):
+            out.append(
+                "serving.int8_cache=true is served on the static path only "
+                "(serving.static=true): the reference's engine cannot serve it (its pool "
+                "is built from bf16 k/v leaves and the int8 prefill cache has none, "
+                "KeyError 'k'; ROADMAP §3)")
+        if self.serving.pages and arch.is_encdec:
+            out.append(
+                f"serving.pages=true: arch.id {self.arch.id!r} is an encoder-decoder, which "
+                "the engine does not serve (the reference's engine asserts not is_encdec, "
+                "serving/engine.py:102): it runs the static path")
+        elif self.serving.pages and not any(
+                kind[0] in ("attn", "mla") for _, _, kind in arch.config.layer_plan):
             out.append(
                 f"serving.pages=true: arch.id {self.arch.id!r} has no pageable cache leaf "
                 "(its window rings and recurrent state stay slot state), so it cannot be "
                 "served paged, as in the reference (paging/store.py:141)")
         return out
 
-    def _pageable(self) -> bool:
-        """Does the arch keep full-attention k/v or MLA's ckv/krope, the
-        paged pool's leaves?"""
-        from repro_torch.configs import get_arch
-
-        cfg = get_arch(self.arch.id).config
-        return any(kind[0] in ("attn", "mla") for _, _, kind in cfg.layer_plan)
-
     def _train_unsupported(self) -> list:
         from repro_torch.configs import get_arch
 
         out = []
         arch = get_arch(self.arch.id)
-        kinds = {kind for _, _, kind in arch.config.layer_plan}
+        kinds = set() if arch.is_encdec else {kind for _, _, kind in arch.config.layer_plan}
         mixers = {mixer for mixer, _ in kinds}
         serving_only = [part for part, there in (
             ("MoE FFN", any(ffn == "moe" for _, ffn in kinds)), ("MLA mixer", "mla" in mixers))
             if there]
-        if serving_only:
+        if arch.is_encdec or arch.config.vlm_prefix_len:
+            part = "encoder-decoder" if arch.is_encdec else "image-embedding prefix"
+            out.append(
+                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the port "
+                f"yet: its {part} is ported for serving only (ROADMAP §1 item 3)")
+        elif serving_only:
             out.append(
                 f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
                 f"port yet: its {' and '.join(serving_only)} "

@@ -22,6 +22,13 @@ copy of what those calls compute in jax 0.9 with the default
 * :func:`uniform`: ``jax.random._uniform`` for float32 in [0, 1): the
   top 23 bits of :func:`random_bits` as the mantissa of a float in
   [1, 2), minus 1.
+* :func:`normal_bf16`: ``jax.random.normal(key, shape, jnp.bfloat16)``:
+  a bf16 uniform on (nextafter(-1, 0), 1) from the low 8 bits of
+  :func:`random_bits` (bf16 has 7 mantissa bits, so jax draws 8-bit
+  words), then ``sqrt(2) * erfinv(u)``, every step rounded to bf16 as
+  XLA rounds it on the CPU (erfinv computed in fp32).  Only 128 values
+  can come out; ``tests/test_torch_encdec.py`` checks each of them
+  against jax.
 
 Keys are ``(2,)`` uint32 arrays.  All arithmetic is uint32 with
 wrap-around; ``np.errstate`` silences numpy's overflow notes.
@@ -30,6 +37,7 @@ wrap-around; ``np.errstate`` silences numpy's overflow notes.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -106,3 +114,14 @@ def uniform(key: np.ndarray, shape: tuple) -> np.ndarray:
     """``jax.random.uniform(key, shape)`` (float32 in [0, 1))."""
     bits = (random_bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
     return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0))
+
+
+def normal_bf16(key: np.ndarray, shape: tuple) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.bfloat16)`` as a bf16 CPU tensor."""
+    bits = (random_bits(key, shape) & np.uint32(0xFF)) >> np.uint32(1)  # 7 mantissa bits
+    one = torch.from_numpy((bits | np.uint32(0x3F80)).astype(np.int16)).view(torch.bfloat16)
+    floats = one - 1  # exact: [0, 1) on bf16's grid
+    lo = torch.tensor(-1 + 2.0**-8, dtype=torch.bfloat16)  # nextafter(-1, 0) in bf16
+    u = torch.maximum(lo, floats * (1 - lo) + lo)
+    e = torch.erfinv(u.to(torch.float32)).to(torch.bfloat16)
+    return torch.tensor(np.sqrt(2), dtype=torch.bfloat16) * e

@@ -1,4 +1,4 @@
-"""Architectures the port serves (a subset of ``repro.configs``), the
+"""Architectures the port serves (all ten of ``repro.configs``), the
 dry-run shape cells and the per-family memstash default."""
 
 from repro_torch.configs.base import SHAPES, ArchDef, ResolvedArch, ShapeSpec, default_memstash

@@ -11,9 +11,10 @@ reference's ShapeDtypeStruct stand-ins have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Union
 
 from repro_torch.memstash.config import MemstashConfig
+from repro_torch.models.encdec import EncDecConfig
 from repro_torch.models.lm import LMConfig
 
 
@@ -50,9 +51,9 @@ class ResolvedArch:
     returns the same config, resolution already happened."""
 
     is_encdec: bool
-    config: LMConfig
+    config: Union[LMConfig, EncDecConfig]
 
-    def reduced(self) -> LMConfig:
+    def reduced(self) -> Union[LMConfig, EncDecConfig]:
         return self.config
 
 
@@ -60,14 +61,15 @@ class ResolvedArch:
 class ArchDef:
     arch_id: str
     family: str  # dense | hybrid | vlm | moe | ssm | audio
-    config: LMConfig
-    reduced: Callable[[], LMConfig]
+    config: Union[LMConfig, EncDecConfig]
+    reduced: Callable[[], Union[LMConfig, EncDecConfig]]
     source: str = ""
 
-    #: every ported arch is a decoder-only LM
-    is_encdec = False
+    @property
+    def is_encdec(self) -> bool:
+        return isinstance(self.config, EncDecConfig)
 
-    def resolve(self, reduced: bool = False) -> LMConfig:
+    def resolve(self, reduced: bool = False) -> Union[LMConfig, EncDecConfig]:
         return self.reduced() if reduced else self.config
 
     def view(self, reduced: bool = False, config=None) -> ResolvedArch:

@@ -13,7 +13,8 @@ attention blocks (with qwen2's ``bias`` leaves), MLA blocks (``wq``,
 ``norm``, ``out_proj``), RG-LRU blocks (``wx``, ``wy``, ``conv_w``,
 ``conv_b``, ``w_r``, ``w_i``, ``lam``, ``wo``) and MoE FFNs (``router``,
 the (E, d, f) / (E, f, d) ``w_gate`` / ``w_up`` / ``w_down`` and the
-``shared`` SwiGLU) alike.
+``shared`` SwiGLU) alike.  The encoder-decoder (whisper) stacks its
+layers on both sides, so its tree maps leaf for leaf.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ def params_from_jax(tree: dict, cfg, *, device="cpu") -> dict:
     if "lm_head" in tree:
         params["lm_head"] = _to_torch(tree["lm_head"], device)
     return params
+
+
+def encdec_params_from_jax(tree: dict, *, device="cpu") -> dict:
+    """The JAX ``encdec_init(key, cfg)`` tree (whisper) as the port's
+    parameters on ``device``: the same layout, the encoder and decoder
+    layers stacked along a leading axis on both sides."""
+    return _to_torch(tree, device)
 
 
 def cnn_params_from_jax(params: dict, *, device="cpu") -> dict:

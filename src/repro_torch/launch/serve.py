@@ -209,6 +209,7 @@ def main(argv=None) -> dict:
         payload = {k: v for k, v in out.items() if k != "generated"}
         payload["generated_first"] = ([int(t) for t in out["generated"][0]]
                                       if len(out["generated"]) else [])
+        payload["generated"] = [[int(t) for t in row] for row in out["generated"]]
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2, default=float)
     return out

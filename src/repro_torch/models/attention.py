@@ -39,7 +39,17 @@ form) and attends through :func:`_chunked_attention` (q/k D 192, v D
 writes the new latent and rope rows into the cache first and attends in
 the latent space (the absorbed form), every product in fixed row blocks.
 The up-projections ``wuk`` / ``wuv`` are raw fp32 kernels in every mode,
-never quantized.  The int8 cache is not ported yet.
+never quantized.
+
+The int8 cache (``SpringContext.int8_cache``, full attention only; rings
+and MLA's latent stay bf16): prefill returns ``{"k_q8", "k_sc", "v_q8",
+"v_sc"}``, each cache line rounded half to even to int8 under one bf16
+scale per (row, position, kv head), max |x| / 127 (:func:`_q8`, the
+reference's ``attention.py:48-58``).  Decode writes the new token's
+lines first and attends with the scales factored out of the products
+(``attention.py:202-226``): the scores are ``(q . k_q8) * k_sc`` and the
+probabilities are scaled by ``v_sc`` before the value product, both
+products in fixed row blocks.
 """
 
 from __future__ import annotations
@@ -67,6 +77,19 @@ def _row_update(cache_leaf: torch.Tensor, new: torch.Tensor, slot_v: torch.Tenso
     out = cache_leaf.clone()
     out[torch.arange(b, device=out.device), slot_v] = new[:, 0].to(cache_leaf.dtype)
     return out
+
+
+def _q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, seq, head) int8 lines of ``x`` (..., D) and their bf16
+    scales (...,): round half to even of x / scale, clipped to +-127."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-9
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def _dq8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
 def _scores(qh: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
@@ -212,6 +235,7 @@ def gqa_apply(
     q = rope_apply(q, positions, spec.rope_theta)
     k = rope_apply(k, positions, spec.rope_theta)
 
+    int8_cache = ctx.int8_cache and spec.window is None
     if cache is None:
         if ctx.attention == "chunked":
             out = _chunked_attention(q, k, v, causal=spec.causal, window=spec.window)
@@ -221,12 +245,36 @@ def gqa_apply(
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   causal=spec.causal, window=spec.window).transpose(1, 2)
         new_cache = None
-        if return_cache:
+        if return_cache and int8_cache:
+            (kq, ks), (vq, vs) = _q8(k), _q8(v)
+            new_cache = {"k_q8": kq, "k_sc": ks, "v_q8": vq, "v_sc": vs}
+        elif return_cache:
             kc, vc = k.to(torch.bfloat16), v.to(torch.bfloat16)
             if spec.window is None:
                 new_cache = {"k": kc, "v": vc}
             else:
                 new_cache = {"k_ring": _ring(kc, spec.window), "v_ring": _ring(vc, spec.window)}
+    elif int8_cache:
+        if s != 1:
+            raise ValueError("decode processes one token per step")
+        pos_v = _pos_vec(pos, b, x.device)
+        new_cache = {}
+        for name, t in (("k", k), ("v", v)):
+            lines, scales = _q8(t)
+            new_cache[f"{name}_q8"] = _row_update(cache[f"{name}_q8"], lines, pos_v)
+            new_cache[f"{name}_sc"] = _row_update(cache[f"{name}_sc"], scales, pos_v)
+        qh = q.reshape(b, kv, h // kv, d).to(torch.float32)
+        # (B, S, KV) scales -> (B, KV, 1, S), beside the (B, KV, G, S) scores
+        k_sc, v_sc = (new_cache[n].to(torch.float32).movedim(1, 2)[:, :, None, :]
+                      for n in ("k_sc", "v_sc"))
+        scores = fixed_rows(_scores, qh, new_cache["k_q8"].to(torch.float32))
+        scores = scores * k_sc / (d**0.5)
+        valid = _valid(pos_v, new_cache["k_q8"].shape[1], None)
+        scores = torch.where(valid[:, None, None, :], scores,
+                             torch.full((), -1e30, device=x.device))
+        p = torch.softmax(scores, dim=-1) * v_sc
+        out = fixed_rows(_values, p, new_cache["v_q8"].to(torch.float32))
+        out = out.reshape(b, 1, h, d).to(x.dtype)
     else:
         if s != 1:
             raise ValueError("decode processes one token per step")
@@ -248,7 +296,16 @@ def gqa_apply(
 def gqa_init_cache(batch: int, spec: AttnSpec, max_len: int, dtype=torch.bfloat16,
                    *, device=None) -> dict:
     """Zero k/v caches of ``max_len`` rows, or for a window spec its
-    ``window``-row rings."""
+    ``window``-row rings.  ``dtype="int8"``: int8 lines and bf16 scales
+    for full attention (rings stay bf16)."""
+    if dtype == "int8" and spec.window is None:
+        lines = (batch, max_len, spec.n_kv_heads, spec.head_dim)
+        return {"k_q8": torch.zeros(lines, dtype=torch.int8, device=device),
+                "k_sc": torch.zeros(lines[:3], dtype=torch.bfloat16, device=device),
+                "v_q8": torch.zeros(lines, dtype=torch.int8, device=device),
+                "v_sc": torch.zeros(lines[:3], dtype=torch.bfloat16, device=device)}
+    if dtype == "int8":
+        dtype = torch.bfloat16
     if spec.window is None:
         names, rows = ("k", "v"), max_len
     else:

@@ -29,8 +29,10 @@ class SpringContext:
     ``attention`` the full-sequence attention route, ``"flash"`` (the
     ``flash_attention`` wrapper: serving's prefill) or ``"chunked"`` (the
     reference's differentiable chunked attention: training, unless
-    ``flash_attention`` is pinned).  Magnitude pruning and the int8 KV
-    cache are not ported: both must stay at their defaults.
+    ``flash_attention`` is pinned); ``int8_cache`` makes full-attention
+    layers keep their serving cache as int8 lines with bf16 scales
+    (``attention._q8``).  Magnitude pruning is not ported: ``prune_ratio``
+    must stay 0.
     """
 
     cfg: SpringConfig = DENSE
@@ -41,8 +43,8 @@ class SpringContext:
     attention: str = "flash"
 
     def __post_init__(self):
-        if self.prune_ratio != 0.0 or self.int8_cache:
-            raise NotImplementedError("prune_ratio and int8_cache are not ported")
+        if self.prune_ratio != 0.0:
+            raise NotImplementedError("prune_ratio is not ported")
         if self.attention not in ("flash", "chunked"):
             raise ValueError(f"attention {self.attention!r} not in ('flash', 'chunked')")
 
@@ -128,6 +130,20 @@ def rmsnorm_apply(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     return y.to(x.dtype)
 
 
+def layernorm_init(d: int, *, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 over the population variance (``jnp.var``)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
 def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """x: (B, S, H, D) with D even; positions: (B, S) integer."""
     d = x.shape[-1]
@@ -155,3 +171,16 @@ def swiglu_apply(params: dict, x: torch.Tensor, ctx: SpringContext) -> torch.Ten
     gf = g.to(torch.float32)
     h = (gf * torch.sigmoid(gf)).to(g.dtype) * u  # jax.nn.silu = x * sigmoid(x)
     return dense_apply(params["down"], h, ctx)
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, device=None,
+                  bias: bool = True) -> dict:
+    return {"fc1": dense_init(gen, d, d_ff, device=device, bias=bias),
+            "fc2": dense_init(gen, d_ff, d, device=device, bias=bias)}
+
+
+def gelu_mlp_apply(params: dict, x: torch.Tensor, ctx: SpringContext) -> torch.Tensor:
+    """fc1, GELU in fp32 (``jax.nn.gelu``'s default, the tanh form), fc2."""
+    h = dense_apply(params["fc1"], x, ctx)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(h.dtype)
+    return dense_apply(params["fc2"], h, ctx)

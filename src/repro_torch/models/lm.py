@@ -8,7 +8,13 @@ Covers the block kinds of :data:`SUPPORTED_KINDS`: ``("attn", "swiglu")``
 olmoe's ``("attn", "moe")`` and deepseek's ``("mla", "moe")`` with its
 dense ``("mla", "swiglu")`` first layer (``models/moe.py``, MLA in
 ``attention.py``); the other mixers and FFNs (``gelu``, layer norm) raise
-``NotImplementedError``.  ``block_apply`` returns the MoE FFN's
+``NotImplementedError``.  A VLM (internvl2-26b, ``vlm_prefix_len``) takes
+its (B, P, d) image embeddings ahead of the token embeddings, in the
+activation dtype, in :func:`lm_hidden` and :func:`lm_prefill`; positions run
+over prefix and text, and :func:`lm_loss` reads the text positions only.
+With ``SpringContext.int8_cache`` the full-attention caches are int8 lines
+and bf16 scales (``k_q8``, ``k_sc``, ``v_q8``, ``v_sc``), which
+:func:`pad_cache` grows like k/v.  ``block_apply`` returns the MoE FFN's
 load-balancing loss, which :func:`lm_hidden` sums.  The reference scans
 a stacked ``unit_u`` parameter tree per position of its repeating unit,
 plus unrolled ``prefix_i`` / ``suffix_i`` layers; here the layers are a
@@ -97,7 +103,7 @@ class LMConfig:
     d_ff: int = 0
     norm: str = "rms"
     tie_embeddings: bool = False
-    vlm_prefix_len: int = 0  # internvl2's image positions: not ported
+    vlm_prefix_len: int = 0  # internvl2's image positions, ahead of the text
     remat: bool = True  # recompute each unit in the backward pass (training)
     # bf16 loss-head product (the log-sum-exp stays fp32)
     bf16_logits: bool = False
@@ -196,6 +202,8 @@ def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
     if mixer in ("attn", "local"):
         return attn_mod.gqa_init_cache(batch, _attn_spec(cfg, mixer), max_len, dtype,
                                        device=device)
+    if dtype == "int8":  # only full attention keeps int8 lines
+        dtype = torch.bfloat16
     if mixer == "mla":
         return attn_mod.mla_init_cache(batch, cfg.mla, max_len, dtype, device=device)
     if mixer == "rglru":
@@ -235,10 +243,7 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
     without MoE), each unit recomputed in the backward pass under
     ``cfg.remat`` / ``cfg.remat_policy``."""
     cfg.check_supported()
-    if cfg.vlm_prefix_len or img_embeds is not None:
-        raise NotImplementedError(f"{cfg.name}: the image-embedding prefix (vlm_prefix_len, "
-                                  "img_embeds) waits for internvl2")
-    x = embed_apply(params["embed"], tokens, ctx)
+    x = _embed_inputs(params, cfg, tokens, ctx, img_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     # remat_policy="stash" nominates the residual stream; the
@@ -293,6 +298,18 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
     return x, aux
 
 
+def _embed_inputs(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContext,
+                  img_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The token embeddings, with a VLM's (B, P, d) image embeddings ahead
+    of them in the activation dtype (positions run over both)."""
+    x = embed_apply(params["embed"], tokens, ctx)
+    if cfg.vlm_prefix_len:
+        if img_embeds is None:
+            raise ValueError(f"{cfg.name} takes a ({cfg.vlm_prefix_len}, d) image prefix")
+        x = torch.cat([img_embeds.to(x.device, x.dtype), x], dim=1)
+    return x
+
+
 def _logits_kernel(params: dict, cfg: LMConfig) -> torch.Tensor:
     """The (d, V) head: the tied embedding's transpose, or ``lm_head``."""
     if cfg.tie_embeddings:
@@ -306,6 +323,7 @@ def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContex
     """Next-token cross-entropy, chunked over the sequence so the (tokens x
     vocab) logits never materialize whole; returns (loss, {"ce", "aux"})."""
     h, aux = lm_hidden(params, cfg, tokens, ctx, img_embeds)
+    h = h[:, cfg.vlm_prefix_len:]  # the loss reads the text positions only
     b, s, _ = h.shape
     total = chunked_softmax_xent(
         h[:, :-1], tokens[:, 1:], _logits_kernel(params, cfg),
@@ -331,14 +349,15 @@ def lm_init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 #: seq axis (from the end) of each cache leaf that :func:`pad_cache` grows
-_CACHE_SEQ_AXIS = {"k": -3, "v": -3, "ckv": -2, "krope": -2}
+_CACHE_SEQ_AXIS = {"k": -3, "v": -3, "ckv": -2, "krope": -2,
+                   "k_q8": -3, "v_q8": -3, "k_sc": -2, "v_sc": -2}
 
 
 def pad_cache(cache: dict, extra: int) -> dict:
-    """Grow the k/v and MLA latent caches by ``extra`` decode positions
-    (prefill builds caches sized to the prompt; decoding needs headroom).
-    Window rings keep their fixed size and the O(1) SSM / RG-LRU state
-    leaves pass through."""
+    """Grow the k/v (bf16, or int8 lines and their scales) and MLA latent
+    caches by ``extra`` decode positions (prefill builds caches sized to
+    the prompt; decoding needs headroom).  Window rings keep their fixed
+    size and the O(1) SSM / RG-LRU state leaves pass through."""
     if extra <= 0:
         return cache
     out = dict(cache)
@@ -365,12 +384,12 @@ def _gather_caches(plan: list, caches: list) -> dict:
     return tree
 
 
-def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
-               ctx: SpringContext) -> tuple[torch.Tensor, dict]:
-    """Full forward over (B, S) tokens: last-position logits (B, V) and the
-    serving cache (``pos`` = S)."""
+def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContext,
+               img_embeds: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
+    """Full forward over (B, S) tokens (behind a VLM's image prefix):
+    last-position logits (B, V) and the serving cache (``pos`` = the rows)."""
     cfg.check_supported()
-    x = embed_apply(params["embed"], tokens, ctx)
+    x = _embed_inputs(params, cfg, tokens, ctx, img_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     plan, caches = cfg.layer_plan, []

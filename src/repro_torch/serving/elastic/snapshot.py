@@ -154,8 +154,9 @@ def _req_dict(req) -> dict:
         "rid": req.rid, "prompt": list(req.prompt),
         "max_tokens": req.max_tokens, "eos_id": req.eos_id,
         "slo_ms": req.slo_ms, "seed": req.seed,
+        # a host copy (bf16 stays bf16: the reference's dtype tag)
         "img_embeds": (None if req.img_embeds is None
-                       else np.asarray(req.img_embeds)),
+                       else torch.as_tensor(req.img_embeds).detach().cpu()),
         "priority": req.priority, "deadline_ticks": req.deadline_ticks,
     }
 

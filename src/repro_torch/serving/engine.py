@@ -9,7 +9,9 @@ pool) and runs one pooled decode step: unpack the pool, decode every slot,
 keep the updates of active slots, repack.  On the card every projection is
 a ``masked_matmul`` kernel launch, every pack a ``mask_pack`` launch,
 every prefill attention a ``flash_attention`` launch and every prefill SSM
-mixer an ``ssd_scan`` launch.  The models' caches: attention's packed
+mixer an ``ssd_scan`` launch.  A VLM request (internvl2-26b) carries its
+image embeddings into its prefill; its cache rows are the image's and the
+prompt's, and ``max_len`` counts both.  The models' caches: attention's packed
 k/v (the llama family, qwen2), window rings packed the same way and the
 RG-LRU's O(1) state (recurrentgemma, with its unrolled suffix layers), and
 Mamba-2's O(1) state; the pool keeps the O(1) leaves dense.
@@ -182,7 +184,9 @@ class ServingEngine:
         kw = dict(
             params=params,
             n_slots=spec.shape.batch if s.slots is None else s.slots,
-            max_len=spec.shape.prompt_len + spec.shape.gen + 1,
+            # a VLM's image rows are cache rows too (the reference's pool
+            # leaves them out and refuses a VLM request at install)
+            max_len=r.config.vlm_prefix_len + spec.shape.prompt_len + spec.shape.gen + 1,
             greedy=s.greedy, seed=spec.seeds.seed,
             spec_hash=spec.state_hash(), shed=_shed_from_section(s),
             snapshot_every=s.snapshot_every,
@@ -289,9 +293,10 @@ class ServingEngine:
         return time.monotonic() - self._t0
 
     def submit(self, req: Request) -> int:
-        if len(req.prompt) + req.max_tokens + 1 > self.max_len:
+        rows = self.cfg.vlm_prefix_len + len(req.prompt)  # the image rows lead
+        if rows + req.max_tokens + 1 > self.max_len:
             raise ValueError(
-                f"request {req.rid}: prompt {len(req.prompt)} + max_tokens "
+                f"request {req.rid}: prompt {rows} rows + max_tokens "
                 f"{req.max_tokens} + 1 exceeds pool max_len {self.max_len}")
         self._requests[req.rid] = req
         self._results[req.rid] = RequestResult(rid=req.rid, tokens=[],
@@ -439,7 +444,9 @@ class ServingEngine:
         t0 = time.monotonic()
         with telemetry.span("serve.tick.prefill", rid=req.rid, prompt_len=len(req.prompt)):
             tokens = torch.tensor([req.prompt], dtype=torch.int64, device=self.device)
-            logits, pcache = self._prefill(self.params, tokens)
+            img = (None if req.img_embeds is None
+                   else torch.as_tensor(req.img_embeds, device=self.device)[None])
+            logits, pcache = self._prefill(self.params, tokens, img_embeds=img)
         with telemetry.span("serve.tick.install", rid=req.rid, slot=tracker.slot):
             self._ledger.install(tracker.slot)
             self._install_request(tracker, pcache)
@@ -453,7 +460,10 @@ class ServingEngine:
         self.queue_sketch.add(res.queue_s)
 
     def _install_request(self, tracker, pcache: dict) -> None:
-        """Write a prefilled request into its slot (ends at a device sync)."""
+        """Write a prefilled request into its slot (ends at a device sync).
+        Its position is the prompt's token count, as in the reference's
+        engine, also for a VLM request, whose cache holds the image rows
+        ahead of the tokens (ROADMAP §3)."""
         kvpool.install_packed(self.pool, pcache, tracker.slot, len(tracker.req.prompt))
         _sync(self.device)
 

@@ -1,23 +1,46 @@
 """Serving step builders (port of ``repro/serving/steps.py``).
 
 The reference jit-compiles these; PyTorch runs them eagerly (parameters
-carry no gradients, so no autograd graph is built).  Both take the
-numerics ``SpringConfig`` and return closures over the model config.
+carry no gradients, so no autograd graph is built).  Both take the model
+config, the numerics ``SpringConfig`` and the int8-cache flag, and return
+closures.  An ``EncDecConfig`` (whisper) gets the encoder-decoder steps:
+its prefill runs the encoder once, projects the cross K/V into a cache of
+the prompt's length and takes the last position's logits from one
+teacher-forced decoder pass, as the reference's does; the static serving
+path never calls it (it builds the cache itself and decodes from the
+prompt's first token).  A VLM's prefill takes its image embeddings.
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.models import encdec as ed_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import SpringContext
 
 
-def make_prefill_step(cfg, spring):
-    def prefill(params, tokens):
-        return lm_mod.lm_prefill(params, cfg, tokens, SpringContext(cfg=spring))
+def make_prefill_step(cfg, spring, int8_cache: bool = False):
+    if isinstance(cfg, ed_mod.EncDecConfig):
+        def prefill(params, tokens, *, frames):
+            ctx = SpringContext(cfg=spring, int8_cache=int8_cache)
+            enc = ed_mod.encode(params, cfg, frames, ctx)
+            cache = ed_mod.cross_cache(params, cfg, enc, ctx, max_len=tokens.shape[1])
+            h = ed_mod.decode_hidden(params, cfg, tokens, enc, ctx)
+            logits = h[:, -1].to(torch.float32) @ params["embed"]["embedding"].t()
+            return logits, cache
+        return prefill
+
+    def prefill(params, tokens, *, img_embeds=None):
+        return lm_mod.lm_prefill(params, cfg, tokens,
+                                 SpringContext(cfg=spring, int8_cache=int8_cache), img_embeds)
     return prefill
 
 
-def make_decode_step(cfg, spring):
+def make_decode_step(cfg, spring, int8_cache: bool = False):
+    step = (ed_mod.encdec_decode_step if isinstance(cfg, ed_mod.EncDecConfig)
+            else lm_mod.lm_decode_step)
+
     def decode(params, tokens, cache):
-        return lm_mod.lm_decode_step(params, cfg, tokens, cache, SpringContext(cfg=spring))
+        return step(params, cfg, tokens, cache, SpringContext(cfg=spring, int8_cache=int8_cache))
     return decode

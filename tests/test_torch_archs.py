@@ -75,14 +75,15 @@ def test_configs_equal_the_reference(arch):
 def test_registry():
     assert set(ARCHS) == {"llama3.2-1b", "mamba2-780m", "minitron-4b", "mistral-nemo-12b",
                           "qwen2-7b", "recurrentgemma-9b", "olmoe-1b-7b",
-                          "deepseek-v2-lite-16b"}
+                          "deepseek-v2-lite-16b", "internvl2-26b", "whisper-medium"}
     assert get_arch("mistral-nemo-12b").source == "hf:mistralai/Mistral-Nemo-Base-2407"
     assert get_arch("minitron-4b").source == "arXiv:2407.14679"
     # head_dim is explicit: d_model / n_heads would give 160
     nemo = get_arch("mistral-nemo-12b").config
     assert nemo.d_model // nemo.attn.n_heads == 160 != nemo.attn.head_dim
-    with pytest.raises(NotImplementedError, match="internvl2-26b"):
-        get_arch("internvl2-26b")  # the image-embedding prefix: not ported
+    # all ten of the reference's archs, the image prefix and the encoder-decoder too
+    assert get_arch("internvl2-26b").config.vlm_prefix_len == 256
+    assert get_arch("whisper-medium").is_encdec and not get_arch("internvl2-26b").is_encdec
 
 
 @pytest.mark.parametrize("arch", NEW)

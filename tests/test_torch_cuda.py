@@ -873,3 +873,70 @@ def test_latent_pool_packs_on_the_card_as_on_the_cpu(card):
                 assert torch.equal(row.narrow(-2, 0, 21).view(torch.int16),
                                    want.view(torch.int16))
                 assert not row.narrow(-2, 21, 11).any()
+
+
+# -- slice 15: internvl2-26b's GQA group of 6, whisper-medium ---------------------------
+
+
+@pytest.mark.parametrize("s", [768, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_internvl2s_group_of_6(card, s, dtype):
+    """internvl2-26b's prefill attention (48 heads on 8 kv heads, D 128; S
+    768 = its 256 image positions + 512 text, and a ragged S): the plan
+    packs 2 heads of a group into each 64-row tile; against the plain
+    version at the registry's compare, on the planned tile and forced."""
+    from repro_torch.kernels.flash_attention import ops
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = ops.plan(1, 48, 8, s, 128, n_sms)
+    assert (p.rows, p.heads_per_cta) == (64, 2)
+    gen = torch.Generator().manual_seed(s)
+    dt = getattr(torch, dtype)
+    q = torch.randn(1, s, 48, 128, generator=gen).to(card, dt).transpose(1, 2)
+    k = torch.randn(1, s, 8, 128, generator=gen).to(card, dt).transpose(1, 2)
+    v = torch.randn(1, s, 8, 128, generator=gen).to(card, dt).transpose(1, 2)
+    want = ops.attention_reference(q, k, v, causal=True)
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for got in (ops.flash_attention(q, k, v, causal=True),
+                ops._launch(q, k, v, True, None, rows=64)):
+        torch.cuda.synchronize()
+        assert got.dtype == dt and float((got.float() - want.float()).abs().max()) <= atol
+
+
+def test_reduced_whisper_static_run_on_the_card(card):
+    """The reduced whisper-medium's static session from one CPU init: the
+    card's greedy tokens equal the CPU's, every decode product on the
+    skinny kernel; the first decode step from the CPU's cache within 1e-3
+    of the CPU's logits (the dense encoder's bf16 roundings flip under
+    another sum order, so each device's own cache is held to rel 3e-2)."""
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.encdec import encdec_decode_step, encdec_init, encdec_init_cache
+    from repro_torch.models.layers import SpringContext
+
+    cfg = get_arch("whisper-medium").resolve(reduced=True)
+    params = encdec_init(cfg, 0, device="cpu")
+    spec = build_spec("serve", sets=["arch.id=whisper-medium", "numerics.mode=quant_sparse",
+                                     "shape.batch=3", "shape.prompt_len=6", "shape.gen=8"],
+                      use_env=False)
+    want = ServeSession(spec, params=params, device="cpu").run()
+    kernels.reset_launch_counts()
+    got = ServeSession(spec, params=_to(params, card), device=card).run()
+    launches = kernels.launch_counts()
+    assert got["finite"] and got["generated"].tolist() == want["generated"].tolist()
+    assert launches["masked_matmul_skinny"] == launches["masked_matmul"] == 8 * 2 * 8
+    gen = torch.Generator().manual_seed(3)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (2,), generator=gen)
+    ctx = SpringContext(cfg=serving_config("quant_sparse"))
+    caches = [encdec_init_cache(_to(params, d), cfg, frames.to(d), SpringContext(), 4)
+              for d in ("cpu", card)]
+    for n in ("k", "v"):
+        want = caches[0]["cross"][n].float()
+        got = caches[1]["cross"][n].float().cpu()
+        assert float((got - want).abs().max()) <= 3e-2 * float(want.abs().max())
+    logits = [encdec_decode_step(_to(params, d), cfg, toks.to(d), _to(caches[0], d), ctx)[0].cpu()
+              for d in ("cpu", card)]
+    assert float((logits[1] - logits[0]).abs().max()) <= 1e-3

@@ -248,7 +248,7 @@ REFUSED_FIELDS = [
     (["serving.int8_cache=true"], "serving.int8_cache"),
     (["shape.mesh=debug"], "shape.mesh"),
     (["shape.mesh.data=2"], "shape.mesh"),
-    (["arch.id=internvl2-26b"], "arch.id"),
+    (["arch.id=whisper-medium", "serving.pages=true"], "serving.pages"),
     (["numerics.stochastic=on", "numerics.mode=quant_sparse"], "numerics.stochastic"),
 ]
 
@@ -338,6 +338,8 @@ def test_train_and_dryrun_sessions_name_their_slices():
     (["sparsity.backward=pallas"], "cpu", "sparsity.backward"),
     (["sparsity.backward=interpret"], "cuda", "sparsity.backward"),
     (["arch.id=mamba2-780m"], "cpu", "arch.id"),
+    (["arch.id=whisper-medium"], "cpu", "arch.id"),
+    (["arch.id=internvl2-26b"], "cpu", "arch.id"),
     (["shape.mesh.data=2"], "cpu", "shape.mesh"),
     (["memstash.capacity=0.5"], "cpu", "memstash.capacity"),
     (["memstash.value_bits=16"], "cpu", "memstash.value_bits"),
