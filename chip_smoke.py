@@ -102,6 +102,34 @@ failure:
                shapes; at reduced size the reference's SR-vs-fp32 claim
                (60 steps, its two bounds) and its resume contract (30
                straight against 20 + a resume to 30, rtol 1e-4);
+  5g. train archs — the rest of LM training at every width, batch 8, seq
+               128, the example train spec's numerics (quant_sparse, SR,
+               Q4.16 SR weights, AdamW, the sparse backward), random weights
+               from seed 0: mamba2-780m whole through ``python -m
+               repro_torch.launch.train --spec ... --set arch.id=mamba2-780m
+               --set arch.reduced=false`` as a subprocess (exit 0, the
+               reference's last line, finite losses), then the same spec in
+               process (s/step from its train.step spans, peak, every
+               parameter on the grid); olmoe-1b-7b (and once more with
+               memstash.policy=stash: the stashed unit's aux loss),
+               deepseek-v2-lite-16b and recurrentgemma-9b cut to
+               TRAIN_ARCHS_UNITS units, 3 steps each, whisper-medium whole
+               with its frames and internvl2-26b cut, with its image
+               prefix, 2 steps each, all in process through
+               make_train_step (the frames / img_embeds branches): finite
+               losses, every parameter on the grid, s/step, tokens/s, peak
+               and at least TRAIN_ARCHS_HEADROOM of the card free at it, one
+               step profiled, the MoE archs' dropped share and aux loss
+               after training; counters zeroed just before the first run
+               and read just after the last: each part launches the tile
+               kernel, tile_occupancy, dx, dw and stochastic_round,
+               splitk_reduce exactly where a product's K passes 8192,
+               ssd_scan on mamba2 (through its autograd wrapper),
+               flash_attention never; each part's path kernels against
+               their plain versions at its shapes (mamba2's autograd
+               wrapper's gradients against autograd through the chunked
+               form, on the card); each reduced arch on the card against
+               the CPU (loss and every gradient, nearest rounding on Q16.60);
   6a. flash_attention — the kernel against its plain version on the
                reference registry's five examples (fp32 atol 2e-5, bf16 2e-2),
                a non-causal ragged case, and llama3.2-1b's prefill shapes at
@@ -1232,6 +1260,599 @@ def phase_train_lm(dev) -> dict:
             "resume": {"straight": straight["losses"][-1], "resumed": resumed["losses"][-1],
                        "rel": resume_rel},
             "reduced_wall_s": reduced_wall, "wall_s": wall}
+
+
+# -- slice 16: the rest of LM training ----------------------------------------------
+
+# 5g: mamba2-780m whole through the launcher (then the same spec in
+# process); olmoe-1b-7b (and once more with its unit stashed),
+# deepseek-v2-lite-16b, recurrentgemma-9b, whisper-medium (whole, with
+# frames) and internvl2-26b (with its image prefix) in process through
+# make_train_step.  Batch 8, seq 128, every width, random weights from seed
+# 0, the example train spec's numerics (quant_sparse, SR, Q4.16 SR
+# weights, AdamW with warmup, the sparse backward)
+TRAIN_ARCHS_BATCH, TRAIN_ARCHS_SEQ = 8, 128
+MAMBA_TRAIN_SETS = ("arch.id=mamba2-780m", "arch.reduced=false", "train.steps=3",
+                    "train.ckpt_dir=")
+#: whole units kept of the archs that do not fit whole beside their
+#: gradients and AdamW moments (16 bytes a parameter, updated in place):
+#: the largest depth that leaves TRAIN_ARCHS_HEADROOM of the card free at
+#: the part's peak (H100 80GB HBM3)
+TRAIN_ARCHS_UNITS = {"olmoe-1b-7b": 11, "deepseek-v2-lite-16b": 7, "recurrentgemma-9b": 3,
+                     "internvl2-26b": 9}
+TRAIN_ARCHS_HEADROOM = 4 * 2**30
+#: the most elements stochastic_round is held against its plain version
+#: on: the plain version's int64 hash temporaries take about 67 bytes an
+#: element, and recurrentgemma-9b's (256000, 4096) embedding ran the card
+#: out of memory there (measured on one H100 80GB HBM3)
+TRAIN_ARCHS_SR_ELEMS = 2**29
+TRAIN_ARCHS_KERNELS = ("masked_matmul", "tile_occupancy", "masked_matmul_dx",
+                       "masked_matmul_dw", "stochastic_round")
+#: the parts with a product whose K exceeds SPLIT_K at these shapes:
+#: deepseek's dense prefix (d_ff 10944), recurrentgemma's (12288) and
+#: internvl2's (16384) FFNs, whisper's encoder dW (K = 8 x 1500 rows);
+#: olmoe's and mamba2's products all have K <= 8192, and launch none
+TRAIN_ARCHS_SPLITK = ("deepseek-v2-lite-16b", "recurrentgemma-9b", "whisper-medium",
+                      "internvl2-26b")
+
+
+def _cut(cfg, units: int):
+    """``cfg`` (an LMConfig) with ``units`` repeats of its unit, every width
+    and its prefix and suffix kept."""
+    import dataclasses
+
+    n = len(cfg.prefix) + units * len(cfg.pattern_unit) + len(cfg.suffix)
+    return dataclasses.replace(cfg, n_units=units, n_layers=n)
+
+
+def _train_part(dev, tag: str, view, step_cfg, steps: int, batch_at, routing=None,
+                profiled: bool = True) -> dict:
+    """Train ``view`` in process: a fresh state from seed 0 on the card,
+    ``steps`` steps of ``make_train_step`` on ``batch_at(i)``, each timed
+    to its synchronise, then (``profiled``) one more under torch.profiler.
+    Returns the losses, s/step after step 0, tokens/s, the peak and the
+    card's memory left free at it, the launches of the run, the on-grid
+    check of every parameter, the profiled step's kernels by device time
+    (None unprofiled), and what
+    ``routing(final state)`` returns (a MoE arch's :func:`_routing`)."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.train import on_grid
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    t0 = time.monotonic()
+    state = init_train_state(view, step_cfg, 0, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    step_fn = make_train_step(view, step_cfg)
+    losses, auxs, step_s = [], [], []
+    for i in range(steps):
+        batch = batch_at(i)
+        t = time.monotonic()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t)
+        losses.append(float(m["loss"]))
+        auxs.append(float(m["aux"]) if "aux" in m else 0.0)
+    grid = on_grid(dict(enumerate(tree_leaves(state.params))))
+    prof = None
+    if profiled:
+        state, prof = _profiled_step(step_fn, state, batch_at(steps))
+    peak = torch.cuda.max_memory_allocated(dev)
+    free = torch.cuda.get_device_properties(dev).total_memory - peak
+    launches = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    s_per_step = sum(step_s[1:]) / len(step_s[1:])
+    tokens = batch["tokens"].numel()
+    res = {"params": n_params, "losses": losses, "aux": auxs, "steps_s": step_s,
+           "s_per_step": s_per_step, "tokens_per_s": tokens / s_per_step,
+           "peak_bytes": peak, "free_bytes": free, "on_grid": grid, "launches": launches,
+           "profile": prof, "wall_s": time.monotonic() - t0}
+    print(f"[train_archs] {tag}: {n_params / 1e9:.3f} B parameters, losses "
+          f"{[round(v, 4) for v in losses]}, aux {[round(v, 4) for v in auxs]}, on grid "
+          f"{grid}, {s_per_step:.3f} s/step (steps {[round(s, 3) for s in step_s]}), "
+          f"{tokens / s_per_step:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, "
+          f"{free / 2**30:.2f} GiB free, wall {res['wall_s']:.1f} s; launches "
+          f"{ {k: launches[k] for k in (*TRAIN_ARCHS_KERNELS, 'splitk_reduce')} }", flush=True)
+    if prof is not None:
+        _print_profile(tag, prof)
+    if not (all(math.isfinite(v) for v in losses) and grid):
+        fail(f"train archs phase: {tag}'s losses are not all finite or a parameter left the "
+             "Q4.16 grid")
+    if free < TRAIN_ARCHS_HEADROOM:
+        fail(f"train archs phase: {tag} left {free / 2**30:.2f} GiB of the card free at its "
+             f"peak, under {TRAIN_ARCHS_HEADROOM / 2**30:.0f} GiB")
+    if routing is not None:
+        t = time.monotonic()
+        res["routing"] = routing(state)
+        res["routing"]["wall_s"] = time.monotonic() - t
+    return res
+
+
+def _profiled_step(step_fn, state, batch) -> tuple:
+    """One more train step under torch.profiler (device activity only: a
+    MoE step issues some 10**5 kernels, and host events would multiply the
+    trace): (the new state, {"step_ms", "device_busy_ms", "kernels",
+    "read_s"}), the kernels by device time, busiest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t) * 1e3
+    t = time.monotonic()
+    rows = device_time_by_kernel(prof)
+    return state, {"step_ms": step_ms, "device_busy_ms": sum(r[1] for r in rows),
+                   "kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in rows[:30]],
+                   "read_s": time.monotonic() - t}
+
+
+def _print_profile(tag: str, prof: dict) -> None:
+    busy, step_ms = prof["device_busy_ms"], prof["step_ms"]
+    print(f"[train_archs] {tag}: profiled step {step_ms:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({busy / step_ms:.1%}; the trace read in {prof['read_s']:.1f} s); top kernels:",
+          flush=True)
+    for row in prof["kernels"][:8]:
+        print(f"[train_archs]   {row['ms']:9.2f} ms  x{row['calls']:<6d} {row['name'][:90]}",
+              flush=True)
+
+
+def _train_mamba2_launcher(dev, tmp) -> dict:
+    """mamba2-780m whole from the example spec: the launcher as a
+    subprocess (exit 0, the reference's last line with the spec_hash of the
+    in-process build, finite losses), then the same spec in process with
+    telemetry on (s/step from its train.step spans, peak, on grid), and one
+    more step profiled."""
+    import math
+    import os
+    import re
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import TrainSession, build_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import on_grid
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.train import make_train_step
+
+    spec_path = str(ROOT / TRAIN_SPEC_FILE)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p)}
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--spec", spec_path,
+            *[arg for item in MAMBA_TRAIN_SETS for arg in ("--set", item)],
+            "--json", str(tmp / "mamba2.json")]
+    t0 = time.monotonic()
+    p = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=TRAIN_LM_TIMEOUT_S)
+    launcher_wall = time.monotonic() - t0
+    if p.returncode != 0:
+        fail(f"train archs phase: the mamba2-780m launcher exited {p.returncode}:\n"
+             f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    spec = build_spec("train", spec_file=spec_path, sets=list(MAMBA_TRAIN_SETS))
+    last = p.stdout.strip().splitlines()[-1]
+    launched = json.loads((tmp / "mamba2.json").read_text())
+    steps = spec.train.steps
+    want_last = (f"loss {launched['first_loss']:.4f} -> {launched['last_loss']:.4f} "
+                 f"({steps} steps, slow={launched['slow_steps']}) [spec {spec.spec_hash()}]")
+    print(f"[train_archs] mamba2-780m launcher: {last} (wall {launcher_wall:.1f} s)", flush=True)
+    if last != want_last or not re.fullmatch(r"loss \S+ -> \S+ \(\d+ steps, slow=\d+\) "
+                                             r"\[spec [0-9a-f]+\]", last):
+        fail(f"train archs phase: the mamba2-780m launcher's last line {last!r} is not "
+             f"{want_last!r}")
+    if len(launched["losses"]) != steps or not all(math.isfinite(v) for v in launched["losses"]):
+        fail("train archs phase: the mamba2-780m launcher's losses are not all finite")
+
+    trace = tmp / "mamba2_trace.json"
+    inproc = build_spec("train", spec_file=spec_path, sets=[
+        *MAMBA_TRAIN_SETS, "telemetry.enabled=true", f"telemetry.trace_path={trace}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = kernels.launch_counts()
+    t0 = time.monotonic()
+    out = TrainSession(inproc, device=dev).run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = out.pop("state")
+    grid = on_grid(dict(enumerate(tree_leaves(state.params))))
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    r = inproc.resolve()
+    stream = SyntheticLMStream(DataConfig(seed=0, vocab=r.config.vocab, seq_len=spec.shape.seq,
+                                          global_batch=spec.shape.batch), device=dev)
+    state, prof = _profiled_step(make_train_step(r.view, r.step), state,
+                                 {"tokens": stream.batch(steps)})
+    del state
+    steps_s = [ev["dur"] / 1e6 for ev in json.loads(trace.read_text())["traceEvents"]
+               if ev["name"] == "train.step"]
+    s_per_step = sum(steps_s[1:]) / len(steps_s[1:])
+    tokens_per_s = spec.shape.batch * spec.shape.seq / s_per_step
+    free = torch.cuda.get_device_properties(dev).total_memory - peak
+    print(f"[train_archs] mamba2-780m in process: {n_params / 1e9:.3f} B parameters, losses "
+          f"{[round(v, 4) for v in out['losses']]} (launcher "
+          f"{[round(v, 4) for v in launched['losses']]}), on grid {grid}, {s_per_step:.3f} "
+          f"s/step (steps {[round(s, 3) for s in steps_s]}), {tokens_per_s:.1f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB, wall {wall:.1f} s; launches "
+          f"{ {k: launches[k] for k in (*TRAIN_ARCHS_KERNELS, 'ssd_scan')} }", flush=True)
+    _print_profile("mamba2-780m", prof)
+    if not (all(math.isfinite(v) for v in out["losses"]) and grid):
+        fail("train archs phase: mamba2-780m's losses are not all finite or a parameter left "
+             "the Q4.16 grid")
+    return {"params": n_params, "losses": out["losses"], "launcher_losses": launched["losses"],
+            "launcher_wall_s": launcher_wall, "steps_s": steps_s, "s_per_step": s_per_step,
+            "tokens_per_s": tokens_per_s, "peak_bytes": peak, "free_bytes": free,
+            "on_grid": grid, "launches": launches, "profile": prof, "wall_s": wall}
+
+
+def _train_arch_kernel_checks(dev, arch: str, cfg, tokens: int) -> dict:
+    """Each kernel of ``arch``'s train path on card tensors at the shapes
+    the path gives it, against its plain version: the forward (tile kernel,
+    both occupancy flags exact), dX and dW of each product within 2b's
+    bound 2 K 2**-24 (|a| @ |b|); splitk_reduce bit-equal on the partial
+    sums of each product whose K exceeds SPLIT_K; stochastic_round
+    bit-equal at the embedding's (vocab, d_model), up to
+    TRAIN_ARCHS_SR_ELEMS elements (its first rows); for mamba2 ssd_scan's y
+    and state against the chunked plain version (rel 1e-4) and its
+    autograd wrapper's gradients against autograd through the chunked
+    form on the same card operands (rel 1e-5)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.masked_matmul.backward import (
+        masked_matmul_dw, masked_matmul_dw_reference, masked_matmul_dx,
+        masked_matmul_dx_reference)
+    from repro_torch.kernels.masked_matmul.ops import (split_k, splitk_reduce,
+                                                       splitk_reduce_reference)
+    from repro_torch.kernels.stochastic_round.ops import sr_reference, stochastic_round
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    d = cfg.d_model
+    tag = f"{arch} train check"
+    if arch == "whisper-medium":
+        enc = TRAIN_ARCHS_BATCH * cfg.enc_seq
+        products = {"enc qkvo": (enc, d, d), "enc mlp up": (enc, d, cfg.d_ff),
+                    "enc mlp down": (enc, cfg.d_ff, d), "dec qkvo": (tokens, d, d),
+                    "dec mlp up": (tokens, d, cfg.d_ff), "dec mlp down": (tokens, cfg.d_ff, d)}
+    elif cfg.ssm is not None:
+        s = cfg.ssm
+        products = {"in_proj": (tokens, d, 2 * s.d_inner + 2 * s.n_groups * s.d_state
+                                + s.n_heads), "out_proj": (tokens, s.d_inner, d)}
+    else:
+        products = {}
+        kinds = {kind for _, _, kind in cfg.layer_plan}
+        for mixer, ffn in kinds:
+            if mixer in ("attn", "local"):
+                a = cfg.attn if mixer == "attn" else cfg.local_attn
+                products.update({f"{mixer} q": (tokens, d, a.n_heads * a.head_dim),
+                                 f"{mixer} kv": (tokens, d, a.n_kv_heads * a.head_dim),
+                                 f"{mixer} o": (tokens, a.n_heads * a.head_dim, d)})
+            elif mixer == "mla":
+                m = cfg.mla
+                products.update({"mla wq": (tokens, d, m.n_heads * (m.qk_nope_dim
+                                                                    + m.qk_rope_dim)),
+                                 "mla wdkv": (tokens, d, m.kv_lora_rank),
+                                 "mla wkr": (tokens, d, m.qk_rope_dim),
+                                 "mla wo": (tokens, m.n_heads * m.v_head_dim, d)})
+            elif mixer == "rglru":
+                products.update({"rglru wx/wy": (tokens, d, cfg.rglru.d_rnn),
+                                 "rglru wo": (tokens, cfg.rglru.d_rnn, d)})
+            if ffn == "swiglu":
+                products.update({"swiglu up": (tokens, d, cfg.d_ff),
+                                 "swiglu down": (tokens, cfg.d_ff, d)})
+            elif ffn == "moe":
+                e = cfg.moe
+                cap = max(int((tokens * e.top_k / e.n_experts) * e.capacity_factor + 0.999), 4)
+                products.update({"expert up": (cap, d, e.d_ff), "expert down": (cap, e.d_ff, d)})
+                if e.n_shared:
+                    products.update({"shared up": (tokens, d, e.shared_d_ff * e.n_shared),
+                                     "shared down": (tokens, e.shared_d_ff * e.n_shared, d)})
+    errs = dict.fromkeys(("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"), 0.0)
+    splits = []
+
+    def within(got, want, bnd, what) -> float:
+        err = (got - want).abs_()
+        if not bool((err <= bnd).all()):
+            fail(f"{tag}: {what} off by {float(err.max()):.3g}")
+        return float(err.max())
+
+    for name, (m, k, n) in products.items():
+        errs["masked_matmul"] = max(errs["masked_matmul"], _product_err(g, m, k, n, tag))
+        x = quantize_nearest(torch.randn(m, k, generator=g, device=dev))
+        w = quantize_nearest(torch.randn(k, n, generator=g, device=dev).div_(k**0.5))
+        cot = torch.randn(m, n, generator=g, device=dev).mul_(1e-3)
+        errs["masked_matmul_dx"] = max(errs["masked_matmul_dx"], within(
+            masked_matmul_dx(cot, w), masked_matmul_dx_reference(cot, w),
+            (cot.abs() @ w.abs().T).mul_(2 * n * 2.0**-24), f"{name} dx ({m},{n})@({n},{k})"))
+        errs["masked_matmul_dw"] = max(errs["masked_matmul_dw"], within(
+            masked_matmul_dw(x, cot), masked_matmul_dw_reference(x, cot),
+            (x.abs().T @ cot.abs()).mul_(2 * m * 2.0**-24), f"{name} dw ({k},{m})@({m},{n})"))
+        del x, w, cot
+        # the split-K reductions of this product: forward K, dX's N, dW's M
+        for red, rows, cols in ((k, m, n), (n, m, k), (m, k, n)):
+            chunks = split_k(red)[1]
+            if chunks > 1 and (chunks, rows, cols) not in splits:
+                splits.append((chunks, rows, cols))
+                part = quantize_nearest(torch.randn(chunks, rows, cols, generator=g, device=dev))
+                if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
+                    fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain "
+                         "version")
+                del part
+    emb = torch.randn(min(cfg.vocab, TRAIN_ARCHS_SR_ELEMS // d), d, generator=g,
+                      device=dev).mul_(0.02)
+    if not torch.equal(stochastic_round(emb, 5), sr_reference(emb, 5)):
+        fail(f"{tag}: stochastic_round {tuple(emb.shape)} differs from its plain version")
+    sr_shape = tuple(emb.shape)
+    del emb
+    torch.cuda.empty_cache()
+    if arch == "mamba2-780m":
+        errs.update(_train_ssd_check(dev, cfg))
+    torch.cuda.empty_cache()
+    print(f"[train_archs] {arch} kernels at the path's shapes against their plain versions: "
+          f"tile forward {errs['masked_matmul']:.3g}, dx {errs['masked_matmul_dx']:.3g}, dw "
+          f"{errs['masked_matmul_dw']:.3g} over {[(k, v) for k, v in products.items()]}; "
+          f"tile_occupancy exact; splitk_reduce bit-equal at {splits}; stochastic_round "
+          f"{sr_shape} bit-equal", flush=True)
+    return {"errs": errs, "products": products, "splitk": splits}
+
+
+def _train_ssd_check(dev, cfg) -> dict:
+    """ssd_scan at mamba2's training shapes (batch 8, S 128, its heads, head
+    dim and state): the kernel's y and state against the chunked plain
+    version (rel 1e-4, the registry's compare), and the autograd wrapper's
+    gradients of a weighted sum of both against autograd through the
+    chunked form on the same card operands (rel 1e-5)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked, ssd_scan_trainable
+
+    s = cfg.ssm
+    g = torch.Generator(device=dev).manual_seed(17)
+    shape = (TRAIN_ARCHS_BATCH, TRAIN_ARCHS_SEQ)
+    x = torch.randn(*shape, s.n_heads, s.head_dim, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(*shape, s.n_heads, generator=g, device=dev))
+    a = -torch.exp(torch.randn(s.n_heads, generator=g, device=dev) * 0.5)
+    b, c = (torch.randn(*shape, s.n_groups, s.d_state, generator=g, device=dev)
+            .div_(s.d_state**0.5) for _ in range(2))
+    gy = torch.randn(*shape, s.n_heads, s.head_dim, generator=g, device=dev)
+    gs = torch.randn(shape[0], s.n_heads, s.d_state, s.head_dim, generator=g, device=dev)
+
+    def rel(got, want) -> float:
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, a, b, c)]
+        y, state = fn(*ins, return_state=True)
+        return torch.autograd.grad((y * gy).sum() + (state * gs).sum(), ins)
+
+    with torch.no_grad():
+        y, state = ssd_scan(x, dt, a, b, c, return_state=True)
+        want_y, want_state = ssd_scan_chunked(x, dt, a, b, c, return_state=True)
+    fwd = max(rel(y, want_y), rel(state, want_state))
+    grad = max(rel(got, w) for got, w in zip(run(ssd_scan_trainable), run(ssd_scan_chunked)))
+    print(f"[train_archs] ssd_scan at {tuple(x.shape)}: y / state rel {fwd:.3g} against the "
+          f"chunked plain version; the autograd wrapper's gradients rel {grad:.3g} against "
+          "autograd through it", flush=True)
+    if not (fwd <= 1e-4 and grad <= 1e-5):
+        fail("train archs phase: ssd_scan or its autograd wrapper disagrees with the chunked "
+             "plain version")
+    return {"ssd_scan": fwd, "ssd_scan_grad": grad}
+
+
+def _train_card_vs_cpu(dev, arch: str) -> dict:
+    """The reduced ``arch``: lm_loss (encdec_loss with frames, a VLM's with
+    its image prefix) and every gradient on the card against the CPU from
+    the same weights and batch, quant_sparse with nearest rounding on
+    Q16.60 (rounding is the identity there, so the card's fp32 sum order
+    moves no value by a grid step): loss rel 1e-4, every gradient within
+    DESIGN.md §8's contract, rtol 1e-5 with a floor of 1e-5 x (max + 1)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.spring_ops import QUANT_SPARSE
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.runtime.train import (StepConfig, _loss_for, init_train_state,
+                                           make_train_step)
+
+    view = get_arch(arch).view(reduced=True)
+    cfg = view.config
+    spring = dataclasses.replace(QUANT_SPARSE, stochastic=False,
+                                 fmt=FixedPointFormat(il=16, fl=60))
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 33), generator=gen)}
+    if view.is_encdec:
+        batch["frames"] = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen)
+    elif cfg.vlm_prefix_len:
+        batch["img_embeds"] = torch.randn(2, cfg.vlm_prefix_len, cfg.d_model, generator=gen)
+    step_cfg = StepConfig(spring=spring)
+    params = init_train_state(view, step_cfg, 0, device="cpu").params
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.detach().clone().to(d).requires_grad_(True), params)
+        loss, _ = _loss_for(view, cfg, p, {k: v.to(d) for k, v in batch.items()},
+                            SpringContext(cfg=spring, attention="chunked"))
+        grads = [gr.cpu() for gr in torch.autograd.grad(loss, tree_leaves(p))]
+        _, m = make_train_step(view, step_cfg)(
+            init_train_state(tree_map(lambda t: t.clone().to(d), params), step_cfg, 0),
+            {k: v.to(d) for k, v in batch.items()})
+        out[str(d)] = (float(loss.detach()), grads, float(m["loss"]))
+    (l_c, g_c, s_c), (l_g, g_g, s_g) = out["cpu"], out[str(dev)]
+    worst = 0.0
+    for got, want in zip(g_g, g_c):
+        floor = 1e-5 * (float(want.abs().max()) + 1.0)
+        err = (got - want).abs()
+        worst = max(worst, float((err / (want.abs() + float(want.abs().max()) + 1.0)).max()))
+        if not bool((err <= floor + 1e-5 * want.abs()).all()):
+            fail(f"train archs phase: reduced {arch}'s gradients on the card disagree with the "
+                 "CPU's")
+    rel = max(abs(l_g - l_c) / abs(l_c), abs(s_g - s_c) / abs(s_c))
+    print(f"[train_archs] reduced {arch} card vs CPU (Q16.60, nearest): loss {l_g:.6f} vs "
+          f"{l_c:.6f}, step loss {s_g:.6f} vs {s_c:.6f} (rel {rel:.3g}), worst gradient "
+          f"{worst:.3g} of the contract's 1e-5 scale", flush=True)
+    if rel > 1e-4:
+        fail(f"train archs phase: reduced {arch}'s loss on the card disagrees with the CPU's")
+    return {"loss_rel": rel, "grad_worst": worst}
+
+
+def _routing(state, cfg, spring, batch) -> dict:
+    """The experts' routing of one more forward of the trained model on
+    ``batch``: the share of assignments dropped past their expert's
+    capacity, and the aux load-balancing loss."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_hidden
+
+    with moe_mod.record_routing() as rec, torch.no_grad():
+        _, aux = lm_hidden(state.params, cfg, batch["tokens"],
+                           SpringContext(cfg=spring, attention="chunked"))
+    kept = sum(int(x["keep"].sum()) for x in rec)
+    total = sum(x["keep"].numel() for x in rec)
+    print(f"[train_archs] {cfg.name} routing after training: {total - kept} of {total} "
+          f"assignments dropped ({1 - kept / total:.2%}), capacity {rec[0]['capacity']}, aux "
+          f"loss {float(aux):.4f} summed over {len(rec)} MoE layers", flush=True)
+    return {"dropped_share": 1 - kept / total, "assignments": total,
+            "capacity": rec[0]["capacity"], "aux": float(aux)}
+
+
+def phase_train_archs(dev) -> dict:
+    """(5g) The rest of LM training at every width on the card (see
+    5g in the module docstring): the launch counters are zeroed just
+    before the first run and read just after the last; every kernel of
+    TRAIN_ARCHS_KERNELS must launch in each part, splitk_reduce exactly in
+    TRAIN_ARCHS_SPLITK's, ssd_scan in mamba2's (flash_attention never:
+    training takes the chunked attention); then each part's path kernels
+    against their plain versions at its shapes and each reduced arch on the
+    card against the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import build_spec, threefry
+    from repro_torch.api.sessions import synthetic_batch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.memstash.instrument import record_stash_traffic
+
+    t_phase = time.monotonic()
+    spec_path = str(ROOT / TRAIN_SPEC_FILE)
+    bsz, seq = TRAIN_ARCHS_BATCH, TRAIN_ARCHS_SEQ
+    parts, configs = {}, {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_archs_"))
+    kernels.reset_launch_counts()
+    try:
+        parts["mamba2-780m"] = _train_mamba2_launcher(dev, tmp)
+        configs["mamba2-780m"] = get_arch("mamba2-780m").config
+
+        def resolved(arch, *sets):
+            return build_spec("train", spec_file=spec_path, sets=[
+                f"arch.id={arch}", "arch.reduced=false", "train.ckpt_dir=", *sets]).resolve()
+
+        def lm_batches(vocab):
+            stream = SyntheticLMStream(DataConfig(seed=0, vocab=vocab, seq_len=seq,
+                                                  global_batch=bsz), device=dev)
+            return lambda i: {"tokens": stream.batch(i)}
+
+        for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "recurrentgemma-9b"):
+            r = resolved(arch)
+            cfg = configs[arch] = _cut(r.config, TRAIN_ARCHS_UNITS[arch])
+            part = _train_part(dev, f"{arch} ({TRAIN_ARCHS_UNITS[arch]} of {r.config.n_units} "
+                               f"units, {cfg.n_layers} layers)", get_arch(arch).view(config=cfg),
+                               r.step, 3, lm_batches(cfg.vocab),
+                               routing=None if cfg.moe is None else
+                               lambda state, cfg=cfg, r=r: _routing(state, cfg, r.step.spring,
+                                                                    lm_batches(cfg.vocab)(4)))
+            part["units"], part["n_layers"] = TRAIN_ARCHS_UNITS[arch], cfg.n_layers
+            parts[arch] = part
+            if arch == "olmoe-1b-7b":
+                # once more with the unit stashed: the stashed unit's aux loss
+                r = resolved(arch, "memstash.policy=stash")
+                scfg = _cut(r.config, TRAIN_ARCHS_UNITS[arch])
+                # (not profiled: the remat run's profile stands for the part,
+                # and a MoE step's trace takes some 20 s to read)
+                with record_stash_traffic() as rows:
+                    part = _train_part(dev, f"{arch} with the unit stashed ({scfg.n_layers} "
+                                       "layers)", get_arch(arch).view(config=scfg), r.step, 3,
+                                       lm_batches(scfg.vocab), profiled=False)
+                part["stash_points"] = sum(1 for x in rows if x["layer"] == "lm/residual")
+                if not part["stash_points"] or not all(a > 0 for a in part["aux"]):
+                    fail("train archs phase: olmoe's stashed run stashed no unit or lost its "
+                         "aux loss")
+                parts[f"{arch} stash"] = part
+                del rows
+
+        # the train step's other branches: frames and an image prefix
+        base = build_spec("train", spec_file=spec_path, sets=list(TRAIN_LM_SETS)).resolve()
+        for arch, units in (("whisper-medium", None), ("internvl2-26b",
+                                                       TRAIN_ARCHS_UNITS["internvl2-26b"])):
+            full = get_arch(arch).config
+            cfg = configs[arch] = full if units is None else _cut(full, units)
+            view = get_arch(arch).view(config=cfg)
+            t0 = time.monotonic()
+            extra = {k: v.to(dev) for k, v in synthetic_batch(
+                view, cfg, bsz, seq, threefry.prng_key(0)).items() if k != "tokens"}
+            draw_s = time.monotonic() - t0
+            tokens = lm_batches(cfg.vocab)
+
+            def batches(i, extra=extra, tokens=tokens):
+                return {**tokens(i), **extra}
+
+            what = ("whole, 24 + 24 layers, frames" if units is None else
+                    f"{units} of {full.n_units} layers, image prefix")
+            part = _train_part(dev, f"{arch} ({what} {tuple(next(iter(extra.values())).shape)}"
+                               f" drawn in {draw_s:.1f} s)", view, base.step, 2, batches)
+            part["units"] = units
+            parts[arch] = part
+            del extra
+        launches = kernels.launch_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, part in parts.items():
+        arch = tag.split(" ")[0]
+        need = (*TRAIN_ARCHS_KERNELS, *(("ssd_scan",) if arch == "mamba2-780m" else ()))
+        for name in need:
+            if part["launches"][name] <= 0:
+                fail(f"train archs phase: {tag} never launched the {name} kernel")
+        if (part["launches"]["splitk_reduce"] > 0) != (arch in TRAIN_ARCHS_SPLITK):
+            fail(f"train archs phase: {tag} launched splitk_reduce "
+                 f"{part['launches']['splitk_reduce']} times")
+        if part["launches"]["flash_attention"]:
+            fail(f"train archs phase: {tag} launched flash_attention (training takes the "
+                 "chunked attention)")
+    print(f"[train_archs] launches over the phase: {launches}", flush=True)
+
+    t0 = time.monotonic()
+    checks = {arch: _train_arch_kernel_checks(
+        dev, arch, cfg, bsz * (seq + getattr(cfg, "vlm_prefix_len", 0)))
+              for arch, cfg in configs.items()}
+    card_cpu = {arch: _train_card_vs_cpu(dev, arch) for arch in configs}
+    checks_s = time.monotonic() - t0
+    wall = time.monotonic() - t_phase
+    print(f"[train_archs] kernel and card-vs-CPU checks {checks_s:.1f} s; phase 5g wall "
+          f"{wall:.1f} s", flush=True)
+    errs = {k: max(c["errs"].get(k, 0.0) for c in checks.values())
+            for k in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw")}
+    return {"launches": launches, "parts": parts, "checks": checks, "card_vs_cpu": card_cpu,
+            "errs": errs, "checks_s": checks_s, "wall_s": wall}
 
 
 # -- slice 3: long-prompt prefill and Mamba-2 serving -----------------------------
@@ -3819,6 +4440,7 @@ def main() -> None:
     report["cnn_card_vs_cpu"] = phase_cnn_card_vs_cpu(dev)
     report["arms"] = phase_arms(dev)
     report["train_lm"] = train_lm = phase_train_lm(dev)
+    report["train_archs"] = train_archs = phase_train_archs(dev)
 
     # -- 6. slice 3: long-prompt prefill, Mamba-2 ------------------------------
     report["flash_attention"] = fa = phase_flash_attention(dev, gen)
@@ -3858,7 +4480,7 @@ def main() -> None:
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
-    # train_lm, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe,
+    # train_lm, train_archs, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe,
     # slice15, the kernel sweep, the paper path's probe), each zeroed just before its run
     # and read just after (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
@@ -3869,7 +4491,9 @@ def main() -> None:
                       "hybrid": hybrid["launches"][name], "moe": moe["launches"][name],
                       "slice15": s15["launches"][name],
                       "train": train["launches"][name],
-                      "train_lm": train_lm["launches"][name], "sweep": sweep["launches"][name],
+                      "train_lm": train_lm["launches"][name],
+                      "train_archs": train_archs["launches"][name],
+                      "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
                for name in launches}
     total = {name: sum(v.values()) for name, v in by_path.items()}

@@ -103,7 +103,11 @@ log = logging.getLogger("repro_torch.train")
 class TrainSession(Session):
     """End-to-end LM training: data -> train step -> checkpoint -> resume,
     with the straggler watchdog and the loss log.  ``params`` default to
-    ``lm_init(cfg, seed)`` on ``device``."""
+    ``lm_init(cfg, seed)`` on ``device``; given ones are trained in place
+    (the step donates its state).  Every LM arch trains but
+    whisper-medium and internvl2-26b, which the spec refuses as the
+    reference's session cannot train them (their frames / image prefix go
+    through ``make_train_step``)."""
 
     run_mode = "train"
 

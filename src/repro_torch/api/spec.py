@@ -654,33 +654,17 @@ class RunSpec:
 
         out = []
         arch = get_arch(self.arch.id)
-        kinds = set() if arch.is_encdec else {kind for _, _, kind in arch.config.layer_plan}
-        mixers = {mixer for mixer, _ in kinds}
-        serving_only = [part for part, there in (
-            ("MoE FFN", any(ffn == "moe" for _, ffn in kinds)), ("MLA mixer", "mla" in mixers))
-            if there]
         if arch.is_encdec or arch.config.vlm_prefix_len:
-            part = "encoder-decoder" if arch.is_encdec else "image-embedding prefix"
+            fault = ("KeyError 'frames': its _loss_for reads batch['frames'] "
+                     "(src/repro/runtime/train.py:118)" if arch.is_encdec else
+                     "AssertionError: its lm_hidden asserts img_embeds is not None "
+                     "(src/repro/models/lm.py:239)")
             out.append(
-                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the port "
-                f"yet: its {part} is ported for serving only (ROADMAP §1 item 3)")
-        elif serving_only:
-            out.append(
-                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
-                f"port yet: its {' and '.join(serving_only)} "
-                f"{'are' if len(serving_only) > 1 else 'is'} ported for serving only "
-                "(MoE training, ROADMAP §1 item 3)")
-        elif "ssm" in mixers:
-            out.append(
-                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
-                "port: its ssm blocks run ssd_scan, which raises on the card when a "
-                "gradient is wanted, and the reference has no backward kernel for it "
-                "(SSM and hybrid training, ROADMAP §1 item 3)")
-        elif mixers & {"rglru", "local"}:
-            out.append(
-                f"arch.id: {self.arch.id!r} ({arch.family}) cannot be trained by the "
-                "port yet: its RG-LRU scan and sliding-window attention are ported for "
-                "serving only (hybrid training, ROADMAP §1 item 3)")
+                f"arch.id: {self.arch.id!r} ({arch.family}) is not trained by the session: "
+                "the reference's TrainSession feeds its train step the tokens alone "
+                f"(src/repro/api/sessions.py:148) and fails on it with {fault}; "
+                "make_train_step trains it given "
+                f"{'frames' if arch.is_encdec else 'img_embeds'} (ROADMAP §3)")
         if self.memstash.capacity != 1.0:
             out.append(
                 f"memstash.capacity={self.memstash.capacity}: the port's stash is the "

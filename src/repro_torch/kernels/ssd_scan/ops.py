@@ -13,6 +13,14 @@ have no backward (nor has the reference's Pallas kernel), so on the card
 a call that autograd would need to differentiate raises instead of
 dropping the gradient; the plain version stays differentiable.
 
+Training on the card goes through :func:`ssd_scan_trainable` (the
+autograd Function :class:`SSDScan`): its forward is :func:`ssd_scan` (the
+kernels, one counted launch), its backward recomputes
+:func:`~repro_torch.kernels.ssd_scan.ref.ssd_scan_chunked` under
+``enable_grad`` and returns that form's VJP.  The reference trains through
+its chunked ``jnp`` form too (``ssd_scan/ops.py:24-110``), having no
+backward kernel either.
+
 Each stage kernel has its launcher here (``_scores``, ``_state``,
 ``_passing``, ``_scan``, on operands :func:`ssd_scan` has checked) and its
 plain version in ``ref.py`` (``ssd_chunk_scores``, ``ssd_chunk_state``,
@@ -35,7 +43,8 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_scan_chunked, ssd_scan_reference
 
-__all__ = ["ssd_scan", "ssd_scan_chunked", "ssd_scan_reference", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_trainable", "ssd_scan_chunked", "ssd_scan_reference",
+           "CHUNK"]
 
 #: head dims (P) the CUDA kernels are instantiated for, and the largest state
 HEAD_DIMS = (32, 64)
@@ -172,3 +181,39 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 #: kernel launches made by this wrapper, one per call of the four-stage
 #: scan (the CPU path counts nothing)
 ssd_scan.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """:func:`ssd_scan` with a gradient: the forward runs the wrapper (on
+    the card the four stage kernels, counted in ``ssd_scan.launches``),
+    the backward recomputes the chunked plain form from the saved inputs
+    and returns its VJP for y and the final state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.set_materialize_grads(False)
+        return ssd_scan(x, dt, a, b, c, return_state=True)  # no graph inside forward
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_scan_chunked(*ins, return_state=True)
+            pairs = [(o, g) for o, g in zip(outs, (g_y, g_state)) if g is not None]
+            wanted = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True)
+                         if pairs else [None] * len(wanted))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def ssd_scan_trainable(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, return_state: bool = False):
+    """:func:`ssd_scan` that autograd differentiates on every device
+    (:class:`SSDScan`): the card's kernels forward, the chunked plain
+    form's VJP backward."""
+    _check(x, dt, a, b, c)
+    y, state = SSDScan.apply(x, dt, a, b, c)
+    return (y, state) if return_state else y

@@ -8,7 +8,11 @@ intermediates:
   backward: x = decompress(saved);  recompute f(x, aux) with a graph;
             gradients of that recompute against the cotangent
 
-i.e. remat from the compressed input.  The restore is bit-exact, so dense-mode gradients are bit-identical to the unstashed
+i.e. remat from the compressed input.  ``f`` returns one tensor or a
+tuple of them (the LM's unit returns its output and its MoE aux loss,
+whose gradient flows into the router through the recompute, as the
+reference's unit threads its aux carry through the custom VJP).  The
+restore is bit-exact, so dense-mode gradients are bit-identical to the unstashed
 program.  Quantized modes draw fresh SR seeds in the recompute (the
 block's ``KeyGen`` moves on), the same caveat the reference has with its
 re-traced keys (``memstash/stash.py:17-20``).
@@ -35,19 +39,25 @@ class _StashedCall(torch.autograd.Function):
         sv = compress(x)
         ctx.f, ctx.meta = f, (sv.shape, sv.dtype)
         ctx.save_for_backward(sv.values, sv.mask, sv.nnz, *aux)
+        ctx.set_materialize_grads(False)
         return y
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         values, mask, nnz, *aux = ctx.saved_tensors
         x = decompress(StashedActivation(values, mask, nnz, *ctx.meta))
         need = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             x = x.detach().requires_grad_(need[0])
             aux = tuple(a.detach().requires_grad_(n) for a, n in zip(aux, need[1:]))
-            y = ctx.f(x, aux)
+            ys = ctx.f(x, aux)
+            ys = ys if isinstance(ys, tuple) else (ys,)
+            # the outputs with a cotangent that the recompute connects to an input
+            pairs = [(y, g) for y, g in zip(ys, gs) if g is not None and y.requires_grad]
             inputs = [t for t, n in zip((x, *aux), need) if n]
-            grads = iter(torch.autograd.grad(y, inputs, g, allow_unused=True))
+            grads = iter(torch.autograd.grad([y for y, _ in pairs], inputs,
+                                             [g for _, g in pairs], allow_unused=True)
+                         if pairs else [None] * len(inputs))
         return (None, None, *(next(grads) if n else None for n in need))
 
 

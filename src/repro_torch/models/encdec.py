@@ -20,9 +20,12 @@ token's self K/V at ``pos`` and attends in fp32 over all ``max_len`` rows
 with the rows past ``pos`` masked to -1e30, then over the fixed cross
 K/V; the logits are an fp32 product with the tied embedding, a plain
 ``torch.matmul`` as the reference's lies outside any kernel.
-``EncDecConfig.remat`` is kept for the config's sake: training an
-encoder-decoder is not ported, and :func:`encdec_loss` serves the CPU
-gradient parity test.
+
+Training (:func:`encdec_loss`, which ``runtime.train.make_train_step``
+calls with the batch's ``frames``): under ``EncDecConfig.remat`` each
+encoder and decoder layer is recomputed in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+its scan body does.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.attention import AttnSpec, _chunked_attention
 from repro_torch.models.layers import (SpringContext, dense_apply, dense_init, embed_apply,
@@ -99,6 +103,18 @@ def _layer(stacked: dict, i: int) -> dict:
     return tree_map(lambda t: t[i], stacked)
 
 
+def _layers(cfg: EncDecConfig, body, x: torch.Tensor, stacked: dict, n: int) -> torch.Tensor:
+    """``x = body(x, layer i)`` for each of the ``n`` stacked layers, each
+    recomputed in the backward pass under ``cfg.remat``."""
+    for i in range(n):
+        lp = _layer(stacked, i)
+        if cfg.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x = body(x, lp)
+    return x
+
+
 def encdec_init(cfg: EncDecConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random parameters from ``seed`` on ``device`` (a ``torch.Generator``
     there; :func:`repro_torch.convert.encdec_params_from_jax` carries a JAX
@@ -136,11 +152,13 @@ def encode(params: dict, cfg: EncDecConfig, frames: torch.Tensor,
     """(B, S_enc, d) stub frame embeddings -> the encoder states."""
     x = dense_apply(params["enc_in"], frames, ctx)
     x = x + _sinusoid(frames.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        hn = layernorm_apply(lp["ln1"], x)
-        x = x + _mha(lp["attn"], hn, hn, ctx, cfg.n_heads, causal=False)
-        x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["ln2"], x), ctx)
+
+    def body(h, lp):
+        hn = layernorm_apply(lp["ln1"], h)
+        h = h + _mha(lp["attn"], hn, hn, ctx, cfg.n_heads, causal=False)
+        return h + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["ln2"], h), ctx)
+
+    x = _layers(cfg, body, x, params["enc_layers"], cfg.n_enc_layers)
     return layernorm_apply(params["enc_ln"], x)
 
 
@@ -149,13 +167,15 @@ def decode_hidden(params: dict, cfg: EncDecConfig, tokens: torch.Tensor,
     """The teacher-forced decoder pass (the loss, the prefill step)."""
     x = embed_apply(params["embed"], tokens, ctx)
     x = x + _sinusoid(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-    for i in range(cfg.n_dec_layers):
-        lp = _layer(params["dec_layers"], i)
-        hn = layernorm_apply(lp["ln1"], x)
-        x = x + _mha(lp["self_attn"], hn, hn, ctx, cfg.n_heads, causal=True)
-        x = x + _mha(lp["cross_attn"], layernorm_apply(lp["ln2"], x), enc_out, ctx,
+
+    def body(h, lp):
+        hn = layernorm_apply(lp["ln1"], h)
+        h = h + _mha(lp["self_attn"], hn, hn, ctx, cfg.n_heads, causal=True)
+        h = h + _mha(lp["cross_attn"], layernorm_apply(lp["ln2"], h), enc_out, ctx,
                      cfg.n_heads, causal=False)
-        x = x + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["ln3"], x), ctx)
+        return h + gelu_mlp_apply(lp["mlp"], layernorm_apply(lp["ln3"], h), ctx)
+
+    x = _layers(cfg, body, x, params["dec_layers"], cfg.n_dec_layers)
     return layernorm_apply(params["dec_ln"], x)
 
 

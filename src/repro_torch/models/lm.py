@@ -32,7 +32,8 @@ Training recomputes a unit of layers in the backward pass under
 ``remat_policy``, as the reference's scan does: ``"full"`` checkpoints
 each unit (``torch.utils.checkpoint``), ``"block_io"`` each block, and
 ``"stash"`` stores the unit's residual-stream input binary-mask compressed
-(``memstash.stash_apply``, stash point ``"lm/residual"``) unless the
+(``memstash.stash_apply``, stash point ``"lm/residual"``; the stashed unit
+returns its MoE aux loss beside its output) unless the
 ``MemstashConfig`` resolves that point to "remat" or "none"; prefix and
 suffix layers run plain, as in the reference.  A recompute re-draws its
 SR (the ``KeyGen`` moves on), as the reference's re-traced keys do.  The
@@ -252,9 +253,6 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
     stash_policy = (scfg.policy_for("lm/residual", int(x.numel()))
                     if cfg.remat_policy == "stash" else "none")
     width, n_pre = len(cfg.pattern_unit), len(cfg.prefix)
-    if stash_policy == "stash" and any(ffn == "moe" for _, ffn in cfg.pattern_unit):
-        raise NotImplementedError(f"{cfg.name}: the stashed unit returns no MoE aux loss "
-                                  "(MoE training, ROADMAP §1 item 3)")
 
     def block(h, p, u):
         return block_apply(p, h, ctx, cfg, cfg.pattern_unit[u], positions)[::2]
@@ -282,12 +280,14 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
                 aux = aux + a
         elif stash_policy == "stash":
             # the unit's input is kept compressed; its parameters ride along
-            # as the stash's dense aux tensors, so their gradients flow
+            # as the stash's dense aux tensors, so their gradients flow, the
+            # router's through the unit's MoE aux loss too
             def run_aux(h, leaves, unit=unit):
                 leaves = iter(leaves)
-                return run(h, tree_map(lambda _: next(leaves), unit))[0]
+                return run(h, tree_map(lambda _: next(leaves), unit))
 
-            x = stash_apply(run_aux, scfg, "lm/residual", x, tuple(tree_leaves(unit)))
+            x, a = stash_apply(run_aux, scfg, "lm/residual", x, tuple(tree_leaves(unit)))
+            aux = aux + a
         else:
             x, a = (checkpointed(run, x) if cfg.remat or stash_policy == "remat" else run(x))
             aux = aux + a

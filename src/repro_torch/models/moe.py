@@ -37,6 +37,11 @@ the reference's ``E * sum_e mean(probs)_e * count_e / (T * top_k)``.
 Token streams longer than :data:`MOE_TOKEN_CHUNK` are cut into chunks
 along the sequence, each recomputed in the backward pass, and the aux
 losses averaged (``moe.py:90-103``).
+
+Training differentiates all of it, as the reference's ``jax.grad`` does:
+the router through the gates and the aux loss, the experts through their
+products' dX / dW kernels at the capacity's M; an expert that no token
+reached runs on zero rows, so its weight gradients are exactly 0.
 """
 
 from __future__ import annotations

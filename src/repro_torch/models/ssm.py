@@ -2,7 +2,9 @@
 
 Per block: in_proj -> split(z, xBC, dt); a short causal depthwise conv over
 xBC; the SSD scan (``kernels.ssd_scan``: the CUDA kernels on the card, the
-chunked plain version on the CPU); gated RMSNorm of y * silu(z); out_proj.
+chunked plain version on the CPU; where a gradient is wanted on the card,
+``ssd_scan_trainable``: the kernels forward, the chunked form's VJP
+backward); gated RMSNorm of y * silu(z); out_proj.
 Decode keeps a (conv, ssm) state pair per layer, O(1) in sequence length;
 the one-token decode update stays plain torch, as in the reference, its
 state readout in fixed row blocks (``layers.fixed_rows``: batch-invariant;
@@ -17,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_trainable
 from repro_torch.models.layers import (
     SpringContext,
     dense_apply,
@@ -101,7 +103,10 @@ def ssm_apply(params: dict, x: torch.Tensor, ctx: SpringContext, spec: SSMSpec,
         xs, bm, cm = torch.split(xbc, [di, g * n, g * n], dim=-1)
         xs = xs.reshape(b, s, h, p)  # views: the kernel reads them through strides
         bm, cm = bm.reshape(b, s, g, n), cm.reshape(b, s, g, n)
-        y, final_state = ssd_scan(xs, dt, a, bm, cm, return_state=True)
+        operands = (xs, dt, a, bm, cm)
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+        scan = ssd_scan_trainable if grad and xs.is_cuda else ssd_scan
+        y, final_state = scan(*operands, return_state=True)
         new_cache = {"conv": zxbcdt[:, s - (CONV_K - 1):, di:di + spec.conv_dim]
                      .to(torch.bfloat16),
                      "ssm": final_state.to(torch.bfloat16)}

@@ -10,14 +10,15 @@ updated weights are stochastically rounded onto the Q(IL,FL) grid (paper
 through ``quantize_stochastic`` (the ``stochastic_round`` kernel on the
 card).  ``weight_format=None`` gives standard fp32 training.  The
 learning rate warms up linearly over ``warmup_steps``, computed in
-float32 as the reference's ``_schedule``.  Updates are functional: new
-tensors, as in the reference.
+float32 as the reference's ``_schedule``.  :func:`make_optimizer`'s
+updates are functional (new tensors, as in the reference);
+:func:`update_in_place` writes the same step into the state it is given,
+leaf by leaf (the LM train step, whose state is donated).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -66,12 +67,17 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def _clip_scale(grads, max_norm: float) -> tuple:
+    """(min(1, max_norm / (global norm + 1e-9)), the global norm), 0-d."""
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in tree_leaves(grads)))
+    return torch.clamp(max_norm / (gn + 1e-9), max=1.0), gn
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale every gradient by min(1, max_norm / (global norm + 1e-9));
     returns (clipped, global norm as a 0-d tensor)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    scale, gn = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), gn
 
 
@@ -84,15 +90,80 @@ def _schedule(cfg: OptimizerConfig, step: int) -> float:
     return float(lr)
 
 
-def _finalize_weights(new_p, cfg: OptimizerConfig, seed: Optional[int]):
-    """SR-quantize updated weights onto the Q(IL,FL) grid when configured:
-    leaf i draws from a generator on ``fold_in(seed, i)``."""
-    if cfg.weight_format is None:
-        return new_p
-    assert seed is not None, "fixed-point weight update needs a seed"
-    index = itertools.count()
-    return tree_map(lambda p: quantize_stochastic(
-        torch.Generator().manual_seed(fold_in(seed, next(index))), p, cfg.weight_format), new_p)
+# -- the update, leaf by leaf ------------------------------------------------
+
+#: elements of one piece of a leaf's elementwise update: the update's
+#: temporaries are a few pieces, not a few copies of the largest leaf
+UPDATE_PIECE = 1 << 24
+
+
+def _pieces(*ts):
+    """Flat views of ``ts`` cut into matching pieces of UPDATE_PIECE
+    elements (the whole tensors where one of them is not contiguous)."""
+    if not all(t.is_contiguous() for t in ts):
+        return [ts]
+    return list(zip(*(t.view(-1).split(UPDATE_PIECE) for t in ts)))
+
+
+def _adamw_leaf(cfg: OptimizerConfig, p, m, v, g, scale, lr: float, bc1: float, bc2: float):
+    """One leaf's AdamW step, written into ``p``, ``m`` and ``v``: the
+    reference's ``b1 m + (1 - b1) g``, ``b2 v + (1 - b2) g**2`` and ``p - lr
+    (m / bc1 / (sqrt(v / bc2) + eps) + wd p)`` of the clipped ``g * scale``,
+    each operation rounded as the functional form rounds it."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    for p_, m_, v_, g_ in _pieces(p, m, v, g):
+        gc = g_.to(torch.float32) * scale
+        v_.mul_(b2).add_(torch.square(gc).mul_(1 - b2))
+        m_.mul_(b1).add_(gc.mul_(1 - b1))
+        del gc
+        d = torch.sqrt(v_ / bc2).add_(cfg.eps)
+        u = (m_ / bc1).div_(d)
+        del d
+        u.add_(p_.to(torch.float32) * cfg.weight_decay).mul_(lr)
+        p_.copy_(p_.to(torch.float32) - u)
+
+
+def _sgdm_leaf(cfg: OptimizerConfig, p, m, g, scale, lr: float):
+    """One leaf's SGD-momentum step, written into ``p`` and ``m``:
+    ``mu m + g`` and ``p - lr (m + wd p)`` of the clipped ``g * scale``."""
+    for p_, m_, g_ in _pieces(p, m, g):
+        m_.mul_(cfg.momentum).add_(g_.to(torch.float32) * scale)
+        u = (p_.to(torch.float32) * cfg.weight_decay).add_(m_).mul_(lr)
+        p_.copy_(p_.to(torch.float32) - u)
+
+
+def update_in_place(cfg: OptimizerConfig, grads, state: OptState, params,
+                    seed: Optional[int] = None):
+    """The optimizer step of :func:`make_optimizer` computed leaf by leaf
+    into ``params`` and ``state``'s moments, which it overwrites (the LM
+    train step donates its state, as the reference's jitted step does):
+    the gradients are clipped by their global norm, each leaf is updated
+    piece by piece, then SR-rounded whole onto ``weight_format``'s grid
+    (leaf i under ``fold_in(seed, i)``).  The same arithmetic as the
+    functional updates, so the same bits; its extra memory is a few pieces
+    and one rounded leaf.  Returns (params, the new OptState, metrics)."""
+    if cfg.kind not in ("adamw", "sgdm"):
+        raise ValueError(cfg.kind)
+    if cfg.weight_format is not None and seed is None:
+        raise ValueError("the fixed-point weight update needs a seed")
+    scale, gn = _clip_scale(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = _schedule(cfg, state.step)
+    bc1, bc2 = 1.0 - cfg.beta1**step, 1.0 - cfg.beta2**step
+    moments = zip(tree_leaves(state.m), tree_leaves(state.v))
+    for i, (p, (m, v), g) in enumerate(zip(tree_leaves(params), moments, tree_leaves(grads))):
+        if cfg.kind == "adamw":
+            _adamw_leaf(cfg, p, m, v, g, scale, lr, bc1, bc2)
+        else:
+            _sgdm_leaf(cfg, p, m, g, scale, lr)
+        if cfg.weight_format is not None:
+            gen = torch.Generator().manual_seed(fold_in(seed, i))
+            p.copy_(quantize_stochastic(gen, p, cfg.weight_format))
+    return params, OptState(step, state.m, state.v), {"grad_norm": gn, "lr": lr}
+
+
+def _copy(tree):
+    return tree_map(torch.clone, tree)
 
 
 # -- AdamW -------------------------------------------------------------------
@@ -104,23 +175,9 @@ def adamw_init(params) -> OptState:
 
 def adamw_update(cfg: OptimizerConfig, grads, state: OptState, params,
                  seed: Optional[int] = None):
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
-    step = state.step + 1
-    lr = _schedule(cfg, state.step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1, bc2 = 1.0 - b1**step, 1.0 - b2**step
-    new_m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32), state.m, grads)
-    new_v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)),
-                     state.v, grads)
-    del grads
-
-    def upd(p, m, v):
-        pf = p.to(torch.float32)
-        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        return (pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype)
-
-    new_p = _finalize_weights(tree_map(upd, params, new_m, new_v), cfg, seed)
-    return new_p, OptState(step, new_m, new_v), {"grad_norm": gn, "lr": lr}
+    """The AdamW step on new tensors (:func:`update_in_place` on copies)."""
+    return update_in_place(cfg, grads, OptState(state.step, _copy(state.m), _copy(state.v)),
+                           _copy(params), seed)
 
 
 # -- SGD momentum ------------------------------------------------------------
@@ -133,17 +190,10 @@ def sgdm_init(params) -> OptState:
 
 def sgdm_update(cfg: OptimizerConfig, grads, state: OptState, params,
                 seed: Optional[int] = None):
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
-    lr = _schedule(cfg, state.step)
-    new_m = tree_map(lambda m, g: cfg.momentum * m + g.to(torch.float32), state.m, grads)
-    del grads
-
-    def upd(p, m):
-        pf = p.to(torch.float32)
-        return (pf - lr * (m + cfg.weight_decay * pf)).to(p.dtype)
-
-    new_p = _finalize_weights(tree_map(upd, params, new_m), cfg, seed)
-    return new_p, OptState(state.step + 1, new_m, state.v), {"grad_norm": gn, "lr": lr}
+    """The SGD-momentum step on new tensors (:func:`update_in_place` on
+    copies; the zero ``v`` scalars are kept)."""
+    return update_in_place(cfg, grads, OptState(state.step, _copy(state.m), state.v),
+                           _copy(params), seed)
 
 
 def make_optimizer(cfg: OptimizerConfig):

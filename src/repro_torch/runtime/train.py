@@ -8,8 +8,10 @@ One step, in the reference's order:
       ``microbatch`` splits, split i under fold_in(key, i)]
   -> clip -> SGDm / AdamW -> [SR fixed-point weights, fold_in(key, 0x5eed)]
 
-PyTorch runs eagerly, so there is no jit and no donated state: a step is a
-plain function on a :class:`TrainState` of tensors.  The seeds are the
+PyTorch runs eagerly, so there is no jit: a step is a plain function on a
+:class:`TrainState` of tensors.  The LM step updates its state's tensors
+in place, as the reference's donated state is; the CNN step is
+functional.  The seeds are the
 port's 32-bit integers, folded by :func:`repro_torch.kernels.prng.fold_in`
 (the reference's threefry keys are not reproduced; its SR draws are held
 statistically).  The reference's compressed inter-pod gradient exchange
@@ -27,11 +29,12 @@ import torch
 from repro_torch.core.spring_ops import DENSE, KeyGen, SpringConfig
 from repro_torch.kernels.prng import fold_in
 from repro_torch.memstash.config import MemstashConfig
+from repro_torch.models import encdec as ed_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.cnn import ParamStore
 from repro_torch.models.layers import SpringContext
 from repro_torch.optim.optimizers import (OptimizerConfig, OptState, make_optimizer,
-                                          tree_leaves, tree_map)
+                                          tree_leaves, tree_map, update_in_place)
 
 #: the optimizer's seed is folded from the step key with this constant
 OPT_SEED_FOLD = 0x5EED
@@ -78,15 +81,16 @@ def _spring_for(step_cfg: StepConfig) -> SpringConfig:
 
 def init_train_state(model, step_cfg: StepConfig, seed: int = 0, *, reduced: bool = False,
                      device="cuda") -> TrainState:
-    """A fresh state: ``model`` is a parameter tree (kept as given: a CNN's
-    dict, or an LM's), or an arch (``ArchDef`` / ``ResolvedArch``) whose
-    config, reduced with ``reduced``, gets ``lm_init(cfg, seed)``
-    parameters on ``device``."""
+    """A fresh state: ``model`` is a parameter tree (kept as given, so the
+    LM step trains its tensors in place: a CNN's dict, or an LM's), or an
+    arch (``ArchDef`` / ``ResolvedArch``) whose config, reduced with
+    ``reduced``, gets ``lm_init(cfg, seed)`` (an encoder-decoder
+    ``encdec_init``) parameters on ``device``."""
     if isinstance(model, dict):
         params = model
     else:
-        params = lm_mod.lm_init(model.reduced() if reduced else model.config, seed,
-                                device=device)
+        init = ed_mod.encdec_init if model.is_encdec else lm_mod.lm_init
+        params = init(model.reduced() if reduced else model.config, seed, device=device)
     opt_init, _ = make_optimizer(step_cfg.optimizer)
     return TrainState(params, opt_init(params), 0, int(seed))
 
@@ -102,11 +106,24 @@ def _with_grad(params):
     return tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
+def _loss_for(arch, cfg, params, batch: dict, ctx: SpringContext):
+    """The reference's ``_loss_for``: an encoder-decoder's loss reads
+    ``batch["frames"]``, an LM's a VLM's ``batch.get("img_embeds")``."""
+    if arch.is_encdec:
+        return ed_mod.encdec_loss(params, cfg, batch["frames"], batch["tokens"], ctx)
+    return lm_mod.lm_loss(params, cfg, batch["tokens"], ctx, batch.get("img_embeds"))
+
+
 def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False,
                     grad_sync=None):
-    """``step(state, {"tokens": (B, S)}) -> (state, metrics)`` for an LM
-    arch (``ArchDef`` / ``ResolvedArch``).  Metrics: loss, ce, aux,
-    grad_norm, lr."""
+    """``step(state, batch) -> (state, metrics)`` for an arch (``ArchDef``
+    / ``ResolvedArch``): ``batch`` holds ``"tokens"`` (B, S), with an
+    encoder-decoder's ``"frames"`` (B, S_enc, d) or a VLM's
+    ``"img_embeds"`` (B, P, d).  Metrics: loss, ce (and an LM's aux),
+    grad_norm, lr.  The step donates ``state``, as the reference's jitted
+    step does: the optimizer writes the new parameters and moments into its
+    tensors (``optim.update_in_place``), so the returned state holds them
+    and a full-width model's update needs no second copy of its state."""
     refused = [name for name, on in (("mesh", mesh is not None),
                                      ("grad_sync", grad_sync is not None),
                                      ("compress_pod_grads", step_cfg.compress_pod_grads)) if on]
@@ -115,31 +132,30 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
                                   "wait for the dist/ port (ROADMAP §1 item 4)")
     cfg = arch.reduced() if reduced else arch.config
     spring = _spring_for(step_cfg)
-    _, opt_update = make_optimizer(step_cfg.optimizer)
 
     def ctx_for(key: int) -> SpringContext:
         return SpringContext(cfg=spring, keys=KeyGen(key) if spring.is_quantized else None,
                              prune_ratio=step_cfg.prune_ratio, memstash=step_cfg.memstash,
                              attention=step_cfg.attention)
 
-    def loss_and_grads(params, tokens, key):
+    def loss_and_grads(params, batch, key):
         p = _with_grad(params)
-        loss, metrics = lm_mod.lm_loss(p, cfg, tokens, ctx_for(key))
+        loss, metrics = _loss_for(arch, cfg, p, batch, ctx_for(key))
         grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(grads), params))
 
     def grads_and_loss(params, batch, key):
-        tokens = batch["tokens"]
         nm = step_cfg.microbatch
         if nm is None:
-            return loss_and_grads(params, tokens, key)
-        # gradient accumulation over contiguous row splits
-        splits = tokens.reshape(nm, tokens.shape[0] // nm, *tokens.shape[1:])
-        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            return loss_and_grads(params, batch, key)
+        # gradient accumulation over contiguous row splits of every leaf
+        splits = {k: v.reshape(nm, v.shape[0] // nm, *v.shape[1:]) for k, v in batch.items()}
+        loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
         grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         for i in range(nm):
-            loss_i, metrics, grads_i = loss_and_grads(params, splits[i], fold_in(key, i))
+            loss_i, metrics, grads_i = loss_and_grads(
+                params, {k: v[i] for k, v in splits.items()}, fold_in(key, i))
             loss = loss + loss_i / nm
             grads = tree_map(lambda a, g: a + g / nm, grads, grads_i)
             del grads_i
@@ -148,8 +164,8 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
     def step(state: TrainState, batch: dict):
         key = fold_in(state.seed, state.step)
         loss, metrics, grads = grads_and_loss(state.params, batch, key)
-        new_p, new_opt, om = opt_update(grads, state.opt_state, state.params,
-                                        fold_in(key, OPT_SEED_FOLD))
+        new_p, new_opt, om = update_in_place(step_cfg.optimizer, grads, state.opt_state,
+                                             state.params, fold_in(key, OPT_SEED_FOLD))
         return (TrainState(new_p, new_opt, state.step + 1, state.seed),
                 dict(metrics, loss=loss, **om))
 

@@ -940,3 +940,89 @@ def test_reduced_whisper_static_run_on_the_card(card):
     logits = [encdec_decode_step(_to(params, d), cfg, toks.to(d), _to(caches[0], d), ctx)[0].cpu()
               for d in ("cpu", card)]
     assert float((logits[1] - logits[0]).abs().max()) <= 1e-3
+
+
+def test_ssd_scan_trainable_on_the_card_at_mamba2s_shapes(card):
+    """The SSD scan's autograd Function at mamba2-780m's training shapes
+    (batch 8, S 128, H 48, P 64, N 128, one group): its forward is the
+    kernel's (one counted launch, y and the state equal to ``ssd_scan``'s
+    under no_grad), its gradients are autograd's through the chunked plain
+    version on the same card operands (the backward recomputes that form:
+    rel 1e-5, fp32 sums of the same ops), and the bare wrapper still raises
+    when a gradient is wanted."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked, ssd_scan_trainable
+
+    ops = _ssd_operands(card, 8, 128, 48, 64, 1, 128, "float32")
+    gen = torch.Generator().manual_seed(9)
+    gy = torch.randn(8, 128, 48, 64, generator=gen).to(card)
+    gs = torch.randn(8, 48, 128, 64, generator=gen).to(card)
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True) for t in ops]
+        y, state = fn(*ins, return_state=True)
+        grads = torch.autograd.grad((y * gy).sum() + (state * gs).sum(), ins)
+        return y.detach(), state.detach(), grads
+
+    before = ssd_scan.launches
+    y, state, grads = run(ssd_scan_trainable)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    with torch.no_grad():
+        want_y, want_state = ssd_scan(*ops, return_state=True)
+    assert torch.equal(y, want_y) and torch.equal(state, want_state)
+    _, _, want = run(ssd_scan_chunked)
+    for got, w in zip(grads, want):
+        assert _rel(got, w) <= 1e-5
+    with pytest.raises(ValueError, match="no gradient"):
+        ssd_scan(*(t.clone().requires_grad_(True) for t in ops))
+
+
+def _train_lm_grads(params, cfg, tokens, spring):
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    loss, _ = lm_loss(p, cfg, tokens, SpringContext(cfg=spring, attention="chunked"))
+    return float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))]
+
+
+def test_reduced_olmoe_train_step_on_the_card_matches_the_cpu(card):
+    """Reduced olmoe-1b-7b, quant_sparse with nearest rounding on Q16.60
+    (where rounding is the identity, so the card's fp32 sum order moves no
+    value by a grid step): one make_train_step step (AdamW) on the card and
+    on the CPU from the same weights, losses rel 1e-4, the experts' products
+    and their dx / dw on the kernels; lm_loss's gradients within DESIGN.md
+    §8's contract (rtol 1e-5, floor 1e-5 x (max + 1))."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.spring_ops import QUANT_SPARSE
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.runtime.train import StepConfig, init_train_state, make_train_step
+
+    view = get_arch("olmoe-1b-7b").view(reduced=True)
+    spring = dataclasses.replace(QUANT_SPARSE, stochastic=False,
+                                 fmt=FixedPointFormat(il=16, fl=60))
+    step_cfg = StepConfig(spring=spring)
+    params = init_train_state(view, step_cfg, 0, device="cpu").params
+    tokens = torch.randint(0, view.config.vocab, (4, 33), generator=torch.Generator()
+                           .manual_seed(2))
+    loss_c, grads_c = _train_lm_grads(params, view.config, tokens, spring)
+    loss_g, grads_g = _train_lm_grads(_to(params, card), view.config, tokens.to(card), spring)
+    # the step updates its state in place: each device starts from a copy
+    _, want = make_train_step(view, step_cfg)(
+        init_train_state(tree_map(torch.clone, params), step_cfg, 0), {"tokens": tokens})
+    kernels.reset_launch_counts()
+    _, got = make_train_step(view, step_cfg)(init_train_state(_to(params, card), step_cfg, 0),
+                                             {"tokens": tokens.to(card)})
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-4)
+    for name in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"):
+        assert counts[name] > 0, counts
+    assert loss_g == pytest.approx(loss_c, rel=1e-4)
+    for g, w in zip(grads_g, grads_c):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * (float(w.abs().max()) + 1.0))
