@@ -130,6 +130,31 @@ failure:
                wrapper's gradients against autograd through the chunked
                form, on the card); each reduced arch on the card against
                the CPU (loss and every gradient, nearest rounding on Q16.60);
+  5h. prune_stash — (run last, after 7c) magnitude pruning and the lossy
+               stash at full width,
+               random weights from seed 0: llama3.2-1b trained with
+               StepConfig(prune_ratio=0.5) and the example train spec's
+               numerics (batch 8, seq 128) through make_train_step, 3 steps
+               and a profiled fourth (losses finite, on the grid, each
+               pruned projection's zero share within 0.02 of 0.5, the tile
+               kernel, tile_occupancy, dx, dw and stochastic_round
+               launched; the measured forward / dX / dW tile-skip shares);
+               the same model with eager pruning (apply_pruning after each
+               of 4 updates, PruneSchedule(0.5, 0, 2)): the measured
+               sparsity in (0.4, 0.6), the 262.7 M-element embedding's
+               threshold its s-quantile, ms per apply_pruning call; phase
+               3's traffic on ServingEngine(prune_ratio=0.5) (every request
+               done, finite, the skinny kernel, mask_pack and
+               flash_attention launched; tokens/s and a profiled tick beside
+               3b's); the reduced model's tokens card vs CPU; VGG-19 at 224²,
+               batch 32, SR, through run_arm with every stash point at
+               capacity 0.6 (losses finite, on the grid; one more step at
+               capacity 1.0 and 0.6 with autograd's saved storages counted,
+               the value buffers and overflow per point; a capacity-1.0
+               record bit-equal to the exact one) and measure_cnn_stash at
+               both capacities; counters zeroed just before each run and
+               read just after; each path kernel against its plain version
+               with the weights pruned as the path prunes them;
   6a. flash_attention — the kernel against its plain version on the
                reference registry's five examples (fp32 atol 2e-5, bf16 2e-2),
                a non-causal ragged case, and llama3.2-1b's prefill shapes at
@@ -238,7 +263,7 @@ failure:
                MHA D 128) and deepseek-v2-lite-16b (an MLA layer with a
                dense SwiGLU, then 26 x (mla, moe): 64 routed experts top-6
                and 2 shared), quant_sparse, random weights from seed 0, 4
-               requests of prompt 512, gen 16, 4 slots, max_len 530, on the
+               requests of prompt 512, gen 8 (16 before 5h), 4 slots, max_len 530, on the
                monolithic and then the paged engine (page 8, whole-prompt
                installs) over the same parameters: counters zeroed just before each run() and read
                just after (every kernel of the path launched; deepseek's
@@ -414,13 +439,15 @@ def device_time_by_kernel(prof, per: int = 1) -> list:
     return rows
 
 
-def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4) -> dict:
+def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4, prune_ratio: float = 0.0) -> dict:
     """Where a decode tick's time goes: a full-width llama3.2-1b engine of
     SLOTS slots with ``prompt``-token requests, all slots admitted first,
     then ``ticks`` pooled decode ticks under torch.profiler.  Prints the
     wall time per tick, the device-busy share of the window, the kernels by
     device time and the launches per tick: the skinny kernel 7 per layer,
-    tile_occupancy never, mask_pack twice (the pool's k and v leaves)."""
+    tile_occupancy never, mask_pack twice (the pool's k and v leaves).
+    ``prune_ratio``: the engine prunes every dense projection's weight at
+    each call (``ServingEngine(prune_ratio=...)``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -433,7 +460,7 @@ def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4) -> dict:
     cfg = get_arch("llama3.2-1b").resolve(False)
     torch.cuda.empty_cache()
     eng = ServingEngine(cfg, serving_config("quant_sparse"), n_slots=SLOTS,
-                        max_len=prompt + GEN + 1, seed=0, device=dev)
+                        max_len=prompt + GEN + 1, seed=0, device=dev, prune_ratio=prune_ratio)
     for p in synthetic_prompts(SLOTS, SLOTS, prompt, cfg.vocab, 0):
         eng.submit_prompt(p, GEN)
     eng.step()  # admissions (prefill + install) and the first decode tick
@@ -448,7 +475,7 @@ def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4) -> dict:
         wall_ms = (time.monotonic() - t0) * 1e3
     del eng
     per_tick = {k: v / ticks for k, v in kernels.launch_counts().items() if v}
-    tag = f"profile prompt {prompt}"
+    tag = f"profile prompt {prompt}" + (f" pruned {prune_ratio}" if prune_ratio else "")
     print(f"[{tag}] launches per decode tick {per_tick}", flush=True)
     if per_tick.get("masked_matmul_skinny") != 7 * cfg.n_layers or "tile_occupancy" in per_tick \
             or per_tick.get("mask_pack") != 2:
@@ -465,7 +492,8 @@ def profile_decode(dev, prompt: int = PROMPT, ticks: int = 4) -> dict:
               f"{busy_ms:.2f} ms = {busy_ms / tick_ms:.1%}; top kernels per tick:", flush=True)
         for name, ms, n in rows[:12]:
             print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
-    return {"prompt": prompt, "tick_ms": tick_ms, "device_busy_ms": busy_ms,
+    return {"prompt": prompt, "prune_ratio": prune_ratio, "tick_ms": tick_ms,
+            "device_busy_ms": busy_ms,
             "launches_per_tick": per_tick,
             "kernels": [{"name": n, "ms_per_tick": ms, "calls_per_tick": c}
                         for n, ms, c in rows[:40]]}
@@ -997,9 +1025,12 @@ SR_CLAIM = dict(steps=60, batch=8, seq=64)
 RESUME = dict(batch=4, seq=32)
 
 
-def _train_lm_kernel_checks(dev, cfg, batch: int, seq: int) -> dict:
+def _train_lm_kernel_checks(dev, cfg, batch: int, seq: int, prune_ratio: float = 0.0,
+                            phase: str = "train_lm") -> dict:
     """Each kernel of the LM train path on card tensors at the shapes the
-    path gives it, against its plain version: the forward (tile kernel,
+    path gives it, against its plain version (``prune_ratio``: every
+    weight magnitude-pruned as ``SpringContext.maybe_prune`` prunes it
+    inline): the forward (tile kernel,
     exact occupancy flags), dX and dW of the seven projections at M =
     batch x seq within 2b's bound 2 K 2**-24 (|a| @ |b|); the forward and
     dX at M = 32 (the skinny kernel); splitk_reduce bit-equal on dW
@@ -1015,7 +1046,9 @@ def _train_lm_kernel_checks(dev, cfg, batch: int, seq: int) -> dict:
         KERNEL_TILES, SPLIT_K, masked_matmul, masked_matmul_reference, route, splitk_reduce,
         splitk_reduce_reference, tile_occupancy, tile_occupancy_reference)
     from repro_torch.kernels.stochastic_round.ops import sr_reference, stochastic_round
+    from repro_torch.models.layers import SpringContext
 
+    prune = SpringContext(prune_ratio=prune_ratio).maybe_prune
     g = torch.Generator(device=dev).manual_seed(12)
     tm, tn, tk = KERNEL_TILES
     a, d, ff = cfg.attn, cfg.d_model, cfg.d_ff
@@ -1031,17 +1064,17 @@ def _train_lm_kernel_checks(dev, cfg, batch: int, seq: int) -> dict:
     def within(got, want, bound, what) -> float:
         err = (got - want).abs_()
         if not bool((err <= bound).all()):
-            fail(f"train LM check: {what} off by {float(err.max()):.3g}")
+            fail(f"{phase} check: {what} off by {float(err.max()):.3g}")
         return float(err.max())
 
     def flags_exact(t, rows, cols, what) -> None:
         if not torch.equal(tile_occupancy(t, rows, cols), tile_occupancy_reference(t, rows, cols)):
-            fail(f"train LM check: tile_occupancy of {what} disagrees with its plain version")
+            fail(f"{phase} check: tile_occupancy of {what} disagrees with its plain version")
 
     for m in (batch * seq, PREFILL_M):
         kind = "forward" if route(m, 1, 1) == "tile" else "skinny"
         for name, (k, n) in projs.items():
-            x, w = q(m, k), q(k, n, scale=k**-0.5)
+            x, w = q(m, k), prune(q(k, n, scale=k**-0.5))
             if kind == "forward":
                 flags_exact(x, tm, tk, f"x ({m},{k})")
                 flags_exact(w, tk, tn, f"w ({k},{n})")
@@ -1064,15 +1097,16 @@ def _train_lm_kernel_checks(dev, cfg, batch: int, seq: int) -> dict:
     # dW of gate at the split-K edge: K = 8 x 1040 rows in two chunks
     part = q(-(-8 * 1040 // SPLIT_K), d, ff)
     if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
-        fail(f"train LM check: splitk_reduce {tuple(part.shape)} differs from its plain version")
+        fail(f"{phase} check: splitk_reduce {tuple(part.shape)} differs from its plain version")
     del part
     emb = torch.randn(cfg.vocab, d, generator=g, device=dev).mul_(0.02)
     got, want = stochastic_round(emb, 5), sr_reference(emb, 5)
     if not torch.equal(got, want):
-        fail(f"train LM check: stochastic_round {tuple(emb.shape)} differs from its plain version")
+        fail(f"{phase} check: stochastic_round {tuple(emb.shape)} differs from its plain version")
     del emb, got, want
     torch.cuda.empty_cache()
-    print(f"[train_lm] kernels at the path's shapes against their plain versions: tile "
+    print(f"[{phase}] kernels at the path's shapes against their plain versions"
+          f"{' (weights pruned at ' + str(prune_ratio) + ')' if prune_ratio else ''}: tile "
           f"forward {errs['forward']:.3g}, dx {errs['dx']:.3g}, dw {errs['dw']:.3g} (M "
           f"{batch * seq}), skinny forward and dx {errs['skinny']:.3g} (M {PREFILL_M}); "
           f"tile_occupancy, splitk_reduce and stochastic_round ({cfg.vocab},{d}) bit-equal",
@@ -1306,7 +1340,7 @@ def _cut(cfg, units: int):
 
 
 def _train_part(dev, tag: str, view, step_cfg, steps: int, batch_at, routing=None,
-                profiled: bool = True) -> dict:
+                profiled: bool = True, phase: str = "train_archs", inspect=None) -> dict:
     """Train ``view`` in process: a fresh state from seed 0 on the card,
     ``steps`` steps of ``make_train_step`` on ``batch_at(i)``, each timed
     to its synchronise, then (``profiled``) one more under torch.profiler.
@@ -1314,7 +1348,9 @@ def _train_part(dev, tag: str, view, step_cfg, steps: int, batch_at, routing=Non
     card's memory left free at it, the launches of the run, the on-grid
     check of every parameter, the profiled step's kernels by device time
     (None unprofiled), and what
-    ``routing(final state)`` returns (a MoE arch's :func:`_routing`)."""
+    ``routing(final state)`` returns (a MoE arch's :func:`_routing`) and
+    ``inspect(final state, step function)``, each after the profiled step.
+    ``phase`` labels the printed lines and the failures."""
     import math
 
     import torch
@@ -1354,24 +1390,26 @@ def _train_part(dev, tag: str, view, step_cfg, steps: int, batch_at, routing=Non
            "s_per_step": s_per_step, "tokens_per_s": tokens / s_per_step,
            "peak_bytes": peak, "free_bytes": free, "on_grid": grid, "launches": launches,
            "profile": prof, "wall_s": time.monotonic() - t0}
-    print(f"[train_archs] {tag}: {n_params / 1e9:.3f} B parameters, losses "
+    print(f"[{phase}] {tag}: {n_params / 1e9:.3f} B parameters, losses "
           f"{[round(v, 4) for v in losses]}, aux {[round(v, 4) for v in auxs]}, on grid "
           f"{grid}, {s_per_step:.3f} s/step (steps {[round(s, 3) for s in step_s]}), "
           f"{tokens / s_per_step:.1f} tokens/s, peak {peak / 2**30:.2f} GiB, "
           f"{free / 2**30:.2f} GiB free, wall {res['wall_s']:.1f} s; launches "
           f"{ {k: launches[k] for k in (*TRAIN_ARCHS_KERNELS, 'splitk_reduce')} }", flush=True)
     if prof is not None:
-        _print_profile(tag, prof)
+        _print_profile(tag, prof, phase)
     if not (all(math.isfinite(v) for v in losses) and grid):
-        fail(f"train archs phase: {tag}'s losses are not all finite or a parameter left the "
+        fail(f"{phase} phase: {tag}'s losses are not all finite or a parameter left the "
              "Q4.16 grid")
     if free < TRAIN_ARCHS_HEADROOM:
-        fail(f"train archs phase: {tag} left {free / 2**30:.2f} GiB of the card free at its "
+        fail(f"{phase} phase: {tag} left {free / 2**30:.2f} GiB of the card free at its "
              f"peak, under {TRAIN_ARCHS_HEADROOM / 2**30:.0f} GiB")
     if routing is not None:
         t = time.monotonic()
         res["routing"] = routing(state)
         res["routing"]["wall_s"] = time.monotonic() - t
+    if inspect is not None:
+        res["inspect"] = inspect(state, step_fn)
     return res
 
 
@@ -1396,13 +1434,13 @@ def _profiled_step(step_fn, state, batch) -> tuple:
                    "read_s": time.monotonic() - t}
 
 
-def _print_profile(tag: str, prof: dict) -> None:
+def _print_profile(tag: str, prof: dict, phase: str = "train_archs") -> None:
     busy, step_ms = prof["device_busy_ms"], prof["step_ms"]
-    print(f"[train_archs] {tag}: profiled step {step_ms:.1f} ms wall, device busy {busy:.1f} ms "
+    print(f"[{phase}] {tag}: profiled step {step_ms:.1f} ms wall, device busy {busy:.1f} ms "
           f"({busy / step_ms:.1%}; the trace read in {prof['read_s']:.1f} s); top kernels:",
           flush=True)
     for row in prof["kernels"][:8]:
-        print(f"[train_archs]   {row['ms']:9.2f} ms  x{row['calls']:<6d} {row['name'][:90]}",
+        print(f"[{phase}]   {row['ms']:9.2f} ms  x{row['calls']:<6d} {row['name'][:90]}",
               flush=True)
 
 
@@ -1853,6 +1891,362 @@ def phase_train_archs(dev) -> dict:
             for k in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw")}
     return {"launches": launches, "parts": parts, "checks": checks, "card_vs_cpu": card_cpu,
             "errs": errs, "checks_s": checks_s, "wall_s": wall}
+
+
+# -- slice 17: magnitude pruning and the lossy stash --------------------------------
+
+# 5h: llama3.2-1b trained with StepConfig(prune_ratio=0.5) from the
+# example train spec's numerics (batch 8, seq 128), then with eager
+# pruning (apply_pruning after each update), served on phase 3's traffic
+# with its weights pruned at every call; VGG-19 at 224², batch 32, with
+# its conv and fc inputs stashed at capacity 0.6
+PRUNE_RATIO = 0.5
+PRUNE_STEPS = 3
+EAGER = dict(final_sparsity=0.5, start_step=0, ramp_steps=2)
+EAGER_STEPS = 4
+STASH_CAPACITY = 0.6
+PRUNE_TRAIN_KERNELS = ("masked_matmul", "tile_occupancy", "masked_matmul_dx",
+                       "masked_matmul_dw", "stochastic_round")
+PRUNE_SERVE_KERNELS = ("masked_matmul_skinny", "mask_pack", "flash_attention")
+
+
+def _zero_shares(params: dict, cfg, ratio: float) -> dict:
+    """Each dense projection's zero share as ``maybe_prune`` prunes it
+    inline, the lowest and highest over the layers, by projection."""
+    from repro_torch.models.layers import SpringContext
+
+    prune = SpringContext(prune_ratio=ratio).maybe_prune
+    out: dict = {}
+    for layer in params["layers"]:
+        for part in ("mixer", "ffn"):
+            for name, p in layer[part].items():
+                if isinstance(p, dict) and "kernel" in p:
+                    share = float((prune(p["kernel"]) == 0).float().mean())
+                    lo, hi = out.get(name, (1.0, 0.0))
+                    out[name] = (min(lo, share), max(hi, share))
+    return out
+
+
+def _saved_bytes(model_fn, params: dict, ctx, x, y) -> tuple:
+    """One CNN forward and loss with autograd's saved tensors counted (the
+    backward is not run: its recomputes save tensors of their own):
+    (the loss, bytes of the distinct storages the graph keeps for the
+    backward pass, the stash points' rows)."""
+    import torch
+
+    from repro_torch.memstash.instrument import record_stash_traffic
+    from repro_torch.models.cnn import ParamStore
+    from repro_torch.runtime.train import cross_entropy
+
+    seen: dict = {}
+
+    def pack(t):
+        # keep the storage, not the tensor: a hook that returned the tensor
+        # itself would tie an output saved by its own node into a cycle the
+        # collector cannot free (the graph is never run backward here); a
+        # storage let go could be reused at its address and counted once
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st
+        return st.nbytes()
+
+    def unpack(_):
+        raise RuntimeError("the counted graph is not for a backward pass")
+
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack), \
+            record_stash_traffic() as rows:
+        loss = cross_entropy(model_fn(ParamStore(0, p), ctx, x), y)
+    torch.cuda.synchronize()
+    return float(loss.detach()), sum(st.nbytes() for st in seen.values()), rows
+
+
+def phase_prune_stash(dev, report: dict) -> dict:
+    """(5h) Magnitude pruning and the lossy stash at full width on the
+    card: the launch counters are zeroed just before each run and read
+    just after; each path kernel is then held against its plain version
+    at the run's shapes (the weights pruned as the path prunes them)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import build_spec
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.configs import get_arch
+    from repro_torch.core.spring_ops import QUANT_SPARSE, KeyGen
+    from repro_torch.data.pipeline import DataConfig, SyntheticImageTask, SyntheticLMStream
+    from repro_torch.kernels.masked_matmul.ops import record_tile_skip
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.launch.train import MODELS, on_grid, run_arm
+    from repro_torch.memstash import format as mfmt
+    from repro_torch.memstash.config import STASH_ALL, MemstashConfig
+    from repro_torch.memstash.report import measure_cnn_stash
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.pruning import (PruneSchedule, apply_pruning, measured_sparsity,
+                                             quantile_f32)
+    from repro_torch.runtime.train import TrainState, init_train_state, make_train_step
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    res: dict = {}
+    launches: dict = {}
+
+    def count(tag: str, before: dict) -> dict:
+        got = {k: v - before.get(k, 0) for k, v in kernels.launch_counts().items()}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[prune] {tag} launches {got}", flush=True)
+        return got
+
+    # -- 1. pruned LM training through make_train_step -----------------------------
+    spec = build_spec("train", spec_file=str(ROOT / TRAIN_SPEC_FILE), sets=list(TRAIN_LM_SETS))
+    r = spec.resolve()
+    cfg, view = r.config, get_arch("llama3.2-1b").view(config=r.config)
+    bsz, seq = spec.shape.batch, spec.shape.seq
+    stream = SyntheticLMStream(DataConfig(seed=0, vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=bsz), device=dev)
+
+    def batch_at(i):
+        return {"tokens": stream.batch(i)}
+
+    pruned_cfg = dataclasses.replace(r.step, prune_ratio=PRUNE_RATIO)
+
+    def inspect(state, step_fn):
+        shares = _zero_shares(state.params, cfg, PRUNE_RATIO)
+        with record_tile_skip() as skip:
+            step_fn(state, batch_at(PRUNE_STEPS + 1))
+        torch.cuda.synchronize()
+        return {"zero_shares_trained": shares,
+                "tile_skip": {op: 1.0 - v[0] / v[1] for op, v in skip.items() if v[1]}}
+
+    # the weights are Gaussian at init: there each share is the ratio
+    init = lm_init(cfg, 0, device=dev)
+    init_shares = _zero_shares(init, cfg, PRUNE_RATIO)
+    del init
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    part = _train_part(dev, f"llama3.2-1b pruned {PRUNE_RATIO} (batch {bsz}, seq {seq})", view,
+                       pruned_cfg, PRUNE_STEPS, batch_at, phase="prune", inspect=inspect)
+    # the inspect step's launches are the path's too
+    part["launches"] = count("pruned train", {})
+    trained, skip = part["inspect"]["zero_shares_trained"], part["inspect"]["tile_skip"]
+    part["inspect"]["zero_shares_init"] = init_shares
+
+    def fmt(sh):
+        return {k: (round(a, 4), round(b, 4)) for k, (a, b) in sh.items()}
+
+    print(f"[prune] pruned projections' zero shares (min, max over layers) at init "
+          f"{fmt(init_shares)}, after {PRUNE_STEPS + 1} steps {fmt(trained)}; measured tile "
+          f"skip { {k: round(v, 6) for k, v in skip.items()} }", flush=True)
+    if not all(abs(a - PRUNE_RATIO) <= 0.02 and abs(b - PRUNE_RATIO) <= 0.02
+               for a, b in init_shares.values()):
+        fail("prune phase: a pruned projection's zero share is not within 0.02 of the ratio")
+    for name in PRUNE_TRAIN_KERNELS:
+        if part["launches"][name] <= 0:
+            fail(f"prune phase: the pruned train step never launched the {name} kernel")
+    res["train"] = part
+    res["train_checks"] = _train_lm_kernel_checks(dev, cfg, bsz, seq, PRUNE_RATIO, "prune")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2. eager pruning: apply_pruning after each update --------------------------
+    kernels.reset_launch_counts()
+    sched = PruneSchedule(**EAGER)
+    state = init_train_state(view, r.step, 0, device=dev)
+    step_fn = make_train_step(view, r.step)
+    prune_ms, losses = [], []
+    emb_n = state.params["embed"]["embedding"].numel()
+    for i in range(EAGER_STEPS):
+        state, m = step_fn(state, batch_at(i))
+        losses.append(float(m["loss"]))
+        if i == EAGER_STEPS - 1:  # the last threshold is checked on this embedding
+            emb = state.params["embed"]["embedding"].clone()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        params = apply_pruning(state.params, i, sched, cfg=cfg)
+        torch.cuda.synchronize()
+        prune_ms.append((time.monotonic() - t) * 1e3)
+        state = TrainState(params, state.opt_state, state.step, state.seed)
+        del params
+    sp = float(measured_sparsity(state.params, cfg=cfg))
+    s_end = float(sched.sparsity_at(EAGER_STEPS - 1))
+    # the threshold's rank in the embedding it pruned: a quantile past 2**24
+    # elements, its index q (n - 1) rounded in fp32 (an error of at most 16
+    # elements here); the zeros are exactly the entries at or under it
+    mag = emb.abs_()
+    t = quantile_f32(mag, s_end)
+    below, upto = float((mag < t).double().mean()), float((mag <= t).double().mean())
+    zeros = int((state.params["embed"]["embedding"] == 0).sum())
+    exact = zeros == int((mag <= t).sum())
+    grid = on_grid(dict(enumerate(tree_leaves(state.params))))
+    eager = {"losses": losses, "apply_pruning_ms": prune_ms, "measured_sparsity": sp,
+             "final_target": s_end, "embedding_elems": emb_n, "embedding_zero_share": zeros / emb_n,
+             "embedding_under_threshold": below, "embedding_at_or_under": upto,
+             "zeros_are_those_at_or_under": exact, "on_grid": grid,
+             "launches": count("eager pruning", {})}
+    print(f"[prune] eager pruning {EAGER} over {EAGER_STEPS} steps: losses "
+          f"{[round(v, 4) for v in losses]}, apply_pruning {[round(v, 1) for v in prune_ms]} ms "
+          f"a call, measured sparsity {sp:.4f} (target {s_end:.4f}), the {emb_n:,}-element "
+          f"embedding: {below:.8f} under its last threshold, {upto:.8f} at or under, its zeros "
+          f"exactly those {exact}; on grid {grid}", flush=True)
+    del state, step_fn, emb, mag, t
+    if not (0.4 < sp < 0.6 and all(math.isfinite(v) for v in losses) and grid):
+        fail(f"prune phase: eager pruning's sparsity {sp:.4f} is outside (0.4, 0.6), a loss is "
+             "not finite or a parameter left the grid")
+    if not (emb_n > 2**24 and exact and below <= s_end + 1e-7 and upto >= s_end - 1e-7):
+        fail("prune phase: the embedding's threshold is not its s-quantile")
+    res["eager"] = eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. pruned serving: phase 3's traffic ---------------------------------------
+    scfg = get_arch("llama3.2-1b").resolve(False)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    eng = ServingEngine(scfg, serving_config("quant_sparse"), n_slots=SLOTS,
+                        max_len=PROMPT + GEN + 1, seed=0, device=dev, prune_ratio=PRUNE_RATIO)
+    for i, prompt in enumerate(synthetic_prompts(REQUESTS, REQUESTS, PROMPT, scfg.vocab, 0)):
+        eng.submit_prompt(prompt, GEN, seed=i)
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    del eng
+    serve_launches = count("pruned serve", {})
+    done = [q for q in out["per_request"] if q["n_tokens"] == GEN]
+    base = report.get("serve", {}).get("tokens_per_s", float("nan"))
+    print(f"[prune] pruned serve llama3.2-1b {SLOTS} slots: {len(done)}/{REQUESTS} requests, "
+          f"finite={out['finite']}, tokens/s {out['tokens_per_s']:.2f} (unpruned phase 3: "
+          f"{base:.2f}), wall {wall:.1f} s", flush=True)
+    if len(done) != REQUESTS or not out["finite"]:
+        fail("prune phase: the pruned serve did not finish every request with finite logits")
+    for name in PRUNE_SERVE_KERNELS:
+        if serve_launches[name] <= 0:
+            fail(f"prune phase: the pruned serve never launched the {name} kernel")
+    prof = profile_decode(dev, prune_ratio=PRUNE_RATIO)
+    base = report.get("decode_profile", {"tick_ms": float("nan"),
+                                         "device_busy_ms": float("nan")})
+    print(f"[prune] a decode tick: pruned {prof['tick_ms']:.2f} ms wall, "
+          f"{prof['device_busy_ms']:.2f} device; unpruned (3b) {base['tick_ms']:.2f} wall, "
+          f"{base['device_busy_ms']:.2f} device", flush=True)
+    res["serve"] = {"tokens_per_s": out["tokens_per_s"], "wall_s": wall,
+                    "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+                    "launches": serve_launches, "profile": prof,
+                    "tokens": [q["tokens"] for q in out["per_request"]]}
+    res["serve_checks"] = _arch_kernel_checks(
+        dev, scfg, 17, prompt=PROMPT, decode_m=SLOTS, tag="prune",
+        kv_blocks=((SLOTS, (PROMPT + GEN + 1) * KV_ROW),), prune_ratio=PRUNE_RATIO)
+    # the reduced model, card against CPU: the same greedy tokens
+    rcfg = get_arch("llama3.2-1b").resolve(True)
+    params = lm_init(rcfg, 3, device="cpu")
+    prompts = synthetic_prompts(REQUESTS, REQUESTS, 12, rcfg.vocab, 1)
+    toks = {}
+    for d in ("cpu", dev):
+        e = ServingEngine(rcfg, serving_config("quant_sparse"), n_slots=SLOTS, max_len=40,
+                          seed=0, device=d, prune_ratio=PRUNE_RATIO,
+                          params=_to(params, d) if d != "cpu" else params)
+        for i, prompt in enumerate(prompts):
+            e.submit_prompt(prompt, 8, seed=i)
+        toks[str(d)] = [q["tokens"] for q in e.run()["per_request"]]
+    same = toks["cpu"] == toks[str(dev)]
+    print(f"[prune] reduced llama3.2-1b pruned, card vs CPU: greedy tokens equal {same}",
+          flush=True)
+    if not same:
+        fail("prune phase: the reduced pruned model's tokens on the card differ from the CPU's")
+    res["reduced_tokens_equal"] = same
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4. the lossy stash: VGG-19 at capacity 0.6 ---------------------------------
+    lossy = MemstashConfig(policy="stash", capacity=STASH_CAPACITY)
+    kernels.reset_launch_counts()
+    out = run_arm("vgg19-lossy", "vgg19", "quant_sparse", True, VGG_STEPS, VGG_HW, VGG_BATCH,
+                  dev, lossy, seed=0, verbose=False)
+    vgg_launches = count("lossy stash", {})
+    print(f"[prune] vgg19 stash capacity {STASH_CAPACITY}: losses "
+          f"{[round(v, 4) for v in out['losses']]}, on grid {out['on_grid']}, "
+          f"{out['s_per_step']:.3f} s/step, peak {out['peak_mem_bytes'] / 2**30:.2f} GiB "
+          f"(capacity 1.0, 5c: "
+          f"{report.get('train', {}).get('run', {}).get('peak_mem_bytes', math.nan) / 2**30:.2f})",
+          flush=True)
+    if not (out["finite"] and all(out["on_grid"]) and len(out["on_grid"]) == VGG_STEPS):
+        fail("prune phase: a lossy-stash loss is not finite or a parameter left the grid")
+    for name in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "stochastic_round"):
+        if vgg_launches[name] <= 0:
+            fail(f"prune phase: the lossy-stash run never launched the {name} kernel")
+    # one more step at each capacity: the saved storages and each point's record
+    data = SyntheticImageTask(DataConfig(seed=0, global_batch=VGG_BATCH), hw=VGG_HW, device=dev)
+    x, y = data.batch(VGG_STEPS)
+    per_cap = {}
+    for cap, scfg_ in ((1.0, STASH_ALL), (STASH_CAPACITY, lossy)):
+        ctx = SpringContext(cfg=QUANT_SPARSE, keys=KeyGen(1), memstash=scfg_)
+        loss, saved, rows = _saved_bytes(MODELS["vgg19"].fn, out["params"], ctx, x, y)
+        # each point's value buffer: ceil(n * capacity) fp32 values
+        values = sum(4 * (q["elems"] if cap >= 1.0 else math.ceil(q["elems"] * cap))
+                     for q in rows)
+        per_cap[cap] = {"saved_bytes": saved, "value_buffer_bytes": values, "loss": loss,
+                        "overflow": {q["layer"]: q["overflow"] for q in rows},
+                        "density": {q["layer"]: round(q["density"], 4) for q in rows}}
+        del rows
+        torch.cuda.empty_cache()
+    full, part_ = per_cap[1.0], per_cap[STASH_CAPACITY]
+    print(f"[prune] stashed value buffers {full['value_buffer_bytes'] / 2**30:.3f} GiB at 1.0, "
+          f"{part_['value_buffer_bytes'] / 2**30:.3f} GiB at {STASH_CAPACITY}; autograd's saved "
+          f"storages {full['saved_bytes'] / 2**30:.3f} / {part_['saved_bytes'] / 2**30:.3f} "
+          f"GiB (a forward's graph); overflow per point at {STASH_CAPACITY}: "
+          f"{part_['overflow']}", flush=True)
+    # a capacity-1.0 record through the new signature is the exact record's bits
+    # density 0.75 (a ReLU of N(0.6745, 1)): the 0.6 buffer overflows
+    act = torch.relu(torch.randn(VGG_BATCH, VGG_HW, VGG_HW, 64, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev).add_(0.6745))
+    a, b = mfmt.compress(act), mfmt.compress(act, capacity=1.0)
+    c = mfmt.compress(act, capacity=STASH_CAPACITY)
+    exact = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("values", "mask", "nnz"))
+    back = mfmt.decompress(c)
+    prefix = int(c.capacity_len)
+    lossy_ok = (torch.equal(c.values, a.values[:prefix]) and torch.equal(c.mask, a.mask)
+                and int(c.overflow) == max(0, int(a.nnz) - prefix)
+                and torch.equal(back.reshape(-1) != 0,
+                                (act.reshape(-1) != 0) & (torch.cumsum(
+                                    (act.reshape(-1) != 0).to(torch.int64), 0) <= prefix)))
+    print(f"[prune] compress at capacity 1.0 bit-equal to the exact record {exact}; at "
+          f"{STASH_CAPACITY} the first {prefix:,} values and the mask equal, overflow "
+          f"{int(c.overflow):,} decoded as zero {lossy_ok}", flush=True)
+    overflow = int(c.overflow)
+    del act, a, b, c, back
+    if not (exact and lossy_ok and overflow > 0):
+        fail("prune phase: a stash record differs from the exact record where it must not")
+    rep = {}
+    for cap, scfg_ in ((1.0, STASH_ALL), (STASH_CAPACITY, lossy)):
+        rs = measure_cnn_stash("vgg19", hw=VGG_HW, batch=VGG_BATCH, scfg=scfg_, device=dev)
+        sm = rs["summary"]
+        rep[cap] = {k: sm[k] for k in ("stash_points", "mean_density", "dense_fp32_bytes",
+                                       "wire_bytes", "formula_bytes", "compression_vs_fp32",
+                                       "wire_vs_formula")}
+        rep[cap]["overflow"] = sum(q["overflow"] for q in rs["rows"])
+        print(f"[prune] measure_cnn_stash vgg19 {VGG_HW}² batch {VGG_BATCH} capacity {cap}: "
+              f"{sm['stash_points']} points, density {sm['mean_density']:.4f}, wire "
+              f"{sm['wire_bytes'] / 1e6:.2f} MB, wire / formula {sm['wire_vs_formula']:.4f}, "
+              f"{sm['compression_vs_fp32']:.3f}x against fp32", flush=True)
+        del rs
+    res["stash"] = {"run": {k: v for k, v in out.items() if k != "params"},
+                    "launches": vgg_launches, "per_capacity": per_cap, "report": rep,
+                    "record_exact": exact, "record_lossy_ok": lossy_ok}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["wall_s"] = time.monotonic() - t_phase
+    res["left_allocated_bytes"] = torch.cuda.memory_allocated(dev) - held
+    print(f"[prune] launches over the phase {launches}; phase 5h wall {res['wall_s']:.1f} s; "
+          f"{res['left_allocated_bytes'] / 2**20:.1f} MiB more allocated than at its start",
+          flush=True)
+    return res
 
 
 # -- slice 3: long-prompt prefill and Mamba-2 serving -----------------------------
@@ -2926,12 +3320,15 @@ def _flash_err(g, a, prompt: int, tag: str) -> float:
     return e
 
 
-def _product_err(g, m: int, kk: int, n: int, tag: str) -> float:
+def _product_err(g, m: int, kk: int, n: int, tag: str, prune_ratio: float = 0.0) -> float:
     """masked_matmul on an (m, kk) @ (kk, n) product of card tensors from
     ``g`` against its plain version within 2b's bound 2 K 2**-24 (|x| @
     |w|), with x's first quarter of K and half of w's (32, 64) tiles zero
     so that a misread flag shows; on the tile kernel's route both
-    operands' occupancy flags exact.  Returns the largest error."""
+    operands' occupancy flags exact.  ``prune_ratio``: w is instead the
+    Gaussian magnitude-pruned as ``SpringContext.maybe_prune`` prunes a
+    served weight (unstructured: about no tile empty).  Returns the
+    largest error."""
     import torch
 
     from repro_torch.core.fixedpoint import quantize_nearest
@@ -2948,11 +3345,16 @@ def _product_err(g, m: int, kk: int, n: int, tag: str) -> float:
 
     x = quantize_nearest(torch.randn(m, kk, generator=g, device=dev))
     x[:, : kk // 4] = 0.0
-    keep = torch.rand(-(-kk // tk), -(-n // tn), generator=g, device=dev) > 0.5
     w = torch.randn(kk, n, generator=g, device=dev).div_(kk**0.5)
-    w.masked_fill_(~keep.repeat_interleave(tk, 0).repeat_interleave(tn, 1)[:kk, :n], 0.0)
+    if prune_ratio:
+        from repro_torch.models.layers import SpringContext
+
+        w = SpringContext(prune_ratio=prune_ratio).maybe_prune(w)
+    else:
+        keep = torch.rand(-(-kk // tk), -(-n // tn), generator=g, device=dev) > 0.5
+        w.masked_fill_(~keep.repeat_interleave(tk, 0).repeat_interleave(tn, 1)[:kk, :n], 0.0)
+        del keep
     w = quantize_nearest(w)
-    del keep
     if route(m, n, kk) == "tile":
         occ_exact(x, tm, tk)
         occ_exact(w, tk, tn)
@@ -2970,7 +3372,7 @@ def _product_err(g, m: int, kk: int, n: int, tag: str) -> float:
 def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
                         decode_m: int = ARCH_REQUESTS, kv_blocks=None,
                         tag: str = "archs", attn=None, extra_projs=None,
-                        kv_layers=None) -> dict:
+                        kv_layers=None, prune_ratio: float = 0.0) -> dict:
     """Each kernel of ``cfg``'s served path on card tensors at the
     full-width shapes the path gives it, against its plain version; the
     largest error of each.  flash_attention at (1, H, HKV, ``prompt``,
@@ -2988,7 +3390,9 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     pages and a request's install), ``kv_layers`` (default n_layers) of
     them; and the tile kernel with its pre-pass
     once more at the lm_head's (K, N), K x N up to 786 M, for their index
-    arithmetic (the path's logits are a torch.matmul of the last rows)."""
+    arithmetic (the path's logits are a torch.matmul of the last rows).
+    ``prune_ratio``: the projections' weights magnitude-pruned as the
+    engine prunes them (:func:`_product_err`)."""
     import torch
 
     from repro_torch.core.fixedpoint import quantize_nearest
@@ -3009,7 +3413,7 @@ def _arch_kernel_checks(dev, cfg, seed: int, prompt: int = ARCH_PROMPT,
     for m in (prompt, decode_m):
         key = "masked_matmul" if route(m, 1, 1) == "tile" else "masked_matmul_skinny"
         for kk, n in projs.values():
-            errs[key] = max(errs[key], _product_err(g, m, kk, n, tag))
+            errs[key] = max(errs[key], _product_err(g, m, kk, n, tag, prune_ratio))
         if split_k(ff)[1] > 1:
             part = quantize_nearest(torch.randn(split_k(ff)[1], m, d, generator=g, device=dev))
             if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
@@ -3229,7 +3633,9 @@ def _fa256_row(dev, gen, a) -> dict:
 
 def _tick_profile(eng, tag: str, ticks: int = 3, where: str = "") -> dict:
     """``ticks`` decode ticks of an engine whose slots are all decoding,
-    under torch.profiler: wall and device ms a tick, launches a tick."""
+    under torch.profiler (device activity only: a MoE tick issues tens of
+    thousands of ops, and host events would multiply the trace and the time
+    to read it): wall and device ms a tick, launches a tick."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3237,7 +3643,7 @@ def _tick_profile(eng, tag: str, ticks: int = 3, where: str = "") -> dict:
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(ticks):
             eng.step()
@@ -3419,6 +3825,10 @@ def phase_hybrid(dev, gen) -> dict:
 # paged.  Capacity max(int(T k / E 1.25 + 0.999), 4): 80 (olmoe) and 60 (deepseek)
 # at a prompt-512 prefill, 4 at a decode tick of 4 slots
 MOE_ARCHS, MOE_REQUESTS, MOE_PROMPT = ("olmoe-1b-7b", "deepseek-v2-lite-16b"), 4, 512
+#: tokens a request decodes in 6k: 8, cut from GEN (16) when phase 5h came,
+#: to keep the whole script inside its time limit (host-bound MoE ticks of
+#: 1.1 / 1.9 s, two engines each)
+MOE_GEN = 8
 MOE_MAX_LEN = MOE_PROMPT + GEN + 2
 MOE_KERNELS = {"olmoe-1b-7b": ("masked_matmul_skinny", "masked_matmul", "tile_occupancy",
                                "mask_pack", "flash_attention"),
@@ -3547,7 +3957,8 @@ def _moe_kernel_checks(dev, cfg, seed: int) -> dict:
 
 def _serve_moe(dev, arch: str) -> dict:
     """Full-width ``arch``, quant_sparse, random weights from seed 0:
-    MOE_REQUESTS requests of prompt MOE_PROMPT on as many slots through the
+    MOE_REQUESTS requests of prompt MOE_PROMPT, MOE_GEN tokens each, on as
+    many slots through the
     monolithic and then the paged engine (whole-prompt installs) over the
     same parameters, the
     launch counters zeroed just before each ``run()`` and read just after
@@ -3594,7 +4005,7 @@ def _serve_moe(dev, arch: str) -> dict:
                else PagedServingEngine(cfg, spring, page_tokens=PAGE_TOKENS, prefill_chunk=None,
                                        **kw))
         for i, p in enumerate(prompts):
-            eng.submit_prompt(p, GEN, seed=i)
+            eng.submit_prompt(p, MOE_GEN, seed=i)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.monotonic()
@@ -3618,7 +4029,7 @@ def _serve_moe(dev, arch: str) -> dict:
           f"finite {m['finite'] and p['finite']}", flush=True)
     print(f"[moe] {arch} launches, monolithic run {m['launches']}", flush=True)
     print(f"[moe] {arch} launches, paged run {p['launches']}", flush=True)
-    if not (m["finite"] and p["finite"]) or any(len(t) != GEN for t in m["tokens"]):
+    if not (m["finite"] and p["finite"]) or any(len(t) != MOE_GEN for t in m["tokens"]):
         fail(f"moe phase: {arch} did not finish every request with finite logits")
     if not row["tokens_equal"]:
         fail(f"moe phase: {arch}'s paged tokens differ from its monolithic tokens")
@@ -3634,7 +4045,7 @@ def _serve_moe(dev, arch: str) -> dict:
     t0 = time.monotonic()
     eng = ServingEngine(cfg, spring, **kw)
     for i, p in enumerate(prompts):
-        eng.submit_prompt(p, GEN, seed=i)
+        eng.submit_prompt(p, MOE_GEN, seed=i)
     eng.step()  # admits all four, then their first decode tick
     if len(eng._decode_slots()) != MOE_REQUESTS:
         fail(f"moe phase: {len(eng._decode_slots())} of {MOE_REQUESTS} slots decode after "
@@ -4224,6 +4635,9 @@ def phase_paper(dev) -> dict:
 
 
 def main() -> None:
+    # ``--only 5h``: the build and phase 5h alone (a quick check of that
+    # phase; no kernel line and no result line are printed)
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are not next to this script ({SRC / 'repro_torch'})")
     sys.path.insert(0, str(SRC))
@@ -4254,6 +4668,14 @@ def main() -> None:
           f"(nvcc {cuda.nvcc_path()})", flush=True)
     report["build_s"] = build_s
     tiles = KERNEL_TILES
+    if only == "5h":
+        report["prune_stash"] = phase_prune_stash(dev, report)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_5h.json").write_text(json.dumps(report, indent=1, default=float))
+        return
+    if only is not None:
+        fail(f"--only takes 5h, not {only!r}")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -4478,9 +4900,13 @@ def main() -> None:
     report["sweep"] = sweep = phase_sweep(dev)
     report["paper"] = paper = phase_paper(dev)
 
+    # -- 5h. slice 17: magnitude pruning and the lossy stash (run last: its
+    # full-width runs leave the earlier phases' memory as they found it)
+    report["prune_stash"] = prune_stash = phase_prune_stash(dev, report)
+
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
-    # train_lm, train_archs, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe,
+    # train_lm, train_archs, prune_stash, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe,
     # slice15, the kernel sweep, the paper path's probe), each zeroed just before its run
     # and read just after (the comparisons above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
@@ -4493,6 +4919,7 @@ def main() -> None:
                       "train": train["launches"][name],
                       "train_lm": train_lm["launches"][name],
                       "train_archs": train_archs["launches"][name],
+                      "prune_stash": prune_stash["launches"].get(name, 0),
                       "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name]}
                for name in launches}
@@ -4531,6 +4958,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"],
+                            prune_stash["train_checks"]["forward"],
                             hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"],
                             moe["errs"]["masked_matmul"], s15["errs"]["masked_matmul"]),
          **layer_entry(prefill_rows),
@@ -4545,6 +4973,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul_skinny"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul_skinny"],
+                            prune_stash["serve_checks"]["masked_matmul_skinny"],
                             hybrid["errs"]["masked_matmul_skinny"],
                             spec_run["errs"]["masked_matmul_skinny"],
                             moe["errs"]["masked_matmul_skinny"],

@@ -299,13 +299,17 @@ class ServeSession(Session):
 
     run_mode = "serve"
 
-    def __init__(self, spec: RunSpec, *, params: Optional[dict] = None, device="cuda"):
+    def __init__(self, spec: RunSpec, *, params: Optional[dict] = None,
+                 prune_ratio: float = 0.0, device="cuda"):
         super().__init__(spec)
         check_policy(self.resolved.kernel_policy, device)
         from repro_torch.serving.engine import resolve_device
 
         self.device = resolve_device(device)
         self.params = params
+        # magnitude pruning of the dense projections (the reference's
+        # step_cfg.prune_ratio, which no spec field sets)
+        self.prune_ratio = prune_ratio
 
     def run(self) -> dict:
         with self.telemetry_scope():
@@ -339,8 +343,8 @@ class ServeSession(Session):
             r.arch, cfg, batch, prompt_len, threefry.prng_key(seed)).items()}
         tokens = inputs["tokens"].to(torch.int64)
         int8 = spec.serving.int8_cache
-        prefill = make_prefill_step(cfg, r.spring, int8)
-        decode = make_decode_step(cfg, r.spring, int8)
+        prefill = make_prefill_step(cfg, r.spring, int8, self.prune_ratio)
+        decode = make_decode_step(cfg, r.spring, int8, self.prune_ratio)
 
         t0 = time.monotonic()
         if encdec:
@@ -393,7 +397,7 @@ class ServeSession(Session):
         seed = spec.seeds.seed
 
         engine = ServingEngine.from_spec(spec, params=self.params, resolved=r,
-                                         device=self.device)
+                                         prune_ratio=self.prune_ratio, device=self.device)
         if spec.serving.restore_path:
             # spring-survive resume: drain a saved snapshot's in-flight work
             # instead of submitting fresh requests

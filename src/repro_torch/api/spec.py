@@ -518,10 +518,15 @@ class RunSpec:
             KernelPolicy.parse(self._kernel_spec())
         except ValueError as e:
             raise SpecError(f"kernels.policy: {e}") from None
-        if not 0.0 < self.memstash.capacity <= 1.0:
-            # the reference's MemstashConfig check, text included
-            raise SpecError(f"memstash: capacity must be in (0, 1], got "
-                            f"{self.memstash.capacity}")
+        try:
+            MemstashConfig(
+                policy="none" if self.memstash.policy == "auto"
+                else self.memstash.policy,
+                value_bits=self.memstash.value_bits,
+                capacity=self.memstash.capacity,
+                min_elems=self.memstash.min_elems)
+        except ValueError as e:
+            raise SpecError(f"memstash: {e}") from None
         return self
 
     # -- resolution ---------------------------------------------------------
@@ -564,8 +569,9 @@ class RunSpec:
         if self.arch.bf16_logits and hasattr(cfg, "bf16_logits"):
             cfg = dataclasses.replace(cfg, bf16_logits=True)
         ms_policy = self.resolved_memstash_policy(arch.family)
-        memstash = MemstashConfig(policy=ms_policy,
-                                  min_elems=self.memstash.min_elems)
+        memstash = MemstashConfig(
+            policy=ms_policy, value_bits=self.memstash.value_bits,
+            capacity=self.memstash.capacity, min_elems=self.memstash.min_elems)
         # an explicitly requested stash / remat policy re-routes the LM
         # residual checkpoints (train_loop's --stash); the family's "auto"
         # only configures the stash points the model already has
@@ -665,14 +671,6 @@ class RunSpec:
                 f"(src/repro/api/sessions.py:148) and fails on it with {fault}; "
                 "make_train_step trains it given "
                 f"{'frames' if arch.is_encdec else 'img_embeds'} (ROADMAP §3)")
-        if self.memstash.capacity != 1.0:
-            out.append(
-                f"memstash.capacity={self.memstash.capacity}: the port's stash is the "
-                "exact capacity-1.0 form (the lossy buffer is not ported)")
-        if self.memstash.value_bits != 20:
-            out.append(
-                f"memstash.value_bits={self.memstash.value_bits}: the port's stash "
-                "accounting counts Q4.16's 20 bits a value")
         if self.shape.microbatch is not None and (
                 self.shape.microbatch < 1 or self.shape.batch % self.shape.microbatch):
             out.append(

@@ -17,6 +17,7 @@ CLT bounds, P(round up) = frac).  The straight-through wrappers are
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -51,6 +52,8 @@ class FixedPointFormat:
 
 # The paper's Table-1 format.
 SPRING_FORMAT = FixedPointFormat(il=4, fl=16)
+# Wider accumulator format (2x(IL+FL), the paper's MAC-lane internal width).
+SPRING_ACCUM_FORMAT = FixedPointFormat(il=8, fl=32)
 
 
 def _clip_to_range(x: torch.Tensor, fmt: FixedPointFormat) -> torch.Tensor:
@@ -125,3 +128,19 @@ def to_int(x: torch.Tensor, fmt: FixedPointFormat = SPRING_FORMAT) -> torch.Tens
 
 def from_int(q: torch.Tensor, fmt: FixedPointFormat = SPRING_FORMAT) -> torch.Tensor:
     return q.to(torch.float32) * fmt.eps
+
+
+def quantization_noise_bound(fmt: FixedPointFormat) -> float:
+    """Worst-case |x - Round(x)| for either rounding mode (< eps)."""
+    return fmt.eps
+
+
+def pytree_quantize_stochastic(gen: torch.Generator, tree: Any, fmt: FixedPointFormat) -> Any:
+    """SR-quantize every tensor leaf of a nested dict / list / tuple, each
+    leaf from its own seed drawn from ``gen`` in the tree's walk order (the
+    reference splits one key per leaf)."""
+    if isinstance(tree, dict):
+        return {k: pytree_quantize_stochastic(gen, v, fmt) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(pytree_quantize_stochastic(gen, v, fmt) for v in tree)
+    return quantize_stochastic(gen, tree, fmt)

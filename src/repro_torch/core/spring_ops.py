@@ -183,6 +183,28 @@ def spring_matmul(
     return _q(y, cfg, keys)
 
 
+def spring_einsum(
+    spec: str,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    cfg: SpringConfig = DENSE,
+    keys: Optional[KeyGen] = None,
+) -> torch.Tensor:
+    """Einsum under SPRING numerics (attention logits / combines, routing).
+    Dense mode takes the reference's CPU numerics, as :func:`spring_matmul`
+    does: bf16 operands, fp32 products and sums, the result rounded to
+    bf16 once.  Else both operands round as activations, the einsum runs
+    in fp32 and its output rounds."""
+    if cfg.mode == "dense":
+        ad = a.to(DENSE_DTYPE).to(torch.float32)
+        bd = b.to(DENSE_DTYPE).to(torch.float32)
+        return torch.einsum(spec, ad, bd).to(DENSE_DTYPE)
+    aq = _q(a, cfg, keys, role="act")
+    bq = _q(b, cfg, keys, role="act")
+    y = torch.einsum(spec, aq.to(torch.float32), bq.to(torch.float32))
+    return _q(y, cfg, keys)
+
+
 # -- convolutions (NHWC / HWIO at the API) --------------------------------------
 
 

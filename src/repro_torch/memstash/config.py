@@ -31,17 +31,22 @@ class MemstashConfig:
     per_layer:  ``((fnmatch_pattern, policy), ...)`` overrides matched
                 against the stash-point name (``"lm/residual"``, a CNN
                 layer's name); first match wins.
+    value_bits: bits per stored non-zero in the wire accounting (the
+                paper's Q4.16 value is 20; the traffic formula is
+                ``bits/elem = value_bits * density + 1``).
+    capacity:   fraction of the dense length allocated for the collapsed
+                value buffer.  1.0 is always bit-exact; < 1.0 trades
+                exactness above that density for a genuinely smaller
+                saved buffer (overflow values decode as zero and are
+                counted by ``StashedActivation.overflow``).
     min_elems:  stash points smaller than this fall back to "none" — the
                 mask word + metadata overhead isn't worth it.
-
-    The reference's value-bit width and lossy capacity have no caller in
-    the port; the wire accounting uses the Q4.16 value width,
-    :data:`repro_torch.memstash.format.VALUE_BITS`, and the stash is the
-    exact capacity-1.0 form.
     """
 
     policy: str = "none"
     per_layer: tuple = ()
+    value_bits: int = 20
+    capacity: float = 1.0
     min_elems: int = 1024
 
     def __post_init__(self):
@@ -50,6 +55,8 @@ class MemstashConfig:
         for pat, pol in self.per_layer:
             if pol not in STASH_POLICIES:
                 raise ValueError(f"per_layer[{pat!r}] policy {pol!r} not in {STASH_POLICIES}")
+        if not 0.0 < self.capacity <= 1.0:
+            raise ValueError(f"capacity must be in (0, 1], got {self.capacity}")
 
     def policy_for(self, name: str, elems: Optional[int] = None) -> str:
         pol = self.policy

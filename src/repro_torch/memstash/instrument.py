@@ -45,12 +45,16 @@ def record_stash_traffic():
         _REC.rows = prev
 
 
+def recording() -> bool:
+    return _REC.rows is not None
+
+
 def maybe_record(name: str, x: torch.Tensor, scfg: MemstashConfig) -> None:
     """Record measured compression stats for one stash point."""
     if _REC.rows is None:
         return
     with torch.no_grad():
-        sv = compress(x.detach())
+        sv = compress(x.detach(), capacity=scfg.capacity)
     n = sv.n
     nnz = int(sv.nnz)
     density = nnz / n
@@ -62,8 +66,9 @@ def maybe_record(name: str, x: torch.Tensor, scfg: MemstashConfig) -> None:
         "dtype": str(x.dtype).replace("torch.", ""),
         "logical_bytes": logical_bytes(sv),
         "dense_fp32_bytes": dense_fp32_bytes(sv),
-        "wire_bytes": float(wire_bytes(sv)),
-        "formula_bytes": n * formula_bits_per_elem(density) / 8.0,
+        "wire_bytes": float(wire_bytes(sv, scfg.value_bits)),
+        "formula_bytes": n * formula_bits_per_elem(density, scfg.value_bits) / 8.0,
+        "overflow": int(sv.overflow),
     })
 
 

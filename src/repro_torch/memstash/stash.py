@@ -4,16 +4,20 @@
 backward pass is the *compressed* input instead of the block's dense
 intermediates:
 
-  forward:  y = f(x, aux) without a graph;  saved = compress(x), aux
+  forward:  y = f(x, aux) without a graph;
+            saved = compress(x, capacity=scfg.capacity), aux
   backward: x = decompress(saved);  recompute f(x, aux) with a graph;
             gradients of that recompute against the cotangent
 
 i.e. remat from the compressed input.  ``f`` returns one tensor or a
 tuple of them (the LM's unit returns its output and its MoE aux loss,
 whose gradient flows into the router through the recompute, as the
-reference's unit threads its aux carry through the custom VJP).  The
-restore is bit-exact, so dense-mode gradients are bit-identical to the unstashed
-program.  Quantized modes draw fresh SR seeds in the recompute (the
+reference's unit threads its aux carry through the custom VJP).  At
+capacity 1.0 the restore is bit-exact, so dense-mode gradients are
+bit-identical to the unstashed program.  Below it the saved value buffer
+is ``ceil(n * capacity)`` long, so the card keeps fewer bytes; the forward
+still reads the full ``x``, and the backward recomputes from the lossy
+restore, whose overflow values decode as zero (the reference's split).  Quantized modes draw fresh SR seeds in the recompute (the
 block's ``KeyGen`` moves on), the same caveat the reference has with its
 re-traced keys (``memstash/stash.py:17-20``).
 
@@ -36,7 +40,7 @@ class _StashedCall(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f, scfg, x, *aux):
         y = f(x, aux)  # autograd records no graph inside forward
-        sv = compress(x)
+        sv = compress(x, capacity=scfg.capacity)
         ctx.f, ctx.meta = f, (sv.shape, sv.dtype)
         ctx.save_for_backward(sv.values, sv.mask, sv.nnz, *aux)
         ctx.set_materialize_grads(False)

@@ -45,7 +45,9 @@ class StepConfig:
     spring: SpringConfig = DENSE
     # None inherits spring.backward_sparsity; "none" | "auto" override it
     backward_sparsity: Optional[str] = None
-    prune_ratio: float = 0.0  # magnitude pruning is not ported: 0 only
+    # magnitude pruning of every dense projection's weight as it is used
+    # (SpringContext.maybe_prune); CNN convs and fcs are not pruned
+    prune_ratio: float = 0.0
     optimizer: OptimizerConfig = OptimizerConfig()
     # the reference's int8 + error-feedback inter-pod reduction: refused
     compress_pod_grads: bool = False
@@ -181,7 +183,7 @@ def make_cnn_train_step(model_fn: Callable, step_cfg: StepConfig):
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         key = fold_in(state.seed, state.step)
         ctx = SpringContext(cfg=spring, keys=KeyGen(key) if spring.is_quantized else None,
-                            memstash=step_cfg.memstash)
+                            prune_ratio=step_cfg.prune_ratio, memstash=step_cfg.memstash)
         params = _with_grad(state.params)
         loss = cross_entropy(model_fn(ParamStore(key, params), ctx, x), y)
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))

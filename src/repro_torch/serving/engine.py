@@ -169,10 +169,13 @@ class ServingEngine:
     write one every N ticks.  ``kernel_policy`` (a ``KernelPolicy``,
     None for ``auto``) names the pool's pack and unpack implementations in
     snapshot signatures, in the reference's terms (:func:`kv_impl_names`).
+    ``prune_ratio`` magnitude-prunes every dense projection's weight at
+    each prefill and decode call (the reference engine's
+    ``step_cfg.prune_ratio``).
     """
 
     @classmethod
-    def from_spec(cls, spec, *, params=None, resolved=None, device="cuda"):
+    def from_spec(cls, spec, *, params=None, resolved=None, prune_ratio=0.0, device="cuda"):
         """Build an engine from a ``run="serve"`` RunSpec: the slot pool,
         pool length, sampling mode and numerics come from the spec, the
         snapshot stamp is ``spec.state_hash()`` and ``serving.pages``
@@ -192,7 +195,7 @@ class ServingEngine:
             snapshot_every=s.snapshot_every,
             snapshot_path=s.snapshot_path or (
                 "spring_snapshot.npz" if s.snapshot_every else ""),
-            kernel_policy=r.kernel_policy, device=device)
+            kernel_policy=r.kernel_policy, prune_ratio=prune_ratio, device=device)
         if s.pages and cls is ServingEngine:
             from repro_torch.serving.paging import PagedServingEngine
 
@@ -211,7 +214,7 @@ class ServingEngine:
                  spec_hash: Optional[str] = None, shed: Optional[ShedPolicy] = None,
                  snapshot_every: int = 0, snapshot_path: str = "",
                  watchdog: Optional[StragglerWatchdog] = None,
-                 kernel_policy=None, device="cuda"):
+                 kernel_policy=None, prune_ratio: float = 0.0, device="cuda"):
         self.device = resolve_device(device)
         cfg.check_supported()
         # what the pool's pack and unpack dispatch to; a snapshot restores
@@ -248,8 +251,8 @@ class ServingEngine:
         self._next_rid = 0
         self._t0 = time.monotonic()
 
-        self._prefill = make_prefill_step(cfg, spring)
-        self._decode = make_decode_step(cfg, spring)
+        self._prefill = make_prefill_step(cfg, spring, prune_ratio=prune_ratio)
+        self._decode = make_decode_step(cfg, spring, prune_ratio=prune_ratio)
         self._build_pool()
 
         self.decode_steps = 0

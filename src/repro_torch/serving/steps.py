@@ -3,7 +3,9 @@
 The reference jit-compiles these; PyTorch runs them eagerly (parameters
 carry no gradients, so no autograd graph is built).  Both take the model
 config, the numerics ``SpringConfig`` and the int8-cache flag, and return
-closures.  An ``EncDecConfig`` (whisper) gets the encoder-decoder steps:
+closures; ``prune_ratio`` magnitude-prunes every dense projection's
+weight at each call, as the reference's ``step_cfg.prune_ratio`` does
+(the pruned weights are not cached).  An ``EncDecConfig`` (whisper) gets the encoder-decoder steps:
 its prefill runs the encoder once, projects the cross K/V into a cache of
 the prompt's length and takes the last position's logits from one
 teacher-forced decoder pass, as the reference's does; the static serving
@@ -20,10 +22,10 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import SpringContext
 
 
-def make_prefill_step(cfg, spring, int8_cache: bool = False):
+def make_prefill_step(cfg, spring, int8_cache: bool = False, prune_ratio: float = 0.0):
+    ctx = SpringContext(cfg=spring, prune_ratio=prune_ratio, int8_cache=int8_cache)
     if isinstance(cfg, ed_mod.EncDecConfig):
         def prefill(params, tokens, *, frames):
-            ctx = SpringContext(cfg=spring, int8_cache=int8_cache)
             enc = ed_mod.encode(params, cfg, frames, ctx)
             cache = ed_mod.cross_cache(params, cfg, enc, ctx, max_len=tokens.shape[1])
             h = ed_mod.decode_hidden(params, cfg, tokens, enc, ctx)
@@ -32,15 +34,15 @@ def make_prefill_step(cfg, spring, int8_cache: bool = False):
         return prefill
 
     def prefill(params, tokens, *, img_embeds=None):
-        return lm_mod.lm_prefill(params, cfg, tokens,
-                                 SpringContext(cfg=spring, int8_cache=int8_cache), img_embeds)
+        return lm_mod.lm_prefill(params, cfg, tokens, ctx, img_embeds)
     return prefill
 
 
-def make_decode_step(cfg, spring, int8_cache: bool = False):
+def make_decode_step(cfg, spring, int8_cache: bool = False, prune_ratio: float = 0.0):
     step = (ed_mod.encdec_decode_step if isinstance(cfg, ed_mod.EncDecConfig)
             else lm_mod.lm_decode_step)
+    ctx = SpringContext(cfg=spring, prune_ratio=prune_ratio, int8_cache=int8_cache)
 
     def decode(params, tokens, cache):
-        return step(params, cfg, tokens, cache, SpringContext(cfg=spring, int8_cache=int8_cache))
+        return step(params, cfg, tokens, cache, ctx)
     return decode

@@ -1026,3 +1026,133 @@ def test_reduced_olmoe_train_step_on_the_card_matches_the_cpu(card):
     assert loss_g == pytest.approx(loss_c, rel=1e-4)
     for g, w in zip(grads_g, grads_c):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * (float(w.abs().max()) + 1.0))
+
+
+# -- magnitude pruning and the lossy stash ------------------------------------------
+
+
+def test_reduced_pruned_llama_train_step_on_the_card_matches_the_cpu(card):
+    """Reduced llama3.2-1b with every dense projection pruned at 0.5,
+    quant_sparse with nearest rounding on Q16.60: the pruned masks equal on
+    both devices (the card's std sums in another order; a weight within an
+    ulp of the threshold would be named), lm_loss rel 1e-4 and its
+    gradients within the contract; one make_train_step step with
+    StepConfig(prune_ratio=0.5) on the kernels, loss rel 1e-4."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.spring_ops import QUANT_SPARSE
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.runtime.train import StepConfig, init_train_state, make_train_step
+
+    view = get_arch("llama3.2-1b").view(reduced=True)
+    spring = dataclasses.replace(QUANT_SPARSE, stochastic=False,
+                                 fmt=FixedPointFormat(il=16, fl=60))
+    step_cfg = StepConfig(spring=spring, prune_ratio=0.5)
+    params = init_train_state(view, step_cfg, 0, device="cpu").params
+    prune = SpringContext(prune_ratio=0.5).maybe_prune
+    for w in tree_leaves(params):
+        if w.ndim == 2 and w.shape[0] != view.config.vocab:
+            assert torch.equal(prune(w) == 0, (prune(w.to(card)) == 0).cpu())
+    tokens = torch.randint(0, view.config.vocab, (4, 33), generator=torch.Generator()
+                           .manual_seed(2))
+    res = {}
+    for d in ("cpu", card):
+        p = tree_map(lambda t: t.detach().to(d).clone().requires_grad_(True), params)
+        loss, _ = lm_loss(p, view.config, tokens.to(d),
+                          SpringContext(cfg=spring, prune_ratio=0.5, attention="chunked"))
+        res[str(d)] = (float(loss.detach()),
+                       [g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))])
+    (loss_c, grads_c), (loss_g, grads_g) = res["cpu"], res[str(card)]
+    assert loss_g == pytest.approx(loss_c, rel=1e-4)
+    for g, w in zip(grads_g, grads_c):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * (float(w.abs().max()) + 1.0))
+    _, want = make_train_step(view, step_cfg)(
+        init_train_state(tree_map(torch.clone, params), step_cfg, 0), {"tokens": tokens})
+    kernels.reset_launch_counts()
+    _, got = make_train_step(view, step_cfg)(init_train_state(_to(params, card), step_cfg, 0),
+                                             {"tokens": tokens.to(card)})
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-4)
+    for name in ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"):
+        assert counts[name] > 0, counts
+
+
+def _tiny_cnn(store, ctx, x):
+    from repro_torch.models import cnn
+
+    x = cnn.conv(store, ctx, "c1", x, 16, k=3, stride=2)
+    x = cnn.conv(store, ctx, "c2", x, 32, k=3, stride=2)
+    x = cnn.conv(store, ctx, "c3", x, 32, k=3)
+    return cnn.fc(store, ctx, "head", cnn.gap(x), 10)
+
+
+@pytest.mark.parametrize("capacity", [0.6, 0.25])
+def test_lossy_stash_record_and_gradients_on_the_card_match_the_cpu(card, capacity):
+    """A lossy record on the card is the CPU's bit for bit (values, mask,
+    nnz, overflow); the tiny CNN's gradients with every point stashed at
+    ``capacity`` (quant_sparse, nearest, Q16.60, the sparse backward) on
+    the card within the contract of the CPU's, the first conv's input
+    overflowing on both."""
+    import dataclasses
+
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.spring_ops import QUANT_SPARSE, KeyGen
+    from repro_torch.memstash import format as fmt
+    from repro_torch.memstash.config import MemstashConfig
+    from repro_torch.memstash.instrument import record_stash_traffic
+    from repro_torch.models.cnn import ParamStore
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.runtime.train import cross_entropy
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.relu(torch.randn(8, 33, 17, generator=gen)) * (torch.rand(8, 33, 17, generator=gen)
+                                                              > 0.2)
+    a, b = fmt.compress(x, capacity), fmt.compress(x.to(card), capacity)
+    for f in ("values", "mask", "nnz", "overflow"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    assert torch.equal(fmt.decompress(a), fmt.decompress(b).cpu())
+
+    spring = dataclasses.replace(QUANT_SPARSE, stochastic=False,
+                                 fmt=FixedPointFormat(il=16, fl=60))
+    scfg = MemstashConfig(policy="stash", min_elems=1, capacity=capacity)
+    store = ParamStore(0)
+    _tiny_cnn(store, SpringContext(), torch.zeros(1, 16, 16, 3))
+    params = store.params
+    img = torch.randn(8, 16, 16, 3, generator=gen)
+    y = torch.arange(8) % 10
+    res = {}
+    for d in ("cpu", card):
+        p = {k: v.to(d).clone().requires_grad_(True) for k, v in params.items()}
+        ctx = SpringContext(cfg=spring, keys=KeyGen(0), memstash=scfg)
+        with record_stash_traffic() as rows:
+            loss = cross_entropy(_tiny_cnn(ParamStore(0, p), ctx, img.to(d)), y.to(d))
+        loss.backward()
+        res[str(d)] = (float(loss.detach()), {k: v.grad.cpu() for k, v in p.items()}, rows)
+    (loss_c, grads_c, rows_c), (loss_g, grads_g, rows_g) = res["cpu"], res[str(card)]
+    assert rows_c == rows_g and rows_c[0]["overflow"] > 0
+    assert loss_g == pytest.approx(loss_c, rel=1e-4)
+    for k in grads_c:
+        torch.testing.assert_close(grads_g[k], grads_c[k], rtol=1e-5,
+                                   atol=1e-5 * (float(grads_c[k].abs().max()) + 1.0))
+
+
+def test_apply_pruning_past_2_24_elements_on_the_card_matches_the_cpu(card):
+    """A (4099, 4097) weight, 16.8 M elements, past torch.quantile's limit
+    and where jax's fp32 index ``q * (n - 1)`` rounds: the card's sort
+    prunes the same entries as the CPU's, and the threshold is the same."""
+    from repro_torch.runtime.pruning import PruneSchedule, apply_pruning, quantile_f32
+
+    w = torch.randn(4099, 4097, generator=torch.Generator().manual_seed(0))
+    assert w.numel() > 2**24
+    sched = PruneSchedule(final_sparsity=0.5, start_step=0, ramp_steps=3)
+    for step in (1, 3):
+        got = apply_pruning({"w": w.to(card)}, step, sched)["w"]
+        want = apply_pruning({"w": w}, step, sched)["w"]
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(quantile_f32(w.to(card).abs(), 0.3).cpu(), quantile_f32(w.abs(), 0.3))

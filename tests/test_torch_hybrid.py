@@ -515,13 +515,20 @@ def test_paged_recurrentgemma_is_refused():
 
 def test_hybrid_training_is_refused_and_serving_resolves():
     """A train spec of recurrentgemma-9b resolves (hybrid training is
-    ported); a stash value width other than Q4.16's is what its training
-    still refuses."""
+    ported), and so does one with a stash value width other than Q4.16's:
+    ``value_bits`` and ``capacity`` reach the resolved MemstashConfig as
+    in the reference's resolve."""
+    from repro.api.spec import build_spec as jbuild_spec
+
     assert build_spec("train", sets=[f"arch.id={RG}"], use_env=False).resolve().step
-    spec = build_spec("train", sets=[f"arch.id={RG}", "memstash.value_bits=16"],
-                      use_env=False)
-    with pytest.raises(SpecError, match=r"memstash\.value_bits"):
-        spec.resolve()
+    sets = [f"arch.id={RG}", "memstash.value_bits=16", "memstash.policy=stash"]
+    got = build_spec("train", sets=sets, use_env=False).resolve()
+    want = jbuild_spec("train", sets=sets, use_env=False).resolve()
+    assert got.step is not None
+    for field in ("policy", "value_bits", "capacity", "min_elems"):
+        assert getattr(got.memstash, field) == getattr(want.memstash, field), field
+        assert getattr(got.step.memstash, field) == getattr(want.step.memstash, field), field
+    assert got.memstash.value_bits == 16
     for arch in (RG, QWEN):
         r = build_spec("serve", sets=[f"arch.id={arch}"], use_env=False).resolve()
         assert r.config.name == f"{arch}-reduced"

@@ -513,14 +513,21 @@ def test_a_paged_deepseek_snapshot_crosses_packages_bit_for_bit(deepseek_paged_r
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_training_is_refused_and_serving_resolves(arch):
-    """A train spec of the arch resolves (MoE training is ported); the lossy
-    stash is what its training still refuses."""
+    """A train spec of the arch resolves (MoE training is ported), and so
+    does one with the lossy stash: ``capacity`` and ``value_bits`` reach the
+    resolved MemstashConfig as in the reference's resolve."""
+    from repro.api.spec import build_spec as jbuild_spec
+
     r = build_spec("train", sets=[f"arch.id={arch}"], use_env=False).resolve()
     assert r.config.name == f"{arch}-reduced" and r.step is not None
-    spec = build_spec("train", sets=[f"arch.id={arch}", "memstash.capacity=0.25"],
-                      use_env=False)
-    with pytest.raises(SpecError, match=r"memstash\.capacity"):
-        spec.resolve()
+    sets = [f"arch.id={arch}", "memstash.capacity=0.25", "memstash.policy=stash"]
+    got = build_spec("train", sets=sets, use_env=False).resolve()
+    want = jbuild_spec("train", sets=sets, use_env=False).resolve()
+    assert got.step is not None
+    for field in ("policy", "value_bits", "capacity", "min_elems"):
+        assert getattr(got.memstash, field) == getattr(want.memstash, field), field
+        assert getattr(got.step.memstash, field) == getattr(want.step.memstash, field), field
+    assert got.memstash.capacity == 0.25
     r = build_spec("serve", sets=[f"arch.id={arch}", "serving.pages=true"],
                    use_env=False).resolve()
     assert r.config.name == f"{arch}-reduced"

@@ -337,7 +337,7 @@ def test_train_and_dryrun_sessions_name_their_slices():
     (["kernels.policy=pallas"], "cpu", r"kernels\.policy"),
     (["sparsity.backward=pallas"], "cpu", r"sparsity\.backward"),
     (["sparsity.backward=interpret"], "cuda", r"sparsity\.backward"),
-    (["arch.id=olmoe-1b-7b", "memstash.capacity=0.25"], "cpu", r"memstash\.capacity"),
+    (["arch.id=olmoe-1b-7b", "shape.mesh.model=2"], "cpu", r"shape\.mesh"),
     (["arch.id=whisper-medium"], "cpu",
      r"arch\.id: 'whisper-medium'.*reference's TrainSession.*KeyError 'frames'.*"
      r"src/repro/runtime/train\.py:118"),
@@ -345,8 +345,8 @@ def test_train_and_dryrun_sessions_name_their_slices():
      r"arch\.id: 'internvl2-26b'.*reference's TrainSession.*img_embeds is not None.*"
      r"src/repro/models/lm\.py:239"),
     (["shape.mesh.data=2"], "cpu", r"shape\.mesh"),
-    (["memstash.capacity=0.5"], "cpu", r"memstash\.capacity"),
-    (["memstash.value_bits=16"], "cpu", r"memstash\.value_bits"),
+    (["shape.batch=6", "shape.microbatch=4"], "cpu", r"shape\.microbatch"),
+    (["shape.microbatch=0"], "cpu", r"shape\.microbatch"),
     (["shape.microbatch=3"], "cpu", r"shape\.microbatch"),
 ])
 def test_train_session_refuses_what_it_cannot_honour(sets, device, match):
@@ -358,6 +358,22 @@ def test_train_session_refuses_what_it_cannot_honour(sets, device, match):
     spec = tbuild("train", sets=sets, use_env=False)
     with pytest.raises(SpecError, match=match):
         tsessions.TrainSession(spec, device=device)
+
+
+@pytest.mark.parametrize("sets", [
+    ["arch.id=olmoe-1b-7b", "memstash.capacity=0.25"],
+    ["memstash.capacity=0.5"],
+    ["memstash.value_bits=16"],
+])
+def test_train_session_builds_the_lossy_stash(sets):
+    """The lossy stash's capacity and value width, once refused, build a
+    session whose step carries them, as the reference's resolve does."""
+    from repro.api.spec import build_spec as jbuild
+
+    session = tsessions.TrainSession(tbuild("train", sets=sets, use_env=False), device="cpu")
+    want = jbuild("train", sets=sets, use_env=False).resolve().step.memstash
+    got = session.resolved.step.memstash
+    assert (got.capacity, got.value_bits) == (want.capacity, want.value_bits)
 
 
 def test_train_session_takes_the_flash_route_where_pinned_on_the_cpu():
