@@ -263,15 +263,15 @@ failure:
                MHA D 128) and deepseek-v2-lite-16b (an MLA layer with a
                dense SwiGLU, then 26 x (mla, moe): 64 routed experts top-6
                and 2 shared), quant_sparse, random weights from seed 0, 4
-               requests of prompt 512, gen 8 (16 before 5h), 4 slots, max_len 530, on the
+               requests of prompt 512, gen 4 (16 before 5h, 8 before 8), 4 slots, max_len 530, on the
                monolithic and then the paged engine (page 8, whole-prompt
                installs) over the same parameters: counters zeroed just before each run() and read
                just after (every kernel of the path launched; deepseek's
                MLA prefill runs the chunked attention, so flash_attention
                launches 0 times there), paged tokens = monolithic tokens;
                a third engine admits the four at once: decode logits of
-               slots 0-1 at 4 and 2 slots bit-equal, three profiled decode
-               ticks, then one decode tick (where none may drop) and one
+               slots 0-1 at 4 and 2 slots bit-equal, one profiled decode
+               tick (three before 8), then one decode tick (where none may drop) and one
                request's prefill under moe.record_routing (tokens per
                expert, assignments dropped, dispatch rows left zero, the
                experts' skipped tile steps); peak memory; every path kernel at the
@@ -315,7 +315,39 @@ failure:
                read just after, every kernel of the sweep must launch;
   7c. paper  — ``sparsity_probe(density=0.5, size=512)`` on the card's kernels,
                then Table 1 and the Figs. 11-16 geomeans of the model with and
-               without the measured tile-skip fractions, beside the paper's.
+               without the measured tile-skip fractions, beside the paper's;
+  8. mesh   — (run last) the port's mesh: one process per rank, joined by
+               ``repro_torch.dist.launch`` in a gloo group, every rank on this
+               one card (NCCL refuses two ranks on one device), card tensors
+               staged through host memory for each hop; the kernels are built
+               before any rank starts.  The unsharded runs first, in this
+               process; then four ranks: (a) packed_all_gather in collective
+               mode equal to simulation mode bit for bit on 2**26 elements a
+               rank (fp32 at densities 1.0, 0.5 and 0.1, bf16 at 0.5; a
+               reduce-scatter too), mask_pack on each rank's payload equal to
+               its plain version, the wire bytes and compression against fp32;
+               (c) full-width llama3.2-1b on the static path, quant_sparse,
+               batch 8 (2 rows a rank), prompt 32, gen 16, at
+               shape.mesh.data=4: tokens equal to the unsharded run's, the
+               skinny and tile kernels, tile_occupancy and mask_pack launched
+               on every rank; (d) pipeline_apply over 4 stages and 6
+               microbatches of 64 rows, each stage one llama3.2-1b MLP's two
+               products through spring_matmul, within 2b's bound of the stages
+               in sequence.  Then two ranks: (b) the example train spec at full
+               width, batch 8, seq 128, 3 steps at shape.mesh.data=2 (two
+               replicas: four do not fit the card): losses bit-equal to the
+               unsharded run's, every parameter on the grid, the probe exact,
+               the tile kernel, tile_occupancy, stochastic_round and mask_pack
+               launched on every rank; then a step at pod=2 with
+               compress_pod_grads (4 rows a pod): losses finite, on the grid,
+               each rank's EF buffers exactly local - dequant and within one
+               int8 step of its gradient on every element (so the exchanged
+               mean is within one step of the pods' true mean), and the
+               exchange's mean against the true mean measured on the first
+               2**20 elements of every leaf; both pods' parameters bit-equal
+               after the step (a checksum of every leaf's bits, gathered).
+               Printed: the backend, each rank's peak, wall time and staged
+               hops, prefill s and tokens/s of both serving runs.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and, last, the ``{"ok": true, "device": ...}`` line.
@@ -325,6 +357,7 @@ TF32 is off throughout: Q4.16 values carry 21 significant bits, TF32 keeps
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -3828,7 +3861,7 @@ MOE_ARCHS, MOE_REQUESTS, MOE_PROMPT = ("olmoe-1b-7b", "deepseek-v2-lite-16b"), 4
 #: tokens a request decodes in 6k: 8, cut from GEN (16) when phase 5h came,
 #: to keep the whole script inside its time limit (host-bound MoE ticks of
 #: 1.1 / 1.9 s, two engines each)
-MOE_GEN = 8
+MOE_GEN = 4  # 16 before phase 5h, 8 before phase 8: the MoE ticks are host-bound
 MOE_MAX_LEN = MOE_PROMPT + GEN + 2
 MOE_KERNELS = {"olmoe-1b-7b": ("masked_matmul_skinny", "masked_matmul", "tile_occupancy",
                                "mask_pack", "flash_attention"),
@@ -4051,7 +4084,7 @@ def _serve_moe(dev, arch: str) -> dict:
         fail(f"moe phase: {len(eng._decode_slots())} of {MOE_REQUESTS} slots decode after "
              "the admitting tick")
     row["batch_invariance"] = _batch_invariance(eng, arch, "moe")
-    row["decode_profile"] = _tick_profile(eng, "moe", where=f" ({arch})")
+    row["decode_profile"] = _tick_profile(eng, "moe", ticks=1, where=f" ({arch})")
     # the routing of one decode tick and of one request's prefill (each
     # recorded product syncs the host)
     with record_routing() as rec_decode:
@@ -4634,9 +4667,409 @@ def phase_paper(dev) -> dict:
             "rows_measured_skips": [list(r) for r in measured]}
 
 
+# -- 8. the mesh: packed collectives, sharded training and serving, the pipeline
+
+MESH_SERVE_SETS = ("arch.id=llama3.2-1b", "arch.reduced=false", "numerics.mode=quant_sparse",
+                   "serving.static=true", "shape.batch=8", "shape.prompt_len=32",
+                   "shape.gen=16")
+MESH_TRAIN_SETS = ("arch.reduced=false", "train.steps=3", "train.ckpt_dir=")
+MESH_TRAIN_DATA = 2  # two full-width replicas fit the card beside the exchange, four do not
+MESH_SERVE_DATA = 4
+MESH_POD_STEPS = 1
+MESH_POD_SAMPLE = 1 << 20  # elements of each leaf whose pods' true mean is gathered
+MESH_CHECK_CHUNK = 1 << 26  # elements of a parameter leaf checksummed at once
+MESH_PAYLOAD = 1 << 26  # elements a rank contributes: dist.train's gradient chunk
+MESH_PAYLOADS = ((1.0, "float32"), (0.5, "float32"), (0.1, "float32"), (0.5, "bfloat16"))
+MESH_PIPE = dict(stages=4, micro=6, rows=64)  # rows of a microbatch (the tile kernel)
+MESH_TIMEOUT_S = 600
+MESH_COLLECTIVE_TIMEOUT_S = 300
+MESH_SERVE_KERNELS = ("masked_matmul", "masked_matmul_skinny", "tile_occupancy", "mask_pack")
+MESH_TRAIN_KERNELS = ("masked_matmul", "tile_occupancy", "stochastic_round", "mask_pack")
+
+
+def _mesh_rank_setup(world: int, device: str):
+    """A phase-8 rank: TF32 off, its mesh over the launcher's gloo group on
+    ``device`` (on the card every rank shares cuda:0), its peak memory
+    counted anew.  ``device="cpu"`` rehearses the phase at a small size."""
+    import os
+
+    import torch
+
+    from repro_torch.dist.mesh import make_explicit_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    mesh = make_explicit_mesh(1, world, 1, device=device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    return mesh
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _free(dev) -> None:
+    """Hand a rank's freed blocks back to the card the ranks share."""
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _leaf_checksums(leaves, dev):
+    """``(len(leaves), 2)`` int64: each leaf's bit patterns summed, plain and
+    weighted by position mod 257, over chunks of MESH_CHECK_CHUNK elements.
+    Two ranks whose checksums agree hold the same bits, short of a
+    collision, without a whole model crossing the wire."""
+    import torch
+
+    out = torch.zeros(len(leaves), 2, dtype=torch.int64, device=dev)
+    for i, p in enumerate(leaves):
+        flat = p.detach().reshape(-1)
+        bits = flat.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[flat.element_size()])
+        for s in range(0, bits.numel(), MESH_CHECK_CHUNK):
+            b = bits[s:s + MESH_CHECK_CHUNK].to(torch.int64)
+            w = torch.arange(s, s + b.numel(), device=dev) % 257 + 1
+            out[i, 0] += b.sum()
+            out[i, 1] += (b * w).sum()
+    return out
+
+
+def _mesh_payload(seed: int, d: int, n: int, density: float, dtype, dev):
+    """A stacked (d, n) payload made on the card from a seed (every rank
+    makes the same one): normals, each kept with probability ``density``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((d, n), generator=gen, device=dev)
+    keep = torch.rand((d, n), generator=gen, device=dev) < density
+    return torch.where(keep, x, 0.0).to(dtype)
+
+
+def mesh_rank_four(rank: int, world: int, serve_sets: tuple, device: str = "cuda",
+                   payload: int = MESH_PAYLOAD, mlp: tuple = LAYER_SHAPES["up"]) -> dict:
+    """(8a, 8c, 8d) on one of four ranks: the collectives at the gradient
+    chunk's size, llama3.2-1b served with its rows over ``data``, and the
+    pipeline over ``pod``."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.core.spring_ops import MODES, spring_matmul
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.mesh import Mesh
+    from repro_torch.kernels.mask_compress.ops import mask_pack_reference, pack_words
+    from repro_torch.runtime.pipeline import pipeline_apply, stack_stage_params
+    from repro_torch.runtime.sharding import sharding_context
+
+    t_rank = time.monotonic()
+    mesh = _mesh_rank_setup(world, device)
+    dev = mesh.device
+    out: dict = {"backend": mesh.backend}
+
+    # -- a. collective mode = simulation mode on card tensors -----------------------
+    rows = []
+    with sharding_context(mesh):
+        for i, (density, dtype) in enumerate(MESH_PAYLOADS):
+            x = _mesh_payload(10 + i, world, payload, density, getattr(torch, dtype), dev)
+            sim = C.packed_all_gather(x)
+            _sync(dev)
+            t0 = time.monotonic()
+            got = C.packed_all_gather(x[rank], axis_name="data")
+            _sync(dev)
+            ms = (time.monotonic() - t0) * 1e3
+            words_ok = torch.equal(pack_words(x[rank]), mask_pack_reference(x[rank]))
+            nnz = int(torch.count_nonzero(x))
+            wire = C.collective_wire_bits(nnz, payload, world) / 8.0
+            row = {"density": density, "dtype": dtype, "equal": torch.equal(got, sim),
+                   "mask_pack_equal": words_ok, "nnz": nnz, "wire_bytes": wire,
+                   "compression_vs_fp32": world * payload * 4.0 / wire, "ms": ms}
+            if i == 1:
+                rs = C.packed_reduce_scatter(x[rank], axis_name="data")
+                row["reduce_scatter_equal"] = torch.equal(rs, C.packed_reduce_scatter(x)[rank])
+                del rs
+            rows.append(row)
+            del x, sim, got
+            _free(dev)
+    out["collectives"] = rows
+
+    # -- c. sharded serving: the static path, rows over data ---------------------------
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    sv = ServeSession(build_spec("serve", sets=[*serve_sets, f"shape.mesh.data={world}"]),
+                      device=dev, mesh=mesh).run()
+    _sync(dev)
+    out["serve"] = {"generated": sv["generated"].tolist(), "prefill_s": sv["prefill_s"],
+                    "decode_s": sv["decode_s"], "tokens_per_s": sv["tokens_per_s"],
+                    "finite": sv["finite"], "probe": sv["collective_probe"],
+                    "wall_s": time.monotonic() - t0, "launches": kernels.launch_counts()}
+    del sv
+    _free(dev)
+
+    # -- d. the pipeline: 4 stages of one llama3.2-1b MLP's two products ---------------
+    pipe_mesh = Mesh(world, 1, 1, device=dev)
+    spring = dataclasses.replace(MODES["quant_sparse"], stochastic=False)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    d, ff = mlp
+    per_stage = [{"up": quantize_nearest(torch.randn((d, ff), generator=gen, device=dev) / d**0.5),
+                  "down": quantize_nearest(torch.randn((ff, d), generator=gen, device=dev)
+                                           / ff**0.5)} for _ in range(MESH_PIPE["stages"])]
+    xs = quantize_nearest(torch.randn((MESH_PIPE["micro"], MESH_PIPE["rows"], d), generator=gen,
+                                      device=dev))
+
+    def stage_fn(h, p):
+        return spring_matmul(spring_matmul(h, p["up"], spring), p["down"], spring)
+
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    got = pipeline_apply(stage_fn, stack_stage_params(per_stage), xs, mesh=pipe_mesh, axis="pod")
+    _sync(dev)
+    pipe_ms = (time.monotonic() - t0) * 1e3
+    pipe_launches = kernels.launch_counts()
+    want, h_last = xs, None
+    for p in per_stage:
+        h_last = torch.stack([spring_matmul(m, p["up"], spring) for m in want])
+        want = torch.stack([spring_matmul(m, p["down"], spring) for m in h_last])
+    tol = 2 * ff * 2.0**-24 * torch.stack([m.abs() @ per_stage[-1]["down"].abs()
+                                           for m in h_last])
+    err = (got - want).abs()
+    out["pipeline"] = {"max_abs_err": float(err.max()), "within": bool((err <= tol).all()),
+                       "equal": torch.equal(got, want), "ms": pipe_ms,
+                       "launches": pipe_launches}
+    out["staged_hops"] = mesh.staged_hops + pipe_mesh.staged_hops
+    out["peak_gib"] = _peak_gib(dev)
+    out["wall_s"] = time.monotonic() - t_rank
+    return out
+
+
+def mesh_rank_two(rank: int, world: int, spec_path: str, train_sets: tuple,
+                  device: str = "cuda") -> dict:
+    """(8b) on one of two ranks: llama3.2-1b trained at data=2 through the
+    TrainSession, then at pod=2 with compress_pod_grads (4 rows a pod), the
+    int8 + EF contract checked after its first step and both pods'
+    parameters held bit for bit after the last (the step's own exchange of
+    int8 payloads and scales must hand every rank the same mean)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import TrainSession, build_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.dist.mesh import Mesh
+    from repro_torch.kernels.prng import fold_in
+    from repro_torch.launch.train import on_grid
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.compression import dequantize_int8, sr_quantize_int8
+    from repro_torch.runtime.train import POD_SEED_FOLD, init_train_state, make_train_step
+
+    t_rank = time.monotonic()
+    mesh = _mesh_rank_setup(world, device)
+    dev = mesh.device
+    out: dict = {"backend": mesh.backend}
+
+    # -- data = 2: the packed gradient exchange -----------------------------------------
+    spec = build_spec("train", spec_file=spec_path, sets=[*train_sets,
+                                                          f"shape.mesh.data={world}"])
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    tr = TrainSession(spec, device=dev, mesh=mesh).run()
+    _sync(dev)
+    out["data"] = {"losses": tr["losses"], "probe": tr["collective_probe"],
+                   "grid": on_grid(dict(enumerate(tree_leaves(tr["state"].params)))),
+                   "wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+                   "staged_hops": mesh.staged_hops, "peak_gib": _peak_gib(dev)}
+    del tr
+    _free(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # -- pod = 2: compress_pod_grads, the int8 + EF link ----------------------------------
+    pod_mesh = Mesh(world, 1, 1, device=dev)
+    r = build_spec("train", spec_file=spec_path, sets=list(train_sets)).resolve()
+    step_cfg = dataclasses.replace(r.step, compress_pod_grads=True)
+    seed = r.spec.seeds.seed
+    state = init_train_state(r.view, step_cfg, seed, device=dev)
+    captured: dict = {}
+
+    def capture(grads):  # the pod's own gradients, as they enter the exchange
+        captured["grads"] = grads
+        return grads
+
+    step = make_train_step(r.view, step_cfg, mesh=pod_mesh, grad_sync=capture)
+    data = SyntheticLMStream(DataConfig(seed=seed, vocab=r.config.vocab, seq_len=r.spec.shape.seq,
+                                        global_batch=r.spec.shape.batch), device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    losses, ef_exact, ef_worst, worst = [], True, 0.0, 0.0
+    for i in range(MESH_POD_STEPS):
+        state, metrics = step(state, {"tokens": data.batch(i)})
+        losses.append(float(metrics["loss"]))
+        if i:
+            continue
+        # step 0 started from zero EF buffers: local = the pod's gradient.
+        # On every element: ef = local - dequant exactly and |ef| <= scale,
+        # so the exchanged mean (the pods' dequantized payloads averaged) is
+        # within one step of the true mean; on each leaf's first
+        # MESH_POD_SAMPLE elements the exchange's formula is held against the
+        # true mean directly (gathering whole fp32 gradients over gloo would
+        # take longer than the phase)
+        pod_seed = fold_in(fold_in(seed, 0), POD_SEED_FOLD)
+        for j, (g, e) in enumerate(zip(tree_leaves(captured["grads"]), tree_leaves(state.ef))):
+            q, scale = sr_quantize_int8(g, fold_in(pod_seed, j))
+            deq = dequantize_int8(q, scale)
+            ef_exact &= torch.equal(e, g.float() - deq)
+            ef_worst = max(ef_worst, float(e.abs().max() / scale))
+            n = min(g.numel(), MESH_POD_SAMPLE)
+            scales = pod_mesh.all_gather(scale, "pod")
+            qs = pod_mesh.all_gather(q.reshape(-1)[:n], "pod").to(torch.float32)
+            mean = torch.tensordot(scales, qs, dims=([0], [0])) / pod_mesh.axis_size("pod")
+            true = pod_mesh.all_gather(g.float().reshape(-1)[:n], "pod").mean(0)
+            worst = max(worst, float((mean - true).abs().max() / scales.max()))
+            del q, deq, qs
+        captured.clear()
+        _free(dev)
+    _sync(dev)
+    launches = kernels.launch_counts()  # the checks' exchanges launch no kernel
+    sums = pod_mesh.all_gather(_leaf_checksums(tree_leaves(state.params), dev), "pod")
+    out["pod"] = {"losses": losses, "ef_exact": ef_exact, "ef_worst_over_step": ef_worst,
+                  "worst_err_over_step": worst, "params_same": bool((sums == sums[0]).all()),
+                  "grid": on_grid(dict(enumerate(tree_leaves(state.params)))),
+                  "wall_s": time.monotonic() - t0, "launches": launches,
+                  "peak_gib": _peak_gib(dev)}
+    out["staged_hops"] = mesh.staged_hops + pod_mesh.staged_hops
+    out["wall_s"] = time.monotonic() - t_rank
+    return out
+
+
+def phase_mesh(dev) -> dict:
+    """(8) the mesh, one process per rank over a gloo group, every rank on
+    cuda:0 (the kernels built by the parent; ranks only load them), each
+    spawn with a time limit: the unsharded runs first in this process, then
+    four ranks (8a collectives at 2**26 elements a rank, 8c llama3.2-1b
+    served at data=4, 8d the pipeline) and two ranks (8b llama3.2-1b trained
+    at data=2, then at pod=2 with compress_pod_grads).  Sharded losses and
+    tokens must equal the unsharded run's bit for bit; every rank's counters
+    are zeroed just before each main-path run and read just after."""
+    import math
+
+    import torch
+
+    from repro_torch.api import ServeSession, TrainSession, build_spec
+    from repro_torch.dist import launch
+
+    t_phase = time.monotonic()
+    spec_path = str(ROOT / TRAIN_SPEC_FILE)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the unsharded runs, in this process ---------------------------------------------
+    t0 = time.monotonic()
+    base_train = TrainSession(build_spec("train", spec_file=spec_path,
+                                         sets=list(MESH_TRAIN_SETS)), device=dev).run()
+    torch.cuda.synchronize()
+    base_losses, base_train_s = base_train["losses"], time.monotonic() - t0
+    del base_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_serve = ServeSession(build_spec("serve", sets=list(MESH_SERVE_SETS)), device=dev).run()
+    base_tokens = base_serve["generated"].tolist()
+    base_prefill_s, base_tps = base_serve["prefill_s"], base_serve["tokens_per_s"]
+    del base_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] unsharded: train losses {base_losses} ({base_train_s:.1f} s); serve prefill "
+          f"{base_prefill_s:.3f} s, {base_tps:.1f} tokens/s", flush=True)
+
+    # -- four ranks: collectives, serving, the pipeline ----------------------------------
+    t0 = time.monotonic()
+    four = launch.run(mesh_rank_four, MESH_SERVE_DATA, (MESH_SERVE_SETS,),
+                      timeout_s=MESH_TIMEOUT_S, collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+    four_s = time.monotonic() - t0
+    for rank, r in enumerate(four):
+        for row in r["collectives"]:
+            print(f"[mesh] rank {rank} {row['dtype']} density {row['density']}: collective = "
+                  f"simulation {row['equal']}, mask_pack = plain {row['mask_pack_equal']}, "
+                  f"wire {row['wire_bytes'] / 2**20:.1f} MiB ({row['compression_vs_fp32']:.4f}x "
+                  f"less than fp32), all-gather {row['ms']:.1f} ms", flush=True)
+            if not (row["equal"] and row["mask_pack_equal"] and row.get(
+                    "reduce_scatter_equal", True)):
+                fail(f"mesh phase: rank {rank}'s collective at density {row['density']} "
+                     f"{row['dtype']} disagrees with simulation mode or its plain pack")
+        sv = r["serve"]
+        print(f"[mesh] rank {rank} ({r['backend']}, {r['staged_hops']} hops staged through the "
+              f"host) serve data={MESH_SERVE_DATA}: prefill {sv['prefill_s']:.3f} s, "
+              f"{sv['tokens_per_s']:.1f} tokens/s, wall {sv['wall_s']:.1f} s, tokens equal "
+              f"{sv['generated'] == base_tokens}, launches {sv['launches']}; pipeline "
+              f"{r['pipeline']['ms']:.1f} ms, max_abs_err {r['pipeline']['max_abs_err']:.3g}, "
+              f"bit-equal {r['pipeline']['equal']}; peak {r['peak_gib']:.2f} GiB, "
+              f"wall {r['wall_s']:.1f} s", flush=True)
+        if sv["generated"] != base_tokens or not sv["finite"] or not sv["probe"]["exact"]:
+            fail(f"mesh phase: rank {rank}'s sharded tokens differ from the unsharded run's")
+        for name in MESH_SERVE_KERNELS:
+            if sv["launches"][name] <= 0:
+                fail(f"mesh phase: rank {rank}'s sharded serving never launched {name}")
+        if not r["pipeline"]["within"] or r["pipeline"]["launches"]["masked_matmul"] <= 0:
+            fail(f"mesh phase: rank {rank}'s pipeline disagrees with the stages in sequence")
+
+    # -- two ranks: data=2 training, then the pod link --------------------------------------
+    t0 = time.monotonic()
+    two = launch.run(mesh_rank_two, MESH_TRAIN_DATA, (spec_path, MESH_TRAIN_SETS),
+                     timeout_s=MESH_TIMEOUT_S, collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+    two_s = time.monotonic() - t0
+    for rank, r in enumerate(two):
+        dt, pod = r["data"], r["pod"]
+        print(f"[mesh] rank {rank} ({r['backend']}, {r['staged_hops']} hops staged) train "
+              f"data={MESH_TRAIN_DATA}: losses {dt['losses']} (bit-equal "
+              f"{dt['losses'] == base_losses}), on grid {dt['grid']}, probe exact "
+              f"{dt['probe']['exact']}, wall {dt['wall_s']:.1f} s, peak {dt['peak_gib']:.2f} GiB, "
+              f"launches {dt['launches']}", flush=True)
+        print(f"[mesh] rank {rank} pod=2 compress_pod_grads: losses {pod['losses']}, ef = local - "
+              f"dequant {pod['ef_exact']}, worst |ef| / step {pod['ef_worst_over_step']:.4f}, "
+              f"worst |exchanged - true mean| / step {pod['worst_err_over_step']:.4f} (sample), "
+              f"parameters bit-equal across pods {pod['params_same']}, on grid {pod['grid']}, wall "
+              f"{pod['wall_s']:.1f} s, peak {pod['peak_gib']:.2f} GiB", flush=True)
+        if dt["losses"] != base_losses:
+            fail(f"mesh phase: rank {rank}'s data={MESH_TRAIN_DATA} losses differ from the "
+                 "unsharded run's")
+        if not (dt["grid"] and dt["probe"]["exact"]):
+            fail(f"mesh phase: rank {rank}'s sharded parameters left the grid or the probe "
+                 "was not exact")
+        for name in MESH_TRAIN_KERNELS:
+            if dt["launches"][name] <= 0:
+                fail(f"mesh phase: rank {rank}'s sharded training never launched {name}")
+        if not (all(math.isfinite(v) for v in pod["losses"]) and pod["grid"] and pod["ef_exact"]
+                and pod["params_same"] and max(pod["ef_worst_over_step"], pod["worst_err_over_step"]) <= 1.0 + 1e-5):
+            fail(f"mesh phase: rank {rank}'s compressed pod link broke its contract")
+    wall = time.monotonic() - t_phase
+    print(f"[mesh] four ranks {four_s:.1f} s, two ranks {two_s:.1f} s, phase {wall:.1f} s",
+          flush=True)
+    # every rank's main-path launches: the serve, pipeline, data=2 and pod=2 runs
+    launches = {name: sum(r["serve"]["launches"][name] + r["pipeline"]["launches"][name]
+                          for r in four)
+                + sum(r["data"]["launches"][name] + r["pod"]["launches"][name] for r in two)
+                for name in four[0]["serve"]["launches"]}
+    return {"four": four, "two": two, "base_losses": base_losses, "base_tokens": base_tokens,
+            "base_prefill_s": base_prefill_s, "base_tokens_per_s": base_tps,
+            "launches": launches, "wall_s": wall,
+            "errs": {"masked_matmul": max(r["pipeline"]["max_abs_err"] for r in four)}}
+
+
 def main() -> None:
-    # ``--only 5h``: the build and phase 5h alone (a quick check of that
-    # phase; no kernel line and no result line are printed)
+    # ``--only 5h`` / ``--only 8``: the build and that phase alone (a quick check of
+    # the phase; no kernel line and no result line are printed)
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are not next to this script ({SRC / 'repro_torch'})")
@@ -4668,14 +5101,18 @@ def main() -> None:
           f"(nvcc {cuda.nvcc_path()})", flush=True)
     report["build_s"] = build_s
     tiles = KERNEL_TILES
-    if only == "5h":
-        report["prune_stash"] = phase_prune_stash(dev, report)
+    if only in ("5h", "8"):
+        if only == "5h":
+            report["prune_stash"] = phase_prune_stash(dev, report)
+        else:
+            report["mesh"] = phase_mesh(dev)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "chip_smoke_5h.json").write_text(json.dumps(report, indent=1, default=float))
+        (out_dir / f"chip_smoke_{only}.json").write_text(json.dumps(report, indent=1,
+                                                                    default=float))
         return
     if only is not None:
-        fail(f"--only takes 5h, not {only!r}")
+        fail(f"--only takes 5h or 8, not {only!r}")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -4904,11 +5341,15 @@ def main() -> None:
     # full-width runs leave the earlier phases' memory as they found it)
     report["prune_stash"] = prune_stash = phase_prune_stash(dev, report)
 
+    # -- 8. slice 18: the mesh (ranks on this card, after every one-process phase)
+    report["mesh"] = mesh = phase_mesh(dev)
+
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,
     # train_lm, train_archs, prune_stash, serve_long, serve_mamba2, survive, paged, archs, hybrid, moe,
-    # slice15, the kernel sweep, the paper path's probe), each zeroed just before its run
-    # and read just after (the comparisons above count in none)
+    # slice15, the kernel sweep, the paper path's probe, and the mesh's runs summed over
+    # its ranks), each zeroed just before its run and read just after (the comparisons
+    # above count in none)
     by_path = {name: {"serve": launches[name], "spec": spec_run["launches"][name],
                       "serve_long": serve_long["launches"][name],
                       "serve_mamba2": serve_mamba2["launches"][name],
@@ -4921,7 +5362,8 @@ def main() -> None:
                       "train_archs": train_archs["launches"][name],
                       "prune_stash": prune_stash["launches"].get(name, 0),
                       "sweep": sweep["launches"][name],
-                      "paper": paper["launches"][name]}
+                      "paper": paper["launches"][name],
+                      "mesh": mesh["launches"][name]}
                for name in launches}
     total = {name: sum(v.values()) for name, v in by_path.items()}
 
@@ -4957,7 +5399,7 @@ def main() -> None:
          "source": "src/repro_torch/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"],
-         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"],
+         "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"], mesh["errs"]["masked_matmul"],
                             prune_stash["train_checks"]["forward"],
                             hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"],
                             moe["errs"]["masked_matmul"], s15["errs"]["masked_matmul"]),

@@ -37,6 +37,17 @@ must name what runs on ``device``, and a policy that pins
 ``flash_attention`` is refused on the card, whose kernel has no gradient.
 ``DryrunSession`` keeps the run-mode check; its spec's ``resolve()``
 raises (the dry run has no twin, ROADMAP §1 item 5).
+
+An explicit ``shape.mesh`` (``pod*data*model > 1``) builds its mesh over
+the ranks of the process group (:func:`build_mesh`; one process per
+rank, e.g. under ``torchrun``), and every rank runs the session: with
+``data > 1`` training exchanges its gradients through the packed
+collectives (``dist.train``) and the static serving path shards its
+request rows (``dist.serve``), each adding a ``collective_probe`` to its
+result; the engine runs replicated on every rank.  A named kind alone
+(``shape.mesh=debug``) builds no mesh and runs unsharded, as in the
+reference.  On the card each rank takes its own card where there are
+enough, else they share one (:func:`repro_torch.dist.mesh.rank_device`).
 """
 
 from __future__ import annotations
@@ -84,6 +95,19 @@ class Session:
         return telemetry.scope(cfg, metadata={
             "run": self.spec.run, "spec_hash": self.spec.spec_hash()})
 
+    def _mesh_and_device(self, mesh, device) -> None:
+        """Build the spec's explicit mesh unless the caller passed one, and
+        pick this rank's device (the mesh's card on the card)."""
+        from repro_torch.serving.engine import resolve_device
+
+        device = resolve_device(device)
+        if mesh is None and self.spec.shape.mesh.explicit:
+            mesh = build_mesh(self.spec.shape.mesh, device=device)
+        self.mesh = mesh
+        mesh_dev = getattr(mesh, "device", None)
+        self.device = mesh_dev if mesh_dev is not None and mesh_dev.type == device.type \
+            else device
+
     def _with_payload(self, out: dict) -> dict:
         out.update(self.spec.payload())
         if self.spec.telemetry.enabled:
@@ -114,9 +138,6 @@ class TrainSession(Session):
     def __init__(self, spec: RunSpec, *, params: Optional[dict] = None, device="cuda",
                  mesh=None):
         super().__init__(spec)
-        if mesh is not None:
-            raise SpecError("mesh: the port trains on one device (the mesh waits for the "
-                            "dist/ port, ROADMAP §1 item 4)")
         check_policy(self.resolved.kernel_policy, device)
         check_backward(spec.sparsity.backward, device)
         if torch.device(device).type == "cuda" and self.resolved.step.attention == "flash":
@@ -124,9 +145,7 @@ class TrainSession(Session):
                 f"kernels.policy={self.resolved.kernel_policy.describe()!r} pins "
                 "flash_attention, whose card kernel has no gradient: a train step on "
                 "'cuda' takes the chunked attention (leave flash_attention unpinned)")
-        from repro_torch.serving.engine import resolve_device
-
-        self.device = resolve_device(device)
+        self._mesh_and_device(mesh, device)
         self.params = params
 
     def run(self) -> dict:
@@ -137,6 +156,7 @@ class TrainSession(Session):
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.convert import train_state_from_flat, train_state_to_flat
         from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+        from repro_torch.dist.mesh import is_rank0
         from repro_torch.runtime.resilience import StragglerWatchdog
         from repro_torch.runtime.train import init_train_state, make_train_step
 
@@ -163,8 +183,18 @@ class TrainSession(Session):
                 start_step, flat = restored
                 state = train_state_from_flat(flat, cfg, device=device, like=state)
                 log.info("resumed from step %d", start_step)
+            if not is_rank0():  # a mesh's ranks hold one state: rank 0 writes it
+                manager = None
 
-        step_fn = make_train_step(view, step_cfg)
+        sharded = spec.shape.mesh.data > 1 and self.mesh is not None
+        if sharded:
+            # packed-collective data parallelism: the gradients cross the wire
+            # binary-mask compressed, the losses stay the unsharded run's
+            from repro_torch.dist.train import make_sharded_train_step
+
+            step_fn = make_sharded_train_step(view, step_cfg, self.mesh)
+        else:
+            step_fn = make_train_step(view, step_cfg, mesh=self.mesh)
         watchdog = StragglerWatchdog()
         losses = []
         steps = spec.train.steps
@@ -193,14 +223,21 @@ class TrainSession(Session):
                                            meta)
         if manager is not None:
             manager.maybe_save(steps, lambda: train_state_to_flat(state, cfg), meta, force=True)
-        return self._with_payload({
+        out = {
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
             "losses": losses,
             "slow_steps": sum(1 for e in watchdog.events if e.slow),
             "state": state,
             "mesh": spec.shape.mesh.label(),
-        })
+        }
+        if sharded:
+            # the wire accounting of one packed exchange at the probe density
+            from repro_torch.dist.collectives import collective_probe
+
+            out["collective_probe"] = collective_probe(
+                spec.sparsity.probe_density, world=spec.shape.mesh.data, device=device)
+        return self._with_payload(out)
 
 
 class DryrunSession(Session):
@@ -300,12 +337,10 @@ class ServeSession(Session):
     run_mode = "serve"
 
     def __init__(self, spec: RunSpec, *, params: Optional[dict] = None,
-                 prune_ratio: float = 0.0, device="cuda"):
+                 prune_ratio: float = 0.0, device="cuda", mesh=None):
         super().__init__(spec)
         check_policy(self.resolved.kernel_policy, device)
-        from repro_torch.serving.engine import resolve_device
-
-        self.device = resolve_device(device)
+        self._mesh_and_device(mesh, device)
         self.params = params
         # magnitude pruning of the dense projections (the reference's
         # step_cfg.prune_ratio, which no spec field sets)
@@ -343,8 +378,23 @@ class ServeSession(Session):
             r.arch, cfg, batch, prompt_len, threefry.prng_key(seed)).items()}
         tokens = inputs["tokens"].to(torch.int64)
         int8 = spec.serving.int8_cache
-        prefill = make_prefill_step(cfg, r.spring, int8, self.prune_ratio)
-        decode = make_decode_step(cfg, r.spring, int8, self.prune_ratio)
+        sharded = spec.shape.mesh.data > 1 and self.mesh is not None and not encdec
+        if sharded and batch % spec.shape.mesh.data:
+            # indivisible request batch: replicate instead of sharding, and
+            # say so through the fallback counter the logical rules use
+            from repro_torch.runtime.sharding import note_mesh_fallback
+
+            note_mesh_fallback("serve_batch")
+            sharded = False
+        if sharded:
+            # rows sharded over the data axis, logits packed on the wire
+            from repro_torch.dist.serve import make_sharded_decode_step, make_sharded_prefill_step
+
+            prefill = make_sharded_prefill_step(cfg, r.spring, self.mesh, int8, self.prune_ratio)
+            decode = make_sharded_decode_step(cfg, r.spring, self.mesh, int8, self.prune_ratio)
+        else:
+            prefill = make_prefill_step(cfg, r.spring, int8, self.prune_ratio)
+            decode = make_decode_step(cfg, r.spring, int8, self.prune_ratio)
 
         t0 = time.monotonic()
         if encdec:
@@ -374,7 +424,7 @@ class ServeSession(Session):
         _sync(self.device)
         t_decode = time.monotonic() - t0
 
-        return {
+        out = {
             "generated": torch.stack(tokens_out, dim=1).cpu().numpy().astype(np.int32),
             "prefill_s": t_prefill,
             "decode_s": t_decode,
@@ -383,6 +433,12 @@ class ServeSession(Session):
             "engine": False,
             "mesh": spec.shape.mesh.label(),
         }
+        if sharded:
+            from repro_torch.dist.collectives import collective_probe
+
+            out["collective_probe"] = collective_probe(
+                spec.sparsity.probe_density, world=spec.shape.mesh.data, device=self.device)
+        return out
 
     def _engine(self) -> dict:
         from repro_torch.serving.engine import ServingEngine
@@ -397,7 +453,8 @@ class ServeSession(Session):
         seed = spec.seeds.seed
 
         engine = ServingEngine.from_spec(spec, params=self.params, resolved=r,
-                                         prune_ratio=self.prune_ratio, device=self.device)
+                                         prune_ratio=self.prune_ratio, device=self.device,
+                                         mesh=self.mesh)
         if spec.serving.restore_path:
             # spring-survive resume: drain a saved snapshot's in-flight work
             # instead of submitting fresh requests
@@ -419,6 +476,19 @@ class ServeSession(Session):
         out["slots"] = engine.n_slots
         out["mode"] = spec.numerics.mode
         return out
+
+
+def build_mesh(mesh, device="cpu"):
+    """The mesh of a ``MeshSpec``: explicit axis extents build a ``(pod,
+    data, model)`` mesh over the process group's ranks
+    (:func:`repro_torch.dist.mesh.make_explicit_mesh`); a named kind alone
+    builds none (None), as the reference's sessions build none for it (its
+    named meshes serve the dry run, which has no twin)."""
+    if isinstance(mesh, str) or not mesh.explicit:
+        return None
+    from repro_torch.dist.mesh import make_explicit_mesh
+
+    return make_explicit_mesh(mesh.pod, mesh.data, mesh.model, device=device)
 
 
 SESSION_TYPES = {

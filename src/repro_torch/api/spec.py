@@ -616,12 +616,6 @@ class RunSpec:
         """One message per field of this serve or train spec that the port
         cannot honour, each naming the field."""
         out = []
-        mesh = self.shape.mesh
-        if mesh.explicit or mesh.kind != "single":
-            out.append(
-                f"shape.mesh: {mesh.label()!r} is not supported: the port "
-                f"{self.run}s on one device (the mesh waits for the dist/ port, "
-                "ROADMAP §1 item 4)")
         if self.run == "train":
             return out + self._train_unsupported()
         if self.numerics.weights_pre_quantized:

@@ -76,22 +76,23 @@ def _like(tree, like):
     return tree
 
 
-def train_state_from_jax(params, opt_state, step, rng, cfg, *, device="cpu", like=None):
+def train_state_from_jax(params, opt_state, step, rng, cfg, *, device="cpu", like=None,
+                         ef=None):
     """The reference's LM train state (numpy or array-like leaves) as the
     port's :class:`~repro_torch.runtime.train.TrainState` on ``device``:
-    ``params`` and the moments ``opt_state.m`` / ``.v`` in the ``lm_init``
-    layout through :func:`params_from_jax`, ``opt_state.step`` and ``step``
-    as ints, and the seed from ``rng`` = ``PRNGKey(seed)`` (``[0, seed]``).
-    ``like`` (a state or parameter tree of the port's) gives the dicts'
-    key order."""
+    ``params``, the moments ``opt_state.m`` / ``.v`` and the error-feedback
+    buffers ``ef`` (if any) in the ``lm_init`` layout through
+    :func:`params_from_jax`, ``opt_state.step`` and ``step`` as ints, and
+    the seed from ``rng`` = ``PRNGKey(seed)`` (``[0, seed]``).  ``like`` (a
+    state or parameter tree of the port's) gives the dicts' key order."""
     from repro_torch.optim.optimizers import OptState
     from repro_torch.runtime.train import TrainState
 
     like_p = getattr(like, "params", like)
-    tree = [_like(params_from_jax(t, cfg, device=device), like_p)
-            for t in (params, opt_state.m, opt_state.v)]
+    tree = [None if t is None else _like(params_from_jax(t, cfg, device=device), like_p)
+            for t in (params, opt_state.m, opt_state.v, ef)]
     return TrainState(tree[0], OptState(int(np.asarray(opt_state.step)), tree[1], tree[2]),
-                      int(np.asarray(step)), int(np.asarray(rng)[1]))
+                      int(np.asarray(step)), int(np.asarray(rng)[1]), tree[3])
 
 
 def _nest(flat: dict, prefix: str) -> dict:
@@ -110,12 +111,13 @@ def _nest(flat: dict, prefix: str) -> dict:
 def train_state_from_flat(flat: dict, cfg, *, device="cpu", like=None):
     """A checkpoint's ``{name: array}`` (the reference's names:
     ``0/<param path>``, ``1/.step``, ``1/.m/...``, ``1/.v/...``, ``2``,
-    ``3``) as the port's train state, through :func:`train_state_from_jax`."""
+    ``3`` and the error-feedback buffers ``4/...`` where there are any) as
+    the port's train state, through :func:`train_state_from_jax`."""
     from repro_torch.optim.optimizers import OptState
 
     opt = OptState(flat["1/.step"], _nest(flat, "1/.m"), _nest(flat, "1/.v"))
     return train_state_from_jax(_nest(flat, "0"), opt, flat["2"], flat["3"], cfg,
-                                device=device, like=like)
+                                device=device, like=like, ef=_nest(flat, "4") or None)
 
 
 def _jax_layout(params: dict, cfg) -> dict:
@@ -150,4 +152,5 @@ def train_state_to_flat(state, cfg) -> dict:
     opt = state.opt_state
     return {**host(state.params, "0"), "1/.step": np.asarray(opt.step, np.int32),
             **host(opt.m, "1/.m"), **host(opt.v, "1/.v"),
-            "2": np.asarray(state.step, np.int32), "3": prng_key(state.seed)}
+            "2": np.asarray(state.step, np.int32), "3": prng_key(state.seed),
+            **(host(state.ef, "4") if state.ef is not None else {})}

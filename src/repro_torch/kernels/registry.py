@@ -21,8 +21,10 @@ so a RunSpec's ``kernels.policy`` parses the same in both packages; it
 selects nothing here, and the serving session checks it against the
 device instead (``api/sessions.py``).  ``mask_unpack`` and ``kv_unpack``, whose TPU
 registrations aliased the plain lowering, have a plain version only.
-The reference's ``packed_all_gather`` / ``packed_reduce_scatter`` wait
-for the ``dist/`` port.
+``packed_all_gather`` / ``packed_reduce_scatter`` (``dist/collectives.py``)
+are listed in simulation mode: on a card tensor their pack takes its mask
+words from the ``mask_pack`` kernel, their plain versions from the plain
+word pack; the oracle is the dense collective.
 
 Eager instrumentation: inside :func:`record_kernel_metrics`, or inside
 an active telemetry scope, the instrumented wrappers (``masked_matmul``,
@@ -364,6 +366,7 @@ _BWD_COMPARE = {"kind": "rel", "tol": 1e-5}
 @functools.cache
 def _table() -> dict[str, OpSpec]:
     # imported here: the wrappers import this module for note_metric
+    from repro_torch.dist import collectives as coll
     from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
     from repro_torch.kernels.kv_cache import ops as kv
     from repro_torch.kernels.mask_compress import ops as mc
@@ -391,6 +394,10 @@ def _table() -> dict[str, OpSpec]:
                {"kind": "allclose", "atol": 2e-5, "rtol": 0.0}),
         OpSpec("ssd_scan", ssd_scan, ssd_scan_chunked, _ssd_examples,
                {"kind": "rel", "tol": 1e-4}, ssd_scan_reference),
+        OpSpec("packed_all_gather", coll.all_gather_device, coll.all_gather_plain,
+               coll.collective_examples, _EXACT, coll.dense_all_gather),
+        OpSpec("packed_reduce_scatter", coll.reduce_scatter_device, coll.reduce_scatter_plain,
+               coll.collective_examples, _EXACT, coll.dense_reduce_scatter),
     ]
     return {s.name: s for s in specs}
 

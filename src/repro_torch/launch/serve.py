@@ -12,6 +12,8 @@
   python -m repro_torch.launch.serve --set serving.restore_path=s.npz   # drain it
   python -m repro_torch.launch.serve --set telemetry.enabled=true \\
       --set telemetry.trace_path=t.json
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --set shape.mesh.data=4 \\
+      --set serving.static=true --device cpu      # request rows over 4 ranks
 
 The session lives in :class:`repro_torch.api.ServeSession`; the static
 batch loop survives behind ``serving.static=true``.  Legacy flag
@@ -25,7 +27,9 @@ what runs there (``auto`` or ``pallas`` on the card, ``auto``, ``ref`` or
 are random, made from ``seeds.seed``, and the prompts are the
 reference's.  Snapshots are stamped with ``RunSpec.state_hash()``, so a
 snapshot written by either package's launcher restores in the other's
-under the same spec.
+under the same spec.  With an explicit ``shape.mesh`` every rank (one
+process each, under ``torchrun``) runs the session and rank 0 alone
+prints the result.
 
 Serving numerics: quantized modes round to nearest, so a request's tokens
 are a function of the request alone, not of its batch co-tenants.
@@ -43,6 +47,7 @@ from repro_torch.api.cli import flag, make_parser, run_main
 from repro_torch.api.sessions import ServeSession, serve_spec
 from repro_torch.api.spec import NumericsSection, RunSpec, SpecError
 from repro_torch.core.spring_ops import MODES, SpringConfig
+from repro_torch.dist.mesh import is_rank0
 
 LEGACY_FLAGS = (
     flag("--arch", "arch.id"),
@@ -96,12 +101,11 @@ def static_reference_session(
 ) -> dict:
     """The pre-engine static path: one fixed batch, prefill once, decode
     ``gen`` steps, throw the cache away (the engine's parity oracle)."""
-    _single_device(mesh)
     spec = serve_spec(arch_id, reduced=reduced, batch=batch,
                       prompt_len=prompt_len, gen=gen, mode=mode,
                       kernel_impl=kernel_impl, greedy=greedy, seed=seed,
                       static=True)
-    return ServeSession(spec, device=device).run()
+    return ServeSession(spec, device=device, mesh=mesh).run()
 
 
 def serve_session(
@@ -129,20 +133,13 @@ def serve_session(
     (default ``batch``) over a pool of ``slots`` slots (default ``batch``)
     and drain.  ``pages=True`` serves on the paged COW pool.  Returns the
     engine summary plus the canonical resolved spec."""
-    _single_device(mesh)
     spec = serve_spec(arch_id, reduced=reduced, batch=batch,
                       prompt_len=prompt_len, gen=gen, mode=mode,
                       kernel_impl=kernel_impl, greedy=greedy, seed=seed,
                       slots=slots, queue=queue, pages=pages,
                       page_tokens=page_tokens, num_pages=num_pages,
                       overcommit=overcommit, prefix_cache=prefix_cache)
-    return ServeSession(spec, device=device).run()
-
-
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise SpecError("mesh: the port serves on one device (the mesh waits "
-                        "for the dist/ port, ROADMAP §1 item 4)")
+    return ServeSession(spec, device=device, mesh=mesh).run()
 
 
 #: This adapter's historical defaults (the old argparse had --batch
@@ -167,6 +164,8 @@ def main(argv=None) -> dict:
     except SpecError as e:
         raise SystemExit(f"error: {e}") from None
     out = session.run()
+    if not is_rank0():  # every rank of a mesh serves; rank 0 reports
+        return out
     print(f"prefill {out['prefill_s']*1e3:.1f}ms, decode {out['decode_s']*1e3:.1f}ms "
           f"({out['tokens_per_s']:.1f} tok/s), finite={out['finite']}")
     if out.get("engine"):

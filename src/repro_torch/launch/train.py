@@ -8,6 +8,8 @@ LM training from a spec, as in the reference:
   python -m repro_torch.launch.train --spec examples/specs/train_quant_sparse.json \
       --set arch.reduced=false --set train.steps=6 --set train.ckpt_dir=   # GPU, full width
   python -m repro_torch.launch.train --set train.steps=300 --set shape.seq=128
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --set shape.mesh.data=2 \
+      --set train.ckpt_dir=                                 # one rank per process
 
 The session is :class:`repro_torch.api.TrainSession`; the legacy flags
 (``--arch``, ``--steps``, ``--stash``, ``--kernel-impl``, ...) shim to the
@@ -18,7 +20,9 @@ slow=k) [spec h]``.  ``--device`` (default ``cuda``) configures nothing
 numerical: without a card it raises, ``--device cpu`` runs the plain
 versions.  Weights are random, made from ``seeds.seed``; the tokens are
 the reference's.  :func:`train_loop` keeps the reference's keyword
-signature (plus ``device``).
+signature (plus ``device``).  With an explicit ``shape.mesh`` every rank
+(one process each, under ``torchrun``) runs the session and rank 0 alone
+prints the result.
 
 The CNN runner, chosen by ``--cnn`` or ``--arms``:
 
@@ -51,6 +55,7 @@ from repro_torch.api.spec import SpecError
 from repro_torch.core.fixedpoint import SPRING_FORMAT
 from repro_torch.core.spring_ops import DENSE, MODES, QUANT, SpringConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticImageTask
+from repro_torch.dist.mesh import is_rank0
 from repro_torch.kernels.masked_matmul.ops import record_tile_skip
 from repro_torch.memstash.config import STASH_POLICIES, MemstashConfig
 from repro_torch.memstash.instrument import record_stash_traffic, summarize
@@ -254,6 +259,8 @@ def main(argv=None) -> dict:
     except SpecError as e:
         raise SystemExit(f"error: {e}") from None
     out = session.run()
+    if not is_rank0():  # every rank of a mesh trains; rank 0 reports
+        return out
     print(f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f} "
           f"({spec.train.steps} steps, slow={out['slow_steps']}) "
           f"[spec {out['spec_hash']}]")

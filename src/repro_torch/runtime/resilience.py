@@ -5,7 +5,10 @@
 threshold; slow steps are logged and counted, and a configurable
 escalation (abort-and-restart from a snapshot) triggers after K
 consecutive slow steps.  The serving engine times every tick with it.
-The reference's ``ElasticMeshPolicy`` waits for the mesh port.
+
+``ElasticMeshPolicy`` — picks the ``(pod, data, model)`` mesh for the
+ranks available after a restart: the model axis is kept where the ranks
+can host it, the data axis shrinks to what divides the rest.
 """
 
 from __future__ import annotations
@@ -77,3 +80,38 @@ class StragglerWatchdog:
         ev = WatchdogEvent(step, dt, self.ewma, slow)
         self.events.append(ev)
         return ev
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshChoice:
+    shape: tuple
+    axes: tuple
+
+
+class ElasticMeshPolicy:
+    """Pick the best (pod, data, model) mesh for the devices available.
+
+    Keeps the model axis fixed (TP degree is a property of the model
+    layout) and scales the data axis down to the largest divisor — a
+    restart after losing a slice continues with a smaller global batch
+    rather than dying (grad accumulation can restore the batch size).
+    """
+
+    def __init__(self, model_parallel: int = 16, prefer_pods: int = 2):
+        self.model_parallel = model_parallel
+        self.prefer_pods = prefer_pods
+
+    def choose(self, n_devices: int) -> MeshChoice:
+        m = self.model_parallel
+        if n_devices % m != 0:
+            # degrade TP if the devices cannot host it
+            while m > 1 and n_devices % m != 0:
+                m //= 2
+        rest = n_devices // m
+        for pods in range(min(self.prefer_pods, rest), 0, -1):
+            if rest % pods == 0:
+                data = rest // pods
+                if pods > 1:
+                    return MeshChoice((pods, data, m), ("pod", "data", "model"))
+                return MeshChoice((data, m), ("data", "model"))
+        return MeshChoice((rest, m), ("data", "model"))

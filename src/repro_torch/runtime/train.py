@@ -14,9 +14,14 @@ in place, as the reference's donated state is; the CNN step is
 functional.  The seeds are the
 port's 32-bit integers, folded by :func:`repro_torch.kernels.prng.fold_in`
 (the reference's threefry keys are not reproduced; its SR draws are held
-statistically).  The reference's compressed inter-pod gradient exchange
-(``compress_pod_grads``), ``grad_sync`` and meshes need the ``dist/``
-port (ROADMAP §1 item 4): :func:`make_train_step` refuses them by name.
+statistically).
+
+On a mesh (:mod:`repro_torch.dist.mesh`) every rank runs the step:
+``grad_sync`` (grads tree -> grads tree) runs between the backward pass
+and the optimizer, the seam where ``dist.train`` splices its packed
+gradient exchange; ``compress_pod_grads`` gives each pod its
+``batch / pod`` rows and averages the pods' gradients over the ``pod``
+axis as int8 with error feedback (``state.ef``).
 """
 
 from __future__ import annotations
@@ -35,9 +40,13 @@ from repro_torch.models.cnn import ParamStore
 from repro_torch.models.layers import SpringContext
 from repro_torch.optim.optimizers import (OptimizerConfig, OptState, make_optimizer,
                                           tree_leaves, tree_map, update_in_place)
+from repro_torch.runtime.compression import compressed_allreduce_tree
+from repro_torch.runtime.sharding import sharding_context
 
 #: the optimizer's seed is folded from the step key with this constant
 OPT_SEED_FOLD = 0x5EED
+#: and the compressed pod exchange's with this one
+POD_SEED_FOLD = 0xC0DE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +58,7 @@ class StepConfig:
     # (SpringContext.maybe_prune); CNN convs and fcs are not pruned
     prune_ratio: float = 0.0
     optimizer: OptimizerConfig = OptimizerConfig()
-    # the reference's int8 + error-feedback inter-pod reduction: refused
+    # int8 + error-feedback gradient reduction across the 'pod' mesh axis
     compress_pod_grads: bool = False
     microbatch: Optional[int] = None  # gradient accumulation splits
     memstash: MemstashConfig = MemstashConfig()
@@ -64,6 +73,9 @@ class TrainState:
     opt_state: OptState
     step: int
     seed: int
+    #: error-feedback buffers of the compressed pod exchange (fp32, shaped
+    #: like ``params``), or None
+    ef: Optional[dict] = None
 
 
 #: the reference's backward impl names: a pin of one is "auto" here (the
@@ -94,7 +106,9 @@ def init_train_state(model, step_cfg: StepConfig, seed: int = 0, *, reduced: boo
         init = ed_mod.encdec_init if model.is_encdec else lm_mod.lm_init
         params = init(model.reduced() if reduced else model.config, seed, device=device)
     opt_init, _ = make_optimizer(step_cfg.optimizer)
-    return TrainState(params, opt_init(params), 0, int(seed))
+    ef = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+          if step_cfg.compress_pod_grads else None)
+    return TrainState(params, opt_init(params), 0, int(seed), ef)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -125,13 +139,16 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
     grad_norm, lr.  The step donates ``state``, as the reference's jitted
     step does: the optimizer writes the new parameters and moments into its
     tensors (``optim.update_in_place``), so the returned state holds them
-    and a full-width model's update needs no second copy of its state."""
-    refused = [name for name, on in (("mesh", mesh is not None),
-                                     ("grad_sync", grad_sync is not None),
-                                     ("compress_pod_grads", step_cfg.compress_pod_grads)) if on]
-    if refused:
-        raise NotImplementedError(f"{', '.join(refused)}: the mesh and its gradient exchange "
-                                  "wait for the dist/ port (ROADMAP §1 item 4)")
+    and a full-width model's update needs no second copy of its state.
+
+    ``grad_sync`` runs between the backward pass and the optimizer.  With
+    ``step_cfg.compress_pod_grads`` the ``mesh`` must have a ``pod`` axis:
+    pod rank r takes rows ``[r*B/P, (r+1)*B/P)`` of every batch leaf, and
+    the pods' gradients are averaged over ``pod`` as int8 with error
+    feedback under seed ``fold_in(key, 0xC0DE)``, the new buffers returned
+    in the state's ``ef``."""
+    if step_cfg.compress_pod_grads:
+        assert mesh is not None and "pod" in mesh.shape, "pod axis required for compressed grads"
     cfg = arch.reduced() if reduced else arch.config
     spring = _spring_for(step_cfg)
 
@@ -165,10 +182,23 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
 
     def step(state: TrainState, batch: dict):
         key = fold_in(state.seed, state.step)
-        loss, metrics, grads = grads_and_loss(state.params, batch, key)
-        new_p, new_opt, om = update_in_place(step_cfg.optimizer, grads, state.opt_state,
-                                             state.params, fold_in(key, OPT_SEED_FOLD))
-        return (TrainState(new_p, new_opt, state.step + 1, state.seed),
+        ef = state.ef
+        with sharding_context(mesh):
+            if step_cfg.compress_pod_grads:
+                # this pod's rows: per-pod gradients differ, and the int8 + EF
+                # exchange averages them across pods
+                pods, r = mesh.shape["pod"], mesh.axis_index("pod")
+                batch = {k: v[r * (v.shape[0] // pods):(r + 1) * (v.shape[0] // pods)]
+                         for k, v in batch.items()}
+            loss, metrics, grads = grads_and_loss(state.params, batch, key)
+            if grad_sync is not None:
+                grads = grad_sync(grads)
+            if step_cfg.compress_pod_grads:
+                grads, ef = compressed_allreduce_tree(grads, "pod", fold_in(key, POD_SEED_FOLD),
+                                                      state.ef)
+            new_p, new_opt, om = update_in_place(step_cfg.optimizer, grads, state.opt_state,
+                                                 state.params, fold_in(key, OPT_SEED_FOLD))
+        return (TrainState(new_p, new_opt, state.step + 1, state.seed, ef),
                 dict(metrics, loss=loss, **om))
 
     return step

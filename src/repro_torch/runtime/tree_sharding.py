@@ -1,0 +1,113 @@
+"""Logical sharding axes for whole trees (parameters, optimizer state,
+caches) from leaf path names (port of ``repro/runtime/tree_sharding.py``).
+
+A path is the sequence of dict keys and list indices from the root to a
+leaf.  The port's parameter tree keeps one dict per layer in a
+``layers`` list where the reference stacks each unit position's layers
+along a leading axis, and its caches stack the unit repeats in front as
+the reference's do; the rules read only the leaf's and its parent's names
+and pad leading dims with ``None``, so a leaf gets the reference's axes
+for its trailing dims either way.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.runtime.sharding import logical_to_spec
+
+# (parent, leaf) -> logical axes for the trailing dims.  Leading unit-stack
+# dims are padded with None automatically.
+_KERNEL_RULES: dict[str, tuple] = {
+    "wq": ("w_embed", "w_qkv"),
+    "wk": ("w_embed", "w_qkv"),
+    "wv": ("w_embed", "w_qkv"),
+    "wo": ("w_qkv", "w_embed"),
+    "wdkv": ("w_embed", None),
+    "wkr": ("w_embed", None),
+    "wuk": (None, "w_qkv"),
+    "wuv": (None, "w_qkv"),
+    "gate": ("w_embed", "w_mlp"),
+    "up": ("w_embed", "w_mlp"),
+    "down": ("w_mlp", "w_embed"),
+    "fc1": ("w_embed", "w_mlp"),
+    "fc2": ("w_mlp", "w_embed"),
+    "in_proj": ("w_embed", "w_mlp"),
+    "out_proj": ("w_mlp", "w_embed"),
+    "wx": ("w_embed", "w_mlp"),
+    "wy": ("w_embed", "w_mlp"),
+    "w_r": (None, "w_mlp"),
+    "w_i": (None, "w_mlp"),
+    "router": ("w_embed", None),
+    "lm_head": ("w_embed", "w_vocab"),
+    "enc_in": ("w_embed", None),
+}
+
+_LEAF_RULES: dict[str, tuple] = {
+    "embedding": ("w_vocab", "w_embed"),
+    # experts: EP over model on dim0 + FSDP over data on the d_model dim
+    "w_gate": ("w_experts", "w_embed", None),
+    "w_up": ("w_experts", "w_embed", None),
+    "w_down": ("w_experts", None, "w_embed"),
+    # caches
+    "k": ("cache_batch", "cache_seq", "cache_heads", "head_dim"),
+    "v": ("cache_batch", "cache_seq", "cache_heads", "head_dim"),
+    "k_ring": ("cache_batch", "cache_seq", "cache_heads", "head_dim"),
+    "v_ring": ("cache_batch", "cache_seq", "cache_heads", "head_dim"),
+    "k_q8": ("cache_batch", "cache_seq", "cache_heads", "head_dim"),
+    "v_q8": ("cache_batch", "cache_seq", "cache_heads", "head_dim"),
+    "k_sc": ("cache_batch", "cache_seq", "cache_heads"),
+    "v_sc": ("cache_batch", "cache_seq", "cache_heads"),
+    "ckv": ("cache_batch", "cache_seq", None),
+    "krope": ("cache_batch", "cache_seq", None),
+    "conv": ("cache_batch", None, "mlp_act"),
+    "ssm": ("cache_batch", "heads", None, None),
+    "h": ("cache_batch", "mlp_act"),
+}
+
+
+def logical_axes_for_path(path, shape) -> tuple:
+    """Logical axes of the leaf at ``path`` (its keys and indices) with
+    ``shape``."""
+    names = [str(p) for p in path]
+    leaf = names[-1] if names else ""
+    parent = names[-2] if len(names) >= 2 else ""
+    axes: Optional[tuple] = None
+    if leaf == "kernel" and parent in _KERNEL_RULES:
+        axes = _KERNEL_RULES[parent]
+    elif leaf in _LEAF_RULES:
+        axes = _LEAF_RULES[leaf]
+    elif leaf == "bias":
+        axes = (None,)
+    if axes is None:
+        axes = (None,) * len(shape)
+    # pad for unit-stacked leading dims
+    if len(axes) < len(shape):
+        axes = (None,) * (len(shape) - len(axes)) + tuple(axes)
+    elif len(axes) > len(shape):
+        axes = tuple(axes[-len(shape):])
+    return tuple(axes)
+
+
+def map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over every leaf of a tree of dicts, lists and
+    tuples (``None`` holes stay ``None``)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def tree_shardings(tree, mesh):
+    """The spec tree of a parameter / state / cache tree on ``mesh``."""
+    return map_with_path(lambda path, leaf: logical_to_spec(
+        logical_axes_for_path(path, leaf.shape), leaf.shape, mesh), tree)
+
+
+def batch_shardings(batch, mesh):
+    """Input batches shard over ('pod','data') on axis 0."""
+    return map_with_path(lambda path, leaf: logical_to_spec(
+        ("batch",) + (None,) * (len(leaf.shape) - 1), leaf.shape, mesh), batch)

@@ -71,7 +71,9 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
+from repro_torch.dist.mesh import is_rank0
 from repro_torch.runtime.resilience import StragglerWatchdog
+from repro_torch.runtime.sharding import sharding_context
 from repro_torch.serving import kvpool
 from repro_torch.serving.request import Request, RequestResult
 from repro_torch.serving.scheduler import ShedPolicy, SlotScheduler
@@ -175,7 +177,8 @@ class ServingEngine:
     """
 
     @classmethod
-    def from_spec(cls, spec, *, params=None, resolved=None, prune_ratio=0.0, device="cuda"):
+    def from_spec(cls, spec, *, params=None, resolved=None, prune_ratio=0.0, device="cuda",
+                  mesh=None):
         """Build an engine from a ``run="serve"`` RunSpec: the slot pool,
         pool length, sampling mode and numerics come from the spec, the
         snapshot stamp is ``spec.state_hash()`` and ``serving.pages``
@@ -195,7 +198,7 @@ class ServingEngine:
             snapshot_every=s.snapshot_every,
             snapshot_path=s.snapshot_path or (
                 "spring_snapshot.npz" if s.snapshot_every else ""),
-            kernel_policy=r.kernel_policy, prune_ratio=prune_ratio, device=device)
+            kernel_policy=r.kernel_policy, prune_ratio=prune_ratio, device=device, mesh=mesh)
         if s.pages and cls is ServingEngine:
             from repro_torch.serving.paging import PagedServingEngine
 
@@ -214,8 +217,11 @@ class ServingEngine:
                  spec_hash: Optional[str] = None, shed: Optional[ShedPolicy] = None,
                  snapshot_every: int = 0, snapshot_path: str = "",
                  watchdog: Optional[StragglerWatchdog] = None,
-                 kernel_policy=None, prune_ratio: float = 0.0, device="cuda"):
+                 kernel_policy=None, prune_ratio: float = 0.0, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        # the reference's engine only installs a sharding context with its
+        # mesh: every rank of a mesh runs the whole engine, replicated
+        self.mesh = mesh
         cfg.check_supported()
         # what the pool's pack and unpack dispatch to; a snapshot restores
         # only where they are the same, as the reference's records its impls
@@ -634,12 +640,16 @@ class ServingEngine:
     def run(self) -> dict:
         """Drain the queue; returns :meth:`summary`.  With
         ``snapshot_every`` set, a restartable snapshot lands on disk every
-        N ticks (crash recovery: ``restore_file`` + ``run`` again)."""
-        while self.sched.has_work():
-            self.step()
-            self.sched.check_invariants()
-            if self.snapshot_every > 0 and self.tick % self.snapshot_every == 0:
-                self.save_snapshot()
+        N ticks (crash recovery: ``restore_file`` + ``run`` again).  The
+        ranks of a mesh each run this same engine, so rank 0 alone writes
+        the file: concurrent writers would truncate each other's."""
+        every = self.snapshot_every if is_rank0() else 0
+        with sharding_context(self.mesh):
+            while self.sched.has_work():
+                self.step()
+                self.sched.check_invariants()
+                if every > 0 and self.tick % every == 0:
+                    self.save_snapshot()
         return self.summary()
 
     # -- metrics ------------------------------------------------------------

@@ -1156,3 +1156,28 @@ def test_apply_pruning_past_2_24_elements_on_the_card_matches_the_cpu(card):
         want = apply_pruning({"w": w}, step, sched)["w"]
         assert torch.equal(got.cpu(), want)
     assert torch.equal(quantile_f32(w.to(card).abs(), 0.3).cpu(), quantile_f32(w.abs(), 0.3))
+
+
+def test_two_gloo_ranks_on_one_card_train_as_the_unsharded_step(card, tmp_path):
+    """Phase 8's layout: two gloo ranks sharing cuda:0 (card tensors staged
+    through the host at each hop) train the reduced llama3.2-1b at
+    shape.mesh.data=2 (quant_sparse, nearest); every rank's losses and
+    parameters are the unsharded run's bits, and the packed exchange took
+    its mask words from the mask_pack kernel."""
+    import _torch_mesh_ranks as R
+    from repro_torch.api.sessions import TrainSession
+    from repro_torch.api.spec import build_spec
+    from repro_torch.dist import launch
+    from repro_torch.kernels import cuda
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cuda.build()  # the ranks only load the libraries
+    ranks = launch.run(R.card_train, 2, timeout_s=300, store_dir=str(tmp_path))
+    want = TrainSession(build_spec("train", sets=R.TRAIN_SETS, use_env=False), device=card).run()
+    params = torch.cat([p.reshape(-1) for p in tree_leaves(want["state"].params)]).cpu()
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["staged_hops"] > 0, (r["backend"], r["staged_hops"])
+        assert r["losses"] == want["losses"], (r["losses"], want["losses"])
+        diff = (r["params"] != params).nonzero()
+        assert diff.numel() == 0, (diff[:8].tolist(), int(diff.numel()))
+        assert r["launches"]["mask_pack"] > 0 and r["launches"]["masked_matmul"] > 0, r["launches"]

@@ -366,11 +366,24 @@ def test_optimizer_update_matches_the_reference(kind, warmup, step):
 
 
 def test_train_step_refuses_the_mesh_and_its_exchange():
+    """The mesh's seams are taken (``dist/`` is ported): ``grad_sync`` runs
+    once a step between the backward pass and the optimizer, on the
+    gradient tree; ``compress_pod_grads`` is refused, as the reference
+    refuses it, without a mesh that has a pod axis."""
     view = tget_arch(ARCH).view(reduced=True)
-    with pytest.raises(NotImplementedError, match="grad_sync"):
-        ttrain.make_train_step(view, ttrain.StepConfig(), grad_sync=lambda g: g)
-    with pytest.raises(NotImplementedError, match="compress_pod_grads"):
+    with pytest.raises(AssertionError, match="pod axis"):
         ttrain.make_train_step(view, ttrain.StepConfig(compress_pod_grads=True))
+    seen = []
+
+    def grad_sync(grads):
+        seen.append(len(tree_leaves(grads)))
+        return grads
+
+    state = ttrain.init_train_state(view, ttrain.StepConfig(), 0, device="cpu")
+    step = ttrain.make_train_step(view, ttrain.StepConfig(), grad_sync=grad_sync)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, view.config.vocab, (2, 9)))
+    state, _ = step(state, {"tokens": tokens})
+    assert seen == [len(tree_leaves(state.params))] and state.ef is None
 
 
 def test_sr_fixed_point_step_keeps_every_parameter_on_the_grid():

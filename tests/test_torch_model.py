@@ -253,7 +253,12 @@ def test_port_imports_neither_jax_nor_reference():
         "       'repro_torch.serving.paging.allocator', 'repro_torch.serving.paging.admission',\n"
         "       'repro_torch.serving.paging.scheduler', 'repro_torch.api',\n"
         "       'repro_torch.api.spec', 'repro_torch.api.sessions', 'repro_torch.api.cli',\n"
-        "       'repro_torch.api.validate', 'repro_torch.api.threefry'}\n"
+        "       'repro_torch.api.validate', 'repro_torch.api.threefry',\n"
+        "       'repro_torch.dist', 'repro_torch.dist.mesh', 'repro_torch.dist.launch',\n"
+        "       'repro_torch.dist.collectives', 'repro_torch.dist.train',\n"
+        "       'repro_torch.dist.serve', 'repro_torch.runtime.sharding',\n"
+        "       'repro_torch.runtime.tree_sharding', 'repro_torch.runtime.pipeline',\n"
+        "       'repro_torch.runtime.compression'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)\n")
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")

@@ -142,7 +142,12 @@ def test_measured_bridges_read_the_port_s_recorded_rows():
         bwd.backward_tile_skip(g, w.T) + bwd.backward_tile_skip(x.T, g)) / 2
     assert tsm.measured_kv_density(rows) == pytest.approx(0.3)
     assert tsm.measured_kv_wire_bytes(rows) == (300 * 20 + 32 * 32) / 8
-    assert tsm.measured_collective_wire_bytes(rows) is None  # no dist/ port yet
+    assert tsm.measured_collective_wire_bytes(rows) is None  # no collective ran
+    from repro_torch.dist.collectives import collective_probe
+
+    with registry.record_kernel_metrics() as rows:
+        probe = collective_probe(0.5, world=2, length=1 << 12)
+    assert tsm.measured_collective_wire_bytes(rows) == probe["wire_bytes"]
 
 
 def test_fig5_worked_example_reads_2_29():

@@ -246,8 +246,6 @@ REFUSED_FIELDS = [
     (["numerics.weights_pre_quantized=true", "numerics.mode=quant"],
      "numerics.weights_pre_quantized"),
     (["serving.int8_cache=true"], "serving.int8_cache"),
-    (["shape.mesh=debug"], "shape.mesh"),
-    (["shape.mesh.data=2"], "shape.mesh"),
     (["arch.id=whisper-medium", "serving.pages=true"], "serving.pages"),
     (["numerics.stochastic=on", "numerics.mode=quant_sparse"], "numerics.stochastic"),
 ]
@@ -324,10 +322,6 @@ def test_train_and_dryrun_sessions_name_their_slices():
     assert session.resolved.view.config == session.resolved.config
     with pytest.raises(SpecError, match="item 5"):
         tsessions.session_for(tsessions.dryrun_spec(ARCH, "decode_32k"))
-    with pytest.raises(SpecError, match="mesh"):
-        tlaunch.serve_session(ARCH, mesh=object(), device="cpu")
-    with pytest.raises(SpecError, match="mesh"):
-        tsessions.TrainSession(tsessions.train_spec(ARCH), mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("sets,device,match", [
@@ -337,14 +331,16 @@ def test_train_and_dryrun_sessions_name_their_slices():
     (["kernels.policy=pallas"], "cpu", r"kernels\.policy"),
     (["sparsity.backward=pallas"], "cpu", r"sparsity\.backward"),
     (["sparsity.backward=interpret"], "cuda", r"sparsity\.backward"),
-    (["arch.id=olmoe-1b-7b", "shape.mesh.model=2"], "cpu", r"shape\.mesh"),
+    # a mesh spec's other fields are checked before any mesh is built
+    (["arch.id=olmoe-1b-7b", "shape.mesh.model=2", "kernels.policy=pallas"], "cpu",
+     r"kernels\.policy"),
     (["arch.id=whisper-medium"], "cpu",
      r"arch\.id: 'whisper-medium'.*reference's TrainSession.*KeyError 'frames'.*"
      r"src/repro/runtime/train\.py:118"),
     (["arch.id=internvl2-26b"], "cpu",
      r"arch\.id: 'internvl2-26b'.*reference's TrainSession.*img_embeds is not None.*"
      r"src/repro/models/lm\.py:239"),
-    (["shape.mesh.data=2"], "cpu", r"shape\.mesh"),
+    (["shape.mesh.data=2", "sparsity.backward=pallas"], "cpu", r"sparsity\.backward"),
     (["shape.batch=6", "shape.microbatch=4"], "cpu", r"shape\.microbatch"),
     (["shape.microbatch=0"], "cpu", r"shape\.microbatch"),
     (["shape.microbatch=3"], "cpu", r"shape\.microbatch"),
