@@ -722,13 +722,52 @@ def phase_stochastic_round(dev, gen) -> dict:
         del got, want
     print("[stochastic_round] bit-equal to its plain version on the example shapes "
           f"and on {tuple(x.shape)}: ok", flush=True)
+    strided = _sr_strided_check(dev, gen)
     ms = timed(lambda: stochastic_round(x, 9), 20)
     plain_ms = timed(lambda: sr_reference(x, 9), 3, warmup=1)
     b_ms, b_by = bound(8.0 * x.numel(), 10.0 * x.numel())
     print(f"[stochastic_round] {tuple(x.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err, "shape": list(x.shape)}
+            "max_abs_err": err, "shape": list(x.shape), "strided": strided}
+
+
+def _sr_strided_check(dev, gen, model: int = 4) -> dict:
+    """The strided counter (tensor parallelism's weight update): every
+    rank's column shard of llama3.2-1b's wq (2048, 512 of 2048) and row
+    shard of its wo (512 of 2048, 2048), rounded by the kernel with the
+    whole leaf's counters, bit-equal to the plain version and to the slice
+    of the whole leaf's rounding; the wq shard timed beside an unsharded
+    call of its size."""
+    import torch
+
+    from repro_torch.kernels.stochastic_round.ops import (shard_counter, sr_reference,
+                                                          stochastic_round)
+
+    whole = (torch.randn(LAYER_SHAPES["q"], generator=gen) * 3).to(dev)
+    rounded = stochastic_round(whole, 11)
+    size = whole.shape[0] // model
+    for dim in (1, 0):
+        for r in range(model):
+            part = whole.narrow(dim, r * size, size).contiguous()
+            base, stride = shard_counter(whole.shape, dim, r * size)
+            got = stochastic_round(part, 11, base=base, row_stride=stride)
+            if not (torch.equal(got, sr_reference(part, 11, base=base, row_stride=stride))
+                    and torch.equal(got, rounded.narrow(dim, r * size, size))):
+                fail(f"stochastic_round: rank {r}'s {'column' if dim else 'row'} shard "
+                     f"{tuple(part.shape)} with the strided counter differs from its plain "
+                     "version or from the whole leaf's rounding")
+    part = whole[:, size:2 * size].contiguous()
+    base, stride = shard_counter(whole.shape, 1, size)
+    ms = timed(lambda: stochastic_round(part, 11, base=base, row_stride=stride), 50)
+    flat_ms = timed(lambda: stochastic_round(part, 11), 50)
+    b_ms, b_by = bound(8.0 * part.numel(), 10.0 * part.numel())
+    print(f"[stochastic_round] strided counter: {model} column and {model} row shards of "
+          f"{tuple(whole.shape)} bit-equal to the plain version and to the whole leaf's "
+          f"rounding; the wq shard {tuple(part.shape)} {ms:.4f} ms strided, {flat_ms:.4f} ms "
+          f"with the flat counter, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return {"shape": list(part.shape), "ms": ms, "flat_ms": flat_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "exact": True}
 
 
 def _relu_sparse(gen, shape, dev):
@@ -4685,12 +4724,24 @@ MESH_TIMEOUT_S = 600
 MESH_COLLECTIVE_TIMEOUT_S = 300
 MESH_SERVE_KERNELS = ("masked_matmul", "masked_matmul_skinny", "tile_occupancy", "mask_pack")
 MESH_TRAIN_KERNELS = ("masked_matmul", "tile_occupancy", "stochastic_round", "mask_pack")
+# 8e / 8f: tensor parallelism, llama3.2-1b's weights over model = 4
+MESH_TP = 4
+MESH_TP_TRAIN_SETS = ("arch.reduced=false", "numerics.stochastic=off", "train.steps=2",
+                      "train.ckpt_dir=")
+MESH_TP_TRAIN_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw",
+                         "tile_occupancy", "stochastic_round")
+MESH_TP_SERVE_KERNELS = ("masked_matmul", "masked_matmul_skinny", "tile_occupancy",
+                         "flash_attention")
+MESH_TP_LOSS_RTOL = 1e-4
+MESH_TP_LOGIT_ATOL = 1e-3
+MESH_UNSHARDED_PEAK_GIB = 20.83  # phase 5f's unsharded peak (PERF.md section 4)
 
 
-def _mesh_rank_setup(world: int, device: str):
+def _mesh_rank_setup(world: int, device: str, axis: str = "data"):
     """A phase-8 rank: TF32 off, its mesh over the launcher's gloo group on
-    ``device`` (on the card every rank shares cuda:0), its peak memory
-    counted anew.  ``device="cpu"`` rehearses the phase at a small size."""
+    ``device`` (on the card every rank shares cuda:0), the ranks along
+    ``axis``, its peak memory counted anew.  ``device="cpu"`` rehearses the
+    phase at a small size."""
     import os
 
     import torch
@@ -4700,7 +4751,7 @@ def _mesh_rank_setup(world: int, device: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
-    mesh = make_explicit_mesh(1, world, 1, device=device)
+    mesh = make_explicit_mesh(1, *((world, 1) if axis == "data" else (1, world)), device=device)
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
         torch.cuda.reset_peak_memory_stats(mesh.device)
@@ -4954,6 +5005,204 @@ def mesh_rank_two(rank: int, world: int, spec_path: str, train_sets: tuple,
     return out
 
 
+def _tp_kernel_checks(dev, cfg, model: int, rank: int, batch: int, seq: int,
+                      prompt: int) -> dict:
+    """8e / 8f's path kernels on this rank, at the shard shapes its runs gave
+    them, against their plain versions: the masked_matmul forward (tile
+    and skinny), dx, dw, tile_occupancy, splitk_reduce and stochastic_round
+    through phase 5f's check on a config of one rank's shards (wq 2048x512,
+    wk / wv 2048x128, wo 512x2048, gate / up 2048x2048, down 2048x2048, the
+    embedding's 32064 vocabulary rows), the strided stochastic_round on
+    this rank's wq shard bit-equal, and flash_attention on its heads (B
+    ``batch``, H 8, HKV 2, D 64) at S ``prompt`` (8f's prefill) and ``seq``
+    (8e's length)."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+    from repro_torch.kernels.stochastic_round.ops import (shard_counter, sr_reference,
+                                                          stochastic_round)
+    from repro_torch.models.attention import AttnSpec
+
+    a = cfg.attn
+    local = types.SimpleNamespace(
+        attn=AttnSpec(n_heads=a.n_heads // model, n_kv_heads=a.n_kv_heads // model,
+                      head_dim=a.head_dim),
+        d_model=cfg.d_model, d_ff=cfg.d_ff // model, vocab=cfg.vocab // model)
+    errs = _train_lm_kernel_checks(dev, local, batch, seq, phase=f"mesh_tp rank {rank}")
+    g = torch.Generator(device=dev).manual_seed(40 + rank)
+    d, cols = cfg.d_model, a.n_heads * a.head_dim
+    w = torch.randn(d, cols // model, generator=g, device=dev)
+    base, stride = shard_counter((d, cols), 1, rank * (cols // model))
+    if not torch.equal(stochastic_round(w, 3, base=base, row_stride=stride),
+                       sr_reference(w, 3, base=base, row_stride=stride)):
+        fail(f"mesh_tp rank {rank}: the strided stochastic_round on its wq shard "
+             f"{tuple(w.shape)} differs from its plain version")
+    fa, la = 0.0, local.attn
+    for s_len in (prompt, seq):
+        q = torch.randn(batch, s_len, la.n_heads, la.head_dim, generator=g,
+                        device=dev).transpose(1, 2)
+        k, v = (torch.randn(batch, s_len, la.n_kv_heads, la.head_dim, generator=g,
+                            device=dev).transpose(1, 2) for _ in range(2))
+        e = _max_err(flash_attention(q, k, v), attention_reference(q, k, v))
+        if not e <= 2e-5:
+            fail(f"mesh_tp rank {rank}: flash_attention ({batch},{la.n_heads},{la.n_kv_heads},"
+                 f"{s_len},{la.head_dim}) off by {e:.3g}")
+        fa = max(fa, e)
+    errs["flash_attention"] = fa
+    torch.cuda.empty_cache()
+    return errs
+
+
+def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve_sets: tuple,
+                 device: str = "cuda") -> dict:
+    """(8e, 8f) on one of ``world`` ranks at shape.mesh.model = world: the
+    example train spec through the TrainSession (then one more step timed
+    alone), then static serving through the ServeSession; each run's
+    counters zeroed just before it and read just after; the first step's
+    logits through the same sharded prefill; then (on the card) the path
+    kernels at their shard shapes."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, TrainSession, build_spec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import on_grid
+    from repro_torch.models.layers import SpringContext
+    from repro_torch.models.lm import lm_init, lm_prefill
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.runtime.train import make_train_step
+    from repro_torch.runtime.tree_sharding import param_splits, shard_tree
+
+    t_rank = time.monotonic()
+    mesh = _mesh_rank_setup(world, device, axis="model")
+    dev = mesh.device
+    out: dict = {"backend": mesh.backend}
+
+    # -- e. training at model = world --------------------------------------------------------
+    spec = build_spec("train", spec_file=spec_path, sets=[*train_sets,
+                                                          f"shape.mesh.model={world}"])
+    r = spec.resolve()
+    with sharding_context(mesh):  # the bytes a rank must hold: its shards, the rest whole
+        want_bytes = sum(4 * (math.prod(sp.full) // world) for sp in
+                         tree_leaves(param_splits(r.config, mesh)) if sp is not None)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    tr = TrainSession(spec, device=dev, mesh=mesh).run()
+    _sync(dev)
+    wall, launches = time.monotonic() - t0, kernels.launch_counts()
+    state, rep, losses = tr["state"], tr["tensor_parallel"], tr["losses"]
+    del tr
+    whole = sum(4 * p.numel() for p in tree_leaves(state.params) if p.ndim == 1)
+    # one more step alone, timed (the session's wall holds the init and the shard)
+    step = make_train_step(r.view, r.step, mesh=mesh)
+    data = SyntheticLMStream(DataConfig(seed=spec.seeds.seed, vocab=r.config.vocab,
+                                        seq_len=spec.shape.seq, global_batch=spec.shape.batch),
+                             device=dev)
+    batch = {"tokens": data.batch(spec.train.steps)}
+    hops, staged = mesh.hops.get("model", 0), mesh.staged_hops
+    _sync(dev)
+    t0 = time.monotonic()
+    state, metrics = step(state, batch)
+    extra_loss = float(metrics["loss"])
+    _sync(dev)
+    step_s = time.monotonic() - t0
+    out["train"] = {
+        "losses": losses, "extra_loss": extra_loss, "wall_s": wall, "step_s": step_s,
+        "tokens_per_s": spec.shape.batch * spec.shape.seq / step_s, "launches": launches,
+        "report": rep, "param_bytes_want": want_bytes + whole,
+        "grid": on_grid(dict(enumerate(tree_leaves(state.params)))),
+        "step_model_hops": mesh.hops.get("model", 0) - hops,
+        "step_staged_hops": mesh.staged_hops - staged, "peak_gib": _peak_gib(dev)}
+    del state, step, metrics, batch
+    _free(dev)
+
+    # -- f. static serving at model = world --------------------------------------------------
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sspec = build_spec("serve", sets=[*serve_sets, f"shape.mesh.model={world}"])
+    hops, staged = mesh.hops.get("model", 0), mesh.staged_hops
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    sv = ServeSession(sspec, device=dev, mesh=mesh).run()
+    _sync(dev)
+    out["serve"] = {"generated": sv["generated"].tolist(), "prefill_s": sv["prefill_s"],
+                    "decode_s": sv["decode_s"], "tokens_per_s": sv["tokens_per_s"],
+                    "finite": sv["finite"], "wall_s": time.monotonic() - t0,
+                    "launches": kernels.launch_counts(), "report": sv["tensor_parallel"],
+                    "model_hops": mesh.hops.get("model", 0) - hops,
+                    "staged_hops": mesh.staged_hops - staged, "peak_gib": _peak_gib(dev)}
+    del sv
+    _free(dev)
+    # the first step's logits, through the same sharded prefill (for 8f's gate)
+    sr = sspec.resolve()
+    with sharding_context(mesh):
+        params = shard_tree(lm_init(sr.config, sspec.seeds.seed, device=dev), mesh)
+        _free(dev)
+        tokens = _serve_tokens(sspec, sr.config, dev)
+        with torch.no_grad():
+            logits, _ = lm_prefill(params, sr.config, tokens, SpringContext(cfg=sr.spring))
+    out["first_logits"] = logits.cpu()
+    del params, logits
+    _free(dev)
+
+    if dev.type == "cuda":
+        out["checks"] = _tp_kernel_checks(dev, r.config, world, rank, spec.shape.batch,
+                                          spec.shape.seq, sspec.shape.prompt_len)
+    out["staged_hops"] = mesh.staged_hops
+    out["model_hops"] = mesh.hops.get("model", 0)
+    out["wall_s"] = time.monotonic() - t_rank
+    return out
+
+
+def _serve_tokens(spec, cfg, dev):
+    """The static path's prompts: the ServeSession's synthetic batch."""
+    import torch
+
+    from repro_torch.api import threefry
+    from repro_torch.api.sessions import synthetic_batch
+
+    arch = spec.resolve().arch
+    return torch.as_tensor(synthetic_batch(arch, cfg, spec.shape.batch, spec.shape.prompt_len,
+                                           threefry.prng_key(spec.seeds.seed))["tokens"]
+                           ).to(dev).to(torch.int64)
+
+
+def _static_logit_gaps(spec, dev) -> dict:
+    """The unsharded static path of ``spec`` step by step (ServeSession's
+    prefill, pad_cache and greedy decode): its tokens, the first step's
+    logits and each step's top-2 logit gap per row."""
+    import torch
+
+    from repro_torch.models.lm import lm_init, pad_cache
+    from repro_torch.serving.steps import make_decode_step, make_prefill_step
+
+    r = spec.resolve()
+    cfg, gen = r.config, spec.shape.gen
+    params = lm_init(cfg, spec.seeds.seed, device=dev)
+    prefill, decode = make_prefill_step(cfg, r.spring), make_decode_step(cfg, r.spring)
+    with torch.no_grad():
+        logits, cache = prefill(params, _serve_tokens(spec, cfg, dev))
+        first = logits.cpu()
+        top = logits.topk(2, dim=-1).values
+        prefill_gap = (top[:, 0] - top[:, 1]).cpu()
+        cache, nxt = pad_cache(cache, gen), logits.argmax(-1)
+        toks, gaps = [], []
+        for _ in range(gen):
+            logits, cache = decode(params, nxt, cache)
+            top = logits.topk(2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu())
+            nxt = logits.argmax(-1)
+            toks.append(nxt.cpu())
+    del params, cache, logits
+    return {"first_logits": first, "tokens": torch.stack(toks, 1).tolist(),
+            "gaps": torch.stack(gaps, 1), "prefill_gap": prefill_gap}
+
+
 def phase_mesh(dev) -> dict:
     """(8) the mesh, one process per rank over a gloo group, every rank on
     cuda:0 (the kernels built by the parent; ranks only load them), each
@@ -4992,6 +5241,23 @@ def phase_mesh(dev) -> dict:
     torch.cuda.empty_cache()
     print(f"[mesh] unsharded: train losses {base_losses} ({base_train_s:.1f} s); serve prefill "
           f"{base_prefill_s:.3f} s, {base_tps:.1f} tokens/s", flush=True)
+    # 8e / 8f's unsharded runs: the example spec with nearest rounding, and the
+    # static path step by step (its first logits and each step's top-2 gap)
+    t0 = time.monotonic()
+    tp_base = TrainSession(build_spec("train", spec_file=spec_path,
+                                      sets=list(MESH_TP_TRAIN_SETS)), device=dev).run()
+    torch.cuda.synchronize()
+    tp_base_losses, tp_base_s = tp_base["losses"], time.monotonic() - t0
+    del tp_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    static = _static_logit_gaps(build_spec("serve", sets=list(MESH_SERVE_SETS)), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if static["tokens"] != base_tokens:
+        fail("mesh phase: the step-by-step static path's tokens differ from the ServeSession's")
+    print(f"[mesh] unsharded, nearest rounding: train losses {tp_base_losses} "
+          f"({tp_base_s:.1f} s)", flush=True)
 
     # -- four ranks: collectives, serving, the pipeline ----------------------------------
     t0 = time.monotonic()
@@ -5053,18 +5319,109 @@ def phase_mesh(dev) -> dict:
         if not (all(math.isfinite(v) for v in pod["losses"]) and pod["grid"] and pod["ef_exact"]
                 and pod["params_same"] and max(pod["ef_worst_over_step"], pod["worst_err_over_step"]) <= 1.0 + 1e-5):
             fail(f"mesh phase: rank {rank}'s compressed pod link broke its contract")
+    # -- four ranks at model = 4: tensor parallelism, trained and served -------------------
+    t0 = time.monotonic()
+    tp = launch.run(mesh_rank_tp, MESH_TP, (spec_path, MESH_TP_TRAIN_SETS, MESH_SERVE_SETS),
+                    timeout_s=MESH_TIMEOUT_S, collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+    tp_s = time.monotonic() - t0
+    tp_gate = _tp_gates(tp, tp_base_losses, base_tokens, static)
     wall = time.monotonic() - t_phase
-    print(f"[mesh] four ranks {four_s:.1f} s, two ranks {two_s:.1f} s, phase {wall:.1f} s",
-          flush=True)
-    # every rank's main-path launches: the serve, pipeline, data=2 and pod=2 runs
+    print(f"[mesh] four ranks {four_s:.1f} s, two ranks {two_s:.1f} s, model=4 ranks "
+          f"{tp_s:.1f} s, phase {wall:.1f} s", flush=True)
+    # every rank's main-path launches: the serve, pipeline, data=2 and pod=2 runs;
+    # the model=4 runs apart (the kernel line's mesh_tp path)
     launches = {name: sum(r["serve"]["launches"][name] + r["pipeline"]["launches"][name]
                           for r in four)
                 + sum(r["data"]["launches"][name] + r["pod"]["launches"][name] for r in two)
                 for name in four[0]["serve"]["launches"]}
-    return {"four": four, "two": two, "base_losses": base_losses, "base_tokens": base_tokens,
-            "base_prefill_s": base_prefill_s, "base_tokens_per_s": base_tps,
-            "launches": launches, "wall_s": wall,
-            "errs": {"masked_matmul": max(r["pipeline"]["max_abs_err"] for r in four)}}
+    tp_launches = {name: sum(r["train"]["launches"][name] + r["serve"]["launches"][name]
+                             for r in tp) for name in launches}
+    for r in tp:
+        r.pop("first_logits", None)
+    return {"four": four, "two": two, "tp": tp, "tp_gate": tp_gate,
+            "base_losses": base_losses, "base_tokens": base_tokens,
+            "tp_base_losses": tp_base_losses, "base_prefill_s": base_prefill_s,
+            "base_tokens_per_s": base_tps, "launches": launches, "tp_launches": tp_launches,
+            "wall_s": wall, "tp_wall_s": tp_s,
+            "errs": {"masked_matmul": max(r["pipeline"]["max_abs_err"] for r in four),
+                     "tp": {k: max(r["checks"][k] for r in tp) for k in tp[0]["checks"]}}}
+
+
+def _tp_gates(tp: list, base_losses: list, base_tokens: list, static: dict) -> dict:
+    """8e / 8f's gates over the model=4 ranks: losses finite, on the grid,
+    bit-equal across ranks and within rel MESH_TP_LOSS_RTOL of the
+    unsharded run's; tokens equal across ranks and to the unsharded run's,
+    but where the first differing step's unsharded top-2 gap is below the
+    first step's measured max logit difference (a near tie, printed; the
+    first step's logits then held at atol MESH_TP_LOGIT_ATOL); every path
+    kernel launched on every rank; each rank's shards alone its parameter
+    bytes, and its peak below half the unsharded run's."""
+    import math
+
+    out: dict = {}
+    losses = tp[0]["train"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+    logit_diff = max(float((r["first_logits"] - static["first_logits"]).abs().max()) for r in tp)
+    out.update(loss_rel=rel, max_logit_diff=logit_diff)
+    for rank, r in enumerate(tp):
+        t, sv = r["train"], r["serve"]
+        rep = t["report"]
+        print(f"[mesh] rank {rank} ({r['backend']}) 8e train model={MESH_TP}: losses "
+              f"{t['losses']} (unsharded {base_losses}, max rel {rel:.3g}), on grid {t['grid']}, "
+              f"session wall {t['wall_s']:.1f} s, one step alone {t['step_s']:.3f} s "
+              f"({t['tokens_per_s']:.1f} tokens/s, {t['step_model_hops']} model hops, "
+              f"{t['step_staged_hops']} staged), param bytes {rep['param_bytes']} (shards "
+              f"{t['param_bytes_want']}), {rep['model_hops']} model hops / {rep['staged_hops']} "
+              f"staged in the session, peak {t['peak_gib']:.2f} GiB, launches {t['launches']}",
+              flush=True)
+        print(f"[mesh] rank {rank} 8f static serve model={MESH_TP}: prefill "
+              f"{sv['prefill_s']:.3f} s, decode {sv['decode_s']:.3f} s, "
+              f"{sv['tokens_per_s']:.1f} tokens/s, tokens equal the unsharded run's "
+              f"{sv['generated'] == base_tokens}, first-step max |logit diff| "
+              f"{float((r['first_logits'] - static['first_logits']).abs().max()):.3g}, "
+              f"{sv['model_hops']} model hops / {sv['staged_hops']} staged, "
+              f"peak {sv['peak_gib']:.2f} GiB, launches {sv['launches']}; kernels at the shard "
+              f"shapes {r.get('checks')}; rank wall {r['wall_s']:.1f} s", flush=True)
+        if t["losses"] != losses or not all(math.isfinite(v) for v in t["losses"]):
+            fail(f"mesh phase: rank {rank}'s model={MESH_TP} losses are not finite or differ "
+                 "from rank 0's")
+        if not t["grid"]:
+            fail(f"mesh phase: rank {rank}'s model={MESH_TP} shards left the grid")
+        if rep["param_bytes"] != t["param_bytes_want"]:
+            fail(f"mesh phase: rank {rank} holds {rep['param_bytes']} parameter bytes, not its "
+                 f"shards' {t['param_bytes_want']}")
+        for peak in (t["peak_gib"], sv["peak_gib"]):
+            if not peak < MESH_UNSHARDED_PEAK_GIB / 2:
+                fail(f"mesh phase: rank {rank}'s model={MESH_TP} peak {peak:.2f} GiB is not "
+                     f"below half the unsharded {MESH_UNSHARDED_PEAK_GIB} GiB")
+        for name in MESH_TP_TRAIN_KERNELS:
+            if t["launches"][name] <= 0:
+                fail(f"mesh phase: rank {rank}'s model={MESH_TP} training never launched {name}")
+        for name in MESH_TP_SERVE_KERNELS:
+            if sv["launches"][name] <= 0:
+                fail(f"mesh phase: rank {rank}'s model={MESH_TP} serving never launched {name}")
+        if sv["generated"] != tp[0]["serve"]["generated"] or not sv["finite"]:
+            fail(f"mesh phase: rank {rank}'s model={MESH_TP} tokens differ from rank 0's")
+    if not rel <= MESH_TP_LOSS_RTOL:
+        fail(f"mesh phase: model={MESH_TP} losses {losses} off the unsharded {base_losses} "
+             f"by rel {rel:.3g}")
+    got = tp[0]["serve"]["generated"]
+    out["tokens_equal"] = got == base_tokens
+    if got != base_tokens:
+        diffs = [(i, b) for b in range(len(got)) for i in range(len(got[b]))
+                 if got[b][i] != base_tokens[b][i]]
+        i, b = min(diffs)
+        gap = float(static["gaps"][b, i])
+        if i == 0:
+            gap = min(gap, float(static["prefill_gap"][b]))
+        print(f"[mesh] 8f near tie: row {b} first differs at step {i}, unsharded top-2 gap "
+              f"{gap:.3g} against the first step's max |logit diff| {logit_diff:.3g}", flush=True)
+        out["near_tie"] = {"row": b, "step": i, "gap": gap}
+        if not (gap < logit_diff and logit_diff <= MESH_TP_LOGIT_ATOL):
+            fail(f"mesh phase: model={MESH_TP} tokens differ from the unsharded run's at row "
+                 f"{b} step {i}, where the top-2 gap {gap:.3g} is no near tie (first-step max "
+                 f"|logit diff| {logit_diff:.3g}, atol {MESH_TP_LOGIT_ATOL})")
+    return out
 
 
 def main() -> None:
@@ -5363,7 +5720,8 @@ def main() -> None:
                       "prune_stash": prune_stash["launches"].get(name, 0),
                       "sweep": sweep["launches"][name],
                       "paper": paper["launches"][name],
-                      "mesh": mesh["launches"][name]}
+                      "mesh": mesh["launches"][name],
+                      "mesh_tp": mesh["tp_launches"][name]}
                for name in launches}
     total = {name: sum(v.values()) for name, v in by_path.items()}
 
@@ -5372,7 +5730,8 @@ def main() -> None:
         return {"name": f"masked_matmul_{op}", "route": "cuda",
                 "source": "src/repro_torch/csrc/masked_matmul.cu",
                 "replaces": "src/repro/kernels/masked_matmul/backward.py:85",
-                "launches": total[f"masked_matmul_{op}"], "max_abs_err": bwd["err"][op],
+                "launches": total[f"masked_matmul_{op}"],
+                "max_abs_err": max(bwd["err"][op], mesh["errs"]["tp"][op]),
                 "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 # the kind that bounds most of the summed bound
@@ -5400,6 +5759,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/masked_matmul/mm_kernel.py:91",
          "launches": total["masked_matmul"],
          "max_abs_err": max(mm_err, archs["errs"]["masked_matmul"], mesh["errs"]["masked_matmul"],
+                            mesh["errs"]["tp"]["forward"],
                             prune_stash["train_checks"]["forward"],
                             hybrid["errs"]["masked_matmul"], spec_run["errs"]["masked_matmul"],
                             moe["errs"]["masked_matmul"], s15["errs"]["masked_matmul"]),
@@ -5419,7 +5779,7 @@ def main() -> None:
                             hybrid["errs"]["masked_matmul_skinny"],
                             spec_run["errs"]["masked_matmul_skinny"],
                             moe["errs"]["masked_matmul_skinny"],
-                            s15["errs"]["masked_matmul_skinny"]),
+                            s15["errs"]["masked_matmul_skinny"], mesh["errs"]["tp"]["skinny"]),
          **layer_entry(decode_rows),
          "library_ms": sum(r["library_ms"] for r in decode_rows),
          "tile_ms": sum(r["tile_ms"] for r in decode_rows),
@@ -5478,7 +5838,7 @@ def main() -> None:
          "max_abs_err": max(fa["err"], archs["errs"]["flash_attention"],
                             hybrid["errs"]["flash_attention"],
                             spec_run["errs"]["flash_attention"], moe["errs"]["flash_attention"],
-                            s15["errs"]["flash_attention"]),
+                            s15["errs"]["flash_attention"], mesh["errs"]["tp"]["flash_attention"]),
          **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                     "device_ms", "host_ms", "library_device_ms", "tile")},
          "shape": f"one llama3.2-1b prefill attention: B 1, H {FA_HEADS}, HKV {FA_KV_HEADS}, "

@@ -44,7 +44,16 @@ rank, e.g. under ``torchrun``), and every rank runs the session: with
 ``data > 1`` training exchanges its gradients through the packed
 collectives (``dist.train``) and the static serving path shards its
 request rows (``dist.serve``), each adding a ``collective_probe`` to its
-result; the engine runs replicated on every rank.  A named kind alone
+result; the engine runs replicated on every rank.  With ``model > 1`` and
+``data == 1`` the dense family runs tensor parallel in training and on the
+static path (``dist.tensor``): the session shards the whole parameters
+at build time (``runtime.tree_sharding.shard_tree``), each rank holds its
+shards of the parameters and moments, a checkpoint is written whole
+(gathered over ``model``, rank 0 writing the reference's names) and
+resumed by slicing, and the result's ``tensor_parallel`` says what the
+rank held and how many collectives it joined; pruning is refused there
+(a shard's std is not the weight's).  The other archs, the engines and
+``data > 1`` keep ``model`` replicated.  A named kind alone
 (``shape.mesh=debug``) builds no mesh and runs unsharded, as in the
 reference.  On the card each rank takes its own card where there are
 enough, else they share one (:func:`repro_torch.dist.mesh.rank_device`).
@@ -107,6 +116,33 @@ class Session:
         mesh_dev = getattr(mesh, "device", None)
         self.device = mesh_dev if mesh_dev is not None and mesh_dev.type == device.type \
             else device
+
+    def _tensor_parallel(self) -> bool:
+        """Does this run split the weights over ``model``?"""
+        from repro_torch.models.lm import tensor_parallel
+
+        return tensor_parallel(self.resolved.config, self.mesh)
+
+    def _shard(self, tree):
+        """This rank's shards of a whole parameter (or moment) tree."""
+        from repro_torch.runtime.sharding import sharding_context
+        from repro_torch.runtime.tree_sharding import shard_tree
+
+        with sharding_context(self.mesh):
+            return shard_tree(tree, self.mesh)
+
+    def _tp_report(self, params) -> dict:
+        """What a tensor-parallel rank held and did: its parameter bytes
+        (the sum of its shards'), the collectives it joined over ``model``,
+        the card tensors it staged through the host, its peak."""
+        from repro_torch.optim.optimizers import tree_leaves
+
+        dev = self.device
+        return {"model": int(self.mesh.shape["model"]), "rank": self.mesh.axis_index("model"),
+                "param_bytes": sum(p.numel() * p.element_size() for p in tree_leaves(params)),
+                "model_hops": self.mesh.hops.get("model", 0),
+                "staged_hops": self.mesh.staged_hops,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
 
     def _with_payload(self, out: dict) -> dict:
         out.update(self.spec.payload())
@@ -171,19 +207,38 @@ class TrainSession(Session):
         data = SyntheticLMStream(DataConfig(
             seed=seed, vocab=cfg.vocab, seq_len=spec.shape.seq,
             global_batch=spec.shape.batch), device=device)
-        state = init_train_state(view if self.params is None else self.params, step_cfg, seed,
-                                 device=device)
+        tp = self._tensor_parallel()
+        if tp:
+            if step_cfg.prune_ratio > 0:
+                raise SpecError(_PRUNE_TP)
+            # the whole parameters made (or given), then this rank's shards
+            from repro_torch.models.lm import lm_init
+
+            whole = self.params if self.params is not None else lm_init(cfg, seed, device=device)
+            params = self._shard(whole)
+            del whole  # before the moments: a rank never holds the whole state
+            state = init_train_state(params, step_cfg, seed, device=device)
+        else:
+            state = init_train_state(view if self.params is None else self.params, step_cfg,
+                                     seed, device=device)
         start_step = 0
 
-        manager = (CheckpointManager(spec.train.ckpt_dir, every_steps=spec.train.ckpt_every)
+        # a mesh's ranks hold one state: rank 0 writes it (gathered whole
+        # over model first, which every rank joins)
+        manager = (CheckpointManager(spec.train.ckpt_dir, every_steps=spec.train.ckpt_every,
+                                     writer=is_rank0())
                    if spec.train.ckpt_dir else None)
+        to_flat = ((lambda: train_state_to_flat(self._gather_state(state), cfg)) if tp
+                   else (lambda: train_state_to_flat(state, cfg)))
         if manager is not None:
             restored = manager.restore_or_none()
             if restored is not None:
                 start_step, flat = restored
                 state = train_state_from_flat(flat, cfg, device=device, like=state)
+                if tp:  # a whole checkpoint, resumed by slicing
+                    state = self._shard_state(state)
                 log.info("resumed from step %d", start_step)
-            if not is_rank0():  # a mesh's ranks hold one state: rank 0 writes it
+            if not is_rank0() and not tp:
                 manager = None
 
         sharded = spec.shape.mesh.data > 1 and self.mesh is not None
@@ -219,10 +274,9 @@ class TrainSession(Session):
                         log.info("step %d loss %.4f grad_norm %.3f", step, loss,
                                  float(metrics["grad_norm"]))
                     if manager is not None:
-                        manager.maybe_save(step + 1, lambda: train_state_to_flat(state, cfg),
-                                           meta)
+                        manager.maybe_save(step + 1, to_flat, meta)
         if manager is not None:
-            manager.maybe_save(steps, lambda: train_state_to_flat(state, cfg), meta, force=True)
+            manager.maybe_save(steps, to_flat, meta, force=True)
         out = {
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
@@ -237,7 +291,39 @@ class TrainSession(Session):
 
             out["collective_probe"] = collective_probe(
                 spec.sparsity.probe_density, world=spec.shape.mesh.data, device=device)
+        if tp:
+            out["tensor_parallel"] = self._tp_report(state.params)
         return self._with_payload(out)
+
+    def _shard_state(self, state):
+        """This rank's shards of a whole train state."""
+        import dataclasses
+
+        opt = state.opt_state
+        return dataclasses.replace(
+            state, params=self._shard(state.params),
+            opt_state=type(opt)(opt.step, self._shard(opt.m), self._shard(opt.v)))
+
+    def _gather_state(self, state):
+        """The whole train state, gathered over ``model`` on every rank."""
+        import dataclasses
+
+        from repro_torch.runtime.sharding import sharding_context
+        from repro_torch.runtime.tree_sharding import gather_tree, param_splits
+
+        with sharding_context(self.mesh):
+            splits = param_splits(self.resolved.config, self.mesh)
+        opt = state.opt_state
+        return dataclasses.replace(
+            state, params=gather_tree(state.params, self.mesh, splits),
+            opt_state=type(opt)(opt.step, gather_tree(opt.m, self.mesh, splits),
+                                gather_tree(opt.v, self.mesh, splits)))
+
+
+_PRUNE_TP = ("prune_ratio > 0 under a mesh that splits the weights over model "
+             "(shape.mesh.model > 1, data = 1): magnitude pruning thresholds each weight "
+             "by its std, which a shard does not hold; prune at model = 1 (ROADMAP §1 "
+             "item 5)")
 
 
 class DryrunSession(Session):
@@ -345,6 +431,8 @@ class ServeSession(Session):
         # magnitude pruning of the dense projections (the reference's
         # step_cfg.prune_ratio, which no spec field sets)
         self.prune_ratio = prune_ratio
+        if prune_ratio > 0 and spec.serving.static and self._tensor_parallel():
+            raise SpecError(_PRUNE_TP)
 
     def run(self) -> dict:
         with self.telemetry_scope():
@@ -374,6 +462,9 @@ class ServeSession(Session):
         init = ed_mod.encdec_init if encdec else lm_init
         params = (self.params if self.params is not None
                   else init(cfg, seed, device=self.device))
+        tp = self._tensor_parallel()
+        if tp:  # this rank's shards of the whole parameters
+            params = self._shard(params)
         inputs = {name: torch.as_tensor(t).to(self.device) for name, t in synthetic_batch(
             r.arch, cfg, batch, prompt_len, threefry.prng_key(seed)).items()}
         tokens = inputs["tokens"].to(torch.int64)
@@ -395,6 +486,11 @@ class ServeSession(Session):
         else:
             prefill = make_prefill_step(cfg, r.spring, int8, self.prune_ratio)
             decode = make_decode_step(cfg, r.spring, int8, self.prune_ratio)
+        if tp:  # the steps run under the default rules: weights split over model
+            from repro_torch.runtime.sharding import in_context, sharding_context
+
+            with sharding_context(self.mesh):
+                prefill, decode = in_context(prefill), in_context(decode)
 
         t0 = time.monotonic()
         if encdec:
@@ -438,6 +534,8 @@ class ServeSession(Session):
 
             out["collective_probe"] = collective_probe(
                 spec.sparsity.probe_density, world=spec.shape.mesh.data, device=self.device)
+        if tp:
+            out["tensor_parallel"] = self._tp_report(params)
         return out
 
     def _engine(self) -> dict:

@@ -122,12 +122,17 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None,
 
 
 class CheckpointManager:
-    """Keep-k rotation + auto-resume + preemption-safe cadence."""
+    """Keep-k rotation + auto-resume + preemption-safe cadence.  A rank
+    that is not the ``writer`` keeps the cadence and makes the arrays (a
+    tensor-parallel state is gathered whole, a collective every rank of the
+    ``model`` axis joins) but writes nothing: rank 0 writes."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3, every_steps: int = 100):
+    def __init__(self, ckpt_dir: str, keep: int = 3, every_steps: int = 100,
+                 writer: bool = True):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self.every_steps = every_steps
+        self.writer = writer
 
     def maybe_save(self, step: int, flat, metadata: Optional[dict] = None,
                    force: bool = False):
@@ -136,8 +141,10 @@ class CheckpointManager:
         the steps that do not save copy nothing to the host."""
         if not force and step % self.every_steps != 0:
             return None
-        path = save_checkpoint(self.ckpt_dir, step, flat() if callable(flat) else flat,
-                               metadata)
+        flat = flat() if callable(flat) else flat
+        if not self.writer:
+            return None
+        path = save_checkpoint(self.ckpt_dir, step, flat, metadata)
         for old in _valid_steps(self.ckpt_dir)[: -self.keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{old:08d}"), ignore_errors=True)
         return path

@@ -83,13 +83,17 @@ def quantize_stochastic_from_bits(
 
 
 def quantize_stochastic(gen: torch.Generator, x: torch.Tensor,
-                        fmt: FixedPointFormat = SPRING_FORMAT) -> torch.Tensor:
+                        fmt: FixedPointFormat = SPRING_FORMAT,
+                        counter: tuple[int, int] | None = None) -> torch.Tensor:
     """Stochastic rounding onto the Q(IL,FL) grid (paper Eq. 4): round up
     with probability equal to the fractional part, so E[Round(x)] = x for
     in-range x.  Draws one 32-bit seed from ``gen`` and runs
-    ``stochastic_round`` (the CUDA kernel on the card)."""
+    ``stochastic_round`` (the CUDA kernel on the card).  ``counter`` is a
+    shard's ``(base, row_stride)`` (``stochastic_round.shard_counter``): the
+    shard then draws the whole tensor's uniforms at its elements."""
     seed = int(torch.randint(0, 2**32, (1,), generator=gen, dtype=torch.int64))
-    return stochastic_round(x, seed, il=fmt.il, fl=fmt.fl)
+    base, row_stride = counter if counter is not None else (0, None)
+    return stochastic_round(x, seed, il=fmt.il, fl=fmt.fl, base=base, row_stride=row_stride)
 
 
 class _StraightThrough(torch.autograd.Function):
@@ -116,9 +120,10 @@ def ste_quantize_nearest(x: torch.Tensor, fmt: FixedPointFormat = SPRING_FORMAT)
 
 
 def ste_quantize_stochastic(gen: torch.Generator, x: torch.Tensor,
-                            fmt: FixedPointFormat = SPRING_FORMAT) -> torch.Tensor:
+                            fmt: FixedPointFormat = SPRING_FORMAT,
+                            counter: tuple[int, int] | None = None) -> torch.Tensor:
     """:func:`quantize_stochastic` with the straight-through gradient."""
-    return _StraightThrough.apply(x, lambda v: quantize_stochastic(gen, v, fmt), fmt)
+    return _StraightThrough.apply(x, lambda v: quantize_stochastic(gen, v, fmt, counter), fmt)
 
 
 def to_int(x: torch.Tensor, fmt: FixedPointFormat = SPRING_FORMAT) -> torch.Tensor:

@@ -19,6 +19,13 @@ difference is the reference's, see ROADMAP §3.  The reference draws its
 SR from ``jax.random`` (threefry); the port draws from ``torch.Generator``
 seeds and is held to it statistically.
 
+A weight split over the ``model`` axis (``split``, a
+``runtime.sharding.Split``) rounds each shard with the whole tensor's SR
+counters, so a sharded product draws the unsharded one's uniforms; a
+row-split product's partial sums are summed over ``model``
+(``dist.tensor.reduce_from_model``) before its output is rounded, as the
+reference's partitioned program rounds the whole sum.
+
 Convolutions keep the reference's NHWC activations and HWIO weights at the
 API and its SAME padding (``lax.padtype_to_pads``, asymmetric at stride
 2), applied explicitly.  The forward conv is a PyTorch conv in full fp32
@@ -126,13 +133,14 @@ class KeyGen:
 
 
 def _q(x: torch.Tensor, cfg: SpringConfig, keys: Optional[KeyGen],
-       role: str = "out") -> torch.Tensor:
+       role: str = "out", counter: Optional[tuple] = None) -> torch.Tensor:
     """Round one tensor onto the grid, with the straight-through gradient:
     stochastically when ``cfg.stochastic`` and ``keys`` is given, else to
     nearest.  ``role`` is "act", "weight" or "out", as in the reference:
     a weight is passed through when ``cfg.weights_pre_quantized``, and the
     operands ("act", "weight") round to nearest under
-    ``operand_rounding="nearest"``."""
+    ``operand_rounding="nearest"``.  ``counter`` is a shard's SR counter
+    geometry."""
     if role == "weight" and cfg.weights_pre_quantized:
         return x
     stochastic = cfg.stochastic
@@ -142,7 +150,7 @@ def _q(x: torch.Tensor, cfg: SpringConfig, keys: Optional[KeyGen],
         if not isinstance(keys, KeyGen):
             raise TypeError("model-level SR needs a KeyGen over torch.Generator seeds "
                             f"(the reference's threefry keys are not ported), got {keys!r}")
-        return ste_quantize_stochastic(keys.next(), x, cfg.fmt)
+        return ste_quantize_stochastic(keys.next(), x, cfg.fmt, counter)
     return ste_quantize_nearest(x, cfg.fmt)
 
 
@@ -152,12 +160,17 @@ def spring_matmul(
     cfg: SpringConfig = DENSE,
     keys: Optional[KeyGen] = None,
     w_mask: Optional[torch.Tensor] = None,
+    split=None,
 ) -> torch.Tensor:
     """``x @ w`` under the configured SPRING numerics.
 
     x: (..., K); w: (K, N) in the reference's layout; w_mask: optional
-    (K, N) {0,1} pruning mask.
+    (K, N) {0,1} pruning mask; split: ``w``'s ``runtime.sharding.Split``
+    over ``model`` (None: whole).  A column split yields this rank's
+    output columns; a row split reads this rank's input columns and
+    yields the whole output, summed over ``model``.
     """
+    row = split is not None and split.kind == "row"
     if cfg.mode == "dense":
         if w_mask is not None:
             w = w * w_mask.to(w.dtype)
@@ -165,12 +178,22 @@ def spring_matmul(
         # sums, one rounding of the result to bf16
         xd = x.to(DENSE_DTYPE).to(torch.float32)
         wd = w.to(DENSE_DTYPE).to(torch.float32)
-        return torch.matmul(xd, wd).to(DENSE_DTYPE)
+        y = torch.matmul(xd, wd)
+        return (_reduce(y) if row else y).to(DENSE_DTYPE)
 
-    xq = _q(x, cfg, keys, role="act")
+    x_ctr = w_ctr = y_ctr = None
+    if split is not None:
+        from repro_torch.kernels.stochastic_round.ops import shard_counter
+
+        w_ctr = split.counter()
+        if row:  # x holds columns [lo, hi) of the whole input
+            x_ctr = shard_counter((split.full[0],), 0, split.lo)
+        else:  # y holds columns [lo, hi) of the whole output
+            y_ctr = shard_counter((split.full[1],), 0, split.lo)
+    xq = _q(x, cfg, keys, role="act", counter=x_ctr)
     if w_mask is not None:
         w = w * w_mask.to(w.dtype)
-    wq = _q(w, cfg, keys, role="weight")
+    wq = _q(w, cfg, keys, role="weight", counter=w_ctr)
     if cfg.is_sparse and xq.ndim == 2:
         # the kernel with its SR epilogue off, the outer _q rounds (the
         # reference's CPU contract); dx/dw through the backward kernels
@@ -180,7 +203,13 @@ def spring_matmul(
     else:
         # fp32 accumulate on the fixed-point grid (DESIGN.md deviation 2)
         y = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
-    return _q(y, cfg, keys)
+    return _q(_reduce(y) if row else y, cfg, keys, counter=y_ctr)
+
+
+def _reduce(y: torch.Tensor) -> torch.Tensor:
+    from repro_torch.dist.tensor import reduce_from_model
+
+    return reduce_from_model(y)
 
 
 def spring_einsum(

@@ -35,15 +35,23 @@ __device__ __forceinline__ uint32_t hash_uint32(uint32_t counter, uint32_t seed)
 
 __global__ void __launch_bounds__(THREADS)
 sr_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t n, uint32_t seed,
-          float scale, float eps, float min_v, float max_v) {
+          float scale, float eps, float min_v, float max_v, uint64_t base, int64_t cols,
+          uint64_t row_stride) {
+    const bool flat = row_stride == (uint64_t)cols;
     for (int64_t i = blockIdx.x * (int64_t)THREADS + threadIdx.x; i < n;
          i += (int64_t)gridDim.x * THREADS) {
         const float xc = fminf(fmaxf(x[i], min_v), max_v);
         const float scaled = xc * scale;
         const float lo = floorf(scaled);
         const float frac = scaled - lo;
-        // the counter is the flat index, taken mod 2^32 as the reference's uint32
-        const float u = (float)(hash_uint32((uint32_t)i, seed) >> 8) * (1.0f / 16777216.0f);
+        // the whole tensor's flat index, taken mod 2^32 as the reference's uint32
+        uint64_t counter = base + (uint64_t)i;
+        if (!flat) {
+            const uint64_t row = (uint64_t)i / (uint64_t)cols;
+            counter = base + row * row_stride + ((uint64_t)i - row * (uint64_t)cols);
+        }
+        const float u =
+            (float)(hash_uint32((uint32_t)counter, seed) >> 8) * (1.0f / 16777216.0f);
         const float rounded = lo + (u < frac ? 1.0f : 0.0f);
         out[i] = fminf(fmaxf(rounded * eps, min_v), max_v);
     }
@@ -54,11 +62,13 @@ sr_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t n, uint3
 extern "C" {
 
 int stochastic_round_launch(const float* x, float* out, long long n, unsigned int seed,
-                            float scale, float eps, float min_v, float max_v, void* stream) {
+                            float scale, float eps, float min_v, float max_v,
+                            unsigned long long base, long long cols,
+                            unsigned long long row_stride, void* stream) {
     const long long want = (n + THREADS - 1) / THREADS;
     const int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
     sr_kernel<<<blocks > 0 ? blocks : 1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, out, n, seed, scale, eps, min_v, max_v);
+        x, out, n, seed, scale, eps, min_v, max_v, base, cols, row_stride);
     return static_cast<int>(cudaGetLastError());
 }
 

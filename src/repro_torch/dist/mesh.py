@@ -15,7 +15,9 @@ where every rank has a card of its own, ``gloo`` where ranks share a card
 card tensor crossing a gloo group is staged through host memory
 explicitly — one copy off the card before the hop and one back after it,
 counted in :attr:`Mesh.staged_hops` — which is the real wire between two
-ranks on one card.
+ranks on one card.  :meth:`Mesh.all_reduce` (tensor parallelism's sum
+over ``model``) is an all-gather followed by a sum in rank order, so every
+rank holds the same bits whatever the backend's own reduction order.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ class Mesh:
         self.coords = {a: coords[a] for a in AXES}
         #: card tensors staged through host memory for a gloo hop
         self.staged_hops = 0
+        #: collectives this rank joined, by axis (every hop, on any device)
+        self.hops: dict[str, int] = {}
         self._groups: dict[str, object] = {}
         strides = {"pod": data * model, "data": model, "model": 1}
         for axis in AXES:
@@ -107,6 +111,7 @@ class Mesh:
         n = self.shape[axis]
         if n == 1:
             return x[None]
+        self.hops[axis] = self.hops.get(axis, 0) + 1
         flat = x.contiguous().reshape(-1).view(torch.uint8)
         staged = self.backend == "gloo" and flat.is_cuda
         if staged:  # pinned host buffers: the copies off and onto the card run at full rate
@@ -118,6 +123,27 @@ class Mesh:
         if staged:
             out = out.to(x.device, non_blocking=True)
         return out.view(x.dtype).reshape(n, *x.shape)
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op="max"``, the maximum) of every rank's ``x`` along
+        ``axis`` (``jax.lax.psum`` / ``pmax``), on every rank the same bits:
+        an :meth:`all_gather` (one counted hop, staged like any other)
+        followed by the reduction in rank order, ((x0 + x1) + x2) + ....
+        gloo's own ring sum adds each chunk in another order on each rank,
+        and replicated activations that differ in one ulp between ranks
+        would send their greedy tokens apart."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r} is not 'sum' or 'max'")
+        if self.shape[axis] == 1:
+            return x
+        parts = self.all_gather(x, axis)
+        out = parts[0].clone()
+        for part in parts[1:]:
+            if op == "sum":
+                out += part
+            else:
+                torch.maximum(out, part, out=out)
+        return out
 
 
 def make_explicit_mesh(pod: int, data: int, model: int, *, device="cpu") -> Mesh:

@@ -20,17 +20,9 @@ import torch
 
 from repro_torch.dist.collectives import packed_all_gather
 from repro_torch.dist.mesh import data_axis_size
-from repro_torch.runtime.sharding import logical_to_spec, sharding_context
+from repro_torch.runtime.sharding import DATA_ONLY_RULES, logical_to_spec, sharding_context
 from repro_torch.runtime.tree_sharding import logical_axes_for_path, map_with_path
 from repro_torch.serving.steps import make_decode_step, make_prefill_step
-
-#: rules for serving: only the data axis participates (pod and model axes
-#: stay replicated here); unknown logical axes replicate.
-DATA_ONLY_RULES: dict[str, tuple] = {
-    "batch": (("data",),),
-    "cache_batch": (("data",),),
-}
-
 
 def _cache_specs(cache, mesh):
     """Spec tree for a cache tree: batch dim over 'data', everything else

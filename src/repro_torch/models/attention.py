@@ -41,6 +41,17 @@ the latent space (the absorbed form), every product in fixed row blocks.
 The up-projections ``wuk`` / ``wuv`` are raw fp32 kernels in every mode,
 never quantized.
 
+Under a mesh that splits weights over ``model`` (``dist.tensor``), ``wq``
+/ ``wk`` / ``wv`` are column shards and ``wo`` a row shard: a rank computes
+the heads whose output columns its ``wo`` rows read, and the kv heads
+those query heads read (:func:`_rank_heads`); flash attention, the chunked
+attention and the decode run on those local heads, and the decode cache
+holds the rank's kv heads.  Where a shard's columns are not whole heads
+(H or HKV not a multiple of the split), the projection's output is
+gathered over ``model`` (exact) and the rank keeps the heads it needs; a
+rank whose query heads straddle kv groups unevenly repeats its kv heads
+once per query head.
+
 The int8 cache (``SpringContext.int8_cache``, full attention only; rings
 and MLA's latent stay bf16): prefill returns ``{"k_q8", "k_sc", "v_q8",
 "v_sc"}``, each cache line rounded half to even to int8 under one bf16
@@ -60,9 +71,11 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.dist.tensor import column_input, copy_to_model, gather_from_model
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (SpringContext, dense_apply, dense_init, fixed_rows,
                                         rope_apply)
+from repro_torch.runtime.sharding import weight_split
 
 
 def _pos_vec(pos, b: int, device) -> torch.Tensor:
@@ -215,6 +228,72 @@ def _ring(x: torch.Tensor, window: int) -> torch.Tensor:
     return ring
 
 
+@dataclasses.dataclass(frozen=True)
+class _Heads:
+    """A rank's share of an attention layer under a ``model`` split: query
+    heads ``[h0, h1)``, kv heads ``[kv0, kv1)``, and the columns ``[c0, c1)``
+    of the (B, S, H*D) attention output its ``wo`` rows read."""
+
+    h0: int
+    h1: int
+    kv0: int
+    kv1: int
+    c0: int
+    c1: int
+
+
+def _rank_heads(spec: AttnSpec, so) -> _Heads:
+    h, kv, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    c0, c1 = (0, h * d) if so is None else (so.lo, so.hi)
+    h0, h1 = c0 // d, -(-c1 // d)
+    g = h // kv
+    return _Heads(h0, h1, h0 // g, (h1 - 1) // g + 1, c0, c1)
+
+
+def _take_cols(y: torch.Tensor, split, lo: int, hi: int) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of a projection's whole output, from this rank's
+    output ``y`` (its columns under ``split``, or the whole), gathered over
+    ``model`` where the rank does not hold them."""
+    if split is not None and (split.lo, split.hi) == (lo, hi):
+        return y
+    if split is not None:
+        y = gather_from_model(y, -1)
+    return y[..., lo:hi]
+
+
+def _local_qkv(params: dict, x: torch.Tensor, ctx: SpringContext, spec: AttnSpec):
+    """q (B, S, H', D), k and v (B, S, KV', D) of this rank's heads, the
+    ``wo`` split and the rank's :class:`_Heads` (None without a split):
+    H' = H, KV' = KV unsplit; else the local heads, with H' a multiple of
+    KV' in the standard grouping."""
+    b, s, d_model = x.shape
+    h, kv, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    sq = weight_split(("w_embed", "w_qkv"), (d_model, h * d))
+    sk = weight_split(("w_embed", "w_qkv"), (d_model, kv * d))
+    so = weight_split(("w_qkv", "w_embed"), (h * d, d_model))
+    xin = column_input(x, sq, sk)
+    wk, wv = params["wk"], params["wv"]
+    if sq is not None and sk is None:
+        # wk / wv whole on every rank, each rank reading only its kv heads'
+        # columns: their gradient is summed over model
+        wk, wv = ({n: copy_to_model(t) for n, t in w.items()} for w in (wk, wv))
+    q = dense_apply(params["wq"], xin, ctx, sq)
+    k = dense_apply(wk, xin, ctx, sk)
+    v = dense_apply(wv, xin, ctx, sk)
+    if sq is None and sk is None and so is None:
+        return q.reshape(b, s, h, d), k.reshape(b, s, kv, d), v.reshape(b, s, kv, d), None, None
+    r = _rank_heads(spec, so)
+    q = _take_cols(q, sq, r.h0 * d, r.h1 * d).reshape(b, s, r.h1 - r.h0, d)
+    k = _take_cols(k, sk, r.kv0 * d, r.kv1 * d).reshape(b, s, r.kv1 - r.kv0, d)
+    v = _take_cols(v, sk, r.kv0 * d, r.kv1 * d).reshape(b, s, r.kv1 - r.kv0, d)
+    g, hl, kvl = h // kv, r.h1 - r.h0, r.kv1 - r.kv0
+    if not (kvl == 1 or (r.h0 % g == 0 and hl == kvl * g)):
+        # the query heads straddle kv groups unevenly: one kv head each
+        idx = torch.arange(r.h0, r.h1, device=x.device) // g - r.kv0
+        k, v = k[:, :, idx], v[:, :, idx]
+    return q, k, v, so, r
+
+
 def gqa_apply(
     params: dict,
     x: torch.Tensor,
@@ -228,10 +307,9 @@ def gqa_apply(
     """Full-sequence attention (cache None) or one-token decode (cache set).
     Returns ``(out, new_cache)``."""
     b, s, _ = x.shape
-    h, kv, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = dense_apply(params["wq"], x, ctx).reshape(b, s, h, d)
-    k = dense_apply(params["wk"], x, ctx).reshape(b, s, kv, d)
-    v = dense_apply(params["wv"], x, ctx).reshape(b, s, kv, d)
+    d = spec.head_dim
+    q, k, v, so, heads = _local_qkv(params, x, ctx, spec)
+    h, kv = q.shape[2], k.shape[2]
     q = rope_apply(q, positions, spec.rope_theta)
     k = rope_apply(k, positions, spec.rope_theta)
 
@@ -289,7 +367,10 @@ def gqa_apply(
         out = out.reshape(b, 1, h, d).to(x.dtype)
         new_cache = {kn: ck, vn: cv}
 
-    out = dense_apply(params["wo"], out.reshape(b, s, h * d), ctx)
+    out = out.reshape(b, s, h * d)
+    if heads is not None:  # the columns this rank's wo rows read
+        out = out[..., heads.c0 - heads.h0 * d:heads.c1 - heads.h0 * d]
+    out = dense_apply(params["wo"], out, ctx, so)
     return out, new_cache
 
 

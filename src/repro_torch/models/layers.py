@@ -4,6 +4,14 @@ Functional style on plain parameter dicts, as in the reference: dense
 kernels are ``(d_in, d_out)`` tensors under ``{"kernel": ...}``, so the
 JAX parameter tree maps one to one (``repro_torch.convert``).  Every
 projection funnels through :func:`~repro_torch.core.spring_ops.spring_matmul`.
+
+Under a mesh whose rules split weights over ``model`` a rank holds the
+shards ``runtime.tree_sharding.shard_tree`` cut, and the layers ask
+``runtime.sharding.weight_split`` (from the reference's logical axes and
+the whole weight's shape) which way each is split: :func:`dense_apply`
+takes the answer, :func:`embed_apply` looks the tokens up in its
+vocabulary rows, :func:`swiglu_apply` keeps ``mlp_act`` on the rank's
+columns; the collectives are ``dist.tensor``'s.
 """
 
 from __future__ import annotations
@@ -18,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spring_ops import DENSE, DENSE_DTYPE, KeyGen, SpringConfig, spring_matmul
+from repro_torch.dist.tensor import column_input, copy_to_model, reduce_from_model
 from repro_torch.memstash.config import MemstashConfig
+from repro_torch.runtime.sharding import splits_over_model, weight_split
 
 
 @dataclasses.dataclass
@@ -63,6 +73,10 @@ class SpringContext:
         next forward prunes them again), as in the reference."""
         if self.prune_ratio <= 0.0:
             return w
+        if splits_over_model():
+            raise NotImplementedError(
+                "prune_ratio > 0 under a mesh that splits weights over model: the "
+                "threshold would take a shard's std, not the weight's")
         t = prune_threshold(self.prune_ratio)
         std = torch.std(w.to(torch.float32), correction=0) + 1e-12
         return torch.where(w.abs() >= t * std, w, 0.0).to(w.dtype)
@@ -108,13 +122,22 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device=None,
     return p
 
 
-def dense_apply(params: dict, x: torch.Tensor, ctx: SpringContext) -> torch.Tensor:
+def dense_apply(params: dict, x: torch.Tensor, ctx: SpringContext, split=None) -> torch.Tensor:
+    """``x @ kernel (+ bias)``.  ``split`` is the kernel's
+    ``runtime.sharding.Split`` over ``model``: a column split reads the
+    whole ``x`` (entered through ``dist.tensor.column_input``) and yields
+    this rank's columns, with its columns of the replicated bias (whose
+    gradient is summed over ``model``); a row split reads this rank's
+    columns of ``x`` and yields the whole output, summed over ``model``."""
     w = ctx.maybe_prune(params["kernel"])
     shape = x.shape
-    y = spring_matmul(x.reshape(-1, shape[-1]), w, ctx.cfg, ctx.keys)
+    y = spring_matmul(x.reshape(-1, shape[-1]), w, ctx.cfg, ctx.keys, split=split)
     y = y.reshape(*shape[:-1], w.shape[-1])
     if "bias" in params:
-        y = (y + params["bias"].to(y.dtype)).to(y.dtype)
+        b = params["bias"]
+        if split is not None and split.kind == "col":
+            b = split.take(copy_to_model(b), 0)
+        y = (y + b.to(y.dtype)).to(y.dtype)
     return y
 
 
@@ -123,11 +146,25 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *, device=None) -> dict
     return {"embedding": emb.mul_(0.02)}
 
 
-def embed_apply(params: dict, tokens: torch.Tensor, ctx: SpringContext) -> torch.Tensor:
+def embed_apply(params: dict, tokens: torch.Tensor, ctx: SpringContext,
+                vocab: int | None = None) -> torch.Tensor:
+    """The tokens' embedding rows.  Given the whole ``vocab``, a table split
+    over ``model`` by its vocabulary rows is looked up on each rank's rows
+    (zero where a token lies on another rank's) and summed over ``model``:
+    exact, as one addend is the row and the others are zero."""
     # quantized modes carry fp32 activations (the Q4.16 grid does not fit
     # in bf16); dense mode computes in bf16
     act_dtype = torch.float32 if ctx.cfg.is_quantized else DENSE_DTYPE
-    return params["embedding"][tokens].to(act_dtype)
+    emb = params["embedding"]
+    split = weight_split(("w_vocab", "w_embed"), (vocab, emb.shape[1])) if vocab else None
+    if split is None:
+        return emb[tokens].to(act_dtype)
+    local = tokens - split.lo
+    inside = (local >= 0) & (local < split.hi - split.lo)
+    rows = emb[local.clamp(0, split.hi - split.lo - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return reduce_from_model(rows).to(act_dtype)
 
 
 def rmsnorm_init(d: int, *, device=None) -> dict:
@@ -207,12 +244,21 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *, device=None) -> dict
     }
 
 
-def swiglu_apply(params: dict, x: torch.Tensor, ctx: SpringContext) -> torch.Tensor:
-    g = dense_apply(params["gate"], x, ctx)
-    u = dense_apply(params["up"], x, ctx)
+def swiglu_apply(params: dict, x: torch.Tensor, ctx: SpringContext,
+                 d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU.  Given the whole ``d_ff``, gate / up split over ``model`` by
+    columns and down by rows (the one ``w_mlp`` rule splits all three or
+    none) keep the hidden ``mlp_act`` on the rank's columns; the one sum
+    over ``model`` is down's."""
+    d = x.shape[-1]
+    s_in = weight_split(("w_embed", "w_mlp"), (d, d_ff)) if d_ff else None
+    s_out = weight_split(("w_mlp", "w_embed"), (d_ff, d)) if d_ff else None
+    x = column_input(x, s_in)
+    g = dense_apply(params["gate"], x, ctx, s_in)
+    u = dense_apply(params["up"], x, ctx, s_in)
     gf = g.to(torch.float32)
     h = (gf * torch.sigmoid(gf)).to(g.dtype) * u  # jax.nn.silu = x * sigmoid(x)
-    return dense_apply(params["down"], h, ctx)
+    return dense_apply(params["down"], h, ctx, s_out)
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, device=None,

@@ -46,6 +46,15 @@ product, RMSNorm's mean, decode attention's score and value products, MLA's
 absorbed products, the MoE router, the SSM state readout, the RG-LRU's conv
 sum and gate products) run in fixed row blocks (``layers.fixed_rows``), so
 a request's tokens do not depend on how many slots the pool has.
+
+Under a mesh that splits weights over ``model`` (tensor parallelism, the
+dense family; ``dist.tensor``) every rank runs the whole stack on its
+shards: attention on its heads, the MLP on its columns, the embedding on
+its vocabulary rows; the head's logits are the rank's vocabulary columns,
+gathered in rank order for serving (:func:`_logits`) and reduced with the
+cross-rank max, sum-exp and gold logit for the loss
+(``losses.chunked_softmax_xent``).  The replicated activations are the
+same bits on every rank.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnSpec, MLASpec
+from repro_torch.dist.tensor import copy_to_model, gather_from_model
 from repro_torch.models.layers import (
     SpringContext,
     dense_init,
@@ -79,6 +89,7 @@ from repro_torch.models.moe import MoESpec
 from repro_torch.models.recurrent import RGLRUSpec
 from repro_torch.models.ssm import SSMSpec
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.runtime.sharding import in_context, weight_split
 
 SUPPORTED_KINDS = (("attn", "swiglu"), ("ssm", "none"), ("local", "swiglu"),
                    ("rglru", "swiglu"), ("attn", "moe"), ("mla", "moe"), ("mla", "swiglu"))
@@ -141,6 +152,20 @@ class LMConfig:
                 + [(f"suffix_{i}", None, kind) for i, kind in enumerate(self.suffix)])
 
 
+def tensor_parallel(cfg, mesh) -> bool:
+    """Does a run of ``cfg`` on ``mesh`` split its weights over ``model``?
+    It does where the mesh's ``model`` extent is > 1 and its ``data``
+    extent 1, and ``cfg`` is of the dense family (every layer ``("attn",
+    "swiglu")``, no image prefix).  A ``data > 1`` run keeps ``model``
+    replicated, as the reference builds its data-parallel base step
+    without a mesh; the other archs and the encoder-decoder run replicated
+    on every rank of the axis (ROADMAP §1 item 5)."""
+    shape = dict(getattr(mesh, "shape", None) or {})
+    return (shape.get("model", 1) > 1 and shape.get("data", 1) == 1
+            and isinstance(cfg, LMConfig) and not cfg.vlm_prefix_len
+            and set(cfg.pattern_unit) | set(cfg.prefix) | set(cfg.suffix) == {("attn", "swiglu")})
+
+
 def _attn_spec(cfg: LMConfig, mixer: str) -> AttnSpec:
     return cfg.attn if mixer == "attn" else cfg.local_attn
 
@@ -192,7 +217,7 @@ def block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, cfg: LMConfig
         if ffn == "moe":
             out, aux = moe_mod.moe_apply(params["ffn"], h, ctx, cfg.moe)
         else:
-            out = swiglu_apply(params["ffn"], h, ctx)
+            out = swiglu_apply(params["ffn"], h, ctx, cfg.d_ff)
         x = (x + out).to(x.dtype)
     return x, new_cache, aux
 
@@ -215,10 +240,12 @@ def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
 def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random parameters from ``seed`` on ``device`` (a ``torch.Generator``
     there; the values differ from the reference's ``jax.random`` ones — use
-    :func:`repro_torch.convert.params_from_jax` to carry a JAX init across)."""
+    :func:`repro_torch.convert.params_from_jax` to carry a JAX init across).
+    On the ``meta`` device the tree has the shapes and no values (the
+    sharding specs are read off it)."""
     cfg.check_supported()
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     params: dict = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, device=device),
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
@@ -229,12 +256,24 @@ def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
     return params
 
 
+def _vocab_split(cfg: LMConfig):
+    """The head's split over ``model``: the vocabulary columns of the
+    (d, V) head this rank holds (the tied table's rows), or None."""
+    if cfg.tie_embeddings:
+        return weight_split(("w_vocab", "w_embed"), (cfg.vocab, cfg.d_model))
+    return weight_split(("w_embed", "w_vocab"), (cfg.d_model, cfg.vocab))
+
+
 def _logits(params: dict, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits of (B, d) rows in fixed row blocks (``fixed_rows``:
-    cuBLAS picks its GEMM by the row count)."""
-    w = (params["embed"]["embedding"].t() if cfg.tie_embeddings
-         else params["lm_head"]["kernel"]).to(torch.float32)
-    return fixed_rows(lambda r: torch.matmul(r, w), h.to(torch.float32))
+    cuBLAS picks its GEMM by the row count); under a vocabulary split each
+    rank's columns, gathered over ``model`` in rank order."""
+    w = _logits_kernel(params, cfg).to(torch.float32)
+    split = _vocab_split(cfg)
+    if split is not None:
+        h = copy_to_model(h)
+    logits = fixed_rows(lambda r: torch.matmul(r, w), h.to(torch.float32))
+    return logits if split is None else gather_from_model(logits, -1)
 
 
 def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContext,
@@ -258,7 +297,8 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
         return block_apply(p, h, ctx, cfg, cfg.pattern_unit[u], positions)[::2]
 
     def checkpointed(fn, *args):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        # the recompute keeps the forward's sharding context (in_context)
+        return torch.utils.checkpoint.checkpoint(in_context(fn), *args, use_reentrant=False)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.prefix):
@@ -286,7 +326,8 @@ def lm_hidden(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringCont
                 leaves = iter(leaves)
                 return run(h, tree_map(lambda _: next(leaves), unit))
 
-            x, a = stash_apply(run_aux, scfg, "lm/residual", x, tuple(tree_leaves(unit)))
+            x, a = stash_apply(in_context(run_aux), scfg, "lm/residual", x,
+                               tuple(tree_leaves(unit)))
             aux = aux + a
         else:
             x, a = (checkpointed(run, x) if cfg.remat or stash_policy == "remat" else run(x))
@@ -302,7 +343,7 @@ def _embed_inputs(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: Spring
                   img_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """The token embeddings, with a VLM's (B, P, d) image embeddings ahead
     of them in the activation dtype (positions run over both)."""
-    x = embed_apply(params["embed"], tokens, ctx)
+    x = embed_apply(params["embed"], tokens, ctx, cfg.vocab)
     if cfg.vlm_prefix_len:
         if img_embeds is None:
             raise ValueError(f"{cfg.name} takes a ({cfg.vlm_prefix_len}, d) image prefix")
@@ -327,7 +368,8 @@ def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor, ctx: SpringContex
     b, s, _ = h.shape
     total = chunked_softmax_xent(
         h[:, :-1], tokens[:, 1:], _logits_kernel(params, cfg),
-        logits_dtype=torch.bfloat16 if cfg.bf16_logits else torch.float32)
+        logits_dtype=torch.bfloat16 if cfg.bf16_logits else torch.float32,
+        split=_vocab_split(cfg))
     ce = total / (b * (s - 1))
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
@@ -408,7 +450,7 @@ def lm_decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor, cache: dic
     per-row (B,) vector; returns (logits (B, V), updated cache)."""
     cfg.check_supported()
     pos = cache["pos"]
-    x = embed_apply(params["embed"], tokens[:, None], ctx)
+    x = embed_apply(params["embed"], tokens[:, None], ctx, cfg.vocab)
     b = x.shape[0]
     positions = (pos.reshape(-1, 1) if pos.ndim else pos).expand(b, 1)
     plan, caches = cfg.layer_plan, []

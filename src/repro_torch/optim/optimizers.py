@@ -14,6 +14,12 @@ float32 as the reference's ``_schedule``.  :func:`make_optimizer`'s
 updates are functional (new tensors, as in the reference);
 :func:`update_in_place` writes the same step into the state it is given,
 leaf by leaf (the LM train step, whose state is donated).
+
+Under tensor parallelism a rank holds shards of some leaves (``splits``,
+one ``runtime.sharding.Split`` or None per leaf): the global norm sums the
+shards' squares over ``model`` and counts every replicated leaf once, and
+a shard is SR-rounded with the whole leaf's element counters, so it
+takes the bits the unsharded update gives those elements.
 """
 
 from __future__ import annotations
@@ -67,10 +73,25 @@ def tree_leaves(tree) -> list:
     return out
 
 
-def _clip_scale(grads, max_norm: float) -> tuple:
-    """(min(1, max_norm / (global norm + 1e-9)), the global norm), 0-d."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in tree_leaves(grads)))
+def _clip_scale(grads, max_norm: float, splits=None, mesh=None) -> tuple:
+    """(min(1, max_norm / (global norm + 1e-9)), the global norm), 0-d.
+    With ``splits`` the sharded leaves' squares are summed over ``mesh``'s
+    ``model`` axis and the replicated leaves' added once."""
+    leaves = tree_leaves(grads)
+
+    def sq(g):
+        return torch.sum(torch.square(g.to(torch.float32)))
+
+    if splits is None:
+        return _scale_of(torch.sqrt(sum(sq(g) for g in leaves)), max_norm)
+    sharded = [sq(g) for g, s in zip(leaves, splits) if s is not None]
+    whole = [sq(g) for g, s in zip(leaves, splits) if s is None]
+    total = mesh.all_reduce(sum(sharded) if sharded
+                            else torch.zeros((), device=leaves[0].device), "model")
+    return _scale_of(torch.sqrt(sum(whole, total)), max_norm)
+
+
+def _scale_of(gn: torch.Tensor, max_norm: float) -> tuple:
     return torch.clamp(max_norm / (gn + 1e-9), max=1.0), gn
 
 
@@ -133,7 +154,7 @@ def _sgdm_leaf(cfg: OptimizerConfig, p, m, g, scale, lr: float):
 
 
 def update_in_place(cfg: OptimizerConfig, grads, state: OptState, params,
-                    seed: Optional[int] = None):
+                    seed: Optional[int] = None, splits=None, mesh=None):
     """The optimizer step of :func:`make_optimizer` computed leaf by leaf
     into ``params`` and ``state``'s moments, which it overwrites (the LM
     train step donates its state, as the reference's jitted step does):
@@ -141,24 +162,29 @@ def update_in_place(cfg: OptimizerConfig, grads, state: OptState, params,
     piece by piece, then SR-rounded whole onto ``weight_format``'s grid
     (leaf i under ``fold_in(seed, i)``).  The same arithmetic as the
     functional updates, so the same bits; its extra memory is a few pieces
-    and one rounded leaf.  Returns (params, the new OptState, metrics)."""
+    and one rounded leaf.  ``splits`` (a list in leaf order) and ``mesh``:
+    the leaves' splits over ``model`` (the module docstring).  Returns
+    (params, the new OptState, metrics)."""
     if cfg.kind not in ("adamw", "sgdm"):
         raise ValueError(cfg.kind)
     if cfg.weight_format is not None and seed is None:
         raise ValueError("the fixed-point weight update needs a seed")
-    scale, gn = _clip_scale(grads, cfg.grad_clip)
+    scale, gn = _clip_scale(grads, cfg.grad_clip, splits, mesh)
     step = state.step + 1
     lr = _schedule(cfg, state.step)
     bc1, bc2 = 1.0 - cfg.beta1**step, 1.0 - cfg.beta2**step
     moments = zip(tree_leaves(state.m), tree_leaves(state.v))
-    for i, (p, (m, v), g) in enumerate(zip(tree_leaves(params), moments, tree_leaves(grads))):
+    leaves = tree_leaves(params)
+    splits = [None] * len(leaves) if splits is None else splits
+    for i, (p, (m, v), g) in enumerate(zip(leaves, moments, tree_leaves(grads))):
         if cfg.kind == "adamw":
             _adamw_leaf(cfg, p, m, v, g, scale, lr, bc1, bc2)
         else:
             _sgdm_leaf(cfg, p, m, g, scale, lr)
         if cfg.weight_format is not None:
             gen = torch.Generator().manual_seed(fold_in(seed, i))
-            p.copy_(quantize_stochastic(gen, p, cfg.weight_format))
+            counter = None if splits[i] is None else splits[i].counter()
+            p.copy_(quantize_stochastic(gen, p, cfg.weight_format, counter))
     return params, OptState(step, state.m, state.v), {"grad_norm": gn, "lr": lr}
 
 

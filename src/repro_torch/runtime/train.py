@@ -21,7 +21,13 @@ On a mesh (:mod:`repro_torch.dist.mesh`) every rank runs the step:
 and the optimizer, the seam where ``dist.train`` splices its packed
 gradient exchange; ``compress_pod_grads`` gives each pod its
 ``batch / pod`` rows and averages the pods' gradients over the ``pod``
-axis as int8 with error feedback (``state.ef``).
+axis as int8 with error feedback (``state.ef``).  Where the run splits
+weights over ``model`` (tensor parallelism, ``models.lm.tensor_parallel``:
+a ``model`` extent > 1 at ``data`` 1, the dense family) the state holds
+each rank's shards (``runtime.tree_sharding.shard_tree``): the layers
+place their collectives, and the optimizer sums the gradient norm over
+``model`` and rounds each shard with the whole leaf's SR counters.  Every
+other run keeps ``model`` replicated (``DATA_ONLY_RULES``).
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from repro_torch.models.layers import SpringContext
 from repro_torch.optim.optimizers import (OptimizerConfig, OptState, make_optimizer,
                                           tree_leaves, tree_map, update_in_place)
 from repro_torch.runtime.compression import compressed_allreduce_tree
-from repro_torch.runtime.sharding import sharding_context
+from repro_torch.runtime.sharding import DATA_ONLY_RULES, sharding_context
 
 #: the optimizer's seed is folded from the step key with this constant
 OPT_SEED_FOLD = 0x5EED
@@ -146,11 +152,20 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
     pod rank r takes rows ``[r*B/P, (r+1)*B/P)`` of every batch leaf, and
     the pods' gradients are averaged over ``pod`` as int8 with error
     feedback under seed ``fold_in(key, 0xC0DE)``, the new buffers returned
-    in the state's ``ef``."""
+    in the state's ``ef``.  Where ``models.lm.tensor_parallel(cfg, mesh)``
+    holds, the state must hold this rank's shards."""
     if step_cfg.compress_pod_grads:
         assert mesh is not None and "pod" in mesh.shape, "pod axis required for compressed grads"
     cfg = arch.reduced() if reduced else arch.config
     spring = _spring_for(step_cfg)
+    # the default rules split the weights over model; the others keep it replicated
+    rules = None if lm_mod.tensor_parallel(cfg, mesh) else DATA_ONLY_RULES
+    split_tree = None
+    if rules is None:
+        from repro_torch.runtime.tree_sharding import param_splits
+
+        with sharding_context(mesh):
+            split_tree = param_splits(cfg, mesh)
 
     def ctx_for(key: int) -> SpringContext:
         return SpringContext(cfg=spring, keys=KeyGen(key) if spring.is_quantized else None,
@@ -183,7 +198,7 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
     def step(state: TrainState, batch: dict):
         key = fold_in(state.seed, state.step)
         ef = state.ef
-        with sharding_context(mesh):
+        with sharding_context(mesh, rules):
             if step_cfg.compress_pod_grads:
                 # this pod's rows: per-pod gradients differ, and the int8 + EF
                 # exchange averages them across pods
@@ -196,8 +211,14 @@ def make_train_step(arch, step_cfg: StepConfig, mesh=None, reduced: bool = False
             if step_cfg.compress_pod_grads:
                 grads, ef = compressed_allreduce_tree(grads, "pod", fold_in(key, POD_SEED_FOLD),
                                                       state.ef)
+            splits = None
+            if split_tree is not None:  # in the state's leaf order, which its key order sets
+                from repro_torch.runtime.tree_sharding import leaf_splits
+
+                splits = leaf_splits(split_tree, state.params)
             new_p, new_opt, om = update_in_place(step_cfg.optimizer, grads, state.opt_state,
-                                                 state.params, fold_in(key, OPT_SEED_FOLD))
+                                                 state.params, fold_in(key, OPT_SEED_FOLD),
+                                                 splits, mesh)
         return (TrainState(new_p, new_opt, state.step + 1, state.seed, ef),
                 dict(metrics, loss=loss, **om))
 

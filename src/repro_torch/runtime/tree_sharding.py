@@ -14,7 +14,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.runtime.sharding import logical_to_spec
+import torch
+
+from repro_torch.runtime.sharding import logical_to_spec, split_of
 
 # (parent, leaf) -> logical axes for the trailing dims.  Leading unit-stack
 # dims are padded with None automatically.
@@ -111,3 +113,63 @@ def batch_shardings(batch, mesh):
     """Input batches shard over ('pod','data') on axis 0."""
     return map_with_path(lambda path, leaf: logical_to_spec(
         ("batch",) + (None,) * (len(leaf.shape) - 1), leaf.shape, mesh), batch)
+
+
+def param_splits(cfg, mesh):
+    """The :class:`~repro_torch.runtime.sharding.Split` (or None) of every
+    leaf of ``lm_init(cfg)``'s parameters on ``mesh``, under the active
+    rules (fallbacks not counted)."""
+    from repro_torch.models.lm import lm_init
+
+    return map_with_path(lambda path, leaf: split_of(logical_to_spec(
+        logical_axes_for_path(path, leaf.shape), leaf.shape, mesh, count=False),
+        tuple(leaf.shape), mesh), lm_init(cfg, device="meta"))
+
+
+def leaf_splits(split_tree, tree) -> list:
+    """The splits of ``tree``'s leaves in its own walk order, looked up by
+    path in ``split_tree`` (:func:`param_splits`): a tree converted from the
+    reference's keeps the reference's key order, not ``lm_init``'s."""
+    out: list = []
+    map_with_path(lambda path, leaf: out.append(_at(split_tree, path)), tree)
+    return out
+
+
+def shard_tree(tree, mesh, specs=None):
+    """This rank's shard of every leaf of a whole parameter (or moment)
+    tree: the slice along the dim its spec splits over ``model``
+    (:func:`tree_shardings`, which counts the divisibility fallbacks), the
+    leaf itself where nothing splits it.  A ``data`` entry of a spec (FSDP,
+    not ported) leaves the dim whole.  The slices are copies: the whole
+    tree can be freed."""
+    specs = tree_shardings(tree, mesh) if specs is None else specs
+
+    def shard(path, leaf):
+        spec = _at(specs, path)
+        split = split_of(spec, tuple(leaf.shape), mesh)
+        return leaf if split is None else split.take(leaf).clone()
+
+    return map_with_path(shard, tree)
+
+
+def gather_tree(tree, mesh, splits):
+    """The whole leaves of a sharded tree, on every rank: each split leaf's
+    shards gathered over ``model`` in rank order (one collective a leaf,
+    which every rank must join), the others as they are.  ``splits`` is
+    the parameters' split tree (:func:`param_splits`); a 0-d leaf (SGD's
+    ``v``) is whole."""
+
+    def gather(path, leaf):
+        split = _at(splits, path)
+        if split is None or leaf.ndim != len(split.full):
+            return leaf
+        parts = mesh.all_gather(leaf.detach(), "model")
+        return torch.cat(list(parts.unbind(0)), dim=split.dim)
+
+    return map_with_path(gather, tree)
+
+
+def _at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree

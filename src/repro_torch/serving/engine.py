@@ -73,7 +73,7 @@ import torch
 from repro_torch import telemetry
 from repro_torch.dist.mesh import is_rank0
 from repro_torch.runtime.resilience import StragglerWatchdog
-from repro_torch.runtime.sharding import sharding_context
+from repro_torch.runtime.sharding import DATA_ONLY_RULES, sharding_context
 from repro_torch.serving import kvpool
 from repro_torch.serving.request import Request, RequestResult
 from repro_torch.serving.scheduler import ShedPolicy, SlotScheduler
@@ -644,7 +644,8 @@ class ServingEngine:
         ranks of a mesh each run this same engine, so rank 0 alone writes
         the file: concurrent writers would truncate each other's."""
         every = self.snapshot_every if is_rank0() else 0
-        with sharding_context(self.mesh):
+        # the engine runs replicated on every rank: no weight splits over model
+        with sharding_context(self.mesh, DATA_ONLY_RULES):
             while self.sched.has_work():
                 self.step()
                 self.sched.check_invariants()

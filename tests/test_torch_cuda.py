@@ -252,6 +252,26 @@ def test_stochastic_round_kernel_bit_equal_to_plain(card, shape, il, fl):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dim", [0, 1])
+def test_stochastic_round_strided_counter_bit_equal_to_plain_and_the_whole(card, dim):
+    """Tensor parallelism's weight update: each of four column (dim 1) or
+    row (dim 0) shards of a (256, 384) leaf, rounded with the whole leaf's
+    counters, equals the plain version and the slice of the whole leaf's
+    rounding, bit for bit."""
+    from repro_torch.kernels.stochastic_round.ops import (shard_counter, sr_reference,
+                                                          stochastic_round)
+
+    whole = (torch.randn(256, 384, generator=torch.Generator().manual_seed(dim)) * 3).to(card)
+    rounded = stochastic_round(whole, 21)
+    size = whole.shape[dim] // 4
+    for r in range(4):
+        part = whole.narrow(dim, r * size, size).contiguous()
+        base, stride = shard_counter(whole.shape, dim, r * size)
+        got = stochastic_round(part, 21, base=base, row_stride=stride)
+        assert torch.equal(got, sr_reference(part, 21, base=base, row_stride=stride))
+        assert torch.equal(got, rounded.narrow(dim, r * size, size))
+
+
 @pytest.mark.parametrize("which,m,k,n", [("dx", 300, 576, 64), ("dw", 576, 20000, 64),
                                          ("dw", 100, 70, 50), ("dx", 33, 4096, 513)])
 def test_backward_kernels_match_plain_and_repeat(card, which, m, k, n):
@@ -1181,3 +1201,59 @@ def test_two_gloo_ranks_on_one_card_train_as_the_unsharded_step(card, tmp_path):
         diff = (r["params"] != params).nonzero()
         assert diff.numel() == 0, (diff[:8].tolist(), int(diff.numel()))
         assert r["launches"]["mask_pack"] > 0 and r["launches"]["masked_matmul"] > 0, r["launches"]
+
+
+def test_two_gloo_ranks_on_one_card_serve_tensor_parallel_as_the_cpu(card, tmp_path):
+    """Tensor parallelism on the card: two gloo ranks sharing cuda:0 serve
+    the reduced llama3.2-1b static at shape.mesh.model=2 (quant_sparse),
+    each on its shards of one CPU init's weights, every hop staged through
+    the host; both ranks' tokens are the CPU's unsharded tokens from the
+    same weights, and the kernels ran at the shard shapes."""
+    import _torch_mesh_ranks as R
+    import _torch_tp_ranks as T
+    from repro_torch.api.sessions import ServeSession
+    from repro_torch.api.spec import build_spec
+    from repro_torch.dist import launch
+    from repro_torch.kernels import cuda
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import lm_init
+
+    cuda.build()  # the ranks only load the libraries
+    params = lm_init(get_arch("llama3.2-1b").reduced(), 0, device="cpu")
+    ranks = launch.run(T.card_tp_serve, 2, (params,), timeout_s=300, store_dir=str(tmp_path))
+    want = ServeSession(build_spec("serve", sets=R.SERVE_SETS + ["numerics.mode=quant_sparse"],
+                                   use_env=False), device="cpu",
+                        params=params).run()["generated"].tolist()
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["report"]["staged_hops"] > 0, r["report"]
+        assert r["generated"] == want, (r["generated"], want)
+        for name in ("masked_matmul", "masked_matmul_skinny", "flash_attention"):
+            assert r["launches"][name] > 0, r["launches"]
+
+
+def test_two_gloo_ranks_on_one_card_serve_their_card_init_as_the_card_unsharded(card, tmp_path):
+    """Two model=2 ranks on cuda:0 drawing the session's own seeded init on
+    the card serve the unsharded card session's tokens from that init.
+    The card's generator is not the CPU's, so a card init is not the CPU
+    init of the same seed: a comparison with the CPU's tokens takes the
+    CPU's weights (the test above)."""
+    import _torch_mesh_ranks as R
+    import _torch_tp_ranks as T
+    from repro_torch.api.sessions import ServeSession
+    from repro_torch.api.spec import build_spec
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import launch
+    from repro_torch.kernels import cuda
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cuda.build()  # the ranks only load the libraries
+    cfg = get_arch("llama3.2-1b").reduced()
+    assert not all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(lm_init(cfg, 0, device=card)), tree_leaves(lm_init(cfg, 0, device="cpu"))))
+    ranks = launch.run(T.card_tp_serve, 2, (None,), timeout_s=300, store_dir=str(tmp_path))
+    want = ServeSession(build_spec("serve", sets=R.SERVE_SETS + ["numerics.mode=quant_sparse"],
+                                   use_env=False), device=card).run()["generated"].tolist()
+    for r in ranks:
+        assert r["generated"] == want, (r["generated"], want)

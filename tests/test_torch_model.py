@@ -256,7 +256,8 @@ def test_port_imports_neither_jax_nor_reference():
         "       'repro_torch.api.validate', 'repro_torch.api.threefry',\n"
         "       'repro_torch.dist', 'repro_torch.dist.mesh', 'repro_torch.dist.launch',\n"
         "       'repro_torch.dist.collectives', 'repro_torch.dist.train',\n"
-        "       'repro_torch.dist.serve', 'repro_torch.runtime.sharding',\n"
+        "       'repro_torch.dist.serve', 'repro_torch.dist.tensor',\n"
+        "       'repro_torch.runtime.sharding',\n"
         "       'repro_torch.runtime.tree_sharding', 'repro_torch.runtime.pipeline',\n"
         "       'repro_torch.runtime.compression'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
