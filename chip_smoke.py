@@ -334,7 +334,7 @@ failure:
                microbatches of 64 rows, each stage one llama3.2-1b MLP's two
                products through spring_matmul, within 2b's bound of the stages
                in sequence.  Then two ranks: (b) the example train spec at full
-               width, batch 8, seq 128, 3 steps at shape.mesh.data=2 (two
+               width, batch 8, seq 128, 2 steps at shape.mesh.data=2 (two
                replicas: four do not fit the card): losses bit-equal to the
                unsharded run's, every parameter on the grid, the probe exact,
                the tile kernel, tile_occupancy, stochastic_round and mask_pack
@@ -347,7 +347,18 @@ failure:
                2**20 elements of every leaf; both pods' parameters bit-equal
                after the step (a checksum of every leaf's bits, gathered).
                Printed: the backend, each rank's peak, wall time and staged
-               hops, prefill s and tokens/s of both serving runs.
+               hops, prefill s and tokens/s of both serving runs.  Then four
+               ranks at shape.mesh.model=4, llama3.2-1b's weights split over
+               them: (e) the example train spec, nearest rounding, losses
+               within rel 1e-4 of the unsharded run's; (f) the static path,
+               tokens equal to the unsharded run's but for a printed near
+               tie; (g) the engines on phase 3's traffic at gen 8,
+               monolithic (a snapshot mid-run, restored by an unsharded
+               engine here), paged with a shared system prompt and pruned at
+               0.5 through the ServeSession: tokens under the same rule,
+               each rank's pool two of the eight kv heads, prefill s,
+               tokens/s, ticks and model hops a tick; every path kernel on
+               every rank and at the shard shapes against its plain version.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and, last, the ``{"ok": true, "device": ...}`` line.
@@ -3897,10 +3908,10 @@ def phase_hybrid(dev, gen) -> dict:
 # paged.  Capacity max(int(T k / E 1.25 + 0.999), 4): 80 (olmoe) and 60 (deepseek)
 # at a prompt-512 prefill, 4 at a decode tick of 4 slots
 MOE_ARCHS, MOE_REQUESTS, MOE_PROMPT = ("olmoe-1b-7b", "deepseek-v2-lite-16b"), 4, 512
-#: tokens a request decodes in 6k: 8, cut from GEN (16) when phase 5h came,
+#: tokens a request decodes in 6k, cut from GEN (16) as later phases came,
 #: to keep the whole script inside its time limit (host-bound MoE ticks of
-#: 1.1 / 1.9 s, two engines each)
-MOE_GEN = 4  # 16 before phase 5h, 8 before phase 8: the MoE ticks are host-bound
+#: 1.1 / 1.9 s, three engines each); the third engine takes three ticks
+MOE_GEN = 3  # 16 before phase 5h, 8 before phase 8, 4 before 8g
 MOE_MAX_LEN = MOE_PROMPT + GEN + 2
 MOE_KERNELS = {"olmoe-1b-7b": ("masked_matmul_skinny", "masked_matmul", "tile_occupancy",
                                "mask_pack", "flash_attention"),
@@ -4711,7 +4722,7 @@ def phase_paper(dev) -> dict:
 MESH_SERVE_SETS = ("arch.id=llama3.2-1b", "arch.reduced=false", "numerics.mode=quant_sparse",
                    "serving.static=true", "shape.batch=8", "shape.prompt_len=32",
                    "shape.gen=16")
-MESH_TRAIN_SETS = ("arch.reduced=false", "train.steps=3", "train.ckpt_dir=")
+MESH_TRAIN_SETS = ("arch.reduced=false", "train.steps=2", "train.ckpt_dir=")  # 3 before 8g
 MESH_TRAIN_DATA = 2  # two full-width replicas fit the card beside the exchange, four do not
 MESH_SERVE_DATA = 4
 MESH_POD_STEPS = 1
@@ -4735,6 +4746,19 @@ MESH_TP_SERVE_KERNELS = ("masked_matmul", "masked_matmul_skinny", "tile_occupanc
 MESH_TP_LOSS_RTOL = 1e-4
 MESH_TP_LOGIT_ATOL = 1e-3
 MESH_UNSHARDED_PEAK_GIB = 20.83  # phase 5f's unsharded peak (PERF.md section 4)
+# 8g: the engines at model = 4 on phase 3's traffic (4 slots, 6 requests of prompt 32;
+# gen cut from 16 to 8 for the time limit): monolithic (a snapshot at MESH_TP_SNAPSHOT_TICK,
+# while the first four requests decode and two wait), paged with a shared
+# MESH_TP_SYSTEM-token system prompt, and monolithic pruned at MESH_TP_PRUNE through
+# the ServeSession.  At prompt 32 every product has M <= 32: the skinny kernel alone
+MESH_TP_ENGINE_SETS = ("arch.id=llama3.2-1b", "arch.reduced=false",
+                       "numerics.mode=quant_sparse", "shape.batch=4", "serving.queue=6",
+                       "shape.prompt_len=32", "shape.gen=8")
+MESH_TP_ENGINE_KERNELS = ("masked_matmul_skinny", "flash_attention", "mask_pack")
+MESH_TP_SYSTEM = 16
+MESH_TP_SNAPSHOT_TICK = 4
+MESH_TP_PRUNE = 0.5
+MESH_TP_ENGINE_RUNS = ("mono", "paged", "pruned")
 
 
 def _mesh_rank_setup(world: int, device: str, axis: str = "data"):
@@ -5055,8 +5079,245 @@ def _tp_kernel_checks(dev, cfg, model: int, rank: int, batch: int, seq: int,
     return errs
 
 
+def _tp_engine_prompts(spec, vocab: int) -> tuple:
+    """8g's prompts: the engine session's synthetic ones, and the same with
+    their first MESH_TP_SYSTEM tokens replaced by one shared system prompt."""
+    from repro_torch.api.sessions import synthetic_prompts
+
+    n = spec.serving.queue
+    prompts = synthetic_prompts(n, spec.shape.batch, spec.shape.prompt_len, vocab,
+                                spec.seeds.seed)
+    system = prompts[0][:MESH_TP_SYSTEM]
+    return prompts, [system + p[MESH_TP_SYSTEM:] for p in prompts]
+
+
+def _pool_parts(eng) -> dict:
+    """The bytes of an engine's KV storage by part: packed values, mask
+    words and per-block nnz counts (the paged store's frames, or the
+    monolithic pool's leaves), and its dense state leaves."""
+    from repro_torch.serving import kvpool
+
+    out = dict.fromkeys(("values", "mask", "nnz", "state"), 0)
+    if hasattr(eng, "store_arrays"):
+        for arrays in eng.store_arrays.values():
+            for part in ("values", "mask", "nnz"):
+                out[part] += arrays[part].numel() * arrays[part].element_size()
+        out["state"] = sum(t.numel() * t.element_size() for t in kvpool.pool_leaves(eng.state))
+        return out
+    for unit in (k for k in eng.pool if k != "pos"):
+        for leaf in eng.pool[unit].values():
+            for part in ("values", "mask", "nnz"):
+                t = getattr(leaf, part)
+                out[part] += t.numel() * t.element_size()
+    out["state"] = eng.pool["pos"].numel() * eng.pool["pos"].element_size()
+    return out
+
+
+def _pool_blocks(eng) -> tuple:
+    """(lead dims, block length) of an engine's packed KV blocks: a
+    monolithic pool leaf's (layers, slots), or a page array's (layers,
+    frames)."""
+    if hasattr(eng, "store_arrays"):
+        v = next(iter(eng.store_arrays.values()))["values"]
+    else:
+        v = next(iter(eng.pool[next(k for k in eng.pool if k != "pos")].values())).values
+    return tuple(v.shape[:-1]), int(v.shape[-1])
+
+
+def _engine_gaps(eng) -> dict:
+    """Record an engine's top-2 logit gaps as it runs: each request's
+    prefill, and each decode tick's per slot (8g's near-tie rule)."""
+    rec = {"prefill": {}, "decode": {}, "rid": None}
+    admit, prefill, decode = eng._admit_one, eng._prefill, eng._decode
+
+    def gap(logits):
+        top = logits.float().topk(2, dim=-1).values
+        return (top[..., 0] - top[..., 1]).cpu()
+
+    def admit_one(tracker):
+        rec["rid"] = tracker.req.rid
+        return admit(tracker)
+
+    def prefill_step(*args, **kw):
+        logits, cache = prefill(*args, **kw)
+        rec["prefill"][rec["rid"]] = float(gap(logits)[0])
+        return logits, cache
+
+    def decode_step(*args):
+        logits, cache = decode(*args)
+        rec["decode"][eng.tick] = gap(logits)
+        return logits, cache
+
+    eng._admit_one, eng._prefill, eng._decode = admit_one, prefill_step, decode_step
+    return rec
+
+
+def _token_gaps(eng, out: dict, rec: dict) -> list:
+    """Per request, per emitted token, the unsharded top-2 gap behind it
+    (the first token's also its prefill's): token i of a request comes from
+    the decode tick first_token_tick + i, in its slot."""
+    gaps = []
+    for r in out["per_request"]:
+        slot, t0 = eng._results[r["rid"]].slot, r["first_token_tick"]
+        row = [float(rec["decode"][t0 + i][slot]) for i in range(len(r["tokens"]))]
+        if row:
+            row[0] = min(row[0], rec["prefill"][r["rid"]])
+        gaps.append(row)
+    return gaps
+
+
+def _tp_engine_run(name: str, spec, params, prompts, dev, mesh=None, snap_path=None,
+                   prune: float = 0.0, gaps: bool = False) -> dict:
+    """One of 8g's runs of ``spec`` (monolithic or paged by its
+    serving.pages) on ``params`` (the rank's shards under ``mesh``, or the
+    whole), the counters zeroed just before and read just after.  With
+    ``snap_path`` the run snapshots at tick MESH_TP_SNAPSHOT_TICK (every
+    rank; rank 0 writes the file) and goes on; ``gaps`` records the
+    unsharded run's top-2 gaps (8g's near-tie rule)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.dist.mesh import is_rank0
+    from repro_torch.serving import elastic
+    from repro_torch.serving.engine import ServingEngine
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    hops = mesh.hops.get("model", 0) if mesh is not None else 0
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    eng = ServingEngine.from_spec(spec, params=params, prune_ratio=prune, device=dev, mesh=mesh)
+    rec = _engine_gaps(eng) if gaps else None
+    for i, p in enumerate(prompts):
+        eng.submit_prompt(p, spec.shape.gen, seed=spec.seeds.seed + i)
+    if snap_path is not None:
+        while eng.tick < MESH_TP_SNAPSHOT_TICK:
+            eng.step()
+        snap = eng.snapshot()
+        if is_rank0():
+            elastic.save_snapshot(snap, snap_path)
+        del snap
+    out = eng.run()
+    _sync(dev)
+    res = {"tokens": [r["tokens"] for r in out["per_request"]], "ticks": out["ticks"],
+           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "tokens_per_s": out["tokens_per_s"], "finite": out["finite"],
+           "wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+           "model_hops": (mesh.hops.get("model", 0) - hops) if mesh is not None else 0,
+           "peak_gib": _peak_gib(dev), "pool": _pool_parts(eng), "blocks": _pool_blocks(eng),
+           "kv_heads": None if eng.heads is None else list(eng.heads.mine),
+           "wire": {k: out[k] for k in ("kv_mean_wire_bytes", "kv_mean_density",
+                                        "peak_kv_wire_bytes")}}
+    if gaps:
+        res["gaps"] = _token_gaps(eng, out, rec)
+    del eng, out
+    _free(dev)
+    return res
+
+
+def _tp_engine_runs(mesh, dev, world: int, snap_path: str) -> dict:
+    """8g on one rank: the three engine runs at model = ``world``; the
+    monolithic and paged ones from the rank's shards (made once), the pruned
+    one through the ServeSession, which shards the weights itself."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api import ServeSession, build_spec
+    from repro_torch.models.lm import lm_init
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.runtime.tree_sharding import shard_tree
+
+    spec = build_spec("serve", sets=[*MESH_TP_ENGINE_SETS, f"shape.mesh.model={world}"])
+    cfg = spec.resolve().config
+    prompts, shared = _tp_engine_prompts(spec, cfg.vocab)
+    with sharding_context(mesh):
+        params = shard_tree(lm_init(cfg, spec.seeds.seed, device=dev), mesh)
+    _free(dev)
+    out = {"mono": _tp_engine_run("mono", spec, params, prompts, dev, mesh, snap_path),
+           "paged": _tp_engine_run("paged", build_spec("serve", sets=[
+               *MESH_TP_ENGINE_SETS, f"shape.mesh.model={world}", "serving.pages=true"]),
+               params, shared, dev, mesh)}
+    del params
+    _free(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    hops = mesh.hops.get("model", 0)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    sv = ServeSession(spec, device=dev, mesh=mesh, prune_ratio=MESH_TP_PRUNE).run()
+    _sync(dev)
+    out["pruned"] = {"tokens": [r["tokens"] for r in sv["per_request"]], "ticks": sv["ticks"],
+                     "prefill_s": sv["prefill_s"], "decode_s": sv["decode_s"],
+                     "tokens_per_s": sv["tokens_per_s"], "finite": sv["finite"],
+                     "wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
+                     "model_hops": mesh.hops.get("model", 0) - hops,
+                     "peak_gib": _peak_gib(dev), "report": sv["tensor_parallel"]}
+    del sv
+    _free(dev)
+    return out
+
+
+def _tp_engine_checks(dev, cfg, model: int, rank: int, engine: dict) -> dict:
+    """8g's path kernels on this rank at the engine's shard shapes, against
+    their plain versions: the skinny masked_matmul at the decode's M =
+    DECODE_M on the seven projections' shards (unpruned and pruned at
+    MESH_TP_PRUNE), flash_attention on one request's prefill (B 1, the
+    rank's heads, S the prompt), and mask_pack (through kv_pack) bit-equal
+    on blocks of the rank's pool leaf and of its pages."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.flash_attention.ops import attention_reference, flash_attention
+    from repro_torch.kernels.kv_cache.ops import kv_pack, kv_pack_reference
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul, masked_matmul_reference
+    from repro_torch.models.layers import SpringContext
+
+    g = torch.Generator(device=dev).manual_seed(70 + rank)
+    a, d = cfg.attn, cfg.d_model
+    hl, kvl, hd = a.n_heads // model, a.n_kv_heads // model, a.head_dim
+    projs = ((d, hl * hd), (d, kvl * hd), (hl * hd, d), (d, cfg.d_ff // model),
+             (cfg.d_ff // model, d))
+    skinny = 0.0
+    for prune in (0.0, MESH_TP_PRUNE):
+        cut = SpringContext(prune_ratio=prune).maybe_prune
+        for k, n in projs:
+            x = quantize_nearest(torch.randn(DECODE_M, k, generator=g, device=dev))
+            w = cut(quantize_nearest(torch.randn(k, n, generator=g, device=dev) * k**-0.5))
+            bnd = (x.abs() @ w.abs()).mul_(2 * k * 2.0**-24)
+            err = (masked_matmul(x, w, apply_sr=False)
+                   - masked_matmul_reference(x, w, apply_sr=False)).abs_()
+            if not bool((err <= bnd).all()):
+                fail(f"mesh_tp rank {rank}: 8g skinny masked_matmul ({DECODE_M},{k})x({k},{n}) "
+                     f"off by {float(err.max()):.3g}")
+            skinny = max(skinny, float(err.max()))
+    prompt = engine["prompt"]
+    q = torch.randn(1, prompt, hl, hd, generator=g, device=dev).transpose(1, 2)
+    k_, v_ = (torch.randn(1, prompt, kvl, hd, generator=g, device=dev).transpose(1, 2)
+              for _ in range(2))
+    fa = _max_err(flash_attention(q, k_, v_, causal=True),
+                  attention_reference(q, k_, v_, causal=True))
+    if not fa <= 2e-5:
+        fail(f"mesh_tp rank {rank}: 8g flash_attention (1,{hl},{kvl},{prompt},{hd}) off by {fa:.3g}")
+    for lead, block in engine["blocks"]:
+        x = torch.randn(*lead, block, generator=g, device=dev)
+        x = torch.where(torch.rand(*lead, block, generator=g, device=dev) < 0.5, x, 0.0)
+        x = x.to(torch.bfloat16)
+        got, want = kv_pack(x), kv_pack_reference(x)
+        if not all(torch.equal(got[p].view(torch.int32) if p == "mask" else got[p],
+                               want[p].view(torch.int32) if p == "mask" else want[p])
+                   for p in ("values", "mask", "nnz")):
+            fail(f"mesh_tp rank {rank}: 8g mask_pack on the pool's {tuple(lead)} x {block} "
+                 "blocks differs from its plain version")
+    torch.cuda.empty_cache()
+    print(f"[mesh_tp rank {rank}] 8g kernels at the engine's shard shapes: skinny M {DECODE_M} "
+          f"(pruned at {MESH_TP_PRUNE} too) {skinny:.3g}, flash_attention (1,{hl},{kvl},"
+          f"{prompt},{hd}) {fa:.3g}, mask_pack bit-equal on {[tuple(b) for b in engine['blocks']]}",
+          flush=True)
+    return {"skinny": skinny, "flash_attention": fa, "mask_pack": 0.0}
+
+
 def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve_sets: tuple,
-                 device: str = "cuda") -> dict:
+                 snap_path: str = "", device: str = "cuda") -> dict:
     """(8e, 8f) on one of ``world`` ranks at shape.mesh.model = world: the
     example train spec through the TrainSession (then one more step timed
     alone), then static serving through the ServeSession; each run's
@@ -5150,9 +5411,20 @@ def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve
     del params, logits
     _free(dev)
 
+    # -- g. the engines at model = world --------------------------------------------------
+    t0 = time.monotonic()
+    out["engine"] = _tp_engine_runs(mesh, dev, world, snap_path)
+    out["engine_wall_s"] = time.monotonic() - t0
+
     if dev.type == "cuda":
         out["checks"] = _tp_kernel_checks(dev, r.config, world, rank, spec.shape.batch,
                                           spec.shape.seq, sspec.shape.prompt_len)
+        eng = out["engine"]
+        checks = _tp_engine_checks(dev, r.config, world, rank, {
+            "prompt": build_spec("serve", sets=list(MESH_TP_ENGINE_SETS)).shape.prompt_len,
+            "blocks": (eng["mono"]["blocks"], eng["paged"]["blocks"])})
+        for key, err in checks.items():
+            out["checks"][key] = max(out["checks"].get(key, 0.0), err)
     out["staged_hops"] = mesh.staged_hops
     out["model_hops"] = mesh.hops.get("model", 0)
     out["wall_s"] = time.monotonic() - t_rank
@@ -5211,8 +5483,14 @@ def phase_mesh(dev) -> dict:
     served at data=4, 8d the pipeline) and two ranks (8b llama3.2-1b trained
     at data=2, then at pod=2 with compress_pod_grads).  Sharded losses and
     tokens must equal the unsharded run's bit for bit; every rank's counters
-    are zeroed just before each main-path run and read just after."""
+    are zeroed just before each main-path run and read just after.  Then four
+    ranks at model = 4: 8e (training), 8f (the static path) and 8g (the
+    engines, monolithic, paged and pruned, against their unsharded runs here,
+    and a model-4 snapshot restored here)."""
     import math
+    import os
+    import shutil
+    import tempfile
 
     import torch
 
@@ -5321,10 +5599,24 @@ def phase_mesh(dev) -> dict:
             fail(f"mesh phase: rank {rank}'s compressed pod link broke its contract")
     # -- four ranks at model = 4: tensor parallelism, trained and served -------------------
     t0 = time.monotonic()
-    tp = launch.run(mesh_rank_tp, MESH_TP, (spec_path, MESH_TP_TRAIN_SETS, MESH_SERVE_SETS),
-                    timeout_s=MESH_TIMEOUT_S, collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
-    tp_s = time.monotonic() - t0
+    engine_base = _tp_engine_base(dev)
+    engine_base_s = time.monotonic() - t0
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_8g_")
+    snap_path = os.path.join(snap_dir, "tp_snapshot.npz")
+    try:
+        t0 = time.monotonic()
+        tp = launch.run(mesh_rank_tp, MESH_TP, (spec_path, MESH_TP_TRAIN_SETS,
+                                                MESH_SERVE_SETS, snap_path),
+                        timeout_s=MESH_TIMEOUT_S,
+                        collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+        tp_s = time.monotonic() - t0
+        restored = _tp_engine_restore(dev, snap_path)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
     tp_gate = _tp_gates(tp, tp_base_losses, base_tokens, static)
+    tp_gate["engine"] = _tp_engine_gates(tp, engine_base, restored, tp_gate["max_logit_diff"])
+    print(f"[mesh] 8g unsharded runs {engine_base_s:.1f} s; each rank's engine runs "
+          f"{max(r['engine_wall_s'] for r in tp):.1f} s", flush=True)
     wall = time.monotonic() - t_phase
     print(f"[mesh] four ranks {four_s:.1f} s, two ranks {two_s:.1f} s, model=4 ranks "
           f"{tp_s:.1f} s, phase {wall:.1f} s", flush=True)
@@ -5335,16 +5627,132 @@ def phase_mesh(dev) -> dict:
                 + sum(r["data"]["launches"][name] + r["pod"]["launches"][name] for r in two)
                 for name in four[0]["serve"]["launches"]}
     tp_launches = {name: sum(r["train"]["launches"][name] + r["serve"]["launches"][name]
+                             + sum(r["engine"][run]["launches"][name]
+                                   for run in MESH_TP_ENGINE_RUNS)
                              for r in tp) for name in launches}
     for r in tp:
         r.pop("first_logits", None)
+    for r in engine_base.values():
+        r.pop("gaps", None)
     return {"four": four, "two": two, "tp": tp, "tp_gate": tp_gate,
             "base_losses": base_losses, "base_tokens": base_tokens,
             "tp_base_losses": tp_base_losses, "base_prefill_s": base_prefill_s,
             "base_tokens_per_s": base_tps, "launches": launches, "tp_launches": tp_launches,
-            "wall_s": wall, "tp_wall_s": tp_s,
+            "wall_s": wall, "tp_wall_s": tp_s, "engine_base": engine_base,
             "errs": {"masked_matmul": max(r["pipeline"]["max_abs_err"] for r in four),
                      "tp": {k: max(r["checks"][k] for r in tp) for k in tp[0]["checks"]}}}
+
+
+def _tp_engine_base(dev) -> dict:
+    """8g's unsharded runs in this process, each recording its top-2 gaps:
+    the monolithic and paged engines and the pruned monolithic one, on the
+    same prompts and weights as the ranks'."""
+    from repro_torch.api import build_spec
+    from repro_torch.models.lm import lm_init
+
+    spec = build_spec("serve", sets=list(MESH_TP_ENGINE_SETS))
+    cfg = spec.resolve().config
+    prompts, shared = _tp_engine_prompts(spec, cfg.vocab)
+    params = lm_init(cfg, spec.seeds.seed, device=dev)
+    out = {"mono": _tp_engine_run("mono", spec, params, prompts, dev, gaps=True),
+           "paged": _tp_engine_run("paged", build_spec("serve", sets=[
+               *MESH_TP_ENGINE_SETS, "serving.pages=true"]), params, shared, dev, gaps=True),
+           "pruned": _tp_engine_run("pruned", spec, params, prompts, dev, prune=MESH_TP_PRUNE,
+                                    gaps=True)}
+    del params
+    _free(dev)
+    for name, r in out.items():
+        print(f"[mesh] 8g unsharded {name}: prefill {r['prefill_s']:.3f} s, "
+              f"{r['tokens_per_s']:.1f} tokens/s, {r['ticks']} ticks, peak "
+              f"{r['peak_gib']:.2f} GiB, wall {r['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _tp_engine_restore(dev, snap_path: str) -> list:
+    """The model-4 ranks' 8g snapshot restored into an unsharded engine of
+    the same spec in this process, run to its end: its tokens."""
+    from repro_torch.api import build_spec
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving.engine import ServingEngine
+
+    spec = build_spec("serve", sets=list(MESH_TP_ENGINE_SETS))
+    eng = ServingEngine.from_spec(spec, params=lm_init(spec.resolve().config, spec.seeds.seed,
+                                                       device=dev), device=dev)
+    eng.restore_file(snap_path)
+    tokens = [r["tokens"] for r in eng.run()["per_request"]]
+    del eng
+    _free(dev)
+    return tokens
+
+
+def _tie_gate(tag: str, got: list, want: list, gaps: list, logit_diff: float) -> dict:
+    """8f's rule for a printed near tie, on an engine's per-request tokens:
+    equal, or first differing where the unsharded top-2 gap behind that
+    token is below 8f's measured first-step max logit difference, itself
+    within MESH_TP_LOGIT_ATOL."""
+    if got == want:
+        return {"equal": True}
+    diffs = [(rid, i) for rid in range(len(want)) for i in range(len(want[rid]))
+             if i >= len(got[rid]) or got[rid][i] != want[rid][i]]
+    rid, i = min(diffs, key=lambda d: (d[1], d[0]))
+    gap = gaps[rid][i]
+    print(f"[mesh] 8g {tag} near tie: request {rid} first differs at token {i}, unsharded "
+          f"top-2 gap {gap:.3g} against 8f's first-step max |logit diff| {logit_diff:.3g}",
+          flush=True)
+    if not (gap < logit_diff <= MESH_TP_LOGIT_ATOL):
+        fail(f"mesh phase: 8g {tag} tokens differ from the unsharded run's at request {rid} "
+             f"token {i}, where the top-2 gap {gap:.3g} is no near tie (8f's first-step max "
+             f"|logit diff| {logit_diff:.3g}, atol {MESH_TP_LOGIT_ATOL})")
+    return {"equal": False, "near_tie": {"request": rid, "token": i, "gap": gap}}
+
+
+def _tp_engine_gates(tp: list, base: dict, restored: list, logit_diff: float) -> dict:
+    """8g's gates over the model=4 ranks: tokens finite and equal across
+    ranks, and to the unsharded run's under 8f's near-tie rule; each rank's
+    pool its kv heads' share (2 of 8 heads: a quarter of the values and
+    mask words, every block's nnz); the wire figures the unsharded pool's;
+    every path kernel launched on every rank; the snapshot taken at model 4
+    restored unsharded with the ranks' tokens."""
+    out: dict = {}
+    for rank, r in enumerate(tp):
+        eng = r["engine"]
+        for name in MESH_TP_ENGINE_RUNS:
+            e = eng[name]
+            hops = e["model_hops"] / max(e["ticks"], 1)
+            print(f"[mesh] rank {rank} 8g {name} engine model={MESH_TP}: prefill "
+                  f"{e['prefill_s']:.3f} s ({e['prefill_s'] / len(e['tokens']):.3f} a request), "
+                  f"decode {e['decode_s']:.3f} s, {e['tokens_per_s']:.1f} tokens/s (unsharded "
+                  f"{base[name]['tokens_per_s']:.1f}), {e['ticks']} ticks, {hops:.1f} model hops "
+                  f"a tick, peak {e['peak_gib']:.2f} GiB, wall {e['wall_s']:.1f} s, launches "
+                  f"{e['launches']}", flush=True)
+            if e["tokens"] != tp[0]["engine"][name]["tokens"] or not e["finite"]:
+                fail(f"mesh phase: rank {rank}'s 8g {name} tokens are not finite or differ "
+                     "from rank 0's")
+            for kname in MESH_TP_ENGINE_KERNELS:
+                if e["launches"][kname] <= 0:
+                    fail(f"mesh phase: rank {rank}'s 8g {name} run never launched {kname}")
+        for name in ("mono", "paged"):
+            mine, whole = eng[name]["pool"], base[name]["pool"]
+            print(f"[mesh] rank {rank} 8g {name} pool: kv heads {eng[name]['kv_heads']}, "
+                  f"{mine} bytes against the unsharded {whole}; wire {eng[name]['wire']}",
+                  flush=True)
+            if not (eng[name]["kv_heads"] == [2 * rank, 2 * rank + 1]
+                    and mine["values"] * MESH_TP == whole["values"]
+                    and mine["mask"] * MESH_TP == whole["mask"]
+                    and mine["nnz"] == whole["nnz"]):
+                fail(f"mesh phase: rank {rank}'s 8g {name} pool is not its kv heads' share")
+            if eng[name]["wire"] != base[name]["wire"]:
+                print(f"[mesh] rank {rank} 8g {name}: wire figures {eng[name]['wire']} against "
+                      f"the unsharded {base[name]['wire']}", flush=True)
+    for name in MESH_TP_ENGINE_RUNS:
+        out[name] = _tie_gate(name, tp[0]["engine"][name]["tokens"], base[name]["tokens"],
+                              base[name]["gaps"], logit_diff)
+    out["snapshot"] = _tie_gate("snapshot restored unsharded", restored,
+                                tp[0]["engine"]["mono"]["tokens"], base["mono"]["gaps"],
+                                logit_diff)
+    print(f"[mesh] 8g: the model-4 snapshot at tick {MESH_TP_SNAPSHOT_TICK} restored unsharded "
+          f"gives the ranks' remaining tokens {out['snapshot']['equal']}", flush=True)
+    return out
 
 
 def _tp_gates(tp: list, base_losses: list, base_tokens: list, static: dict) -> dict:

@@ -45,14 +45,15 @@ rank, e.g. under ``torchrun``), and every rank runs the session: with
 collectives (``dist.train``) and the static serving path shards its
 request rows (``dist.serve``), each adding a ``collective_probe`` to its
 result; the engine runs replicated on every rank.  With ``model > 1`` and
-``data == 1`` the dense family runs tensor parallel in training and on the
-static path (``dist.tensor``): the session shards the whole parameters
-at build time (``runtime.tree_sharding.shard_tree``), each rank holds its
-shards of the parameters and moments, a checkpoint is written whole
-(gathered over ``model``, rank 0 writing the reference's names) and
-resumed by slicing, and the result's ``tensor_parallel`` says what the
-rank held and how many collectives it joined; pruning is refused there
-(a shard's std is not the weight's).  The other archs, the engines and
+``data == 1`` the dense family runs tensor parallel in training, on the
+static path and through both engines (``dist.tensor``): the session
+shards the whole parameters at build time
+(``runtime.tree_sharding.shard_tree``), each rank holds its shards of the
+parameters and moments (an engine also the pool of its kv heads), a
+checkpoint is written whole (gathered over ``model``, rank 0 writing the
+reference's names) and resumed by slicing, and the result's
+``tensor_parallel`` says what the rank held and how many collectives it
+joined; pruning takes the whole weight's threshold.  The other archs and
 ``data > 1`` keep ``model`` replicated.  A named kind alone
 (``shape.mesh=debug``) builds no mesh and runs unsharded, as in the
 reference.  On the card each rank takes its own card where there are
@@ -209,8 +210,6 @@ class TrainSession(Session):
             global_batch=spec.shape.batch), device=device)
         tp = self._tensor_parallel()
         if tp:
-            if step_cfg.prune_ratio > 0:
-                raise SpecError(_PRUNE_TP)
             # the whole parameters made (or given), then this rank's shards
             from repro_torch.models.lm import lm_init
 
@@ -320,12 +319,6 @@ class TrainSession(Session):
                                 gather_tree(opt.v, self.mesh, splits)))
 
 
-_PRUNE_TP = ("prune_ratio > 0 under a mesh that splits the weights over model "
-             "(shape.mesh.model > 1, data = 1): magnitude pruning thresholds each weight "
-             "by its std, which a shard does not hold; prune at model = 1 (ROADMAP §1 "
-             "item 5)")
-
-
 class DryrunSession(Session):
     """The dry run lowers XLA programs and has no twin (ROADMAP §1 item 5):
     its spec's ``resolve()`` raises."""
@@ -431,8 +424,6 @@ class ServeSession(Session):
         # magnitude pruning of the dense projections (the reference's
         # step_cfg.prune_ratio, which no spec field sets)
         self.prune_ratio = prune_ratio
-        if prune_ratio > 0 and spec.serving.static and self._tensor_parallel():
-            raise SpecError(_PRUNE_TP)
 
     def run(self) -> dict:
         with self.telemetry_scope():
@@ -550,7 +541,13 @@ class ServeSession(Session):
         n_requests = batch if queue is None else queue
         seed = spec.seeds.seed
 
-        engine = ServingEngine.from_spec(spec, params=self.params, resolved=r,
+        params, tp = self.params, self._tensor_parallel()
+        if tp:  # this rank's shards of the whole parameters
+            from repro_torch.models.lm import lm_init
+
+            params = self._shard(params if params is not None
+                                 else lm_init(r.config, seed, device=self.device))
+        engine = ServingEngine.from_spec(spec, params=params, resolved=r,
                                          prune_ratio=self.prune_ratio, device=self.device,
                                          mesh=self.mesh)
         if spec.serving.restore_path:
@@ -573,6 +570,10 @@ class ServeSession(Session):
         out["engine"] = True
         out["slots"] = engine.n_slots
         out["mode"] = spec.numerics.mode
+        if tp:
+            out["tensor_parallel"] = dict(
+                self._tp_report(engine.params), pool_bytes=engine.pool_bytes(),
+                kv_heads=None if engine.heads is None else list(engine.heads.mine))
         return out
 
 

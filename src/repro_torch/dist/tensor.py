@@ -18,7 +18,9 @@ reports split:
     gathered tensor.
 
 Every sum is :meth:`Mesh.all_reduce`: an all-gather and a sum in rank
-order, the same bits on every rank.  Every rank runs the same collectives
+order, the same bits on every rank; :func:`model_sum` is that sum for a
+few host-side figures (a pruning threshold's moments, the pool's wire
+counts), so that every rank takes the same decision from them.  Every rank runs the same collectives
 in the same order, the recomputations under ``torch.utils.checkpoint``
 included (a recompute replays its forward, collectives and all).
 """
@@ -73,6 +75,18 @@ class _GatherFromModel(torch.autograd.Function):
         whole = ctx.mesh.all_reduce(g.contiguous(), "model")
         r = ctx.mesh.axis_index("model")
         return whole.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), None, None
+
+
+def model_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` summed over ``model`` in rank order (:meth:`Mesh.all_reduce`),
+    the same bits on every rank, on ``x``'s device (the hop crosses on
+    the mesh's device, so a host tensor also crosses an nccl group);
+    ``x`` itself without a ``model`` axis.  ``mesh`` defaults to the
+    active one."""
+    mesh = model_mesh() if mesh is None else mesh
+    if mesh is None or int(dict(mesh.shape).get("model", 1)) == 1:
+        return x
+    return mesh.all_reduce(x.to(mesh.device), "model").to(x.device)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:

@@ -198,6 +198,12 @@ def main(argv=None) -> dict:
                   f"prefix hits {p['prefix_hits']}, cow {p['cow_copies']}, "
                   f"spills {p['spills']}/{p['resumes']} resumed, "
                   f"peak budget utilization {p['peak_page_utilization']:.2f}")
+    if "tensor_parallel" in out:  # rank 0's share of the weights and the pool
+        tp = out["tensor_parallel"]
+        print(f"tensor parallel: model={tp['model']}, rank 0 holds {tp['param_bytes']} "
+              f"parameter bytes" + (f", kv heads {tp['kv_heads']} ({tp['pool_bytes']} pool "
+                                    f"bytes)" if tp.get("kv_heads") is not None else "")
+              + f", {tp['model_hops']} model hops")
     if "telemetry" in out:
         print(f"telemetry: {out['telemetry']['spans']} spans -> "
               f"{out['telemetry']['trace_path']} (load in Perfetto)")

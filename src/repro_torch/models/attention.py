@@ -250,6 +250,27 @@ def _rank_heads(spec: AttnSpec, so) -> _Heads:
     return _Heads(h0, h1, h0 // g, (h1 - 1) // g + 1, c0, c1)
 
 
+def cache_heads(spec: AttnSpec, d_model: int, rank: Optional[int] = None) -> Optional[tuple]:
+    """The whole kv heads a rank's decode cache holds, in its order, under
+    the active mesh's ``model`` split (None: the whole cache, nothing
+    split): the kv heads its query heads read (:func:`_rank_heads`), one a
+    query head where those straddle kv groups unevenly, as
+    :func:`_local_qkv` builds them.  ``rank`` names another rank of the
+    axis than this one (the ``wo`` split's extent is every rank's)."""
+    h, kv, d = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    so = weight_split(("w_qkv", "w_embed"), (h * d, d_model))
+    if so is None:  # wq / wk split only where wo does
+        return None
+    if rank is not None:
+        size = so.hi - so.lo
+        so = dataclasses.replace(so, lo=rank * size, hi=(rank + 1) * size)
+    r = _rank_heads(spec, so)
+    g, hl, kvl = h // kv, r.h1 - r.h0, r.kv1 - r.kv0
+    if not (kvl == 1 or (r.h0 % g == 0 and hl == kvl * g)):
+        return tuple(q // g for q in range(r.h0, r.h1))
+    return tuple(range(r.kv0, r.kv1))
+
+
 def _take_cols(y: torch.Tensor, split, lo: int, hi: int) -> torch.Tensor:
     """Columns ``[lo, hi)`` of a projection's whole output, from this rank's
     output ``y`` (its columns under ``split``, or the whole), gathered over
@@ -375,10 +396,15 @@ def gqa_apply(
 
 
 def gqa_init_cache(batch: int, spec: AttnSpec, max_len: int, dtype=torch.bfloat16,
-                   *, device=None) -> dict:
+                   *, device=None, d_model: Optional[int] = None) -> dict:
     """Zero k/v caches of ``max_len`` rows, or for a window spec its
     ``window``-row rings.  ``dtype="int8"``: int8 lines and bf16 scales
-    for full attention (rings stay bf16)."""
+    for full attention (rings stay bf16).  Given the layer's ``d_model``,
+    under a mesh that splits the layer over ``model`` the cache holds the
+    rank's kv heads alone (:func:`cache_heads`)."""
+    heads = None if d_model is None else cache_heads(spec, d_model)
+    if heads is not None:
+        spec = dataclasses.replace(spec, n_kv_heads=len(heads))
     if dtype == "int8" and spec.window is None:
         lines = (batch, max_len, spec.n_kv_heads, spec.head_dim)
         return {"k_q8": torch.zeros(lines, dtype=torch.int8, device=device),

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -26,9 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spring_ops import DENSE, DENSE_DTYPE, KeyGen, SpringConfig, spring_matmul
-from repro_torch.dist.tensor import column_input, copy_to_model, reduce_from_model
+from repro_torch.dist.tensor import column_input, copy_to_model, model_sum, reduce_from_model
 from repro_torch.memstash.config import MemstashConfig
-from repro_torch.runtime.sharding import splits_over_model, weight_split
+from repro_torch.runtime.sharding import weight_split
 
 
 @dataclasses.dataclass
@@ -55,6 +56,10 @@ class SpringContext:
     int8_cache: bool = False
     memstash: Optional[MemstashConfig] = None
     attention: str = "flash"
+    #: a served shard's threshold, once a version (:meth:`prune_cut`):
+    #: id -> (weakref, version, threshold)
+    _cuts: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
 
     def __post_init__(self):
         if self.attention not in ("flash", "chunked"):
@@ -66,20 +71,44 @@ class SpringContext:
             return "none"
         return self.memstash.policy_for(name, elems)
 
-    def maybe_prune(self, w: torch.Tensor) -> torch.Tensor:
+    def maybe_prune(self, w: torch.Tensor, split=None) -> torch.Tensor:
         """Zero the weights under ``t * std(w)``, where for w ~ N(0, s)
         P(|w| < t s) = erf(t / sqrt(2)) = ``prune_ratio``.  The pruned
         entries get a zero gradient (the optimizer still moves them; the
-        next forward prunes them again), as in the reference."""
+        next forward prunes them again), as in the reference.  ``split``
+        (a ``runtime.sharding.Split``) says ``w`` is a shard of a weight
+        split over ``model``: the threshold is the whole weight's
+        (:meth:`prune_cut`)."""
         if self.prune_ratio <= 0.0:
             return w
-        if splits_over_model():
-            raise NotImplementedError(
-                "prune_ratio > 0 under a mesh that splits weights over model: the "
-                "threshold would take a shard's std, not the weight's")
+        return torch.where(w.abs() >= self.prune_cut(w, split), w, 0.0).to(w.dtype)
+
+    def prune_cut(self, w: torch.Tensor, split=None) -> torch.Tensor:
+        """The fp32 threshold ``t * std`` of the whole weight.  A shard
+        (``split`` set) adds its share of the whole weight's sum and sum of
+        squares, in float64, over ``model`` in rank order (one hop a
+        weight, ``dist.tensor.model_sum``), so every rank gets the same
+        bits; the std then follows from the whole count.  That is not
+        ``torch.std``'s reduction order, so the threshold may differ from
+        the unsharded run's in its last bits.  A shard that takes no
+        gradient (a served weight) keeps its threshold while its version
+        holds, so a serving step pays the hop once, not at every call (the
+        same value: the weight has not changed)."""
         t = prune_threshold(self.prune_ratio)
-        std = torch.std(w.to(torch.float32), correction=0) + 1e-12
-        return torch.where(w.abs() >= t * std, w, 0.0).to(w.dtype)
+        if split is None:
+            return t * (torch.std(w.to(torch.float32), correction=0) + 1e-12)
+        hit = None if w.requires_grad else self._cuts.get(id(w))
+        if hit is not None and hit[0]() is w and hit[1] == w._version:
+            return hit[2]
+        x = w.detach().to(torch.float64)
+        s = model_sum(torch.stack([x.sum(), (x * x).sum()]))
+        n = math.prod(split.full)
+        mean = s[0] / n
+        var = torch.clamp(s[1] / n - mean * mean, min=0.0)
+        cut = t * (torch.sqrt(var).to(torch.float32) + 1e-12)
+        if not w.requires_grad:
+            self._cuts[id(w)] = (weakref.ref(w), w._version, cut)
+        return cut
 
 
 # XLA's fp32 erfinv (M. Giles, "Approximating the erfinv function",
@@ -129,7 +158,7 @@ def dense_apply(params: dict, x: torch.Tensor, ctx: SpringContext, split=None) -
     this rank's columns, with its columns of the replicated bias (whose
     gradient is summed over ``model``); a row split reads this rank's
     columns of ``x`` and yields the whole output, summed over ``model``."""
-    w = ctx.maybe_prune(params["kernel"])
+    w = ctx.maybe_prune(params["kernel"], split)
     shape = x.shape
     y = spring_matmul(x.reshape(-1, shape[-1]), w, ctx.cfg, ctx.keys, split=split)
     y = y.reshape(*shape[:-1], w.shape[-1])

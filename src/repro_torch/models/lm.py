@@ -227,7 +227,7 @@ def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
     mixer = kind[0]
     if mixer in ("attn", "local"):
         return attn_mod.gqa_init_cache(batch, _attn_spec(cfg, mixer), max_len, dtype,
-                                       device=device)
+                                       device=device, d_model=cfg.d_model)
     if dtype == "int8":  # only full attention keeps int8 lines
         dtype = torch.bfloat16
     if mixer == "mla":

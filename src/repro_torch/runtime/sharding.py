@@ -18,8 +18,8 @@ Megatron style).  :func:`constrain` is the identity (the reference's
 ``with_sharding_constraint`` never changes a value either).  Tensor
 parallelism runs where the active rules map a weight's logical axis onto
 a ``model`` axis of extent > 1; :data:`DATA_ONLY_RULES` keep ``model``
-replicated (the data-parallel steps and the engines, as in the
-reference).  FSDP over ``data`` (the ``w_embed`` rule) is not ported: a
+replicated (the data-parallel steps, and the engines outside the dense
+family's tensor parallelism).  FSDP over ``data`` (the ``w_embed`` rule) is not ported: a
 ``data`` entry of a weight's spec leaves the weight whole.
 
 Mesh axes:
@@ -70,7 +70,7 @@ DEFAULT_RULES: dict[str, tuple] = {
 }
 
 
-#: rules for the data-parallel steps and the engines: only the data axis
+#: rules for the data-parallel steps and the replicated engines: only the data axis
 #: participates (pod and model axes stay replicated); unknown logical axes
 #: replicate
 DATA_ONLY_RULES: dict[str, tuple] = {
@@ -224,15 +224,6 @@ def split_of(spec: tuple, full_shape: Sequence[int], mesh) -> Optional[Split]:
         kind = "col" if dim == len(full_shape) - 1 else "row"
         return Split(kind, dim, tuple(full_shape), r * size, (r + 1) * size)
     return None
-
-
-def splits_over_model() -> bool:
-    """Do the active mesh and rules split any weight over ``model``?"""
-    mesh = _CTX.mesh
-    if mesh is None or int(dict(mesh.shape).get("model", 1)) == 1:
-        return False
-    return any("model" in cand for name, cands in _CTX.rules.items() if name.startswith("w_")
-               for cand in cands if cand is not None)
 
 
 def weight_split(logical_axes: Sequence[Optional[str]], full_shape: Sequence[int]) -> Optional[Split]:

@@ -12,6 +12,7 @@ for its trailing dims either way.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -167,6 +168,87 @@ def gather_tree(tree, mesh, splits):
         return torch.cat(list(parts.unbind(0)), dim=split.dim)
 
     return map_with_path(gather, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVHeadSplit:
+    """How a serving pool's attention leaves (the ``cache_heads`` axis, the
+    second to last of a dense k / v leaf) split over ``model``: rank ``r``
+    holds the whole pool's kv heads ``heads[r]``, in its cache's order
+    (``models.attention.cache_heads``).  Where the kv heads divide, each
+    rank holds ``n_heads / m`` of its own; where they do not, a rank keeps
+    the heads its query heads read, so ranks (and a rank's query heads)
+    may repeat one.  A head's *first holder* is the first rank, in rank
+    order, that holds it: the whole pool's figures count each head once,
+    there (:meth:`total`)."""
+
+    mesh: object
+    n_heads: int
+    heads: tuple
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.axis_index("model")
+
+    @property
+    def mine(self) -> tuple:
+        return self.heads[self.rank]
+
+    def first_holder(self, head: int) -> int:
+        return next(r for r, hs in enumerate(self.heads) if head in hs)
+
+    @property
+    def weight(self) -> float:
+        """The share of this rank's leaves the whole pool counts: its heads
+        first held here over the heads it holds (1 or 0 where every rank
+        holds distinct heads)."""
+        own = {j for j in self.mine if self.first_holder(j) == self.rank}
+        return len(own) / len(self.mine)
+
+    def total(self, values) -> list:
+        """The whole pool's figures from every rank's ``values`` (counts
+        over its leaves): each weighted by :attr:`weight` and summed over
+        ``model`` in rank order, in float64, so every rank gets the same
+        numbers and takes the same decisions from them (exact where the
+        weights are 1 or 0)."""
+        from repro_torch.dist.tensor import model_sum
+
+        x = torch.tensor([float(v) * self.weight for v in values], dtype=torch.float64)
+        return model_sum(x, self.mesh).tolist()
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's ``x`` (heads at dim -2): the
+        ranks' leaves gathered over ``model`` (a collective every rank
+        joins; ranks holding fewer heads pad theirs), each whole head taken
+        from its first holder."""
+        pad = max(len(hs) for hs in self.heads) - x.shape[-2]
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        parts = self.mesh.all_gather(x.contiguous().to(self.mesh.device), "model").to(x.device)
+        picks = []
+        for j in range(self.n_heads):
+            r = self.first_holder(j)
+            picks.append(parts[r].select(-2, self.heads[r].index(j)))
+        return torch.stack(picks, dim=-2)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of a whole leaf (heads at dim -2), in its order."""
+        idx = torch.tensor(self.mine, dtype=torch.int64, device=x.device)
+        return x.index_select(x.ndim - 2, idx)
+
+
+def kv_head_split(cfg, mesh) -> Optional[KVHeadSplit]:
+    """The pool's :class:`KVHeadSplit` of a run of ``cfg`` on ``mesh`` under
+    the active rules (None: every rank holds the whole pool), from its
+    attention layers' spec (the dense family shares one)."""
+    from repro_torch.models.attention import cache_heads
+    from repro_torch.models.lm import tensor_parallel
+
+    if not tensor_parallel(cfg, mesh) or cache_heads(cfg.attn, cfg.d_model) is None:
+        return None
+    n = int(mesh.shape["model"])
+    return KVHeadSplit(mesh, cfg.attn.n_kv_heads,
+                       tuple(cache_heads(cfg.attn, cfg.d_model, rank=r) for r in range(n)))
 
 
 def _at(tree, path):

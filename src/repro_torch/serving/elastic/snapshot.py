@@ -7,7 +7,10 @@ engine emits the exact remaining tokens of every in-flight request:
 
   * the packed pool bits (the monolithic pool's leaves, or the paged
     store's frames and slot state, in the reference's order, copied to
-    the host, never repacked);
+    the host, never repacked); under tensor parallelism over ``model``
+    (the pool split by kv head) the whole pool's, each rank's heads
+    unpacked, gathered and packed whole, and sliced back to a rank's heads
+    at restore, so a snapshot crosses ``model`` extents and packages;
   * scheduler state — queue (policy metadata included), active trackers
     with tokens so far, spill queue with exact packed payloads,
     admission / submission / shed logs;
@@ -198,7 +201,10 @@ def _result_from(d: dict):
                          rejected=d["rejected"])
 
 
-def _sched_dict(sched) -> dict:
+def _sched_dict(sched, payload=lambda p: p) -> dict:
+    """The scheduler's state, each spilled payload through ``payload`` (the
+    engine's ``_whole_payload``: a rank's heads in the whole pool's
+    layout)."""
     return {
         "n_slots": sched.n_slots,
         "queue": [_req_dict(r) for r in sched._queue],
@@ -210,7 +216,7 @@ def _sched_dict(sched) -> dict:
         "submit_log": list(sched._submit_log),
         "shed_log": [[rid, reason] for rid, reason in sched.shed_log],
         "spilled": [{"req": _req_dict(s.req), "tokens": list(s.tokens),
-                     "payload": s.payload} for s in sched._spilled],
+                     "payload": payload(s.payload)} for s in sched._spilled],
         "n_spills": sched.n_spills,
         "n_resumes": sched.n_resumes,
     }
@@ -241,7 +247,7 @@ def _sched_restore(engine, d: dict, requests: dict):
         SpilledRequest(req=requests.get(int(s["req"]["rid"]))
                        or _req_from(s["req"]),
                        tokens=[int(t) for t in s["tokens"]],
-                       payload=s["payload"])
+                       payload=engine._rank_payload(s["payload"]))
         for s in d["spilled"]]
     sched.n_spills = int(d["n_spills"])
     sched.n_resumes = int(d["n_resumes"])
@@ -276,7 +282,7 @@ def build_snapshot(engine) -> dict:
         "next_rid": engine._next_rid,
         "next_tok": np.asarray(engine._next_tok).copy(),
         "ledger": list(engine._ledger.occupied),
-        "scheduler": _sched_dict(engine.sched),
+        "scheduler": _sched_dict(engine.sched, engine._whole_payload),
         "requests": [_req_dict(r) for _, r in sorted(engine._requests.items())],
         "results": [_result_dict(r) for _, r in sorted(engine._results.items())],
         "metrics": {

@@ -174,6 +174,15 @@ class ServingEngine:
     ``prune_ratio`` magnitude-prunes every dense projection's weight at
     each prefill and decode call (the reference engine's
     ``step_cfg.prune_ratio``).
+
+    ``mesh``: the ranks of a mesh each run this engine, taking the same
+    decisions.  Where ``models.lm.tensor_parallel(cfg, mesh)`` holds (the
+    dense family at ``model > 1``, ``data = 1``) each rank holds its
+    shards of the weights (``params`` may be whole or the rank's shards)
+    and the pool of its own kv heads (``self.heads``); the ticks run under
+    the default rules, and the wire figures, snapshots and spill costs are
+    the whole pool's.  Elsewhere every rank runs the whole engine,
+    replicated.
     """
 
     @classmethod
@@ -219,10 +228,13 @@ class ServingEngine:
                  watchdog: Optional[StragglerWatchdog] = None,
                  kernel_policy=None, prune_ratio: float = 0.0, device="cuda", mesh=None):
         self.device = resolve_device(device)
-        # the reference's engine only installs a sharding context with its
-        # mesh: every rank of a mesh runs the whole engine, replicated
         self.mesh = mesh
         cfg.check_supported()
+        from repro_torch.models.lm import tensor_parallel
+
+        #: do the weights and the pool split over ``model``?  Else every rank
+        #: of a mesh runs the whole engine, replicated
+        self.tp = tensor_parallel(cfg, mesh)
         # what the pool's pack and unpack dispatch to; a snapshot restores
         # only where they are the same, as the reference's records its impls
         self._kv_pack_impl, self._kv_unpack_impl = kv_impl_names(kernel_policy,
@@ -259,7 +271,14 @@ class ServingEngine:
 
         self._prefill = make_prefill_step(cfg, spring, prune_ratio=prune_ratio)
         self._decode = make_decode_step(cfg, spring, prune_ratio=prune_ratio)
-        self._build_pool()
+        from repro_torch.runtime.tree_sharding import kv_head_split
+
+        with self._context():
+            if self.tp:
+                self.params = self._rank_params(self.params)
+            #: the pool's split by kv head (None: each rank holds the whole pool)
+            self.heads = kv_head_split(cfg, mesh) if self.tp else None
+            self._build_pool()
 
         self.decode_steps = 0
         self.tick = 0  # scheduler ticks (every step() call, admit-only ones too)
@@ -284,6 +303,42 @@ class ServingEngine:
         self.n_restores = 0
         self.slow_ticks = 0
 
+    # -- tensor parallelism over ``model`` ----------------------------------
+
+    def _context(self):
+        """The sharding context every tick, pool build, rescale, snapshot
+        and restore runs in: the default rules where the weights split over
+        ``model`` (each rank its shards, its kv heads' pool), else
+        :data:`DATA_ONLY_RULES` (the engine replicated on every rank)."""
+        return sharding_context(self.mesh, None if self.tp else DATA_ONLY_RULES)
+
+    def _rank_params(self, params: dict) -> dict:
+        """This rank's shards: whole parameters (every leaf of ``lm_init``'s
+        shape) are sliced by ``shard_tree``, shards are kept as they are."""
+        from repro_torch.models.lm import lm_init
+        from repro_torch.runtime.tree_sharding import _at, map_with_path, shard_tree
+
+        meta, shards = lm_init(self.cfg, device="meta"), []
+        map_with_path(lambda path, p: shards.append(p.shape != _at(meta, path).shape), params)
+        return params if any(shards) else shard_tree(params, self.mesh)
+
+    def _whole_payload(self, payload: dict) -> dict:
+        """A spilled request's payload in the whole pool's layout (under a
+        kv-head split its heads gathered over ``model``): what a snapshot
+        holds."""
+        if self.heads is None:
+            return payload
+        return {**payload, "slot_state": kvpool.map_slot_heads(
+            payload["slot_state"], self.pool, self.heads.whole)}
+
+    def _rank_payload(self, payload: dict) -> dict:
+        """A snapshot's payload as this engine holds it (under a kv-head
+        split, sliced to this rank's heads)."""
+        if self.heads is None:
+            return payload
+        return {**payload, "slot_state": kvpool.map_slot_heads(
+            payload["slot_state"], self.pool, self.heads.local)}
+
     # -- backend construction (overridden by the paged engine) --------------
 
     def _make_scheduler(self, n_slots: int) -> SlotScheduler:
@@ -293,8 +348,13 @@ class ServingEngine:
         self.pool = kvpool.init_pool(self.cfg, self.n_slots, self.max_len, device=self.device)
 
     def _pool_stats(self) -> dict:
-        """Current wire stats of the live KV storage (one device sync)."""
-        return kvpool.pool_wire_stats(self.pool)
+        """Current wire stats of the live KV storage (one device sync); the
+        whole pool's under a kv-head split."""
+        return kvpool.pool_wire_stats(self.pool, heads=self.heads)
+
+    def pool_bytes(self) -> int:
+        """The bytes of this rank's KV storage (its pool's leaves)."""
+        return sum(t.numel() * t.element_size() for t in kvpool.pool_leaves(self.pool))
 
     # -- submission ---------------------------------------------------------
 
@@ -352,7 +412,7 @@ class ServingEngine:
 
     def step(self) -> None:
         self.watchdog.step_start()
-        with telemetry.span("serve.tick", tick=self.tick):
+        with telemetry.span("serve.tick", tick=self.tick), self._context():
             self._step_body()
         self.tick += 1
         ev = self.watchdog.step_end(self.tick)
@@ -546,7 +606,7 @@ class ServingEngine:
         new = self.n_slots if slots is None else int(slots)
         if new < 1:
             raise ValueError(f"rescale: slots must be >= 1, got {new}")
-        with telemetry.span("serve.rescale", slots=new):
+        with telemetry.span("serve.rescale", slots=new), self._context():
             self._pre_rescale()
             for slot in sorted(self.sched.active):
                 self._spill_slot(slot)
@@ -575,12 +635,24 @@ class ServingEngine:
             "vocab": int(self.cfg.vocab), "d_model": int(self.cfg.d_model),
         }
 
+    def _whole_context(self):
+        """The context of the whole pool's layout (nothing split): what a
+        snapshot holds."""
+        return sharding_context(self.mesh, DATA_ONLY_RULES)
+
+    def _whole_pool_template(self, n_slots: int) -> dict:
+        """An empty pool of the whole pool's layout (every kv head)."""
+        with self._whole_context():
+            return kvpool.init_pool(self.cfg, n_slots, self.max_len, device=self.device)
+
     def _check_backend(self, sig: dict, b: dict) -> None:
         """Refuse a snapshot's pool leaves that do not fit this engine's
-        pool at the snapshot's slot count (before any state changes)."""
+        pool (the whole pool's layout under a kv-head split) at the
+        snapshot's slot count (before any state changes)."""
         from repro_torch.serving.elastic.snapshot import check_leaves
 
-        check_leaves(kvpool.pool_shapes(self.pool, int(sig["n_slots"])), b["pool"], "kv pool")
+        pool = self.pool if self.heads is None else self._whole_pool_template(1)
+        check_leaves(kvpool.pool_shapes(pool, int(sig["n_slots"])), b["pool"], "kv pool")
 
     def _reconfigure(self, sig: dict) -> None:
         """Adapt the pool to a snapshot taken at another size."""
@@ -590,22 +662,34 @@ class ServingEngine:
             self._build_pool()
 
     def _snapshot_backend(self) -> dict:
+        """The pool's leaves; under a kv-head split in the whole pool's
+        layout (each rank's heads unpacked, gathered over ``model`` and
+        packed whole), so a snapshot restores at any ``model`` extent and
+        in the reference's engine."""
         from repro_torch.serving.elastic.snapshot import tree_to_host_leaves
 
-        return {"pool": tree_to_host_leaves(self.pool)}
+        pool = self.pool if self.heads is None else kvpool.map_heads(self.pool, self.heads.whole)
+        return {"pool": tree_to_host_leaves(pool)}
 
     def _restore_backend(self, b: dict) -> None:
+        """The snapshot's pool; a whole one sliced to this rank's heads under
+        a kv-head split."""
         from repro_torch.serving.elastic.snapshot import leaves_to_tree
 
-        self.pool = leaves_to_tree(self.pool, b["pool"], "kv pool")
+        if self.heads is None:
+            self.pool = leaves_to_tree(self.pool, b["pool"], "kv pool")
+            return
+        whole = leaves_to_tree(self._whole_pool_template(self.n_slots), b["pool"], "kv pool")
+        self.pool = kvpool.map_heads(whole, self.heads.local)
 
     def snapshot(self) -> dict:
         """Full engine state as one host tree (``serving/elastic/snapshot.py``
         has the format)."""
         from repro_torch.serving import elastic
 
-        self._pre_snapshot()
-        snap = elastic.build_snapshot(self)
+        with self._context():
+            self._pre_snapshot()
+            snap = elastic.build_snapshot(self)
         self.n_snapshots += 1
         if telemetry.enabled():
             telemetry.metrics().inc("spring_serve_snapshots_total", 1,
@@ -620,7 +704,8 @@ class ServingEngine:
         state changes."""
         from repro_torch.serving import elastic
 
-        elastic.apply_snapshot(self, snap)
+        with self._context():
+            elastic.apply_snapshot(self, snap)
         self.n_restores += 1
         if telemetry.enabled():
             telemetry.metrics().inc("spring_serve_restores_total", 1,
@@ -641,16 +726,20 @@ class ServingEngine:
         """Drain the queue; returns :meth:`summary`.  With
         ``snapshot_every`` set, a restartable snapshot lands on disk every
         N ticks (crash recovery: ``restore_file`` + ``run`` again).  The
-        ranks of a mesh each run this same engine, so rank 0 alone writes
-        the file: concurrent writers would truncate each other's."""
-        every = self.snapshot_every if is_rank0() else 0
-        # the engine runs replicated on every rank: no weight splits over model
-        with sharding_context(self.mesh, DATA_ONLY_RULES):
-            while self.sched.has_work():
-                self.step()
-                self.sched.check_invariants()
-                if every > 0 and self.tick % every == 0:
-                    self.save_snapshot()
+        ranks of a mesh each run this same engine, and rank 0 alone writes
+        the file, as concurrent writers would truncate each other's; under
+        a kv-head split every rank takes the snapshot (the pool is gathered
+        whole, which every rank joins)."""
+        from repro_torch.serving import elastic
+
+        every = self.snapshot_every if is_rank0() or self.heads is not None else 0
+        while self.sched.has_work():
+            self.step()
+            self.sched.check_invariants()
+            if every > 0 and self.tick % every == 0:
+                snap = self.snapshot()
+                if is_rank0():
+                    elastic.save_snapshot(snap, self.snapshot_path or "spring_snapshot.npz")
         return self.summary()
 
     # -- metrics ------------------------------------------------------------

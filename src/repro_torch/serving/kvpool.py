@@ -355,10 +355,14 @@ class SlotLedger:
 # -- wire accounting ----------------------------------------------------------
 
 
-def pool_wire_stats(pool: dict, value_bits: int = KV_VALUE_BITS) -> dict:
+def pool_wire_stats(pool: dict, value_bits: int = KV_VALUE_BITS, heads=None) -> dict:
     """Measured SPRING-interface traffic of the packed pool vs its dense
     footprints: live values at the 20-bit storage width + the mask words
-    actually stored, against the full dense fp32 allocation."""
+    actually stored, against the full dense fp32 allocation.  Under a
+    ``heads`` split (``runtime.tree_sharding.KVHeadSplit``) ``pool`` is
+    this rank's and the figures are the whole pool's, its counts summed
+    over ``model`` (:meth:`KVHeadSplit.total`): every rank reports, and
+    decides from, the same numbers."""
     mask_bits = 0.0
     elems = 0
     logical_bytes = 0.0
@@ -373,6 +377,9 @@ def pool_wire_stats(pool: dict, value_bits: int = KV_VALUE_BITS) -> dict:
             elems += n
             logical_bytes += n * leaf.values.element_size()
     nnz_total = float(torch.stack(nnz_parts).sum()) if nnz_parts else 0.0  # one sync
+    if heads is not None:
+        nnz_total, mask_bits, elems, logical_bytes = heads.total(
+            [nnz_total, mask_bits, elems, logical_bytes])
     wire_bytes = (nnz_total * value_bits + mask_bits) / 8.0
     dense_fp32 = elems * 4.0
     return {
@@ -384,3 +391,79 @@ def pool_wire_stats(pool: dict, value_bits: int = KV_VALUE_BITS) -> dict:
         "kv_dense_fp32_bytes": dense_fp32,
         "kv_compression_vs_fp32": dense_fp32 / wire_bytes if wire_bytes else 0.0,
     }
+
+
+# -- tensor parallelism: the pool's leaves by kv head ---------------------------
+
+#: cache leaves whose dim -2 (of the dense form) holds the kv heads
+HEAD_LEAVES = ("k", "v", "k_ring", "v_ring")
+
+
+def repack(values: torch.Tensor, mask: torch.Tensor, shape: tuple, fn) -> dict:
+    """Packed blocks (``values`` (*lead, block) and their ``mask``) of a
+    dense leaf of ``shape`` unpacked, mapped by ``fn`` (kv heads at dim -2)
+    and packed again by one ``kv_pack`` a leaf: ``{"values", "mask",
+    "nnz", "shape"}``, on ``values``' device."""
+    lead = tuple(values.shape[:-1])
+    dense = kv_unpack(values, mask, values.shape[-1]).reshape(shape).to(values.dtype)
+    out = fn(dense)
+    return dict(kv_pack(out.reshape(*lead, -1)), shape=tuple(out.shape))
+
+
+def _dense_shape(leaf: PackedKV, name: str, values: torch.Tensor) -> tuple:
+    """The dense shape of ``values``' blocks, packed from a leaf of
+    ``leaf``'s layout with its lead dims and head count those ``values``
+    carry (the heads follow from the block length)."""
+    ax = len(leaf.shape) + PACKED_SEQ_AXIS[name]
+    rows, d = leaf.shape[ax], leaf.shape[-1]
+    return (*values.shape[:-1], rows, values.shape[-1] // (rows * d), d)
+
+
+def map_heads(pool: dict, fn) -> dict:
+    """``pool`` with every attention leaf's dense form mapped by ``fn`` (kv
+    heads at dim -2): a ``KVHeadSplit``'s ``whole`` (every rank's heads
+    gathered: the whole pool's layout, a collective per leaf) or ``local``
+    (this rank's heads of a whole pool).  PackedKV leaves are unpacked,
+    mapped and packed again; dense state leaves and ``pos`` without heads
+    pass through."""
+    out = {"pos": pool["pos"]}
+    for unit in _units(pool):
+        out[unit] = {}
+        for name, leaf in pool[unit].items():
+            if isinstance(leaf, PackedKV):
+                r = repack(leaf.values, leaf.mask, _dense_shape(leaf, name, leaf.values), fn)
+                leaf = PackedKV(values=r["values"], mask=r["mask"], nnz=r["nnz"],
+                                shape=r["shape"], dtype=leaf.dtype)
+            elif name in HEAD_LEAVES:
+                leaf = fn(leaf)
+            out[unit][name] = leaf
+    return out
+
+
+def map_slot_heads(payload: dict, pool: dict, fn) -> dict:
+    """A slot payload (:func:`extract_slot_packed`) of a pool laid out as
+    ``pool``, in another layout (:func:`map_heads`'s ``fn``), as host
+    copies."""
+    out = {"pos": payload["pos"]}
+    for unit in _units(pool):
+        out[unit] = {}
+        for name, leaf in pool[unit].items():
+            p = payload[unit][name]
+            if isinstance(leaf, PackedKV):
+                values = as_tensor(p["values"])
+                r = repack(values, as_tensor(p["mask"]), _dense_shape(leaf, name, values), fn)
+                p = {part: host_copy(r[part]) for part in ("values", "mask", "nnz")}
+            elif name in HEAD_LEAVES:
+                p = host_copy(fn(as_tensor(p)))
+            out[unit][name] = p
+    return out
+
+
+def map_dense_heads(tree, fn):
+    """A tree of dense cache leaves (the paged engine's slot state) with its
+    attention leaves (:data:`HEAD_LEAVES`) mapped by ``fn``; ``None``
+    holes and the rest as they are."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (fn(as_tensor(v)) if k in HEAD_LEAVES and v is not None
+                else map_dense_heads(v, fn)) for k, v in tree.items()}

@@ -120,7 +120,7 @@ class PagedServingEngine(ServingEngine):
 
         self.store = PagedKVStore(self.cfg, self.n_slots, pt, self.max_blocks,
                                   n_frames=PageAllocator.RESERVED + logical,
-                                  rows=self.max_len, device=self.device)
+                                  rows=self.max_len, device=self.device, heads=self.heads)
         self.alloc = PageAllocator(logical)
         self.table = BlockTable(self.alloc, pt, prefix_cache=self.prefix_cache)
         self.admission = AdmissionController(self.store.page_elems,
@@ -141,6 +141,11 @@ class PagedServingEngine(ServingEngine):
         self._density: Optional[float] = None  # None until first measurement
         self.page_util_sketch = QuantileSketch()
         self.peak_page_utilization = 0.0
+
+    def pool_bytes(self) -> int:
+        """The bytes of this rank's page arrays and slot state."""
+        return sum(t.numel() * t.element_size()
+                   for t in kvpool.pool_leaves([self.store_arrays, self.state]))
 
     # -- submission ----------------------------------------------------------
 
@@ -292,8 +297,8 @@ class PagedServingEngine(ServingEngine):
         with telemetry.span("serve.tick.spill", rid=rid, slot=slot):
             frames = self.table.frames_of(rid)
             contents = self.store.extract_frames(self.store_arrays, frames)
-            nnz = sum(int(leaf["nnz"].sum(dtype=torch.int64))
-                      for c in contents for leaf in c.values())
+            nnz = self.store.total(sum(int(leaf["nnz"].sum(dtype=torch.int64))
+                                       for c in contents for leaf in c.values()))
             payload = {
                 "frames": contents,
                 "state": extract_slot_state(self.state, slot),
@@ -443,6 +448,40 @@ class PagedServingEngine(ServingEngine):
 
     # -- elastic: rescale / snapshot / restore -------------------------------
 
+    def _whole_store(self, n_slots: int, n_frames: int) -> PagedKVStore:
+        """A store of the whole pool's layout (every kv head; built and read
+        in :meth:`_whole_context`): what a snapshot holds under a kv-head
+        split."""
+        return PagedKVStore(self.cfg, n_slots, self.page_tokens, self.max_blocks,
+                            n_frames=n_frames, rows=self.max_len, device=self.device)
+
+    def _map_payload(self, payload: dict, fn) -> dict:
+        """A spill payload with its frames (stacked, one ``map_heads`` a
+        leaf) and slot state mapped by ``fn``, as host copies."""
+        frames = payload["frames"]
+        if frames:
+            stacked = {key: {part: torch.stack([kvpool.word_view(kvpool.as_tensor(f[key][part]))
+                                                for f in frames], dim=s.lead_n)
+                             for part in ("values", "mask", "nnz")}
+                       for key, s in self.store.leaves.items()}
+            for key in stacked:
+                stacked[key]["mask"] = stacked[key]["mask"].view(torch.uint32)
+            mapped = self.store.map_heads(stacked, fn)
+            frames = [{key: {part: kvpool.host_copy(t.select(s.lead_n, i))
+                             for part, t in mapped[key].items()}
+                       for key, s in self.store.leaves.items()} for i in range(len(frames))]
+        return {**payload, "frames": frames,
+                "state": kvpool.map_dense_heads(payload["state"], fn)}
+
+    def _whole_payload(self, payload: dict) -> dict:
+        """A spilled request's frames and slot state in the whole pool's
+        layout under a kv-head split (its ``wire_bits`` are the whole
+        pool's already)."""
+        return payload if self.heads is None else self._map_payload(payload, self.heads.whole)
+
+    def _rank_payload(self, payload: dict) -> dict:
+        return payload if self.heads is None else self._map_payload(payload, self.heads.local)
+
     def _flush_installs(self) -> None:
         """Land every pending chunked prompt-page write now.  Page content
         is fixed at prefill and a request's tokens do not depend on its
@@ -497,8 +536,13 @@ class PagedServingEngine(ServingEngine):
         if int(b["alloc"]["capacity"]) != capacity:
             raise SnapshotError(f"snapshot has {b['alloc']['capacity']} logical frames, "
                                 f"engine has {capacity}")
-        arrays, state = self.store.shapes(int(sig["n_slots"]),
-                                          PageAllocator.RESERVED + capacity)
+        if self.heads is None:
+            arrays, state = self.store.shapes(int(sig["n_slots"]),
+                                              PageAllocator.RESERVED + capacity)
+        else:
+            with self._whole_context():
+                arrays, state = self._whole_store(1, 1).shapes(
+                    int(sig["n_slots"]), PageAllocator.RESERVED + capacity)
         check_leaves(arrays, b["store"], "page store")
         check_leaves(state, b["state"], "slot state")
 
@@ -514,9 +558,13 @@ class PagedServingEngine(ServingEngine):
 
         assert not self._installing and not self._pending_frame_set, (
             "_pre_snapshot must flush chunked installs first")
+        arrays, state = self.store_arrays, self.state
+        if self.heads is not None:  # the whole pool's layout
+            arrays = self.store.map_heads(arrays, self.heads.whole)
+            state = kvpool.map_dense_heads(state, self.heads.whole)
         return {
-            "store": tree_to_host_leaves(self.store_arrays),
-            "state": tree_to_host_leaves(self.state),
+            "store": tree_to_host_leaves(arrays),
+            "state": tree_to_host_leaves(state),
             "alloc": {
                 "capacity": self.alloc.capacity,
                 "free": list(self.alloc._free),
@@ -541,8 +589,17 @@ class PagedServingEngine(ServingEngine):
     def _restore_backend(self, b: dict) -> None:
         from repro_torch.serving.elastic.snapshot import leaves_to_tree
 
-        self.store_arrays = leaves_to_tree(self.store_arrays, b["store"], "page store")
-        self.state = leaves_to_tree(self.state, b["state"], "slot state")
+        if self.heads is None:
+            self.store_arrays = leaves_to_tree(self.store_arrays, b["store"], "page store")
+            self.state = leaves_to_tree(self.state, b["state"], "slot state")
+        else:  # the whole pool's layout, sliced to this rank's heads
+            with self._whole_context():
+                whole = self._whole_store(self.n_slots, self.store.n_frames)
+                arrays, state = whole.init_arrays(), whole.init_state()
+            self.store_arrays = self.store.map_heads(
+                leaves_to_tree(arrays, b["store"], "page store"), self.heads.local)
+            self.state = kvpool.map_dense_heads(
+                leaves_to_tree(state, b["state"], "slot state"), self.heads.local)
         self.alloc._free = [int(f) for f in b["alloc"]["free"]]
         self.alloc._ref = {int(f): int(n) for f, n in b["alloc"]["ref"]}
         t = b["table"]

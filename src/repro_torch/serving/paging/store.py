@@ -46,7 +46,7 @@ import torch
 from repro_torch.core.masking import MASK_WORD_BITS, _n_words
 from repro_torch.kernels.kv_cache.ops import KV_VALUE_BITS, kv_pack, kv_unpack
 from repro_torch.serving.kvpool import (PACKED_SEQ_AXIS, as_tensor, host_copy, lookup,
-                                        pool_leaves, word_view)
+                                        pool_leaves, repack, word_view)
 
 #: cache leaf kinds stored paged: token-indexed content (attention k/v and
 #: MLA's latent and rope key).  Window rings are
@@ -110,10 +110,16 @@ class PagedKVStore:
     """Layout and in-place programs over the packed page arrays.
 
     ``rows`` is the working cache's length: the engine's ``max_len``,
-    which no request's rows exceed (at most ``max_blocks * page_tokens``)."""
+    which no request's rows exceed (at most ``max_blocks * page_tokens``).
+    Under a ``heads`` split (``runtime.tree_sharding.KVHeadSplit``, built
+    in the engine's tensor-parallel context) every frame holds this rank's
+    kv heads, and the page unit, the live nonzeros and so the wire figures
+    are the whole pool's, summed over ``model``: the admission, spill and
+    resume decisions read them, and every rank must take the same ones."""
 
     def __init__(self, cfg, n_slots: int, page_tokens: int, max_blocks: int,
-                 n_frames: int, dtype=torch.bfloat16, *, rows: int, device=None):
+                 n_frames: int, dtype=torch.bfloat16, *, rows: int, device=None,
+                 heads=None):
         from repro_torch.models.lm import lm_init_cache
 
         self.cfg = cfg
@@ -127,6 +133,7 @@ class PagedKVStore:
             raise ValueError(f"rows {self.rows} outside (0, {self.tokens_cap}]")
         self.dtype = dtype
         self.device = torch.device("cpu" if device is None else device)
+        self.heads = heads
 
         template = lm_init_cache(cfg, n_slots, self.tokens_cap, dtype, device="meta")
         self.leaves: dict[str, LeafSpec] = {}
@@ -155,6 +162,9 @@ class PagedKVStore:
         self.page_elems = sum(s.lead_prod * s.elems for s in self.leaves.values())
         self.page_mask_bits = sum(s.lead_prod * s.words * MASK_WORD_BITS
                                   for s in self.leaves.values())
+        if heads is not None:
+            self.page_elems, self.page_mask_bits = heads.total(
+                [self.page_elems, self.page_mask_bits])
         self.page_dense_fp32_bytes = self.page_elems * 4.0
 
     # -- array construction --------------------------------------------------
@@ -324,15 +334,38 @@ class PagedKVStore:
 
     # -- wire accounting ------------------------------------------------------
 
-    def live_nnz(self, store: dict, frames: list) -> int:
+    def live_nnz(self, store: dict, frames: list) -> float:
         """Total nonzeros across ``frames``, exact (int64): the one device
-        read behind the per-tick density and wire stats."""
-        if not frames:
-            return 0
-        idx = torch.as_tensor(frames, dtype=torch.int64).to(self.device)
-        parts = [store[key]["nnz"].index_select(s.lead_n, idx).sum(dtype=torch.int64)
-                 for key, s in self.leaves.items()]
-        return int(torch.stack(parts).sum())
+        read behind the per-tick density and wire stats; the whole pool's
+        under a kv-head split (:meth:`total`)."""
+        nnz = 0
+        if frames:
+            idx = torch.as_tensor(frames, dtype=torch.int64).to(self.device)
+            parts = [store[key]["nnz"].index_select(s.lead_n, idx).sum(dtype=torch.int64)
+                     for key, s in self.leaves.items()]
+            nnz = int(torch.stack(parts).sum())
+        return self.total(nnz)
+
+    def total(self, nnz: int) -> float:
+        """A nonzero count of this store's frames as the whole pool's: summed
+        over ``model`` under a kv-head split (every rank joins), else as it
+        is."""
+        return nnz if self.heads is None else self.heads.total([nnz])[0]
+
+    def map_heads(self, arrays: dict, fn) -> dict:
+        """Page arrays (or a stack of spilled frames: ``{leaf key:
+        {"values", "mask", "nnz"}}``, any lead dims) in another head layout:
+        each leaf's pages unpacked, mapped by ``fn`` (a ``KVHeadSplit``'s
+        ``whole`` or ``local``, kv heads at dim -2) and packed again."""
+        out = {}
+        for key, s in self.leaves.items():
+            values = as_tensor(arrays[key]["values"])
+            d = s.tail[-1]
+            shape = (*values.shape[:-1], self.page_tokens,
+                     values.shape[-1] // (self.page_tokens * d), d)
+            r = repack(values, as_tensor(arrays[key]["mask"]), shape, fn)
+            out[key] = {part: r[part] for part in _PARTS}
+        return out
 
     def wire_stats(self, nnz_total: float, n_allocated: int, num_pages: int,
                    value_bits: int = KV_VALUE_BITS) -> dict:

@@ -36,7 +36,6 @@ from repro.runtime import sharding as jsharding  # noqa: E402
 from repro.runtime import tree_sharding as jtree  # noqa: E402
 
 from repro_torch.api.sessions import ServeSession, TrainSession  # noqa: E402
-from repro_torch.api.spec import SpecError  # noqa: E402
 from repro_torch.api.spec import build_spec as tbuild  # noqa: E402
 from repro_torch.configs import get_arch as tget_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
@@ -462,18 +461,6 @@ def _leaf_paths(tree) -> list:
     out: list = []
     ttree.map_with_path(lambda path, leaf: out.append(path), tree)
     return out
-
-
-def test_pruning_is_refused_where_weights_split_over_model():
-    """prune_ratio > 0 on the static path at model > 1 raises the SpecError
-    naming why (a shard's std is not the weight's)."""
-    spec = tbuild("serve", sets=R.SERVE_SETS + ["shape.mesh.model=2"], use_env=False)
-    with pytest.raises(SpecError, match="prune_ratio > 0.*model"):
-        ServeSession(spec, device="cpu", prune_ratio=0.5, mesh=_Stub(2))
-    # the engine keeps model replicated, and prunes there
-    engine = tbuild("serve", sets=[s for s in R.SERVE_SETS if s != "serving.static=true"]
-                    + ["shape.mesh.model=2"], use_env=False)
-    assert ServeSession(engine, device="cpu", prune_ratio=0.5, mesh=_Stub(2)).prune_ratio == 0.5
 
 
 # -- the ranks: against the reference's partitioned runs and the unsharded runs -------------------
