@@ -357,8 +357,25 @@ failure:
                engine here), paged with a shared system prompt and pruned at
                0.5 through the ServeSession: tokens under the same rule,
                each rank's pool two of the eight kv heads, prefill s,
-               tokens/s, ticks and model hops a tick; every path kernel on
-               every rank and at the shard shapes against its plain version.
+               tokens/s, ticks and model hops a tick; (h) expert
+               parallelism, llama3.2-1b's shards freed first: full-width
+               olmoe-1b-7b (16 of 64 experts and 4 of 16 kv heads a rank)
+               and deepseek-v2-lite-16b (16 of 64 routed experts, 4 of 16
+               MLA heads, its latent pool whole) drawn leaf by leaf and
+               served on 6k's traffic through the monolithic engine, tokens
+               equal to 6k's unsharded tokens but for a printed near tie
+               at the first differing step (the first layer routing the
+               request's rows otherwise, each row's unsharded k-th and
+               (k+1)-th router probabilities within 1e-5; or, where none
+               is, the token's top-2 logit gap below the arch's own
+               first-step logit difference), >= 4 GiB of the card free at
+               the ranks' peak; olmoe-1b-7b trained from the example spec
+               (nearest, batch 8, seq 128, 2 steps) at 4 of 16 layers:
+               losses within rel 1e-4 of the unsharded run's here and
+               bit-equal across ranks, the routers and norms the same bits
+               on every rank, each rank's parameter bytes its shards'; every
+               path kernel on every rank and at the shard shapes against its
+               plain version.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and, last, the ``{"ok": true, "device": ...}`` line.
@@ -368,6 +385,7 @@ TF32 is off throughout: Q4.16 values carry 21 significant bits, TF32 keeps
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -1394,8 +1412,10 @@ MAMBA_TRAIN_SETS = ("arch.id=mamba2-780m", "arch.reduced=false", "train.steps=3"
 #: whole units kept of the archs that do not fit whole beside their
 #: gradients and AdamW moments (16 bytes a parameter, updated in place):
 #: the largest depth that leaves TRAIN_ARCHS_HEADROOM of the card free at
-#: the part's peak (H100 80GB HBM3)
-TRAIN_ARCHS_UNITS = {"olmoe-1b-7b": 11, "deepseek-v2-lite-16b": 7, "recurrentgemma-9b": 3,
+#: the part's peak (H100 80GB HBM3), but for the MoE archs, cut further for
+#: the time limit when phase 8h came (olmoe 11 -> 4 layers, deepseek 7 -> 3
+#: units: the same branches and kernels, fewer repeats)
+TRAIN_ARCHS_UNITS = {"olmoe-1b-7b": 4, "deepseek-v2-lite-16b": 3, "recurrentgemma-9b": 3,
                      "internvl2-26b": 9}
 TRAIN_ARCHS_HEADROOM = 4 * 2**30
 #: the most elements stochastic_round is held against its plain version
@@ -4089,17 +4109,23 @@ def _serve_moe(dev, arch: str) -> dict:
                                        **kw))
         for i, p in enumerate(prompts):
             eng.submit_prompt(p, MOE_GEN, seed=i)
+        # the monolithic run is 8h's unsharded one: it records what 8h's
+        # near-tie rule reads
+        rec = _engine_gaps(eng, first_logits=True) if backend == "monolithic" else None
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.monotonic()
-        out = eng.run()
+        with _moe_routing(rec, cfg.moe.top_k) if rec else contextlib.nullcontext():
+            out = eng.run()
         torch.cuda.synchronize()
         row[backend] = {"wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
                         "tokens": [r["tokens"] for r in out["per_request"]],
                         "finite": out["finite"], "tokens_per_s": out["tokens_per_s"],
                         "prefill_s_per_request": out["prefill_s"] / MOE_REQUESTS,
                         "decode": _decode_split(out)}
-        del eng, out
+        if rec:
+            row[backend]["record"] = _ep_record(eng, out, rec)
+        del eng, out, rec
     m, p = row["monolithic"], row["paged"]
     row["tokens_equal"] = p["tokens"] == m["tokens"]
     print(f"[moe] {arch} ({n_params / 1e9:.2f} B parameters, made in {init_s:.1f} s; capacity "
@@ -4759,6 +4785,25 @@ MESH_TP_SYSTEM = 16
 MESH_TP_SNAPSHOT_TICK = 4
 MESH_TP_PRUNE = 0.5
 MESH_TP_ENGINE_RUNS = ("mono", "paged", "pruned")
+# 8h: expert parallelism at model = 4, in 8e-8g's spawn after 8g.  Full-width olmoe-1b-7b
+# (64 experts, 16 a rank; 16 kv heads, 4 a rank) and deepseek-v2-lite-16b (64 routed and
+# 2 shared experts; MLA's 16 heads, 4 a rank; its latent pool whole on every rank) served on
+# 6k's traffic through the monolithic engine, their tokens held against 6k's unsharded ones;
+# olmoe-1b-7b trained from the example spec (nearest rounding, batch 8, seq 128, 2 steps) at
+# MESH_EP_TRAIN_UNITS of its 16 layers, against the same run unsharded in the parent
+MESH_EP_UNITS = {"olmoe-1b-7b": 16, "deepseek-v2-lite-16b": 26}
+MESH_EP_TRAIN_UNITS = 4
+MESH_EP_TRAIN_SETS = ("arch.id=olmoe-1b-7b", *MESH_TP_TRAIN_SETS)
+MESH_EP_HEADROOM = 4 * 2**30
+MESH_EP_ROUTER_TIE = 1e-5
+MESH_EP_SERVE_KERNELS = {"olmoe-1b-7b": ("masked_matmul", "masked_matmul_skinny",
+                                         "tile_occupancy", "mask_pack", "flash_attention"),
+                         "deepseek-v2-lite-16b": ("masked_matmul", "masked_matmul_skinny",
+                                                  "tile_occupancy", "mask_pack")}
+MESH_EP_TRAIN_KERNELS = MESH_TP_TRAIN_KERNELS
+#: 8h's check names under 8e's (the kernel line's mesh_tp errors)
+EP_CHECK_KEYS = {"masked_matmul": "forward", "masked_matmul_skinny": "skinny",
+                 "masked_matmul_dx": "dx", "masked_matmul_dw": "dw"}
 
 
 def _mesh_rank_setup(world: int, device: str, axis: str = "data"):
@@ -4814,7 +4859,8 @@ def _leaf_checksums(leaves, dev):
     out = torch.zeros(len(leaves), 2, dtype=torch.int64, device=dev)
     for i, p in enumerate(leaves):
         flat = p.detach().reshape(-1)
-        bits = flat.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[flat.element_size()])
+        bits = flat.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                          1: torch.int8}[flat.element_size()])
         for s in range(0, bits.numel(), MESH_CHECK_CHUNK):
             b = bits[s:s + MESH_CHECK_CHUNK].to(torch.int64)
             w = torch.arange(s, s + b.numel(), device=dev) % 257 + 1
@@ -5124,10 +5170,14 @@ def _pool_blocks(eng) -> tuple:
     return tuple(v.shape[:-1]), int(v.shape[-1])
 
 
-def _engine_gaps(eng) -> dict:
+def _engine_gaps(eng, first_logits: bool = False) -> dict:
     """Record an engine's top-2 logit gaps as it runs: each request's
-    prefill, and each decode tick's per slot (8g's near-tie rule)."""
-    rec = {"prefill": {}, "decode": {}, "rid": None}
+    prefill, and each decode tick's per slot (8g's near-tie rule).  The
+    step running is ``rec["at"]``: ``("prefill", rid)`` or ``("decode",
+    tick)`` (:func:`_moe_routing` files its records under it); with
+    ``first_logits``, also each request's prefill logits (8h's rule)."""
+    rec = {"prefill": {}, "decode": {}, "rid": None, "at": None, "first_logits": {},
+           "routing": {}}
     admit, prefill, decode = eng._admit_one, eng._prefill, eng._decode
 
     def gap(logits):
@@ -5136,14 +5186,18 @@ def _engine_gaps(eng) -> dict:
 
     def admit_one(tracker):
         rec["rid"] = tracker.req.rid
+        rec["at"] = ("prefill", tracker.req.rid)
         return admit(tracker)
 
     def prefill_step(*args, **kw):
         logits, cache = prefill(*args, **kw)
         rec["prefill"][rec["rid"]] = float(gap(logits)[0])
+        if first_logits:
+            rec["first_logits"][rec["rid"]] = logits[0].float().cpu()
         return logits, cache
 
     def decode_step(*args):
+        rec["at"] = ("decode", eng.tick)
         logits, cache = decode(*args)
         rec["decode"][eng.tick] = gap(logits)
         return logits, cache
@@ -5217,22 +5271,18 @@ def _tp_engine_run(name: str, spec, params, prompts, dev, mesh=None, snap_path=N
 
 def _tp_engine_runs(mesh, dev, world: int, snap_path: str) -> dict:
     """8g on one rank: the three engine runs at model = ``world``; the
-    monolithic and paged ones from the rank's shards (made once), the pruned
-    one through the ServeSession, which shards the weights itself."""
+    monolithic and paged ones from the rank's shards (drawn once, leaf by
+    leaf), the pruned one through the ServeSession, which draws its own."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.api import ServeSession, build_spec
     from repro_torch.models.lm import lm_init
-    from repro_torch.runtime.sharding import sharding_context
-    from repro_torch.runtime.tree_sharding import shard_tree
 
     spec = build_spec("serve", sets=[*MESH_TP_ENGINE_SETS, f"shape.mesh.model={world}"])
     cfg = spec.resolve().config
     prompts, shared = _tp_engine_prompts(spec, cfg.vocab)
-    with sharding_context(mesh):
-        params = shard_tree(lm_init(cfg, spec.seeds.seed, device=dev), mesh)
-    _free(dev)
+    params = lm_init(cfg, spec.seeds.seed, device=dev, mesh=mesh)
     out = {"mono": _tp_engine_run("mono", spec, params, prompts, dev, mesh, snap_path),
            "paged": _tp_engine_run("paged", build_spec("serve", sets=[
                *MESH_TP_ENGINE_SETS, f"shape.mesh.model={world}", "serving.pages=true"]),
@@ -5317,13 +5367,14 @@ def _tp_engine_checks(dev, cfg, model: int, rank: int, engine: dict) -> dict:
 
 
 def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve_sets: tuple,
-                 snap_path: str = "", device: str = "cuda") -> dict:
+                 snap_path: str = "", ep: bool = False, device: str = "cuda") -> dict:
     """(8e, 8f) on one of ``world`` ranks at shape.mesh.model = world: the
     example train spec through the TrainSession (then one more step timed
     alone), then static serving through the ServeSession; each run's
     counters zeroed just before it and read just after; the first step's
-    logits through the same sharded prefill; then (on the card) the path
-    kernels at their shard shapes."""
+    logits through the same sharded prefill; then 8g's engines and (on the
+    card) the path kernels at their shard shapes; with ``ep``, then 8h
+    (:func:`_ep_runs`) once llama3.2-1b's shards are freed."""
     import math
 
     import torch
@@ -5337,7 +5388,7 @@ def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.runtime.sharding import sharding_context
     from repro_torch.runtime.train import make_train_step
-    from repro_torch.runtime.tree_sharding import param_splits, shard_tree
+    from repro_torch.runtime.tree_sharding import param_splits
 
     t_rank = time.monotonic()
     mesh = _mesh_rank_setup(world, device, axis="model")
@@ -5401,9 +5452,8 @@ def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve
     _free(dev)
     # the first step's logits, through the same sharded prefill (for 8f's gate)
     sr = sspec.resolve()
+    params = lm_init(sr.config, sspec.seeds.seed, device=dev, mesh=mesh)
     with sharding_context(mesh):
-        params = shard_tree(lm_init(sr.config, sspec.seeds.seed, device=dev), mesh)
-        _free(dev)
         tokens = _serve_tokens(sspec, sr.config, dev)
         with torch.no_grad():
             logits, _ = lm_prefill(params, sr.config, tokens, SpringContext(cfg=sr.spring))
@@ -5424,6 +5474,12 @@ def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve
             "prompt": build_spec("serve", sets=list(MESH_TP_ENGINE_SETS)).shape.prompt_len,
             "blocks": (eng["mono"]["blocks"], eng["paged"]["blocks"])})
         for key, err in checks.items():
+            out["checks"][key] = max(out["checks"].get(key, 0.0), err)
+    if ep:  # 8h, llama3.2-1b's shards and the caching allocator's blocks freed first
+        _free(dev)
+        out["ep"] = _ep_runs(mesh, dev, world, rank, spec_path)
+        for key, err in out["ep"].get("checks", {}).items():
+            key = EP_CHECK_KEYS.get(key, key)
             out["checks"][key] = max(out["checks"].get(key, 0.0), err)
     out["staged_hops"] = mesh.staged_hops
     out["model_hops"] = mesh.hops.get("model", 0)
@@ -5475,7 +5531,7 @@ def _static_logit_gaps(spec, dev) -> dict:
             "gaps": torch.stack(gaps, 1), "prefill_gap": prefill_gap}
 
 
-def phase_mesh(dev) -> dict:
+def phase_mesh(dev, moe_runs=None) -> dict:
     """(8) the mesh, one process per rank over a gloo group, every rank on
     cuda:0 (the kernels built by the parent; ranks only load them), each
     spawn with a time limit: the unsharded runs first in this process, then
@@ -5484,9 +5540,11 @@ def phase_mesh(dev) -> dict:
     at data=2, then at pod=2 with compress_pod_grads).  Sharded losses and
     tokens must equal the unsharded run's bit for bit; every rank's counters
     are zeroed just before each main-path run and read just after.  Then four
-    ranks at model = 4: 8e (training), 8f (the static path) and 8g (the
+    ranks at model = 4: 8e (training), 8f (the static path), 8g (the
     engines, monolithic, paged and pruned, against their unsharded runs here,
-    and a model-4 snapshot restored here)."""
+    and a model-4 snapshot restored here) and 8h (olmoe-1b-7b and
+    deepseek-v2-lite-16b served against 6k's tokens, ``moe_runs``, and
+    olmoe-1b-7b trained against its unsharded run here)."""
     import math
     import os
     import shutil
@@ -5601,12 +5659,14 @@ def phase_mesh(dev) -> dict:
     t0 = time.monotonic()
     engine_base = _tp_engine_base(dev)
     engine_base_s = time.monotonic() - t0
+    ep_base = _ep_base(dev, spec_path, moe_runs)
+    _free(dev)
     snap_dir = tempfile.mkdtemp(prefix="chip_smoke_8g_")
     snap_path = os.path.join(snap_dir, "tp_snapshot.npz")
     try:
         t0 = time.monotonic()
         tp = launch.run(mesh_rank_tp, MESH_TP, (spec_path, MESH_TP_TRAIN_SETS,
-                                                MESH_SERVE_SETS, snap_path),
+                                                MESH_SERVE_SETS, snap_path, True),
                         timeout_s=MESH_TIMEOUT_S,
                         collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
         tp_s = time.monotonic() - t0
@@ -5615,8 +5675,12 @@ def phase_mesh(dev) -> dict:
         shutil.rmtree(snap_dir, ignore_errors=True)
     tp_gate = _tp_gates(tp, tp_base_losses, base_tokens, static)
     tp_gate["engine"] = _tp_engine_gates(tp, engine_base, restored, tp_gate["max_logit_diff"])
+    tp_gate["ep"] = _ep_gates(tp, ep_base)
     print(f"[mesh] 8g unsharded runs {engine_base_s:.1f} s; each rank's engine runs "
-          f"{max(r['engine_wall_s'] for r in tp):.1f} s", flush=True)
+          f"{max(r['engine_wall_s'] for r in tp):.1f} s; 8h unsharded runs "
+          f"{ep_base['wall_s']:.1f} s, each rank's 8h runs "
+          f"{max(r['ep']['runs_s'] for r in tp):.1f} s and checks "
+          f"{max(r['ep'].get('checks_s', 0.0) for r in tp):.1f} s", flush=True)
     wall = time.monotonic() - t_phase
     print(f"[mesh] four ranks {four_s:.1f} s, two ranks {two_s:.1f} s, model=4 ranks "
           f"{tp_s:.1f} s, phase {wall:.1f} s", flush=True)
@@ -5629,9 +5693,11 @@ def phase_mesh(dev) -> dict:
     tp_launches = {name: sum(r["train"]["launches"][name] + r["serve"]["launches"][name]
                              + sum(r["engine"][run]["launches"][name]
                                    for run in MESH_TP_ENGINE_RUNS)
+                             + _ep_launches(r, name)
                              for r in tp) for name in launches}
     for r in tp:
         r.pop("first_logits", None)
+        _ep_strip(r)
     for r in engine_base.values():
         r.pop("gaps", None)
     return {"four": four, "two": two, "tp": tp, "tp_gate": tp_gate,
@@ -5639,6 +5705,8 @@ def phase_mesh(dev) -> dict:
             "tp_base_losses": tp_base_losses, "base_prefill_s": base_prefill_s,
             "base_tokens_per_s": base_tps, "launches": launches, "tp_launches": tp_launches,
             "wall_s": wall, "tp_wall_s": tp_s, "engine_base": engine_base,
+            "ep_base": {**{arch: {k: v for k, v in ep_base[arch].items() if k not in EP_RECORD}
+                           for arch in MOE_ARCHS}, "wall_s": ep_base["wall_s"]},
             "errs": {"masked_matmul": max(r["pipeline"]["max_abs_err"] for r in four),
                      "tp": {k: max(r["checks"][k] for r in tp) for k in tp[0]["checks"]}}}
 
@@ -5832,9 +5900,479 @@ def _tp_gates(tp: list, base_losses: list, base_tokens: list, static: dict) -> d
     return out
 
 
+# -- 8h. expert parallelism: the MoE family at model = 4 ------------------------------------
+
+
+@contextlib.contextmanager
+def _moe_routing(rec: dict, k: int):
+    """Inside the block, file every MoE call's routing under the engine
+    step running (``rec["at"]``, :func:`_engine_gaps`), a list in layer
+    order of (each row's ``k`` experts, sorted; its gap between the k-th
+    and (k+1)-th router probability), on the device until the run ends
+    (:func:`_ep_record`).  The routing is recomputed beside ``moe_apply``'s
+    by the same function on the same rows (``moe._route``, in fixed row
+    blocks at decode), so it is the bits the call routes by (8h's near-tie
+    rule).  A prefill's rows are its request's positions; a decode tick's
+    are the slots."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import fixed_rows
+
+    apply = moe_mod.moe_apply
+
+    def recorded(params, x, ctx, spec):
+        with torch.no_grad():
+            flat = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            router, e = params["router"]["kernel"], spec.n_experts
+            routed = (fixed_rows(lambda r: moe_mod._route(r, router, k), flat)
+                      if x.shape[1] == 1 else moe_mod._route(flat, router, k))
+            top = routed[:, :e].topk(k + 1, dim=-1).values
+            experts = routed[:, e + k:].to(torch.int16).sort(dim=-1).values
+            rec["routing"].setdefault(rec["at"], []).append((experts, top[:, k - 1] - top[:, k]))
+        return apply(params, x, ctx, spec)
+
+    moe_mod.moe_apply = recorded
+    try:
+        yield
+    finally:
+        moe_mod.moe_apply = apply
+
+
+def _ep_record(eng, out: dict, rec: dict) -> dict:
+    """An engine run's records for 8h's near-tie rule, on the CPU: each
+    token's top-2 logit gap (:func:`_token_gaps`), each request's first
+    token tick and slot, its prefill logits and the routing by step
+    (:func:`_moe_routing`)."""
+    return {"gaps": _token_gaps(eng, out, rec),
+            "first_tick": [r["first_token_tick"] for r in out["per_request"]],
+            "slots": [eng._results[r["rid"]].slot for r in out["per_request"]],
+            "first_logits": rec["first_logits"],
+            "routing": {at: [(e.cpu(), g.cpu()) for e, g in layers]
+                        for at, layers in rec["routing"].items()}}
+
+
+#: the keys of :func:`_ep_record`, dropped from the report
+EP_RECORD = ("gaps", "first_tick", "slots", "first_logits", "routing")
+
+
+def _ep_config(arch: str, units: int):
+    from repro_torch.configs import get_arch
+
+    full = get_arch(arch).resolve(False)
+    return full if units == full.n_units else _cut(full, units)
+
+
+def _ep_serve(dev, arch: str, units: int, mesh=None) -> dict:
+    """One of 8h's serving runs: ``arch`` at ``units`` units, quant_sparse,
+    random weights from seed 0 (the rank's shards drawn leaf by leaf under
+    ``mesh``), 6k's traffic (MOE_REQUESTS requests of prompt MOE_PROMPT,
+    MOE_GEN tokens each, on as many slots) through the monolithic engine,
+    the counters zeroed just before ``run()`` and read just after.  Records
+    what 8h's near-tie rule reads (:func:`_ep_record`); under ``mesh``
+    every rank meets the others at its peak and reads the card's free
+    memory there."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.api.sessions import synthetic_prompts
+    from repro_torch.launch.serve import serving_config
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import kvpool
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = _ep_config(arch, units)
+    _free(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = lm_init(cfg, 0, device=dev, mesh=mesh)
+    _sync(dev)
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts = synthetic_prompts(MOE_REQUESTS, MOE_REQUESTS, MOE_PROMPT, cfg.vocab, 0)
+    eng = ServingEngine(cfg, serving_config("quant_sparse"), params=params,
+                        n_slots=MOE_REQUESTS, max_len=MOE_MAX_LEN, device=dev, mesh=mesh)
+    for i, p in enumerate(prompts):
+        eng.submit_prompt(p, MOE_GEN, seed=i)
+    rec = _engine_gaps(eng, first_logits=True)
+    hops = mesh.hops.get("model", 0) if mesh is not None else 0
+    _sync(dev)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    with _moe_routing(rec, cfg.moe.top_k):
+        out = eng.run()
+    _sync(dev)
+    wall, launches = time.monotonic() - t0, kernels.launch_counts()
+    res = {"tokens": [r["tokens"] for r in out["per_request"]], "ticks": out["ticks"],
+           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "tokens_per_s": out["tokens_per_s"], "finite": out["finite"], "wall_s": wall,
+           "launches": launches, "init_s": init_s, "params": n_params,
+           "param_bytes": 4 * n_params, **_ep_record(eng, out, rec), "n_layers": cfg.n_layers,
+           "kv_heads": None if eng.heads is None else list(eng.heads.mine),
+           "pool_bytes": eng.pool_bytes(), "peak_gib": _peak_gib(dev)}
+    if mesh is not None:
+        res["model_hops"] = mesh.hops.get("model", 0) - hops
+        res["pool_sum"] = _leaf_checksums(kvpool.pool_leaves(eng.pool), dev).cpu()
+        mesh.all_gather(torch.zeros(1, device=dev), "model")  # every rank at its peak
+        res["free_gib"] = (torch.cuda.mem_get_info(dev)[0] / 2**30 if dev.type == "cuda"
+                           else float("inf"))
+    del eng, out, params
+    _free(dev)
+    return res
+
+
+def _ep_train(dev, spec, mesh=None) -> dict:
+    """8h's training: ``spec`` (the example train spec on olmoe-1b-7b,
+    nearest rounding) at MESH_EP_TRAIN_UNITS of its units through
+    make_train_step, from seed 0 (the rank's shards drawn leaf by leaf
+    under ``mesh``), each step timed to its synchronise, the counters
+    zeroed just before the first and read just after the last.  Under
+    ``mesh``: the checksums of the leaves every rank holds whole, and the
+    bytes its shards must take."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import on_grid
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.runtime.train import init_train_state, make_train_step
+    from repro_torch.runtime.tree_sharding import leaf_splits, param_splits
+
+    r = spec.resolve()
+    cfg, seed = _cut(r.config, MESH_EP_TRAIN_UNITS), spec.seeds.seed
+    _free(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(lm_init(cfg, seed, device=dev, mesh=mesh), r.step, seed,
+                             device=dev)
+    step = make_train_step(get_arch(spec.arch.id).view(config=cfg), r.step, mesh=mesh)
+    data = SyntheticLMStream(DataConfig(seed=seed, vocab=cfg.vocab, seq_len=spec.shape.seq,
+                                        global_batch=spec.shape.batch), device=dev)
+    hops = mesh.hops.get("model", 0) if mesh is not None else 0
+    losses, steps_s = [], []
+    _sync(dev)
+    kernels.reset_launch_counts()
+    for i in range(spec.train.steps):
+        t0 = time.monotonic()
+        state, m = step(state, {"tokens": data.batch(i)})
+        _sync(dev)
+        steps_s.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    launches = kernels.launch_counts()
+    leaves = tree_leaves(state.params)
+    res = {"losses": losses, "steps_s": steps_s, "launches": launches,
+           "n_layers": cfg.n_layers, "grid": on_grid(dict(enumerate(leaves))),
+           "param_bytes": sum(4 * p.numel() for p in leaves), "peak_gib": _peak_gib(dev),
+           "tokens_per_s": spec.shape.batch * spec.shape.seq / steps_s[-1]}
+    if mesh is not None:
+        world = int(mesh.shape["model"])
+        with sharding_context(mesh):
+            splits = leaf_splits(param_splits(cfg, mesh), state.params)
+        res["model_hops"] = mesh.hops.get("model", 0) - hops
+        res["param_bytes_want"] = sum(4 * (math.prod(s.full) // world if s is not None
+                                           else p.numel()) for p, s in zip(leaves, splits))
+        res["replicated"] = _leaf_checksums([p for p, s in zip(leaves, splits) if s is None],
+                                            dev).cpu()
+        res["whole_leaves"] = sum(1 for s in splits if s is None)
+    del state, step, m
+    _free(dev)
+    return res
+
+
+def _ep_kernel_checks(dev, rank: int, world: int, spec) -> dict:
+    """8h's path kernels on this rank at the shard shapes its runs gave
+    them, against their plain versions: 6k's serving checks
+    (:func:`_moe_kernel_checks`: the expert products at decode and at the
+    prefill's capacity, whole experts, the rank's heads' projections, its
+    dense and shared SwiGLU columns, flash_attention on olmoe's 4 local
+    heads, kv_pack on the rank's pool leaves) and 5g's training checks
+    (:func:`_train_arch_kernel_checks`: forward, dx and dw of olmoe's
+    products at the rank's shapes, stochastic_round on its vocabulary
+    rows), and the strided stochastic_round on a dim-0 expert shard
+    bit-equal."""
+    import torch
+
+    from repro_torch.kernels.stochastic_round.ops import (shard_counter, sr_reference,
+                                                          stochastic_round)
+
+    def local(cfg):
+        import dataclasses as dc
+
+        kw = {"vocab": cfg.vocab // world, "d_ff": cfg.d_ff // world,
+              "moe": dc.replace(cfg.moe, shared_d_ff=cfg.moe.shared_d_ff // world)}
+        if cfg.attn is not None:
+            kw["attn"] = dc.replace(cfg.attn, n_heads=cfg.attn.n_heads // world,
+                                    n_kv_heads=cfg.attn.n_kv_heads // world)
+        if cfg.mla is not None:
+            kw["mla"] = dc.replace(cfg.mla, n_heads=cfg.mla.n_heads // world)
+        return dc.replace(cfg, **kw)
+
+    errs: dict = {}
+    for i, arch in enumerate(MOE_ARCHS):
+        got = _moe_kernel_checks(dev, local(_ep_config(arch, MESH_EP_UNITS[arch])),
+                                 seed=80 + 8 * rank + i)["errs"]
+        for k, v in got.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    cfg = local(_cut(spec.resolve().config, MESH_EP_TRAIN_UNITS))
+    got = _train_arch_kernel_checks(dev, "olmoe-1b-7b", cfg,
+                                    spec.shape.batch * spec.shape.seq)["errs"]
+    for k, v in got.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    moe = cfg.moe
+    per = moe.n_experts // world
+    g = torch.Generator(device=dev).manual_seed(90 + rank)
+    w = torch.randn(4, cfg.d_model, moe.d_ff, generator=g, device=dev)
+    base, stride = shard_counter((moe.n_experts, cfg.d_model, moe.d_ff), 0, rank * per)
+    if not torch.equal(stochastic_round(w, 11, base=base, row_stride=stride),
+                       sr_reference(w, 11, base=base, row_stride=stride)):
+        fail(f"mesh_ep rank {rank}: the strided stochastic_round on its expert shard "
+             f"{tuple(w.shape)} differs from its plain version")
+    del w
+    _free(dev)
+    print(f"[mesh_ep rank {rank}] 8h kernels at the shard shapes: {errs}; stochastic_round on "
+          f"experts [{rank * per}, {rank * per + 4}) bit-equal", flush=True)
+    return errs
+
+
+def _ep_runs(mesh, dev, world: int, rank: int, spec_path: str) -> dict:
+    """8h on one rank at model = ``world``: olmoe-1b-7b and
+    deepseek-v2-lite-16b served (MESH_EP_UNITS), olmoe-1b-7b trained, then
+    (on the card) the path kernels at the shard shapes."""
+    from repro_torch.api import build_spec
+
+    t0 = time.monotonic()
+    out = {arch: _ep_serve(dev, arch, MESH_EP_UNITS[arch], mesh) for arch in MOE_ARCHS}
+    spec = build_spec("train", spec_file=spec_path, sets=[*MESH_EP_TRAIN_SETS,
+                                                          f"shape.mesh.model={world}"])
+    out["train"] = _ep_train(dev, spec, mesh)
+    out["runs_s"] = time.monotonic() - t0
+    if dev.type == "cuda":
+        t0 = time.monotonic()
+        out["checks"] = _ep_kernel_checks(dev, rank, world, spec)
+        out["checks_s"] = time.monotonic() - t0
+    return out
+
+
+def _ep_base(dev, spec_path: str, moe_runs) -> dict:
+    """8h's unsharded runs in this process: each arch's served tokens and
+    records (:func:`_ep_record`; 6k's monolithic run where 6k served the
+    same depth, ``moe_runs``; else the same run here) and olmoe's training
+    at MESH_EP_TRAIN_UNITS units."""
+    from repro_torch.api import build_spec
+
+    t0 = time.monotonic()
+    out: dict = {}
+    for arch in MOE_ARCHS:
+        if moe_runs and arch in moe_runs and MESH_EP_UNITS[arch] == _full_units(arch):
+            out[arch] = {**moe_runs[arch], "from": "6k"}
+        else:
+            run = _ep_serve(dev, arch, MESH_EP_UNITS[arch])
+            out[arch] = {"tokens": run["tokens"], "from": "this phase",
+                         "tokens_per_s": run["tokens_per_s"], "peak_gib": run["peak_gib"],
+                         **{k: run[k] for k in EP_RECORD}}
+    out["train"] = _ep_train(dev, build_spec("train", spec_file=spec_path,
+                                             sets=list(MESH_EP_TRAIN_SETS)))
+    out["wall_s"] = time.monotonic() - t0
+    t = out["train"]
+    print(f"[mesh] 8h unsharded: served tokens from {[out[a]['from'] for a in MOE_ARCHS]}; "
+          f"olmoe-1b-7b trained at {t['n_layers']} layers: losses {t['losses']}, "
+          f"{[round(s, 3) for s in t['steps_s']]} s a step, peak {t['peak_gib']:.2f} GiB; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _full_units(arch: str) -> int:
+    from repro_torch.configs import get_arch
+
+    return get_arch(arch).resolve(False).n_units
+
+
+def _first_logit_diff(run: dict, base: dict) -> float:
+    """The largest |logit difference| of an arch's first step, its
+    requests' prefill logits, between the sharded and unsharded runs."""
+    return max(float((run["first_logits"][rid] - base["first_logits"][rid]).abs().max())
+               for rid in base["first_logits"])
+
+
+def _routed_otherwise(run: dict, base: dict) -> dict:
+    """Where a served ``run`` routes rows to other experts than its
+    unsharded ``base`` (printed, not gated: past a step's first such layer
+    a row's input has moved with the rows it attends to): the rows so
+    routed over every step and layer, the steps holding any, and the
+    largest unsharded router gap among the rows of each such step's first
+    layer."""
+    rows, steps, gap = 0, 0, 0.0
+    for at, layers in run["routing"].items():
+        first = True
+        for (e, _), (be, bg) in zip(layers, base["routing"][at]):
+            moved = (e != be).any(-1)
+            if bool(moved.any()):
+                rows += int(moved.sum())
+                if first:
+                    steps, first = steps + 1, False
+                    gap = max(gap, float(bg[moved].max()))
+    return {"rows": rows, "steps": steps, "first_layer_max_gap": gap}
+
+
+def _ep_tie_gate(tag: str, run: dict, base: dict) -> dict:
+    """8h's rule for a printed near tie, on one arch's served ``run``
+    against its unsharded ``base``: tokens equal, or at the first step
+    where they differ (the request's prefill and first decode tick for its
+    first token, else its decode tick) either
+
+    * the first layer at which that step routes any of the request's rows
+      (a prefill's positions, or its slot) to other experts than the
+      unsharded run does, every such row's unsharded k-th and (k+1)-th
+      router probabilities within MESH_EP_ROUTER_TIE; or,
+    * where no row of it is routed otherwise, the unsharded top-2 logit
+      gap behind the token below this arch's own first-step max |logit
+      difference| (:func:`_first_logit_diff`), itself within
+      MESH_TP_LOGIT_ATOL.
+
+    A row routed otherwise off a near tie fails, whatever the logits."""
+    got, want = run["tokens"], base["tokens"]
+    logit_diff = _first_logit_diff(run, base)
+    summary = _routed_otherwise(run, base)
+    if got == want:
+        return {"equal": True, "first_logit_diff": logit_diff, "routed_otherwise": summary}
+    tick, rid, i = min((run["first_tick"][rid] + i, rid, i) for rid in range(len(want))
+                       for i in range(len(want[rid]))
+                       if i >= len(got[rid]) or got[rid][i] != want[rid][i])
+    slot = run["slots"][rid]
+    flip = None
+    for at in ([("prefill", rid)] if i == 0 else []) + [("decode", tick)]:
+        rows = slice(None) if at[0] == "prefill" else slice(slot, slot + 1)
+        for layer, ((e, _), (be, bg)) in enumerate(zip(run["routing"][at],
+                                                       base["routing"][at])):
+            moved = (e[rows] != be[rows]).any(-1)
+            if bool(moved.any()):
+                flip = {"step": list(at), "layer": layer, "rows": int(moved.sum()),
+                        "router_gap": float(bg[rows][moved].max())}
+                break
+        if flip:
+            break
+    gap = base["gaps"][rid][i]
+    print(f"[mesh] 8h {tag} near tie: request {rid} first differs at token {i} (tick {tick}), "
+          f"unsharded top-2 logit gap {gap:.3g} against the first step's max |logit diff| "
+          f"{logit_diff:.3g}; routed otherwise there: {flip}", flush=True)
+    if flip is not None:
+        if not flip["router_gap"] < MESH_EP_ROUTER_TIE:
+            fail(f"mesh phase: 8h {tag} routes {flip['rows']} row(s) of request {rid} to other "
+                 f"experts than the unsharded run at {flip['step']} layer {flip['layer']}, "
+                 f"where the router's k / k+1 gap {flip['router_gap']:.3g} is no near tie")
+    elif not gap < logit_diff <= MESH_TP_LOGIT_ATOL:
+        fail(f"mesh phase: 8h {tag} tokens differ from the unsharded run's at request {rid} "
+             f"token {i}, where the top-2 gap {gap:.3g} is no near tie (first-step max |logit "
+             f"diff| {logit_diff:.3g}, atol {MESH_TP_LOGIT_ATOL})")
+    return {"equal": False, "first_logit_diff": logit_diff, "routed_otherwise": summary,
+            "near_tie": {"request": rid, "token": i, "gap": gap, "routed_otherwise": flip}}
+
+
+def _ep_gates(ranks: list, base: dict) -> dict:
+    """8h's gates over the model=4 ranks: each served arch's tokens finite,
+    equal across ranks and to the unsharded tokens but for a printed near
+    tie (:func:`_ep_tie_gate`); olmoe's pool the rank's 4 of 16 kv heads, deepseek's latent pool
+    whole and the same bits on every rank; >= MESH_EP_HEADROOM of the card
+    free at the ranks' peak; the training losses finite, bit-equal across
+    ranks and within rel MESH_TP_LOSS_RTOL of the unsharded run's, the
+    parameters on the grid, every leaf held whole the same bits on every
+    rank, each rank's parameter bytes its shards'; every path kernel
+    launched on every rank."""
+    import math
+
+    out: dict = {}
+    for arch in MOE_ARCHS:
+        runs = [r["ep"][arch] for r in ranks]
+        for rank, e in enumerate(runs):
+            hops = e["model_hops"] / max(e["ticks"], 1)
+            print(f"[mesh] rank {rank} 8h {arch} ({e['n_layers']} layers, "
+                  f"{e['params'] / 1e9:.3f} B parameters a rank, drawn in {e['init_s']:.1f} s) "
+                  f"served at model={MESH_TP}: prefill {e['prefill_s'] / MOE_REQUESTS:.3f} s a "
+                  f"request, decode {e['decode_s']:.3f} s, {e['tokens_per_s']:.2f} tokens/s, "
+                  f"{e['ticks']} ticks, {hops:.1f} model hops a tick, kv heads {e['kv_heads']}, "
+                  f"pool {e['pool_bytes']} bytes, peak {e['peak_gib']:.2f} GiB, card free "
+                  f"{e['free_gib']:.2f} GiB, wall {e['wall_s']:.1f} s, launches {e['launches']}",
+                  flush=True)
+            if e["tokens"] != runs[0]["tokens"] or not e["finite"]:
+                fail(f"mesh phase: rank {rank}'s 8h {arch} tokens are not finite or differ "
+                     "from rank 0's")
+            for name in MESH_EP_SERVE_KERNELS[arch]:
+                if e["launches"][name] <= 0:
+                    fail(f"mesh phase: rank {rank}'s 8h {arch} run never launched {name}")
+            if arch.startswith("deepseek") and e["launches"]["flash_attention"]:
+                fail(f"mesh phase: rank {rank}'s 8h {arch} run launched flash_attention")
+            if e["free_gib"] < MESH_EP_HEADROOM / 2**30:
+                fail(f"mesh phase: 8h {arch} left {e['free_gib']:.2f} GiB of the card free at "
+                     f"the ranks' peak, under {MESH_EP_HEADROOM / 2**30:.0f} GiB")
+            if arch.startswith("olmoe"):
+                heads = _ep_config(arch, MESH_EP_UNITS[arch]).attn.n_kv_heads // MESH_TP
+                if e["kv_heads"] != list(range(rank * heads, (rank + 1) * heads)):
+                    fail(f"mesh phase: rank {rank}'s 8h {arch} pool holds kv heads "
+                         f"{e['kv_heads']}")
+            elif e["kv_heads"] is not None or not bool((e["pool_sum"]
+                                                        == runs[0]["pool_sum"]).all()):
+                fail(f"mesh phase: rank {rank}'s 8h {arch} latent pool is not whole or not "
+                     "rank 0's bits")
+        out[arch] = _ep_tie_gate(arch, runs[0], base[arch])
+        print(f"[mesh] 8h {arch}: tokens equal to the unsharded run's {out[arch]['equal']}, "
+              f"first-step max |logit diff| {out[arch]['first_logit_diff']:.3g}, rows routed "
+              f"to other experts than unsharded {out[arch]['routed_otherwise']}", flush=True)
+        out[arch]["tokens_from"] = base[arch]["from"]
+    losses = ranks[0]["ep"]["train"]["losses"]
+    want = base["train"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    out["train"] = {"loss_rel": rel}
+    for rank, r in enumerate(ranks):
+        t = r["ep"]["train"]
+        print(f"[mesh] rank {rank} 8h olmoe-1b-7b trained at {t['n_layers']} layers, "
+              f"model={MESH_TP}: losses {t['losses']} (unsharded {want}, max rel {rel:.3g}), "
+              f"on grid {t['grid']}, {[round(s, 3) for s in t['steps_s']]} s a step "
+              f"({t['tokens_per_s']:.1f} tokens/s), {t['model_hops']} model hops, param bytes "
+              f"{t['param_bytes']} (shards {t['param_bytes_want']}, unsharded "
+              f"{base['train']['param_bytes']}), {t['whole_leaves']} leaves whole, peak "
+              f"{t['peak_gib']:.2f} GiB, launches {t['launches']}; kernels at the shard shapes "
+              f"{r['ep'].get('checks')}", flush=True)
+        if t["losses"] != losses or not all(math.isfinite(v) for v in t["losses"]):
+            fail(f"mesh phase: rank {rank}'s 8h losses are not finite or differ from rank 0's")
+        if not t["grid"]:
+            fail(f"mesh phase: rank {rank}'s 8h shards left the grid")
+        if not bool((t["replicated"] == ranks[0]["ep"]["train"]["replicated"]).all()):
+            fail(f"mesh phase: rank {rank}'s 8h whole leaves (routers, norms) differ from "
+                 "rank 0's after the steps")
+        if t["param_bytes"] != t["param_bytes_want"]:
+            fail(f"mesh phase: rank {rank} holds {t['param_bytes']} parameter bytes in 8h, "
+                 f"not its shards' {t['param_bytes_want']}")
+        for name in MESH_EP_TRAIN_KERNELS:
+            if t["launches"][name] <= 0:
+                fail(f"mesh phase: rank {rank}'s 8h training never launched {name}")
+    if not rel <= MESH_TP_LOSS_RTOL:
+        fail(f"mesh phase: 8h losses {losses} off the unsharded {want} by rel {rel:.3g}")
+    return out
+
+
+def _ep_strip(r: dict) -> None:
+    """Drop a rank's 8h tensors and per-token records from the report."""
+    for arch in MOE_ARCHS:
+        for key in ("pool_sum", *EP_RECORD):
+            r["ep"][arch].pop(key, None)
+    r["ep"]["train"].pop("replicated", None)
+
+
+def _ep_launches(r: dict, name: str) -> int:
+    """A rank's 8h main-path launches of ``name``: both served archs and
+    the training run."""
+    return sum(r["ep"][k]["launches"][name] for k in (*MOE_ARCHS, "train"))
+
+
 def main() -> None:
-    # ``--only 5h`` / ``--only 8``: the build and that phase alone (a quick check of
-    # the phase; no kernel line and no result line are printed)
+    # ``--only 5h`` / ``--only 8``: the build and that phase alone (a
+    # quick check of the phase; no kernel line and no result line are printed)
     only = sys.argv[2] if sys.argv[1:2] == ["--only"] and len(sys.argv) > 2 else None
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are not next to this script ({SRC / 'repro_torch'})")
@@ -6107,7 +6645,9 @@ def main() -> None:
     report["prune_stash"] = prune_stash = phase_prune_stash(dev, report)
 
     # -- 8. slice 18: the mesh (ranks on this card, after every one-process phase)
-    report["mesh"] = mesh = phase_mesh(dev)
+    report["mesh"] = mesh = phase_mesh(dev, {arch: {"tokens": moe[arch]["monolithic"]["tokens"],
+                                                    **moe[arch]["monolithic"].pop("record")}
+                                             for arch in MOE_ARCHS})
 
     # -- kernel line, card, result -------------------------------------------
     # launches: the sum over the main paths' runs (serve, spec, train,

@@ -45,11 +45,13 @@ rank, e.g. under ``torchrun``), and every rank runs the session: with
 collectives (``dist.train``) and the static serving path shards its
 request rows (``dist.serve``), each adding a ``collective_probe`` to its
 result; the engine runs replicated on every rank.  With ``model > 1`` and
-``data == 1`` the dense family runs tensor parallel in training, on the
-static path and through both engines (``dist.tensor``): the session
-shards the whole parameters at build time
-(``runtime.tree_sharding.shard_tree``), each rank holds its shards of the
-parameters and moments (an engine also the pool of its kv heads), a
+``data == 1`` the dense family, olmoe and deepseek run tensor parallel
+(their experts split over ``model`` too) in training, on the static path
+and through both engines (``dist.tensor``): the session shards given
+parameters at build time (``runtime.tree_sharding.shard_tree``) or draws
+the rank's shards leaf by leaf (``lm_init(..., mesh=)``), each rank
+holds its shards of the parameters and moments (an engine also the pool
+of its kv heads; an MLA arch's latent pool is whole on every rank), a
 checkpoint is written whole (gathered over ``model``, rank 0 writing the
 reference's names) and resumed by slicing, and the result's
 ``tensor_parallel`` says what the rank held and how many collectives it
@@ -210,12 +212,12 @@ class TrainSession(Session):
             global_batch=spec.shape.batch), device=device)
         tp = self._tensor_parallel()
         if tp:
-            # the whole parameters made (or given), then this rank's shards
+            # this rank's shards: of the given parameters, or drawn leaf by
+            # leaf (a rank never holds the whole tree)
             from repro_torch.models.lm import lm_init
 
-            whole = self.params if self.params is not None else lm_init(cfg, seed, device=device)
-            params = self._shard(whole)
-            del whole  # before the moments: a rank never holds the whole state
+            params = (self._shard(self.params) if self.params is not None
+                      else lm_init(cfg, seed, device=device, mesh=self.mesh))
             state = init_train_state(params, step_cfg, seed, device=device)
         else:
             state = init_train_state(view if self.params is None else self.params, step_cfg,
@@ -450,12 +452,13 @@ class ServeSession(Session):
         cfg, seed, encdec = r.config, spec.seeds.seed, r.arch.is_encdec
         batch, prompt_len, gen = (spec.shape.batch, spec.shape.prompt_len,
                                   spec.shape.gen)
-        init = ed_mod.encdec_init if encdec else lm_init
-        params = (self.params if self.params is not None
-                  else init(cfg, seed, device=self.device))
         tp = self._tensor_parallel()
-        if tp:  # this rank's shards of the whole parameters
-            params = self._shard(params)
+        if self.params is not None:  # under tp, this rank's shards of them
+            params = self._shard(self.params) if tp else self.params
+        elif encdec:
+            params = ed_mod.encdec_init(cfg, seed, device=self.device)
+        else:  # under tp, this rank's shards, drawn leaf by leaf
+            params = lm_init(cfg, seed, device=self.device, mesh=self.mesh)
         inputs = {name: torch.as_tensor(t).to(self.device) for name, t in synthetic_batch(
             r.arch, cfg, batch, prompt_len, threefry.prng_key(seed)).items()}
         tokens = inputs["tokens"].to(torch.int64)
@@ -541,13 +544,10 @@ class ServeSession(Session):
         n_requests = batch if queue is None else queue
         seed = spec.seeds.seed
 
-        params, tp = self.params, self._tensor_parallel()
-        if tp:  # this rank's shards of the whole parameters
-            from repro_torch.models.lm import lm_init
-
-            params = self._shard(params if params is not None
-                                 else lm_init(r.config, seed, device=self.device))
-        engine = ServingEngine.from_spec(spec, params=params, resolved=r,
+        tp = self._tensor_parallel()
+        # under tp the engine keeps this rank's shards of given parameters,
+        # or draws its own leaf by leaf
+        engine = ServingEngine.from_spec(spec, params=self.params, resolved=r,
                                          prune_ratio=self.prune_ratio, device=self.device,
                                          mesh=self.mesh)
         if spec.serving.restore_path:

@@ -131,6 +131,32 @@ class KeyGen:
         self._counter += 1
         return gen
 
+    def skip(self, n: int) -> None:
+        """Move past ``n`` draws unused (the rounding sites another rank
+        runs), so the sites after them draw what they would have."""
+        self._counter += int(n)
+
+
+def _stochastic(role: str, cfg: SpringConfig, keys: Optional[KeyGen]) -> Optional[bool]:
+    """How :func:`_q` rounds a tensor of ``role`` ("act", "weight" or
+    "out"): None when it passes through (a weight under
+    ``cfg.weights_pre_quantized``), True when it rounds stochastically
+    (``cfg.stochastic`` with ``keys``; the operands round to nearest under
+    ``operand_rounding="nearest"``), False when it rounds to nearest."""
+    if role == "weight" and cfg.weights_pre_quantized:
+        return None
+    if role in ("act", "weight") and cfg.operand_rounding == "nearest":
+        return False
+    return bool(cfg.stochastic and keys is not None)
+
+
+def matmul_draws(cfg: "SpringConfig", keys: Optional[KeyGen]) -> int:
+    """The :meth:`KeyGen.next` draws one :func:`spring_matmul` call makes:
+    one for each operand and the output that it rounds stochastically."""
+    if cfg.mode == "dense":
+        return 0
+    return sum(bool(_stochastic(role, cfg, keys)) for role in ("act", "weight", "out"))
+
 
 def _q(x: torch.Tensor, cfg: SpringConfig, keys: Optional[KeyGen],
        role: str = "out", counter: Optional[tuple] = None) -> torch.Tensor:
@@ -141,12 +167,10 @@ def _q(x: torch.Tensor, cfg: SpringConfig, keys: Optional[KeyGen],
     operands ("act", "weight") round to nearest under
     ``operand_rounding="nearest"``.  ``counter`` is a shard's SR counter
     geometry."""
-    if role == "weight" and cfg.weights_pre_quantized:
+    stochastic = _stochastic(role, cfg, keys)
+    if stochastic is None:
         return x
-    stochastic = cfg.stochastic
-    if role in ("act", "weight") and cfg.operand_rounding == "nearest":
-        stochastic = False
-    if stochastic and keys is not None:
+    if stochastic:
         if not isinstance(keys, KeyGen):
             raise TypeError("model-level SR needs a KeyGen over torch.Generator seeds "
                             f"(the reference's threefry keys are not ported), got {keys!r}")

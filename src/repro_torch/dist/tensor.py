@@ -15,7 +15,12 @@ reports split:
   * :func:`gather_from_model` concatenates the ranks' parts along a dim in
     rank order; its backward sums every rank's gradient of the whole and
     hands each rank its own part, so a rank may read any heads of the
-    gathered tensor.
+    gathered tensor;
+  * :func:`gather_whole` concatenates the ranks' parts the same way, where
+    every rank then runs the same computation on the whole (the experts'
+    outputs, which every rank combines alike): each rank already holds the
+    whole gradient, so its backward hands each rank its own part unsummed
+    (a sum would multiply it by the axis's extent).
 
 Every sum is :meth:`Mesh.all_reduce`: an all-gather and a sum in rank
 order, the same bits on every rank; :func:`model_sum` is that sum for a
@@ -77,6 +82,19 @@ class _GatherFromModel(torch.autograd.Function):
         return whole.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, x.shape[dim]
+        parts = mesh.all_gather(x, "model")
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.axis_index("model")
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), None, None
+
+
 def model_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """``x`` summed over ``model`` in rank order (:meth:`Mesh.all_reduce`),
     the same bits on every rank, on ``x``'s device (the hop crosses on
@@ -107,6 +125,14 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     rank's part of the sum."""
     mesh = model_mesh()
     return x if mesh is None else _GatherFromModel.apply(x, mesh, dim % x.ndim)
+
+
+def gather_whole(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Forward: every rank's ``x`` concatenated along ``dim`` in rank order.
+    Backward: this rank's part of the gradient of the whole, unsummed: every
+    rank computes the same whole gradient from the gathered tensor."""
+    mesh = model_mesh()
+    return x if mesh is None else _GatherWhole.apply(x, mesh, dim % x.ndim)
 
 
 def column_input(x: torch.Tensor, *splits: Optional[Split]) -> torch.Tensor:

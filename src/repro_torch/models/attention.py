@@ -39,7 +39,11 @@ form) and attends through :func:`_chunked_attention` (q/k D 192, v D
 writes the new latent and rope rows into the cache first and attends in
 the latent space (the absorbed form), every product in fixed row blocks.
 The up-projections ``wuk`` / ``wuv`` are raw fp32 kernels in every mode,
-never quantized.
+never quantized.  Under a head split over ``model`` a rank holds its heads'
+columns of ``wq`` / ``wuk`` / ``wuv`` and rows of ``wo`` (summed over
+``model``); ``wdkv`` and ``wkr`` stay whole, and so does the latent cache
+on every rank, whose gradient (its rows read by each rank's heads alone)
+is summed over ``model``.
 
 Under a mesh that splits weights over ``model`` (``dist.tensor``), ``wq``
 / ``wk`` / ``wv`` are column shards and ``wo`` a row shard: a rank computes
@@ -478,18 +482,28 @@ def mla_apply(
     """Full-sequence MLA (cache None) or one-token decode against the
     ``{"ckv": (B, S, rank), "krope": (B, S, dr)}`` cache.  Returns
     ``(out, new_cache)``."""
-    b, s, _ = x.shape
+    b, s, d_model = x.shape
     h, dn, dr, dv = spec.n_heads, spec.qk_nope_dim, spec.qk_rope_dim, spec.v_head_dim
     rank = spec.kv_lora_rank
     scale = 1.0 / ((dn + dr) ** 0.5)
+    sq, suk, suv, so = _mla_splits(spec, d_model)
+    if sq is not None:
+        h = (sq.hi - sq.lo) // (dn + dr)  # this rank's heads
 
-    q = dense_apply(params["wq"], x, ctx).reshape(b, s, h, dn + dr)
+    q = dense_apply(params["wq"], column_input(x, sq), ctx, sq).reshape(b, s, h, dn + dr)
     qn, qr = q[..., :dn], rope_apply(q[..., dn:], positions, spec.rope_theta)
     ckv = dense_apply(params["wdkv"], x, ctx)  # (B, S, rank)
-    krope = rope_apply(dense_apply(params["wkr"], x, ctx)[:, :, None, :], positions,
+    kr = dense_apply(params["wkr"], x, ctx)
+    if sq is not None:
+        # whole on every rank, read by the rank's heads alone: their
+        # gradient is summed over model (here, not on x: wdkv / wkr's own
+        # share of x's gradient is whole already)
+        ckv, kr = copy_to_model(ckv), copy_to_model(kr)
+    krope = rope_apply(kr[:, :, None, :], positions,
                        spec.rope_theta)[:, :, 0, :]  # (B, S, dr), shared across heads
     # the up-projections stay fp32 and unquantized in every mode, as in
-    # the reference (raw kernels in einsums, never dense_apply)
+    # the reference (raw kernels in einsums, never dense_apply); under a
+    # head split, the rank's heads' columns
     wuk = params["wuk"]["kernel"].reshape(rank, h, dn)
     wuv = params["wuv"]["kernel"].reshape(rank, h, dv)
 
@@ -517,8 +531,29 @@ def mla_apply(
         out = out.reshape(b, 1, h * dv).to(x.dtype)
         new_cache = {"ckv": ck, "krope": cr}
 
-    out = dense_apply(params["wo"], out, ctx)
+    out = dense_apply(params["wo"], out, ctx, so)
     return out, new_cache
+
+
+def _mla_splits(spec: MLASpec, d_model: int) -> tuple:
+    """The ``model`` splits of ``wq``, ``wuk``, ``wuv`` (columns) and ``wo``
+    (rows) under the active mesh: all four, each by the same whole heads
+    (``models.lm.tensor_parallel`` splits an MLA arch only where its heads
+    divide), or none."""
+    h = spec.n_heads
+    splits = (weight_split(("w_embed", "w_qkv"), (d_model, h * (spec.qk_nope_dim
+                                                                + spec.qk_rope_dim))),
+              weight_split((None, "w_qkv"), (spec.kv_lora_rank, h * spec.qk_nope_dim)),
+              weight_split((None, "w_qkv"), (spec.kv_lora_rank, h * spec.v_head_dim)),
+              weight_split(("w_qkv", "w_embed"), (h * spec.v_head_dim, d_model)))
+    if not any(splits):
+        return splits
+    sp = next(sp for sp in splits if sp is not None)
+    m = sp.full[sp.dim] // (sp.hi - sp.lo)
+    if not all(splits) or h % m:
+        raise NotImplementedError(f"MLA's {h} heads split over model {m} but not by whole "
+                                  "heads")
+    return splits
 
 
 def mla_init_cache(batch: int, spec: MLASpec, max_len: int, dtype=torch.bfloat16,

@@ -16,9 +16,11 @@ columns; the collectives are ``dist.tensor``'s.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 import weakref
 from typing import Optional
 
@@ -140,11 +142,38 @@ def prune_threshold(ratio: float) -> float:
     return float(p * x * f32(math.sqrt(2.0)))
 
 
+class _Draws(threading.local):
+    hook = None
+
+
+_DRAWS = _Draws()
+
+
+@contextlib.contextmanager
+def draw_hook(hook):
+    """Inside the block, every :func:`randn` leaf is handed to ``hook``
+    as soon as it is drawn, and the init keeps what ``hook`` returns (a
+    rank's slice of it: ``models.lm.lm_init``'s shards, drawn leaf by
+    leaf)."""
+    prev, _DRAWS.hook = _DRAWS.hook, hook
+    try:
+        yield
+    finally:
+        _DRAWS.hook = prev
+
+
+def randn(shape, gen: Optional[torch.Generator], device=None) -> torch.Tensor:
+    """An fp32 standard-normal parameter leaf from ``gen``, through the
+    active :func:`draw_hook`."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return t if _DRAWS.hook is None else _DRAWS.hook(t)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device=None,
                scale: float | None = None, bias: bool = False) -> dict:
     if scale is None:
         scale = 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
+    w = randn((d_in, d_out), gen, device)
     p = {"kernel": w.mul_(scale)}
     if bias:
         p["bias"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
@@ -171,7 +200,7 @@ def dense_apply(params: dict, x: torch.Tensor, ctx: SpringContext, split=None) -
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *, device=None) -> dict:
-    emb = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
+    emb = randn((vocab, d), gen, device)
     return {"embedding": emb.mul_(0.02)}
 
 

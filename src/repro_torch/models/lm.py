@@ -47,10 +47,12 @@ absorbed products, the MoE router, the SSM state readout, the RG-LRU's conv
 sum and gate products) run in fixed row blocks (``layers.fixed_rows``), so
 a request's tokens do not depend on how many slots the pool has.
 
-Under a mesh that splits weights over ``model`` (tensor parallelism, the
-dense family; ``dist.tensor``) every rank runs the whole stack on its
-shards: attention on its heads, the MLP on its columns, the embedding on
-its vocabulary rows; the head's logits are the rank's vocabulary columns,
+Under a mesh that splits weights over ``model`` (tensor parallelism,
+:func:`tensor_parallel`: the dense family, olmoe and deepseek;
+``dist.tensor``) every rank runs the whole stack on its shards: attention
+(GQA or MLA) on its heads, the MLP (dense or shared experts) on its
+columns, the MoE FFN on its experts, the embedding on its vocabulary
+rows; the head's logits are the rank's vocabulary columns,
 gathered in rank order for serving (:func:`_logits`) and reduced with the
 cross-rank max, sum-exp and gold logit for the loss
 (``losses.chunked_softmax_xent``).  The replicated activations are the
@@ -76,6 +78,7 @@ from repro_torch.dist.tensor import copy_to_model, gather_from_model
 from repro_torch.models.layers import (
     SpringContext,
     dense_init,
+    draw_hook,
     embed_apply,
     embed_init,
     fixed_rows,
@@ -152,18 +155,25 @@ class LMConfig:
                 + [(f"suffix_{i}", None, kind) for i, kind in enumerate(self.suffix)])
 
 
+#: the layer kinds whose weights split over ``model``
+TP_KINDS = frozenset({("attn", "swiglu"), ("attn", "moe"), ("mla", "swiglu"), ("mla", "moe")})
+
+
 def tensor_parallel(cfg, mesh) -> bool:
     """Does a run of ``cfg`` on ``mesh`` split its weights over ``model``?
     It does where the mesh's ``model`` extent is > 1 and its ``data``
-    extent 1, and ``cfg`` is of the dense family (every layer ``("attn",
-    "swiglu")``, no image prefix).  A ``data > 1`` run keeps ``model``
+    extent 1, and every layer of ``cfg`` is of :data:`TP_KINDS` (the dense
+    family, olmoe's and deepseek's layers; MLA's heads a multiple of the
+    extent), with no image prefix.  A ``data > 1`` run keeps ``model``
     replicated, as the reference builds its data-parallel base step
     without a mesh; the other archs and the encoder-decoder run replicated
-    on every rank of the axis (ROADMAP §1 item 5)."""
+    on every rank of the axis (ROADMAP §1)."""
     shape = dict(getattr(mesh, "shape", None) or {})
-    return (shape.get("model", 1) > 1 and shape.get("data", 1) == 1
+    m = shape.get("model", 1)
+    return (m > 1 and shape.get("data", 1) == 1
             and isinstance(cfg, LMConfig) and not cfg.vlm_prefix_len
-            and set(cfg.pattern_unit) | set(cfg.prefix) | set(cfg.suffix) == {("attn", "swiglu")})
+            and set(cfg.pattern_unit) | set(cfg.prefix) | set(cfg.suffix) <= TP_KINDS
+            and (cfg.mla is None or cfg.mla.n_heads % m == 0))
 
 
 def _attn_spec(cfg: LMConfig, mixer: str) -> AttnSpec:
@@ -237,12 +247,19 @@ def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
     return ssm_mod.ssm_init_cache(batch, cfg.ssm, dtype, device=device)
 
 
-def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
+def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda", mesh=None) -> dict:
     """Random parameters from ``seed`` on ``device`` (a ``torch.Generator``
     there; the values differ from the reference's ``jax.random`` ones — use
     :func:`repro_torch.convert.params_from_jax` to carry a JAX init across).
     On the ``meta`` device the tree has the shapes and no values (the
-    sharding specs are read off it)."""
+    sharding specs are read off it).  Given a ``mesh`` on which
+    :func:`tensor_parallel` holds, this rank's shards: each leaf is drawn
+    whole, with the generator's draws in the unsharded order, and cut to
+    the rank's slice at once, so the shards are the whole init's slices
+    bit for bit and the rank never holds more than its shards and one
+    whole leaf."""
+    if mesh is not None and tensor_parallel(cfg, mesh):
+        return _init_shards(cfg, seed, device, mesh)
     cfg.check_supported()
     device = torch.device(device)
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
@@ -254,6 +271,31 @@ def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=device)
     return params
+
+
+def _init_shards(cfg: LMConfig, seed: int, device, mesh) -> dict:
+    """:func:`lm_init`'s shards on ``mesh``: the drawn leaves' paths in
+    draw order come from a ``meta`` build, and each drawn leaf is cut to
+    its split (``tree_sharding.param_splits``) as it is drawn.  The leaves
+    drawn from no generator (norm scales, biases) are whole on every rank."""
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.runtime.tree_sharding import _at, map_with_path, param_splits
+
+    with sharding_context(mesh):
+        splits = param_splits(cfg, mesh)
+    drawn: list = []
+    with draw_hook(lambda t: drawn.append(t) or t):
+        meta = lm_init(cfg, device="meta")
+    paths: dict = {}
+    map_with_path(lambda path, leaf: paths.setdefault(id(leaf), path), meta)
+    todo = iter([_at(splits, paths[id(t)]) for t in drawn])
+
+    def keep(t):
+        split = next(todo)
+        return t if split is None else split.take(t).clone()
+
+    with draw_hook(keep):
+        return lm_init(cfg, seed, device=device)
 
 
 def _vocab_split(cfg: LMConfig):

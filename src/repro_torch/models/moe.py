@@ -42,6 +42,22 @@ Training differentiates all of it, as the reference's ``jax.grad`` does:
 the router through the gates and the aux loss, the experts through their
 products' dX / dW kernels at the capacity's M; an expert that no token
 reached runs on zero rows, so its weight gradients are exactly 0.
+
+Expert parallelism: under a mesh that splits the expert leaves over
+``model`` (the ``w_experts`` rule on dim 0), rank r holds experts ``[r
+E/m, (r+1) E/m)``.  The routing, the positions, ``keep`` and the aux
+loss run replicated, the same bits on every rank.  The tokens enter the
+dispatch through ``dist.tensor.copy_to_model`` (its backward sums the
+(T, d) gradient, not the (E, C, d) buffer's); a rank scatters only its
+own experts' kept assignments into an (E/m + 1, C, d) buffer, the spare
+row taking the rest, and runs its experts on the rows, and with the
+weights, the unsharded run gives them, so every expert product gets the
+same bits.  Its SR draws skip the other ranks' experts' sites
+(``KeyGen.skip``), so every site draws what it draws unsharded.  The
+outputs are gathered along the expert dim in rank order
+(``dist.tensor.gather_whole``: every rank combines the whole buffer, so
+its backward hands each rank its slice unsummed) and the combine runs
+unchanged.  The shared experts split as a SwiGLU MLP does.
 """
 
 from __future__ import annotations
@@ -54,10 +70,12 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.core.spring_ops import DENSE_DTYPE, spring_matmul
+from repro_torch.core.spring_ops import DENSE_DTYPE, matmul_draws, spring_matmul
+from repro_torch.dist.tensor import copy_to_model, gather_whole
 from repro_torch.kernels.masked_matmul.ops import record_tile_skip
-from repro_torch.models.layers import (SpringContext, dense_init, fixed_rows, swiglu_apply,
-                                       swiglu_init)
+from repro_torch.models.layers import (SpringContext, dense_init, fixed_rows, randn,
+                                       swiglu_apply, swiglu_init)
+from repro_torch.runtime.sharding import in_context, weight_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +92,7 @@ def moe_init(gen: torch.Generator, d: int, spec: MoESpec, *, device=None) -> dic
     e, f = spec.n_experts, spec.d_ff
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(scale)
+        return randn(shape, gen, device).mul_(scale)
 
     p = {
         "router": dense_init(gen, d, e, device=device, scale=0.02),
@@ -99,9 +117,12 @@ def _dense_bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(DENSE_DTYPE).to(torch.float32), w.to(DENSE_DTYPE).to(torch.float32))
 
 
-def _expert_ffn(buf: torch.Tensor, params: dict, ctx: SpringContext) -> torch.Tensor:
-    """(E, C, d) -> (E, C, d): each expert's SwiGLU under the SPRING
-    numerics (one ``spring_matmul`` per expert and matrix)."""
+def _expert_ffn(buf: torch.Tensor, params: dict, ctx: SpringContext,
+                skip: tuple = (0, 0)) -> torch.Tensor:
+    """(E', C, d) -> (E', C, d): each expert's SwiGLU under the SPRING
+    numerics (one ``spring_matmul`` per expert and matrix), over the E'
+    experts this rank holds; ``skip`` counts the experts before and after
+    them, whose SR draws are skipped."""
     w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
     if ctx.cfg.mode == "dense":
         # the reference's jitted program feeds the gate product to silu
@@ -115,8 +136,14 @@ def _expert_ffn(buf: torch.Tensor, params: dict, ctx: SpringContext) -> torch.Te
         u = spring_matmul(b, wu, ctx.cfg, ctx.keys)
         return spring_matmul(_silu(g) * u, wd, ctx.cfg, ctx.keys)
 
-    return torch.stack([one(buf[i], w_gate[i], w_up[i], w_down[i])
-                        for i in range(buf.shape[0])])
+    draws = 3 * matmul_draws(ctx.cfg, ctx.keys)
+    if draws:
+        ctx.keys.skip(skip[0] * draws)
+    out = torch.stack([one(buf[i], w_gate[i], w_up[i], w_down[i])
+                       for i in range(buf.shape[0])])
+    if draws:
+        ctx.keys.skip(skip[1] * draws)
+    return out
 
 
 #: cap on the tokens of one dispatch (the reference's, ``moe.py:78``)
@@ -133,8 +160,9 @@ def record_routing():
     each token was routed to and whether each assignment was kept (on
     the device), and the expert products' ``[issued, total]`` tile steps
     at the kernel's tiles (``masked_matmul.record_tile_skip``; None in
-    the dense mode).  The tile records cost a host sync a product, so
-    this is off unless asked for."""
+    the dense mode; under expert parallelism this rank's experts' alone).
+    The tile records cost a host sync a product, so this is off unless
+    asked for."""
     global _ROUTING
     prev, _ROUTING = _ROUTING, []
     try:
@@ -179,8 +207,8 @@ def moe_apply(params: dict, x: torch.Tensor, ctx: SpringContext,
         ys, auxs = [], []
         for i in range(nc):
             xc = x[:, i * tc:(i + 1) * tc]
-            y_i, a_i = (torch.utils.checkpoint.checkpoint(moe_apply, params, xc, ctx, spec,
-                                                          use_reentrant=False)
+            y_i, a_i = (torch.utils.checkpoint.checkpoint(in_context(moe_apply), params, xc,
+                                                          ctx, spec, use_reentrant=False)
                         if grad else moe_apply(params, xc, ctx, spec))
             ys.append(y_i)
             auxs.append(a_i)
@@ -208,22 +236,29 @@ def moe_apply(params: dict, x: torch.Tensor, ctx: SpringContext,
 
     keep = pos < cap
     safe_pos = torch.where(keep, pos, cap - 1).reshape(-1)
-    # a dropped assignment goes to the spare expert row e, cut off below
-    buf = torch.zeros((e + 1, cap, d), dtype=flat.dtype, device=x.device)
-    buf[torch.where(keep, gate_idx, e).reshape(-1), safe_pos] = \
-        flat.repeat_interleave(k, dim=0)
+    # this rank's experts [lo, hi) (all of them unsplit)
+    split = weight_split(("w_experts", "w_embed", None), (e, d, spec.d_ff))
+    lo, hi = (0, e) if split is None else (split.lo, split.hi)
+    mine = keep & (gate_idx >= lo) & (gate_idx < hi)
+    src = flat if split is None else copy_to_model(flat)
+    # a dropped assignment, or another rank's, goes to the spare row, cut off below
+    buf = torch.zeros((hi - lo + 1, cap, d), dtype=flat.dtype, device=x.device)
+    buf[torch.where(mine, gate_idx - lo, hi - lo).reshape(-1), safe_pos] = \
+        src.repeat_interleave(k, dim=0)
     if _ROUTING is None:
-        out_buf = _expert_ffn(buf[:e], params, ctx)
+        out_buf = _expert_ffn(buf[:hi - lo], params, ctx, (lo, e - hi))
     else:
         with record_tile_skip() as steps:
-            out_buf = _expert_ffn(buf[:e], params, ctx)
+            out_buf = _expert_ffn(buf[:hi - lo], params, ctx, (lo, e - hi))
         _ROUTING.append({"tokens": t, "capacity": cap, "gate_idx": gate_idx, "keep": keep,
                          "tile_steps": steps.get("masked_matmul")})
+    if split is not None:
+        out_buf = gather_whole(out_buf, 0)
 
     gathered = out_buf[torch.where(keep, gate_idx, 0).reshape(-1), safe_pos]
     gathered = gathered.reshape(t, k, d).to(torch.float32)
     w = torch.where(keep, gate_vals, torch.zeros((), device=x.device))
     y = _combine(gathered, w).reshape(b, s, d).to(x.dtype)
     if spec.n_shared:
-        y = y + swiglu_apply(params["shared"], x, ctx)
+        y = y + swiglu_apply(params["shared"], x, ctx, spec.shared_d_ff * spec.n_shared)
     return y, aux

@@ -240,11 +240,14 @@ class KVHeadSplit:
 def kv_head_split(cfg, mesh) -> Optional[KVHeadSplit]:
     """The pool's :class:`KVHeadSplit` of a run of ``cfg`` on ``mesh`` under
     the active rules (None: every rank holds the whole pool), from its
-    attention layers' spec (the dense family shares one)."""
+    attention layers' spec (every full-attention layer shares one).  An
+    MLA arch's latent pool (``ckv``, ``krope``) is whole on every rank:
+    None."""
     from repro_torch.models.attention import cache_heads
     from repro_torch.models.lm import tensor_parallel
 
-    if not tensor_parallel(cfg, mesh) or cache_heads(cfg.attn, cfg.d_model) is None:
+    if (not tensor_parallel(cfg, mesh) or cfg.attn is None
+            or cache_heads(cfg.attn, cfg.d_model) is None):
         return None
     n = int(mesh.shape["model"])
     return KVHeadSplit(mesh, cfg.attn.n_kv_heads,

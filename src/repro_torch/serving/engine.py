@@ -177,9 +177,11 @@ class ServingEngine:
 
     ``mesh``: the ranks of a mesh each run this engine, taking the same
     decisions.  Where ``models.lm.tensor_parallel(cfg, mesh)`` holds (the
-    dense family at ``model > 1``, ``data = 1``) each rank holds its
-    shards of the weights (``params`` may be whole or the rank's shards)
-    and the pool of its own kv heads (``self.heads``); the ticks run under
+    dense family, olmoe and deepseek at ``model > 1``, ``data = 1``) each
+    rank holds its shards of the weights (``params`` may be whole or the
+    rank's shards; None draws the shards leaf by leaf) and the pool of its
+    own kv heads (``self.heads``; None for an MLA arch, whose latent pool
+    is whole and the same bits on every rank); the ticks run under
     the default rules, and the wire figures, snapshots and spill costs are
     the whole pool's.  Elsewhere every rank runs the whole engine,
     replicated.
@@ -252,10 +254,10 @@ class ServingEngine:
         # the threshold is loose and the first ticks are warm-up
         self.watchdog = watchdog if watchdog is not None else (
             StragglerWatchdog(threshold=4.0, warmup_steps=5))
-        if params is None:
+        if params is None:  # under tp, this rank's shards, drawn leaf by leaf
             from repro_torch.models.lm import lm_init
 
-            params = lm_init(cfg, seed, device=self.device)
+            params = lm_init(cfg, seed, device=self.device, mesh=mesh if self.tp else None)
         elif not _on(params["embed"]["embedding"].device, self.device):
             raise ValueError(f"params live on {params['embed']['embedding'].device}, "
                              f"engine on {self.device}")

@@ -1232,6 +1232,35 @@ def test_two_gloo_ranks_on_one_card_serve_tensor_parallel_as_the_cpu(card, tmp_p
             assert r["launches"][name] > 0, r["launches"]
 
 
+def test_two_gloo_ranks_on_one_card_serve_expert_parallel_as_the_cpu(card, tmp_path):
+    """Expert parallelism on the card: two gloo ranks sharing cuda:0 serve
+    the reduced olmoe-1b-7b at shape.mesh.model=2 (quant_sparse), static
+    and through the engine, each on its shards (4 of the 8 experts, its
+    heads and vocabulary) of one CPU init's weights; both ranks' tokens
+    are the CPU's unsharded tokens from the same weights, and the expert
+    products ran on the masked_matmul kernels."""
+    import _torch_ep_ranks as P
+    from repro_torch.api.sessions import ServeSession
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import launch
+    from repro_torch.kernels import cuda
+    from repro_torch.models.lm import lm_init
+
+    cuda.build()  # the ranks only load the libraries
+    params = lm_init(get_arch(P.CKPT_ARCH).reduced(), 0, device="cpu")
+    ranks = launch.run(P.card_ep_serve, 2, (params,), timeout_s=300, store_dir=str(tmp_path))
+    for name, sets in (("static", P.STATIC_SETS), ("engine", P.ENGINE_SETS)):
+        want = P._tokens(ServeSession(P.spec("serve", P.CKPT_ARCH,
+                                             sets + ["numerics.mode=quant_sparse"]),
+                                      device="cpu", params=params).run())
+        for r in ranks:
+            assert r["backend"] == "gloo" and r["report"]["staged_hops"] > 0, r["report"]
+            assert r[name] == want, (name, r[name], want)
+    for r in ranks:
+        for kname in ("masked_matmul", "masked_matmul_skinny", "flash_attention"):
+            assert r["launches"][kname] > 0, r["launches"]
+
+
 def test_two_gloo_ranks_on_one_card_serve_their_card_init_as_the_card_unsharded(card, tmp_path):
     """Two model=2 ranks on cuda:0 drawing the session's own seeded init on
     the card serve the unsharded card session's tokens from that init.
