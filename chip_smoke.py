@@ -105,12 +105,10 @@ failure:
   5g. train archs — the rest of LM training at every width, batch 8, seq
                128, the example train spec's numerics (quant_sparse, SR,
                Q4.16 SR weights, AdamW, the sparse backward), random weights
-               from seed 0: mamba2-780m whole through ``python -m
-               repro_torch.launch.train --spec ... --set arch.id=mamba2-780m
-               --set arch.reduced=false`` as a subprocess (exit 0, the
-               reference's last line, finite losses), then the same spec in
+               from seed 0: mamba2-780m whole from the example spec in
                process (s/step from its train.step spans, peak, every
-               parameter on the grid); olmoe-1b-7b (and once more with
+               parameter on the grid; its launcher run went for 8i's time:
+               5f runs that launcher); olmoe-1b-7b (and once more with
                memstash.policy=stash: the stashed unit's aux loss),
                deepseek-v2-lite-16b and recurrentgemma-9b cut to
                TRAIN_ARCHS_UNITS units, 3 steps each, whisper-medium whole
@@ -334,9 +332,10 @@ failure:
                microbatches of 64 rows, each stage one llama3.2-1b MLP's two
                products through spring_matmul, within 2b's bound of the stages
                in sequence.  Then two ranks: (b) the example train spec at full
-               width, batch 8, seq 128, 2 steps at shape.mesh.data=2 (two
-               replicas: four do not fit the card): losses bit-equal to the
-               unsharded run's, every parameter on the grid, the probe exact,
+               width, batch 8, seq 128, 1 step at shape.mesh.data=2 (two
+               replicas: four do not fit the card): the loss and every
+               trained parameter (a checksum of every leaf's bits)
+               bit-equal to the unsharded run's, on the grid, the probe exact,
                the tile kernel, tile_occupancy, stochastic_round and mask_pack
                launched on every rank; then a step at pod=2 with
                compress_pod_grads (4 rows a pod): losses finite, on the grid,
@@ -375,6 +374,22 @@ failure:
                bit-equal across ranks, the routers and norms the same bits
                on every rank, each rank's parameter bytes its shards'; every
                path kernel on every rank and at the shard shapes against its
+               plain version; (i) the SSM and RG-LRU blocks, 8h's runs freed
+               first: full-width mamba2-780m (12 of 48 SSM heads a rank,
+               in_proj's output gathered whole, its conv state whole) and
+               recurrentgemma-9b (1,024 of 4,096 RG-LRU channels, 4 of 16
+               local heads on the one kv head) drawn leaf by leaf and served
+               on the monolithic engine at 4 x 512, gen 8, 4 slots, tokens
+               equal to the same runs unsharded here but for a printed near
+               tie (the token's top-2 logit gap below the arch's own
+               first-step logit difference, itself within 1e-3), each
+               rank's parameter and pool bytes its shards'; mamba2 trained
+               whole and recurrentgemma at 1 unit + its 2 suffix layers from
+               the example spec (nearest, batch 8, seq 128, 2 steps):
+               losses within rel 1e-4 of their unsharded runs here and
+               bit-equal across ranks, the whole leaves (conv weights,
+               a_log, lam, norms) the same bits on every rank; every path
+               kernel on every rank and at the shard shapes against its
                plain version.
 
 Then it prints one ``{"kernels": [...]}`` line, the card's name and power
@@ -1399,8 +1414,9 @@ def phase_train_lm(dev) -> dict:
 
 # -- slice 16: the rest of LM training ----------------------------------------------
 
-# 5g: mamba2-780m whole through the launcher (then the same spec in
-# process); olmoe-1b-7b (and once more with its unit stashed),
+# 5g: mamba2-780m whole from the example spec in process (its launcher run
+# went for 8i's time: 5f runs the launcher); olmoe-1b-7b (and once more with
+# its unit stashed),
 # deepseek-v2-lite-16b, recurrentgemma-9b, whisper-medium (whole, with
 # frames) and internvl2-26b (with its image prefix) in process through
 # make_train_step.  Batch 8, seq 128, every width, random weights from seed
@@ -1547,15 +1563,12 @@ def _print_profile(tag: str, prof: dict, phase: str = "train_archs") -> None:
               flush=True)
 
 
-def _train_mamba2_launcher(dev, tmp) -> dict:
-    """mamba2-780m whole from the example spec: the launcher as a
-    subprocess (exit 0, the reference's last line with the spec_hash of the
-    in-process build, finite losses), then the same spec in process with
-    telemetry on (s/step from its train.step spans, peak, on grid), and one
-    more step profiled."""
+def _train_mamba2(dev, tmp) -> dict:
+    """mamba2-780m whole from the example spec in process with telemetry
+    on (s/step from its train.step spans, peak, on grid), and one more step
+    profiled.  (Its launcher run went for 8i's time: 5f runs the same spec
+    through the launcher, and 8i trains mamba2 whole beside its shards.)"""
     import math
-    import os
-    import re
 
     import torch
 
@@ -1567,32 +1580,8 @@ def _train_mamba2_launcher(dev, tmp) -> dict:
     from repro_torch.runtime.train import make_train_step
 
     spec_path = str(ROOT / TRAIN_SPEC_FILE)
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (str(SRC), os.environ.get("PYTHONPATH", "")) if p)}
-    argv = [sys.executable, "-m", "repro_torch.launch.train", "--spec", spec_path,
-            *[arg for item in MAMBA_TRAIN_SETS for arg in ("--set", item)],
-            "--json", str(tmp / "mamba2.json")]
-    t0 = time.monotonic()
-    p = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=TRAIN_LM_TIMEOUT_S)
-    launcher_wall = time.monotonic() - t0
-    if p.returncode != 0:
-        fail(f"train archs phase: the mamba2-780m launcher exited {p.returncode}:\n"
-             f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
     spec = build_spec("train", spec_file=spec_path, sets=list(MAMBA_TRAIN_SETS))
-    last = p.stdout.strip().splitlines()[-1]
-    launched = json.loads((tmp / "mamba2.json").read_text())
     steps = spec.train.steps
-    want_last = (f"loss {launched['first_loss']:.4f} -> {launched['last_loss']:.4f} "
-                 f"({steps} steps, slow={launched['slow_steps']}) [spec {spec.spec_hash()}]")
-    print(f"[train_archs] mamba2-780m launcher: {last} (wall {launcher_wall:.1f} s)", flush=True)
-    if last != want_last or not re.fullmatch(r"loss \S+ -> \S+ \(\d+ steps, slow=\d+\) "
-                                             r"\[spec [0-9a-f]+\]", last):
-        fail(f"train archs phase: the mamba2-780m launcher's last line {last!r} is not "
-             f"{want_last!r}")
-    if len(launched["losses"]) != steps or not all(math.isfinite(v) for v in launched["losses"]):
-        fail("train archs phase: the mamba2-780m launcher's losses are not all finite")
-
     trace = tmp / "mamba2_trace.json"
     inproc = build_spec("train", spec_file=spec_path, sets=[
         *MAMBA_TRAIN_SETS, "telemetry.enabled=true", f"telemetry.trace_path={trace}"])
@@ -1621,8 +1610,7 @@ def _train_mamba2_launcher(dev, tmp) -> dict:
     tokens_per_s = spec.shape.batch * spec.shape.seq / s_per_step
     free = torch.cuda.get_device_properties(dev).total_memory - peak
     print(f"[train_archs] mamba2-780m in process: {n_params / 1e9:.3f} B parameters, losses "
-          f"{[round(v, 4) for v in out['losses']]} (launcher "
-          f"{[round(v, 4) for v in launched['losses']]}), on grid {grid}, {s_per_step:.3f} "
+          f"{[round(v, 4) for v in out['losses']]}, on grid {grid}, {s_per_step:.3f} "
           f"s/step (steps {[round(s, 3) for s in steps_s]}), {tokens_per_s:.1f} tokens/s, peak "
           f"{peak / 2**30:.2f} GiB, wall {wall:.1f} s; launches "
           f"{ {k: launches[k] for k in (*TRAIN_ARCHS_KERNELS, 'ssd_scan')} }", flush=True)
@@ -1630,10 +1618,61 @@ def _train_mamba2_launcher(dev, tmp) -> dict:
     if not (all(math.isfinite(v) for v in out["losses"]) and grid):
         fail("train archs phase: mamba2-780m's losses are not all finite or a parameter left "
              "the Q4.16 grid")
-    return {"params": n_params, "losses": out["losses"], "launcher_losses": launched["losses"],
-            "launcher_wall_s": launcher_wall, "steps_s": steps_s, "s_per_step": s_per_step,
-            "tokens_per_s": tokens_per_s, "peak_bytes": peak, "free_bytes": free,
+    return {"params": n_params, "losses": out["losses"], "steps_s": steps_s,
+            "s_per_step": s_per_step, "tokens_per_s": tokens_per_s, "peak_bytes": peak,
+            "free_bytes": free,
             "on_grid": grid, "launches": launches, "profile": prof, "wall_s": wall}
+
+
+def _train_product_checks(g, products: dict, tag: str) -> tuple:
+    """The train path's products ``{name: (M, K, N)}`` on card tensors from
+    ``g`` against their plain versions: the forward (tile kernel, both
+    occupancy flags exact: :func:`_product_err`), dX and dW within 2b's
+    bound 2 K 2**-24 (|a| @ |b|); splitk_reduce bit-equal on the partial
+    sums of each reduction whose length exceeds SPLIT_K.  Returns (the
+    largest errors, the split-K shapes checked)."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_nearest
+    from repro_torch.kernels.masked_matmul.backward import (
+        masked_matmul_dw, masked_matmul_dw_reference, masked_matmul_dx,
+        masked_matmul_dx_reference)
+    from repro_torch.kernels.masked_matmul.ops import (split_k, splitk_reduce,
+                                                       splitk_reduce_reference)
+
+    dev = g.device
+    errs = dict.fromkeys(("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"), 0.0)
+    splits = []
+
+    def within(got, want, bnd, what) -> float:
+        err = (got - want).abs_()
+        if not bool((err <= bnd).all()):
+            fail(f"{tag}: {what} off by {float(err.max()):.3g}")
+        return float(err.max())
+
+    for name, (m, k, n) in products.items():
+        errs["masked_matmul"] = max(errs["masked_matmul"], _product_err(g, m, k, n, tag))
+        x = quantize_nearest(torch.randn(m, k, generator=g, device=dev))
+        w = quantize_nearest(torch.randn(k, n, generator=g, device=dev).div_(k**0.5))
+        cot = torch.randn(m, n, generator=g, device=dev).mul_(1e-3)
+        errs["masked_matmul_dx"] = max(errs["masked_matmul_dx"], within(
+            masked_matmul_dx(cot, w), masked_matmul_dx_reference(cot, w),
+            (cot.abs() @ w.abs().T).mul_(2 * n * 2.0**-24), f"{name} dx ({m},{n})@({n},{k})"))
+        errs["masked_matmul_dw"] = max(errs["masked_matmul_dw"], within(
+            masked_matmul_dw(x, cot), masked_matmul_dw_reference(x, cot),
+            (x.abs().T @ cot.abs()).mul_(2 * m * 2.0**-24), f"{name} dw ({k},{m})@({m},{n})"))
+        del x, w, cot
+        # the split-K reductions of this product: forward K, dX's N, dW's M
+        for red, rows, cols in ((k, m, n), (n, m, k), (m, k, n)):
+            chunks = split_k(red)[1]
+            if chunks > 1 and (chunks, rows, cols) not in splits:
+                splits.append((chunks, rows, cols))
+                part = quantize_nearest(torch.randn(chunks, rows, cols, generator=g, device=dev))
+                if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
+                    fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain "
+                         "version")
+                del part
+    return errs, splits
 
 
 def _train_arch_kernel_checks(dev, arch: str, cfg, tokens: int) -> dict:
@@ -1649,12 +1688,6 @@ def _train_arch_kernel_checks(dev, arch: str, cfg, tokens: int) -> dict:
     form on the same card operands (rel 1e-5)."""
     import torch
 
-    from repro_torch.core.fixedpoint import quantize_nearest
-    from repro_torch.kernels.masked_matmul.backward import (
-        masked_matmul_dw, masked_matmul_dw_reference, masked_matmul_dx,
-        masked_matmul_dx_reference)
-    from repro_torch.kernels.masked_matmul.ops import (split_k, splitk_reduce,
-                                                       splitk_reduce_reference)
     from repro_torch.kernels.stochastic_round.ops import sr_reference, stochastic_round
 
     g = torch.Generator(device=dev).manual_seed(16)
@@ -1698,37 +1731,7 @@ def _train_arch_kernel_checks(dev, arch: str, cfg, tokens: int) -> dict:
                 if e.n_shared:
                     products.update({"shared up": (tokens, d, e.shared_d_ff * e.n_shared),
                                      "shared down": (tokens, e.shared_d_ff * e.n_shared, d)})
-    errs = dict.fromkeys(("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"), 0.0)
-    splits = []
-
-    def within(got, want, bnd, what) -> float:
-        err = (got - want).abs_()
-        if not bool((err <= bnd).all()):
-            fail(f"{tag}: {what} off by {float(err.max()):.3g}")
-        return float(err.max())
-
-    for name, (m, k, n) in products.items():
-        errs["masked_matmul"] = max(errs["masked_matmul"], _product_err(g, m, k, n, tag))
-        x = quantize_nearest(torch.randn(m, k, generator=g, device=dev))
-        w = quantize_nearest(torch.randn(k, n, generator=g, device=dev).div_(k**0.5))
-        cot = torch.randn(m, n, generator=g, device=dev).mul_(1e-3)
-        errs["masked_matmul_dx"] = max(errs["masked_matmul_dx"], within(
-            masked_matmul_dx(cot, w), masked_matmul_dx_reference(cot, w),
-            (cot.abs() @ w.abs().T).mul_(2 * n * 2.0**-24), f"{name} dx ({m},{n})@({n},{k})"))
-        errs["masked_matmul_dw"] = max(errs["masked_matmul_dw"], within(
-            masked_matmul_dw(x, cot), masked_matmul_dw_reference(x, cot),
-            (x.abs().T @ cot.abs()).mul_(2 * m * 2.0**-24), f"{name} dw ({k},{m})@({m},{n})"))
-        del x, w, cot
-        # the split-K reductions of this product: forward K, dX's N, dW's M
-        for red, rows, cols in ((k, m, n), (n, m, k), (m, k, n)):
-            chunks = split_k(red)[1]
-            if chunks > 1 and (chunks, rows, cols) not in splits:
-                splits.append((chunks, rows, cols))
-                part = quantize_nearest(torch.randn(chunks, rows, cols, generator=g, device=dev))
-                if not torch.equal(splitk_reduce(part), splitk_reduce_reference(part)):
-                    fail(f"{tag}: splitk_reduce {tuple(part.shape)} differs from its plain "
-                         "version")
-                del part
+    errs, splits = _train_product_checks(g, products, tag)
     emb = torch.randn(min(cfg.vocab, TRAIN_ARCHS_SR_ELEMS // d), d, generator=g,
                       device=dev).mul_(0.02)
     if not torch.equal(stochastic_round(emb, 5), sr_reference(emb, 5)):
@@ -1899,7 +1902,7 @@ def phase_train_archs(dev) -> dict:
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_archs_"))
     kernels.reset_launch_counts()
     try:
-        parts["mamba2-780m"] = _train_mamba2_launcher(dev, tmp)
+        parts["mamba2-780m"] = _train_mamba2(dev, tmp)
         configs["mamba2-780m"] = get_arch("mamba2-780m").config
 
         def resolved(arch, *sets):
@@ -3933,6 +3936,7 @@ MOE_ARCHS, MOE_REQUESTS, MOE_PROMPT = ("olmoe-1b-7b", "deepseek-v2-lite-16b"), 4
 #: 1.1 / 1.9 s, three engines each); the third engine takes three ticks
 MOE_GEN = 3  # 16 before phase 5h, 8 before phase 8, 4 before 8g
 MOE_MAX_LEN = MOE_PROMPT + GEN + 2
+MOE_TRAFFIC = (MOE_REQUESTS, MOE_PROMPT, MOE_GEN, MOE_MAX_LEN)
 MOE_KERNELS = {"olmoe-1b-7b": ("masked_matmul_skinny", "masked_matmul", "tile_occupancy",
                                "mask_pack", "flash_attention"),
                "deepseek-v2-lite-16b": ("masked_matmul_skinny", "masked_matmul",
@@ -4748,7 +4752,9 @@ def phase_paper(dev) -> dict:
 MESH_SERVE_SETS = ("arch.id=llama3.2-1b", "arch.reduced=false", "numerics.mode=quant_sparse",
                    "serving.static=true", "shape.batch=8", "shape.prompt_len=32",
                    "shape.gen=16")
-MESH_TRAIN_SETS = ("arch.reduced=false", "train.steps=2", "train.ckpt_dir=")  # 3 before 8g
+# one step (3 before 8g, 2 before 8i), its parameters held bit for bit against the unsharded
+# step's (the exchanged gradient's whole effect), as a second step's loss held them
+MESH_TRAIN_SETS = ("arch.reduced=false", "train.steps=1", "train.ckpt_dir=")
 MESH_TRAIN_DATA = 2  # two full-width replicas fit the card beside the exchange, four do not
 MESH_SERVE_DATA = 4
 MESH_POD_STEPS = 1
@@ -4801,6 +4807,23 @@ MESH_EP_SERVE_KERNELS = {"olmoe-1b-7b": ("masked_matmul", "masked_matmul_skinny"
                          "deepseek-v2-lite-16b": ("masked_matmul", "masked_matmul_skinny",
                                                   "tile_occupancy", "mask_pack")}
 MESH_EP_TRAIN_KERNELS = MESH_TP_TRAIN_KERNELS
+# 8i: the SSM and RG-LRU blocks at model = 4, in 8e-8h's spawn after 8h.  Full-width
+# mamba2-780m (48 layers; 48 SSM heads, 12 a rank; in_proj's 6,448 columns 1,612 a rank,
+# gathered whole) and recurrentgemma-9b (38 layers; the RG-LRU's 4,096 channels, 1,024 a rank;
+# the local attention's 16 heads, 4 a rank on the one kv head) served on the monolithic engine
+# at MESH_SSM_TRAFFIC against the same runs unsharded in the parent; mamba2 trained whole and
+# recurrentgemma at MESH_SSM_TRAIN_UNITS unit + its 2 suffix layers from the example spec
+# (nearest rounding, batch 8, seq 128, 2 steps) against their unsharded runs in the parent
+MESH_SSM_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
+MESH_SSM_TRAFFIC = (4, 512, 8, 512 + 8 + 2)  # requests (= slots), prompt, gen, max_len
+MESH_SSM_TRAIN_UNITS = {"mamba2-780m": 48, "recurrentgemma-9b": 1}
+MESH_SSM_SERVE_KERNELS = {"mamba2-780m": ("masked_matmul", "masked_matmul_skinny",
+                                          "tile_occupancy", "ssd_scan"),
+                          "recurrentgemma-9b": ("masked_matmul", "masked_matmul_skinny",
+                                                "tile_occupancy", "mask_pack",
+                                                "flash_attention")}
+MESH_SSM_TRAIN_KERNELS = {"mamba2-780m": (*MESH_TP_TRAIN_KERNELS, "ssd_scan"),
+                          "recurrentgemma-9b": MESH_TP_TRAIN_KERNELS}
 #: 8h's check names under 8e's (the kernel line's mesh_tp errors)
 EP_CHECK_KEYS = {"masked_matmul": "forward", "masked_matmul_skinny": "skinny",
                  "masked_matmul_dx": "dx", "masked_matmul_dw": "dw"}
@@ -5010,6 +5033,7 @@ def mesh_rank_two(rank: int, world: int, spec_path: str, train_sets: tuple,
     _sync(dev)
     out["data"] = {"losses": tr["losses"], "probe": tr["collective_probe"],
                    "grid": on_grid(dict(enumerate(tree_leaves(tr["state"].params)))),
+                   "sums": _leaf_checksums(tree_leaves(tr["state"].params), dev).cpu(),
                    "wall_s": time.monotonic() - t0, "launches": kernels.launch_counts(),
                    "staged_hops": mesh.staged_hops, "peak_gib": _peak_gib(dev)}
     del tr
@@ -5367,14 +5391,16 @@ def _tp_engine_checks(dev, cfg, model: int, rank: int, engine: dict) -> dict:
 
 
 def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve_sets: tuple,
-                 snap_path: str = "", ep: bool = False, device: str = "cuda") -> dict:
+                 snap_path: str = "", ep: bool = False, ssm: bool = False,
+                 device: str = "cuda") -> dict:
     """(8e, 8f) on one of ``world`` ranks at shape.mesh.model = world: the
     example train spec through the TrainSession (then one more step timed
     alone), then static serving through the ServeSession; each run's
     counters zeroed just before it and read just after; the first step's
     logits through the same sharded prefill; then 8g's engines and (on the
     card) the path kernels at their shard shapes; with ``ep``, then 8h
-    (:func:`_ep_runs`) once llama3.2-1b's shards are freed."""
+    (:func:`_ep_runs`) once llama3.2-1b's shards are freed; with ``ssm``,
+    then 8i (:func:`_ssm_runs`)."""
     import math
 
     import torch
@@ -5481,6 +5507,12 @@ def mesh_rank_tp(rank: int, world: int, spec_path: str, train_sets: tuple, serve
         for key, err in out["ep"].get("checks", {}).items():
             key = EP_CHECK_KEYS.get(key, key)
             out["checks"][key] = max(out["checks"].get(key, 0.0), err)
+    if ssm:  # 8i, 8h's runs freed first
+        _free(dev)
+        out["ssm"] = _ssm_runs(mesh, dev, world, rank, spec_path)
+        for key, err in out["ssm"].get("checks", {}).items():
+            key = EP_CHECK_KEYS.get(key, key)
+            out["checks"][key] = max(out["checks"].get(key, 0.0), err)
     out["staged_hops"] = mesh.staged_hops
     out["model_hops"] = mesh.hops.get("model", 0)
     out["wall_s"] = time.monotonic() - t_rank
@@ -5554,6 +5586,7 @@ def phase_mesh(dev, moe_runs=None) -> dict:
 
     from repro_torch.api import ServeSession, TrainSession, build_spec
     from repro_torch.dist import launch
+    from repro_torch.optim.optimizers import tree_leaves
 
     t_phase = time.monotonic()
     spec_path = str(ROOT / TRAIN_SPEC_FILE)
@@ -5566,6 +5599,7 @@ def phase_mesh(dev, moe_runs=None) -> dict:
                                          sets=list(MESH_TRAIN_SETS)), device=dev).run()
     torch.cuda.synchronize()
     base_losses, base_train_s = base_train["losses"], time.monotonic() - t0
+    base_sums = _leaf_checksums(tree_leaves(base_train["state"].params), dev).cpu()
     del base_train
     gc.collect()
     torch.cuda.empty_cache()
@@ -5635,7 +5669,8 @@ def phase_mesh(dev, moe_runs=None) -> dict:
         dt, pod = r["data"], r["pod"]
         print(f"[mesh] rank {rank} ({r['backend']}, {r['staged_hops']} hops staged) train "
               f"data={MESH_TRAIN_DATA}: losses {dt['losses']} (bit-equal "
-              f"{dt['losses'] == base_losses}), on grid {dt['grid']}, probe exact "
+              f"{dt['losses'] == base_losses}), trained parameters bit-equal "
+              f"{torch.equal(dt['sums'], base_sums)}, on grid {dt['grid']}, probe exact "
               f"{dt['probe']['exact']}, wall {dt['wall_s']:.1f} s, peak {dt['peak_gib']:.2f} GiB, "
               f"launches {dt['launches']}", flush=True)
         print(f"[mesh] rank {rank} pod=2 compress_pod_grads: losses {pod['losses']}, ef = local - "
@@ -5643,9 +5678,9 @@ def phase_mesh(dev, moe_runs=None) -> dict:
               f"worst |exchanged - true mean| / step {pod['worst_err_over_step']:.4f} (sample), "
               f"parameters bit-equal across pods {pod['params_same']}, on grid {pod['grid']}, wall "
               f"{pod['wall_s']:.1f} s, peak {pod['peak_gib']:.2f} GiB", flush=True)
-        if dt["losses"] != base_losses:
-            fail(f"mesh phase: rank {rank}'s data={MESH_TRAIN_DATA} losses differ from the "
-                 "unsharded run's")
+        if dt["losses"] != base_losses or not torch.equal(dt["sums"], base_sums):
+            fail(f"mesh phase: rank {rank}'s data={MESH_TRAIN_DATA} losses or trained "
+                 "parameters differ from the unsharded run's")
         if not (dt["grid"] and dt["probe"]["exact"]):
             fail(f"mesh phase: rank {rank}'s sharded parameters left the grid or the probe "
                  "was not exact")
@@ -5661,12 +5696,14 @@ def phase_mesh(dev, moe_runs=None) -> dict:
     engine_base_s = time.monotonic() - t0
     ep_base = _ep_base(dev, spec_path, moe_runs)
     _free(dev)
+    ssm_base = _ssm_base(dev, spec_path)
+    _free(dev)
     snap_dir = tempfile.mkdtemp(prefix="chip_smoke_8g_")
     snap_path = os.path.join(snap_dir, "tp_snapshot.npz")
     try:
         t0 = time.monotonic()
         tp = launch.run(mesh_rank_tp, MESH_TP, (spec_path, MESH_TP_TRAIN_SETS,
-                                                MESH_SERVE_SETS, snap_path, True),
+                                                MESH_SERVE_SETS, snap_path, True, True),
                         timeout_s=MESH_TIMEOUT_S,
                         collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
         tp_s = time.monotonic() - t0
@@ -5676,11 +5713,15 @@ def phase_mesh(dev, moe_runs=None) -> dict:
     tp_gate = _tp_gates(tp, tp_base_losses, base_tokens, static)
     tp_gate["engine"] = _tp_engine_gates(tp, engine_base, restored, tp_gate["max_logit_diff"])
     tp_gate["ep"] = _ep_gates(tp, ep_base)
+    tp_gate["ssm"] = _ssm_gates(tp, ssm_base)
     print(f"[mesh] 8g unsharded runs {engine_base_s:.1f} s; each rank's engine runs "
           f"{max(r['engine_wall_s'] for r in tp):.1f} s; 8h unsharded runs "
           f"{ep_base['wall_s']:.1f} s, each rank's 8h runs "
           f"{max(r['ep']['runs_s'] for r in tp):.1f} s and checks "
-          f"{max(r['ep'].get('checks_s', 0.0) for r in tp):.1f} s", flush=True)
+          f"{max(r['ep'].get('checks_s', 0.0) for r in tp):.1f} s; 8i unsharded runs "
+          f"{ssm_base['wall_s']:.1f} s, each rank's 8i runs "
+          f"{max(r['ssm']['runs_s'] for r in tp):.1f} s and checks "
+          f"{max(r['ssm'].get('checks_s', 0.0) for r in tp):.1f} s", flush=True)
     wall = time.monotonic() - t_phase
     print(f"[mesh] four ranks {four_s:.1f} s, two ranks {two_s:.1f} s, model=4 ranks "
           f"{tp_s:.1f} s, phase {wall:.1f} s", flush=True)
@@ -5693,11 +5734,14 @@ def phase_mesh(dev, moe_runs=None) -> dict:
     tp_launches = {name: sum(r["train"]["launches"][name] + r["serve"]["launches"][name]
                              + sum(r["engine"][run]["launches"][name]
                                    for run in MESH_TP_ENGINE_RUNS)
-                             + _ep_launches(r, name)
+                             + _ep_launches(r, name) + _ssm_launches(r, name)
                              for r in tp) for name in launches}
     for r in tp:
         r.pop("first_logits", None)
         _ep_strip(r)
+        _ssm_strip(r)
+    for r in two:
+        r["data"].pop("sums")
     for r in engine_base.values():
         r.pop("gaps", None)
     return {"four": four, "two": two, "tp": tp, "tp_gate": tp_gate,
@@ -5707,6 +5751,9 @@ def phase_mesh(dev, moe_runs=None) -> dict:
             "wall_s": wall, "tp_wall_s": tp_s, "engine_base": engine_base,
             "ep_base": {**{arch: {k: v for k, v in ep_base[arch].items() if k not in EP_RECORD}
                            for arch in MOE_ARCHS}, "wall_s": ep_base["wall_s"]},
+            "ssm_base": {"serve": {arch: {k: v for k, v in run.items() if k not in EP_RECORD}
+                                   for arch, run in ssm_base["serve"].items()},
+                         "train": ssm_base["train"], "wall_s": ssm_base["wall_s"]},
             "errs": {"masked_matmul": max(r["pipeline"]["max_abs_err"] for r in four),
                      "tp": {k: max(r["checks"][k] for r in tp) for k in tp[0]["checks"]}}}
 
@@ -5963,15 +6010,17 @@ def _ep_config(arch: str, units: int):
     return full if units == full.n_units else _cut(full, units)
 
 
-def _ep_serve(dev, arch: str, units: int, mesh=None) -> dict:
-    """One of 8h's serving runs: ``arch`` at ``units`` units, quant_sparse,
-    random weights from seed 0 (the rank's shards drawn leaf by leaf under
-    ``mesh``), 6k's traffic (MOE_REQUESTS requests of prompt MOE_PROMPT,
-    MOE_GEN tokens each, on as many slots) through the monolithic engine,
-    the counters zeroed just before ``run()`` and read just after.  Records
-    what 8h's near-tie rule reads (:func:`_ep_record`); under ``mesh``
-    every rank meets the others at its peak and reads the card's free
-    memory there."""
+def _ep_serve(dev, arch: str, units: int, mesh=None, traffic: tuple = MOE_TRAFFIC) -> dict:
+    """One of 8h's (and 8i's) serving runs: ``arch`` at ``units`` units,
+    quant_sparse, random weights from seed 0 (the rank's shards drawn leaf
+    by leaf under ``mesh``), ``traffic`` (requests, prompt, gen, max_len:
+    6k's, MOE_REQUESTS requests of prompt MOE_PROMPT, MOE_GEN tokens each,
+    on as many slots) through the monolithic engine, the counters zeroed
+    just before ``run()`` and read just after.  Records what 8h's near-tie
+    rule reads (:func:`_ep_record`; an MoE arch's routing too); under
+    ``mesh`` every rank meets the others at its peak and reads the card's
+    free memory there, and counts the bytes its shards and its part of the
+    pool must take."""
     import torch
 
     from repro_torch import kernels
@@ -5981,6 +6030,7 @@ def _ep_serve(dev, arch: str, units: int, mesh=None) -> dict:
     from repro_torch.serving import kvpool
     from repro_torch.serving.engine import ServingEngine
 
+    requests, prompt, gen, max_len = traffic
     cfg = _ep_config(arch, units)
     _free(dev)
     if dev.type == "cuda":
@@ -5990,17 +6040,18 @@ def _ep_serve(dev, arch: str, units: int, mesh=None) -> dict:
     _sync(dev)
     init_s = time.monotonic() - t0
     n_params = sum(t.numel() for t in _tensors(params))
-    prompts = synthetic_prompts(MOE_REQUESTS, MOE_REQUESTS, MOE_PROMPT, cfg.vocab, 0)
+    prompts = synthetic_prompts(requests, requests, prompt, cfg.vocab, 0)
     eng = ServingEngine(cfg, serving_config("quant_sparse"), params=params,
-                        n_slots=MOE_REQUESTS, max_len=MOE_MAX_LEN, device=dev, mesh=mesh)
+                        n_slots=requests, max_len=max_len, device=dev, mesh=mesh)
     for i, p in enumerate(prompts):
-        eng.submit_prompt(p, MOE_GEN, seed=i)
+        eng.submit_prompt(p, gen, seed=i)
     rec = _engine_gaps(eng, first_logits=True)
     hops = mesh.hops.get("model", 0) if mesh is not None else 0
     _sync(dev)
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    with _moe_routing(rec, cfg.moe.top_k):
+    with (_moe_routing(rec, cfg.moe.top_k) if cfg.moe is not None
+          else contextlib.nullcontext()):
         out = eng.run()
     _sync(dev)
     wall, launches = time.monotonic() - t0, kernels.launch_counts()
@@ -6010,9 +6061,12 @@ def _ep_serve(dev, arch: str, units: int, mesh=None) -> dict:
            "launches": launches, "init_s": init_s, "params": n_params,
            "param_bytes": 4 * n_params, **_ep_record(eng, out, rec), "n_layers": cfg.n_layers,
            "kv_heads": None if eng.heads is None else list(eng.heads.mine),
-           "pool_bytes": eng.pool_bytes(), "peak_gib": _peak_gib(dev)}
+           "pool_bytes": eng.pool_bytes(), "state_bytes": eng.state_bytes(),
+           "peak_gib": _peak_gib(dev)}
     if mesh is not None:
         res["model_hops"] = mesh.hops.get("model", 0) - hops
+        res["param_bytes_want"] = _shard_bytes(cfg, mesh)
+        res["pool_bytes_want"] = _pool_bytes_want(eng)
         res["pool_sum"] = _leaf_checksums(kvpool.pool_leaves(eng.pool), dev).cpu()
         mesh.all_gather(torch.zeros(1, device=dev), "model")  # every rank at its peak
         res["free_gib"] = (torch.cuda.mem_get_info(dev)[0] / 2**30 if dev.type == "cuda"
@@ -6022,9 +6076,9 @@ def _ep_serve(dev, arch: str, units: int, mesh=None) -> dict:
     return res
 
 
-def _ep_train(dev, spec, mesh=None) -> dict:
-    """8h's training: ``spec`` (the example train spec on olmoe-1b-7b,
-    nearest rounding) at MESH_EP_TRAIN_UNITS of its units through
+def _ep_train(dev, spec, mesh=None, units: int = MESH_EP_TRAIN_UNITS) -> dict:
+    """8h's (and 8i's) training: ``spec`` (the example train spec on
+    olmoe-1b-7b, nearest rounding) at ``units`` of its units through
     make_train_step, from seed 0 (the rank's shards drawn leaf by leaf
     under ``mesh``), each step timed to its synchronise, the counters
     zeroed just before the first and read just after the last.  Under
@@ -6045,7 +6099,7 @@ def _ep_train(dev, spec, mesh=None) -> dict:
     from repro_torch.runtime.tree_sharding import leaf_splits, param_splits
 
     r = spec.resolve()
-    cfg, seed = _cut(r.config, MESH_EP_TRAIN_UNITS), spec.seeds.seed
+    cfg, seed = _cut(r.config, units), spec.seeds.seed
     _free(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -6233,7 +6287,8 @@ def _ep_tie_gate(tag: str, run: dict, base: dict) -> dict:
     * where no row of it is routed otherwise, the unsharded top-2 logit
       gap behind the token below this arch's own first-step max |logit
       difference| (:func:`_first_logit_diff`), itself within
-      MESH_TP_LOGIT_ATOL.
+      MESH_TP_LOGIT_ATOL (8f's rule: the whole rule for 8i's archs, which
+      route nothing).
 
     A row routed otherwise off a near tie fails, whatever the logits."""
     got, want = run["tokens"], base["tokens"]
@@ -6248,8 +6303,8 @@ def _ep_tie_gate(tag: str, run: dict, base: dict) -> dict:
     flip = None
     for at in ([("prefill", rid)] if i == 0 else []) + [("decode", tick)]:
         rows = slice(None) if at[0] == "prefill" else slice(slot, slot + 1)
-        for layer, ((e, _), (be, bg)) in enumerate(zip(run["routing"][at],
-                                                       base["routing"][at])):
+        for layer, ((e, _), (be, bg)) in enumerate(zip(run["routing"].get(at, []),
+                                                       base["routing"].get(at, []))):
             moved = (e[rows] != be[rows]).any(-1)
             if bool(moved.any()):
                 flip = {"step": list(at), "layer": layer, "rows": int(moved.sum()),
@@ -6258,16 +6313,16 @@ def _ep_tie_gate(tag: str, run: dict, base: dict) -> dict:
         if flip:
             break
     gap = base["gaps"][rid][i]
-    print(f"[mesh] 8h {tag} near tie: request {rid} first differs at token {i} (tick {tick}), "
+    print(f"[mesh] {tag} near tie: request {rid} first differs at token {i} (tick {tick}), "
           f"unsharded top-2 logit gap {gap:.3g} against the first step's max |logit diff| "
           f"{logit_diff:.3g}; routed otherwise there: {flip}", flush=True)
     if flip is not None:
         if not flip["router_gap"] < MESH_EP_ROUTER_TIE:
-            fail(f"mesh phase: 8h {tag} routes {flip['rows']} row(s) of request {rid} to other "
+            fail(f"mesh phase: {tag} routes {flip['rows']} row(s) of request {rid} to other "
                  f"experts than the unsharded run at {flip['step']} layer {flip['layer']}, "
                  f"where the router's k / k+1 gap {flip['router_gap']:.3g} is no near tie")
     elif not gap < logit_diff <= MESH_TP_LOGIT_ATOL:
-        fail(f"mesh phase: 8h {tag} tokens differ from the unsharded run's at request {rid} "
+        fail(f"mesh phase: {tag} tokens differ from the unsharded run's at request {rid} "
              f"token {i}, where the top-2 gap {gap:.3g} is no near tie (first-step max |logit "
              f"diff| {logit_diff:.3g}, atol {MESH_TP_LOGIT_ATOL})")
     return {"equal": False, "first_logit_diff": logit_diff, "routed_otherwise": summary,
@@ -6319,7 +6374,7 @@ def _ep_gates(ranks: list, base: dict) -> dict:
                                                         == runs[0]["pool_sum"]).all()):
                 fail(f"mesh phase: rank {rank}'s 8h {arch} latent pool is not whole or not "
                      "rank 0's bits")
-        out[arch] = _ep_tie_gate(arch, runs[0], base[arch])
+        out[arch] = _ep_tie_gate(f"8h {arch}", runs[0], base[arch])
         print(f"[mesh] 8h {arch}: tokens equal to the unsharded run's {out[arch]['equal']}, "
               f"first-step max |logit diff| {out[arch]['first_logit_diff']:.3g}, rows routed "
               f"to other experts than unsharded {out[arch]['routed_otherwise']}", flush=True)
@@ -6368,6 +6423,283 @@ def _ep_launches(r: dict, name: str) -> int:
     """A rank's 8h main-path launches of ``name``: both served archs and
     the training run."""
     return sum(r["ep"][k]["launches"][name] for k in (*MOE_ARCHS, "train"))
+
+
+# -- 8i. the SSM and RG-LRU blocks at model = 4 ----------------------------------------------
+
+
+def _shard_bytes(cfg, mesh) -> int:
+    """The fp32 bytes of ``cfg``'s parameters a rank of ``mesh`` must hold:
+    each split leaf's share, the others whole."""
+    import math
+
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.runtime.tree_sharding import leaf_splits, param_splits
+
+    world, meta = int(mesh.shape["model"]), lm_init(cfg, device="meta")
+    with sharding_context(mesh):
+        splits = leaf_splits(param_splits(cfg, mesh), meta)
+    return sum(4 * (math.prod(s.full) // world if s is not None else p.numel())
+               for p, s in zip(tree_leaves(meta), splits))
+
+
+def _pool_bytes_want(eng) -> int:
+    """The bytes of ``eng``'s pool a rank must hold: the whole pool's
+    layout with each leaf its ``PoolSplit`` splits at its share (a state
+    leaf a 1 / model part; an attention leaf's packed values and mask words
+    its kv heads' share, its per-block counts whole), the others whole."""
+    from repro_torch.runtime.tree_sharding import HEAD_LEAVES
+    from repro_torch.serving import kvpool
+
+    split, world = eng.pool_split, int(eng.mesh.shape["model"])
+    whole = eng._whole_pool_template(eng.n_slots)
+    total = sum(t.numel() * t.element_size() for t in kvpool.pool_leaves(whole["pos"]))
+    for key in (k for k in whole if k != "pos"):
+        for name, leaf in whole[key].items():
+            parts = [t.numel() * t.element_size() for t in kvpool.pool_leaves(leaf)]
+            if split is not None and (key, name) in split.states:
+                parts = [n // world for n in parts]
+            elif split is not None and split.heads is not None and name in HEAD_LEAVES:
+                share = len(split.heads.mine), split.heads.n_heads
+                parts = [n * share[0] // share[1] for n in parts[:2]] + parts[2:]
+            total += sum(parts)
+    del whole
+    return total
+
+
+def _ssm_kernel_checks(dev, rank: int, world: int) -> dict:
+    """8i's path kernels on this rank at the shard shapes its runs gave
+    them, against their plain versions: masked_matmul (tile at the prefill's
+    M, skinny at a decode tick's) on mamba2's in_proj and out_proj shards
+    and recurrentgemma's wx / wy / wo, local q / k / v / o and SwiGLU
+    shards, the tile kernel at each head's vocabulary rows; the train
+    path's forward, dx and dw (and split-K) at batch x seq rows;
+    flash_attention on the rank's 4 local heads over the one kv head (D
+    256, window 2048); ssd_scan on its 12 heads at the prefill's S (rel
+    1e-4) and at the train shapes with its autograd wrapper; kv_pack on the
+    rings' pool leaf; the strided stochastic_round on a wx column shard
+    bit-equal."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.kv_cache.ops import kv_pack, kv_pack_reference
+    from repro_torch.kernels.masked_matmul.ops import route
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_chunked
+    from repro_torch.kernels.stochastic_round.ops import (shard_counter, sr_reference,
+                                                          stochastic_round)
+    from repro_torch.models.ssm import _proj_out
+
+    g = torch.Generator(device=dev).manual_seed(100 + rank)
+    tag = f"mesh_ssm rank {rank}"
+    requests, prompt = MESH_SSM_TRAFFIC[:2]
+    tokens = TRAIN_ARCHS_BATCH * TRAIN_ARCHS_SEQ
+    mamba, rec = (get_arch(a).resolve(False) for a in MESH_SSM_ARCHS)
+    s, d, dd = mamba.ssm, mamba.d_model, rec.d_model
+    a = dc.replace(rec.local_attn, n_heads=rec.local_attn.n_heads // world)
+    hd, dr, ff = a.head_dim, rec.rglru.d_rnn // world, rec.d_ff // world
+    serve = {"in_proj": (d, _proj_out(s) // world), "out_proj": (s.d_inner // world, d),
+             "wx / wy": (dd, dr), "wo": (dr, dd), "local q": (dd, a.n_heads * hd),
+             "local k / v": (dd, hd // world), "local o": (a.n_heads * hd, dd),
+             "gate / up": (dd, ff), "down": (ff, dd)}
+    errs = dict.fromkeys(("masked_matmul", "masked_matmul_skinny"), 0.0)
+    for m in (prompt, requests):
+        key = "masked_matmul" if route(m, 1, 1) == "tile" else "masked_matmul_skinny"
+        for kk, n in serve.values():
+            errs[key] = max(errs[key], _product_err(g, m, kk, n, tag))
+    for kk, n in ((d, mamba.vocab // world), (dd, rec.vocab // world)):
+        errs["masked_matmul"] = max(errs["masked_matmul"], _product_err(g, prompt, kk, n, tag))
+    torch.cuda.empty_cache()
+    got, splits = _train_product_checks(g, {name: (tokens, kk, n)
+                                            for name, (kk, n) in serve.items()}, tag)
+    for key in ("masked_matmul_dx", "masked_matmul_dw"):
+        errs[key] = got[key]
+    errs["masked_matmul"] = max(errs["masked_matmul"], got["masked_matmul"])
+    errs["flash_attention"] = _flash_err(g, a, prompt, tag)
+    h = s.n_heads // world
+    x = torch.randn(1, prompt, h, s.head_dim, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(1, prompt, h, generator=g, device=dev))
+    av = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.5)
+    b, c = (torch.randn(1, prompt, s.n_groups, s.d_state, generator=g, device=dev)
+            .div_(s.d_state**0.5) for _ in range(2))
+    with torch.no_grad():
+        y, state = ssd_scan(x, dt, av, b, c, return_state=True)
+        want_y, want_state = ssd_scan_chunked(x, dt, av, b, c, return_state=True)
+    rel = max(float((y - want_y).abs().max() / want_y.abs().max()),
+              float((state - want_state).abs().max() / want_state.abs().max()))
+    if not rel <= 1e-4:
+        fail(f"{tag}: ssd_scan {tuple(x.shape)} off its chunked plain version by rel {rel:.3g}")
+    errs["ssd_scan"] = float((y - want_y).abs().max())
+    del x, dt, b, c, y, state, want_y, want_state
+    errs.update({k: v for k, v in _train_ssd_check(dev, dc.replace(mamba, ssm=dc.replace(
+        s, n_heads=h, d_inner=s.d_inner // world))).items() if k == "ssd_scan_grad"})
+    ring = torch.relu(torch.randn(rec.n_units, requests, a.window * rec.local_attn.n_kv_heads
+                                  * hd, generator=g, device=dev)).to(torch.bfloat16)
+    got, want = kv_pack(ring), kv_pack_reference(ring)
+    if not all(torch.equal(got[p], want[p]) for p in ("values", "mask", "nnz")):
+        fail(f"{tag}: kv_pack on the rings' leaf {tuple(ring.shape)} differs from its plain "
+             "version")
+    del ring, got, want
+    w = torch.randn(dd, dr, generator=g, device=dev)
+    base, stride = shard_counter((dd, rec.rglru.d_rnn), 1, rank * dr)
+    if not torch.equal(stochastic_round(w, 13, base=base, row_stride=stride),
+                       sr_reference(w, 13, base=base, row_stride=stride)):
+        fail(f"{tag}: the strided stochastic_round on its wx shard {tuple(w.shape)} differs "
+             "from its plain version")
+    del w
+    _free(dev)
+    print(f"[mesh_ssm rank {rank}] 8i kernels at the shard shapes: {errs} over {serve} "
+          f"(M {prompt}, {requests} and {tokens}); tile_occupancy, splitk_reduce {splits}, "
+          "kv_pack and the strided stochastic_round bit-equal", flush=True)
+    return errs
+
+
+def _ssm_train_spec(spec_path: str, arch: str, world: int = 1):
+    from repro_torch.api import build_spec
+
+    mesh = [f"shape.mesh.model={world}"] if world > 1 else []
+    return build_spec("train", spec_file=spec_path,
+                      sets=[f"arch.id={arch}", *MESH_TP_TRAIN_SETS, *mesh])
+
+
+def _ssm_runs(mesh, dev, world: int, rank: int, spec_path: str) -> dict:
+    """8i on one rank at model = ``world``: mamba2-780m and
+    recurrentgemma-9b served whole, then trained (MESH_SSM_TRAIN_UNITS),
+    then (on the card) the path kernels at the shard shapes."""
+    t0 = time.monotonic()
+    out = {"serve": {arch: _ep_serve(dev, arch, _full_units(arch), mesh, MESH_SSM_TRAFFIC)
+                     for arch in MESH_SSM_ARCHS},
+           "train": {arch: _ep_train(dev, _ssm_train_spec(spec_path, arch, world), mesh,
+                                     MESH_SSM_TRAIN_UNITS[arch]) for arch in MESH_SSM_ARCHS}}
+    out["runs_s"] = time.monotonic() - t0
+    if dev.type == "cuda":
+        t0 = time.monotonic()
+        out["checks"] = _ssm_kernel_checks(dev, rank, world)
+        out["checks_s"] = time.monotonic() - t0
+    return out
+
+
+def _ssm_base(dev, spec_path: str) -> dict:
+    """8i's unsharded runs in this process: each arch served on
+    MESH_SSM_TRAFFIC, with what 8f's near-tie rule reads
+    (:func:`_ep_record`), and trained at MESH_SSM_TRAIN_UNITS."""
+    t0 = time.monotonic()
+    out: dict = {"serve": {}, "train": {}}
+    for arch in MESH_SSM_ARCHS:
+        run = _ep_serve(dev, arch, _full_units(arch), traffic=MESH_SSM_TRAFFIC)
+        out["serve"][arch] = {k: run[k] for k in ("tokens", "tokens_per_s", "prefill_s",
+                                                  "peak_gib", "params", "pool_bytes",
+                                                  "state_bytes", *EP_RECORD)}
+        out["train"][arch] = _ep_train(dev, _ssm_train_spec(spec_path, arch), units=(
+            MESH_SSM_TRAIN_UNITS[arch]))
+    out["wall_s"] = time.monotonic() - t0
+    for arch in MESH_SSM_ARCHS:
+        sv, t = out["serve"][arch], out["train"][arch]
+        print(f"[mesh] 8i unsharded {arch}: served {sv['tokens_per_s']:.2f} tokens/s, prefill "
+              f"{sv['prefill_s'] / MESH_SSM_TRAFFIC[0]:.3f} s a request, peak "
+              f"{sv['peak_gib']:.2f} GiB; trained at {t['n_layers']} layers: losses "
+              f"{t['losses']}, {[round(x, 3) for x in t['steps_s']]} s a step, peak "
+              f"{t['peak_gib']:.2f} GiB", flush=True)
+    print(f"[mesh] 8i unsharded runs {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _ssm_gates(ranks: list, base: dict) -> dict:
+    """8i's gates over the model=4 ranks: each served arch's tokens finite,
+    equal across ranks and to the unsharded tokens but for a printed near
+    tie (8f's rule, :func:`_ep_tie_gate`); each rank's parameter and pool
+    bytes its shards' (:func:`_shard_bytes`, :func:`_pool_bytes_want`);
+    the training losses finite, bit-equal across ranks and within rel
+    MESH_TP_LOSS_RTOL of the unsharded run's, on the grid, the leaves held
+    whole the same bits on every rank, each rank's parameter bytes its
+    shards'; every path kernel launched on every rank."""
+    import math
+
+    out: dict = {}
+    for arch in MESH_SSM_ARCHS:
+        runs, want = [r["ssm"]["serve"][arch] for r in ranks], base["serve"][arch]
+        for rank, e in enumerate(runs):
+            print(f"[mesh] rank {rank} 8i {arch} ({e['n_layers']} layers, "
+                  f"{e['params'] / 1e9:.3f} B parameters a rank of {want['params'] / 1e9:.3f} B, "
+                  f"drawn in {e['init_s']:.1f} s) served at model={MESH_TP}: prefill "
+                  f"{e['prefill_s'] / MESH_SSM_TRAFFIC[0]:.3f} s a request (unsharded "
+                  f"{want['prefill_s'] / MESH_SSM_TRAFFIC[0]:.3f}), decode {e['decode_s']:.3f} s, "
+                  f"{e['tokens_per_s']:.2f} tokens/s (unsharded {want['tokens_per_s']:.2f}), "
+                  f"{e['ticks']} ticks, {e['model_hops'] / max(e['ticks'], 1):.1f} model hops a "
+                  f"tick, kv heads {e['kv_heads']}, pool {e['pool_bytes']} bytes (unsharded "
+                  f"{want['pool_bytes']}), state {e['state_bytes']} bytes (unsharded "
+                  f"{want['state_bytes']}), peak {e['peak_gib']:.2f} GiB, card free "
+                  f"{e['free_gib']:.2f} GiB, wall {e['wall_s']:.1f} s, launches {e['launches']}",
+                  flush=True)
+            if e["tokens"] != runs[0]["tokens"] or not e["finite"]:
+                fail(f"mesh phase: rank {rank}'s 8i {arch} tokens are not finite or differ "
+                     "from rank 0's")
+            for name in MESH_SSM_SERVE_KERNELS[arch]:
+                if e["launches"][name] <= 0:
+                    fail(f"mesh phase: rank {rank}'s 8i {arch} run never launched {name}")
+            if e["param_bytes"] != e["param_bytes_want"] or \
+                    e["pool_bytes"] != e["pool_bytes_want"]:
+                fail(f"mesh phase: rank {rank} holds {e['param_bytes']} parameter and "
+                     f"{e['pool_bytes']} pool bytes of 8i's {arch}, not its shards' "
+                     f"{e['param_bytes_want']} and {e['pool_bytes_want']}")
+        out[arch] = _ep_tie_gate(f"8i {arch}", runs[0], want)
+        print(f"[mesh] 8i {arch}: tokens equal to the unsharded run's {out[arch]['equal']}, "
+              f"first-step max |logit diff| {out[arch]['first_logit_diff']:.3g}", flush=True)
+        t_want = base["train"][arch]
+        losses = ranks[0]["ssm"]["train"][arch]["losses"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses, t_want["losses"]))
+        out[arch]["loss_rel"] = rel
+        for rank, r in enumerate(ranks):
+            t = r["ssm"]["train"][arch]
+            print(f"[mesh] rank {rank} 8i {arch} trained at {t['n_layers']} layers, "
+                  f"model={MESH_TP}: losses {t['losses']} (unsharded {t_want['losses']}, max rel "
+                  f"{rel:.3g}), on grid {t['grid']}, {[round(x, 3) for x in t['steps_s']]} s a "
+                  f"step ({t['tokens_per_s']:.1f} tokens/s; unsharded "
+                  f"{[round(x, 3) for x in t_want['steps_s']]}), {t['model_hops']} model hops, "
+                  f"param bytes {t['param_bytes']} (shards {t['param_bytes_want']}, unsharded "
+                  f"{t_want['param_bytes']}), {t['whole_leaves']} leaves whole, peak "
+                  f"{t['peak_gib']:.2f} GiB (unsharded {t_want['peak_gib']:.2f}), launches "
+                  f"{t['launches']}", flush=True)
+            if t["losses"] != losses or not all(math.isfinite(v) for v in t["losses"]):
+                fail(f"mesh phase: rank {rank}'s 8i {arch} losses are not finite or differ "
+                     "from rank 0's")
+            if not t["grid"]:
+                fail(f"mesh phase: rank {rank}'s 8i {arch} shards left the grid")
+            if not bool((t["replicated"] == ranks[0]["ssm"]["train"][arch]["replicated"]).all()):
+                fail(f"mesh phase: rank {rank}'s 8i {arch} whole leaves (conv weights, a_log, "
+                     "lam, norms) differ from rank 0's after the steps")
+            if t["param_bytes"] != t["param_bytes_want"]:
+                fail(f"mesh phase: rank {rank} holds {t['param_bytes']} parameter bytes in 8i's "
+                     f"{arch} training, not its shards' {t['param_bytes_want']}")
+            for name in MESH_SSM_TRAIN_KERNELS[arch]:
+                if t["launches"][name] <= 0:
+                    fail(f"mesh phase: rank {rank}'s 8i {arch} training never launched {name}")
+        if not rel <= MESH_TP_LOSS_RTOL:
+            fail(f"mesh phase: 8i {arch} losses {losses} off the unsharded {t_want['losses']} "
+                 f"by rel {rel:.3g}")
+    for rank, r in enumerate(ranks):
+        print(f"[mesh] rank {rank} 8i runs {r['ssm']['runs_s']:.1f} s, kernels at the shard "
+              f"shapes {r['ssm'].get('checks_s', 0.0):.1f} s: {r['ssm'].get('checks')}",
+              flush=True)
+    return out
+
+
+def _ssm_strip(r: dict) -> None:
+    """Drop a rank's 8i tensors and per-token records from the report."""
+    for arch in MESH_SSM_ARCHS:
+        for key in ("pool_sum", *EP_RECORD):
+            r["ssm"]["serve"][arch].pop(key, None)
+        r["ssm"]["train"][arch].pop("replicated", None)
+
+
+def _ssm_launches(r: dict, name: str) -> int:
+    """A rank's 8i main-path launches of ``name``: both archs served and
+    trained."""
+    return sum(r["ssm"][part][arch]["launches"][name] for part in ("serve", "train")
+               for arch in MESH_SSM_ARCHS)
 
 
 def main() -> None:
@@ -6817,6 +7149,7 @@ def main() -> None:
         {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_kernel.py:71",
          "launches": total["ssd_scan"], **ssd, "library_ms": None,
+         "max_abs_err": max(ssd["max_abs_err"], mesh["errs"]["tp"]["ssd_scan"]),
          "note": "one counted launch per call runs four stage kernels: chunk scores (once "
                  "per group), chunk state, state passing, chunk scan; ms: a timed loop of "
                  "calls; device_ms: one call's kernels with L2 flushed ahead of it; stage "

@@ -45,14 +45,16 @@ rank, e.g. under ``torchrun``), and every rank runs the session: with
 collectives (``dist.train``) and the static serving path shards its
 request rows (``dist.serve``), each adding a ``collective_probe`` to its
 result; the engine runs replicated on every rank.  With ``model > 1`` and
-``data == 1`` the dense family, olmoe and deepseek run tensor parallel
-(their experts split over ``model`` too) in training, on the static path
-and through both engines (``dist.tensor``): the session shards given
-parameters at build time (``runtime.tree_sharding.shard_tree``) or draws
-the rank's shards leaf by leaf (``lm_init(..., mesh=)``), each rank
-holds its shards of the parameters and moments (an engine also the pool
-of its kv heads; an MLA arch's latent pool is whole on every rank), a
-checkpoint is written whole (gathered over ``model``, rank 0 writing the
+``data == 1`` the dense family, olmoe, deepseek, mamba2 and recurrentgemma
+run tensor parallel (the experts, the SSM's heads and the RG-LRU's channels
+split over ``model`` too) in training, on the static path and through the
+engines (``dist.tensor``; the paged pool refuses the recurrent archs, as
+unsharded): the session shards given parameters at build time
+(``runtime.tree_sharding.shard_tree``) or draws the rank's shards leaf by
+leaf (``lm_init(..., mesh=)``), each rank holds its shards of the
+parameters and moments (an engine also the pool of its kv heads and its
+part of the recurrent state; an MLA arch's latent pool and mamba2's conv
+state are whole on every rank), a checkpoint is written whole (gathered over ``model``, rank 0 writing the
 reference's names) and resumed by slicing, and the result's
 ``tensor_parallel`` says what the rank held and how many collectives it
 joined; pruning takes the whole weight's threshold.  The other archs and
@@ -134,18 +136,25 @@ class Session:
         with sharding_context(self.mesh):
             return shard_tree(tree, self.mesh)
 
-    def _tp_report(self, params) -> dict:
+    def _tp_report(self, params, cache=None) -> dict:
         """What a tensor-parallel rank held and did: its parameter bytes
         (the sum of its shards'), the collectives it joined over ``model``,
-        the card tensors it staged through the host, its peak."""
+        the card tensors it staged through the host, its peak; given its
+        serving ``cache``, the bytes of its recurrent state leaves there
+        (``serving.kvpool.state_bytes``)."""
         from repro_torch.optim.optimizers import tree_leaves
 
         dev = self.device
-        return {"model": int(self.mesh.shape["model"]), "rank": self.mesh.axis_index("model"),
-                "param_bytes": sum(p.numel() * p.element_size() for p in tree_leaves(params)),
-                "model_hops": self.mesh.hops.get("model", 0),
-                "staged_hops": self.mesh.staged_hops,
-                "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
+        out = {"model": int(self.mesh.shape["model"]), "rank": self.mesh.axis_index("model"),
+               "param_bytes": sum(p.numel() * p.element_size() for p in tree_leaves(params)),
+               "model_hops": self.mesh.hops.get("model", 0),
+               "staged_hops": self.mesh.staged_hops,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
+        if cache is not None:
+            from repro_torch.serving.kvpool import state_bytes
+
+            out["state_bytes"] = state_bytes(cache)
+        return out
 
     def _with_payload(self, out: dict) -> dict:
         out.update(self.spec.payload())
@@ -529,7 +538,7 @@ class ServeSession(Session):
             out["collective_probe"] = collective_probe(
                 spec.sparsity.probe_density, world=spec.shape.mesh.data, device=self.device)
         if tp:
-            out["tensor_parallel"] = self._tp_report(params)
+            out["tensor_parallel"] = self._tp_report(params, cache)
         return out
 
     def _engine(self) -> dict:
@@ -573,6 +582,7 @@ class ServeSession(Session):
         if tp:
             out["tensor_parallel"] = dict(
                 self._tp_report(engine.params), pool_bytes=engine.pool_bytes(),
+                state_bytes=engine.state_bytes(),
                 kv_heads=None if engine.heads is None else list(engine.heads.mine))
         return out
 

@@ -48,10 +48,11 @@ sum and gate products) run in fixed row blocks (``layers.fixed_rows``), so
 a request's tokens do not depend on how many slots the pool has.
 
 Under a mesh that splits weights over ``model`` (tensor parallelism,
-:func:`tensor_parallel`: the dense family, olmoe and deepseek;
-``dist.tensor``) every rank runs the whole stack on its shards: attention
-(GQA or MLA) on its heads, the MLP (dense or shared experts) on its
-columns, the MoE FFN on its experts, the embedding on its vocabulary
+:func:`tensor_parallel`: the dense family, olmoe, deepseek, mamba2 and
+recurrentgemma; ``dist.tensor``) every rank runs the whole stack on its
+shards: attention (GQA, windowed or MLA) on its heads, the SSM on its
+heads, the RG-LRU on its channels, the MLP (dense or shared experts) on
+its columns, the MoE FFN on its experts, the embedding on its vocabulary
 rows; the head's logits are the rank's vocabulary columns,
 gathered in rank order for serving (:func:`_logits`) and reduced with the
 cross-rank max, sum-exp and gold logit for the loss
@@ -156,24 +157,32 @@ class LMConfig:
 
 
 #: the layer kinds whose weights split over ``model``
-TP_KINDS = frozenset({("attn", "swiglu"), ("attn", "moe"), ("mla", "swiglu"), ("mla", "moe")})
+TP_KINDS = frozenset({("attn", "swiglu"), ("attn", "moe"), ("mla", "swiglu"), ("mla", "moe"),
+                      ("ssm", "none"), ("rglru", "swiglu"), ("local", "swiglu")})
 
 
 def tensor_parallel(cfg, mesh) -> bool:
     """Does a run of ``cfg`` on ``mesh`` split its weights over ``model``?
     It does where the mesh's ``model`` extent is > 1 and its ``data``
     extent 1, and every layer of ``cfg`` is of :data:`TP_KINDS` (the dense
-    family, olmoe's and deepseek's layers; MLA's heads a multiple of the
-    extent), with no image prefix.  A ``data > 1`` run keeps ``model``
-    replicated, as the reference builds its data-parallel base step
-    without a mesh; the other archs and the encoder-decoder run replicated
-    on every rank of the axis (ROADMAP §1)."""
+    family, olmoe's, deepseek's, mamba2's and recurrentgemma's layers), with
+    no image prefix, where the split falls on whole units: MLA's heads, the
+    SSM's heads (of one state group), the RG-LRU's ``d_rnn`` and the local
+    attention's query heads each a multiple of the extent.  A ``data > 1`` run keeps ``model`` replicated, as the
+    reference builds its data-parallel base step without a mesh; the other
+    archs and the encoder-decoder run replicated on every rank of the axis
+    (ROADMAP §1)."""
     shape = dict(getattr(mesh, "shape", None) or {})
     m = shape.get("model", 1)
-    return (m > 1 and shape.get("data", 1) == 1
-            and isinstance(cfg, LMConfig) and not cfg.vlm_prefix_len
-            and set(cfg.pattern_unit) | set(cfg.prefix) | set(cfg.suffix) <= TP_KINDS
-            and (cfg.mla is None or cfg.mla.n_heads % m == 0))
+    if not (m > 1 and shape.get("data", 1) == 1 and isinstance(cfg, LMConfig)
+            and not cfg.vlm_prefix_len
+            and set(cfg.pattern_unit) | set(cfg.prefix) | set(cfg.suffix) <= TP_KINDS):
+        return False
+    ssm = cfg.ssm
+    return ((cfg.mla is None or cfg.mla.n_heads % m == 0)
+            and (ssm is None or (ssm.n_heads % m == 0 and ssm.n_groups == 1))
+            and (cfg.rglru is None or cfg.rglru.d_rnn % m == 0)
+            and (cfg.local_attn is None or cfg.local_attn.n_heads % m == 0))
 
 
 def _attn_spec(cfg: LMConfig, mixer: str) -> AttnSpec:
@@ -243,8 +252,9 @@ def block_init_cache(cfg: LMConfig, kind: tuple, batch: int, max_len: int,
     if mixer == "mla":
         return attn_mod.mla_init_cache(batch, cfg.mla, max_len, dtype, device=device)
     if mixer == "rglru":
-        return rec_mod.rglru_init_cache(batch, cfg.rglru, dtype, device=device)
-    return ssm_mod.ssm_init_cache(batch, cfg.ssm, dtype, device=device)
+        return rec_mod.rglru_init_cache(batch, cfg.rglru, dtype, device=device,
+                                        d_model=cfg.d_model)
+    return ssm_mod.ssm_init_cache(batch, cfg.ssm, dtype, device=device, d_model=cfg.d_model)
 
 
 def lm_init(cfg: LMConfig, seed: int = 0, *, device="cuda", mesh=None) -> dict:
@@ -277,7 +287,9 @@ def _init_shards(cfg: LMConfig, seed: int, device, mesh) -> dict:
     """:func:`lm_init`'s shards on ``mesh``: the drawn leaves' paths in
     draw order come from a ``meta`` build, and each drawn leaf is cut to
     its split (``tree_sharding.param_splits``) as it is drawn.  The leaves
-    drawn from no generator (norm scales, biases) are whole on every rank."""
+    drawn from no generator (norm scales, biases) and the SSM's and
+    RG-LRU's ``conv_w`` (drawn outside the hook, split by no rule) are
+    whole on every rank."""
     from repro_torch.runtime.sharding import sharding_context
     from repro_torch.runtime.tree_sharding import _at, map_with_path, param_splits
 

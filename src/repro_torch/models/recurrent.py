@@ -20,6 +20,15 @@ the last ``CONV_K - 1`` raw inputs and ``h`` rounded to bf16 after every
 step.  Decode's reductions (the conv sum, the ``w_r`` / ``w_i`` products)
 run in fixed row blocks (``layers.fixed_rows``), so a row's state does
 not depend on the batch's size.
+
+Under a mesh that splits weights over ``model`` (``dist.tensor``), ``wx``
+and ``wy`` are column shards: a rank holds ``d_rnn / m`` channels
+(``[lo, hi)``) and runs the conv, the gates' elementwise work and the scan
+on them, with its slices of the whole ``conv_w``, ``conv_b`` and ``lam``
+(their gradients summed over ``model``).  ``w_r`` and ``w_i`` are column
+shards that read the whole conv output, gathered over ``model``; ``wo`` is
+a row shard, summed over ``model``.  The ``conv`` and ``h`` states hold
+the rank's channels.
 """
 
 from __future__ import annotations
@@ -30,8 +39,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.tensor import column_input, copy_to_model, gather_from_model
 from repro_torch.models.layers import SpringContext, dense_apply, dense_init, fixed_rows
 from repro_torch.models.ssm import CONV_K, _causal_conv, _softplus
+from repro_torch.runtime.sharding import weight_split
 
 RGLRU_C = 8.0
 
@@ -109,25 +120,45 @@ def _conv_sum(state: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (state * w[None]).sum(dim=1)
 
 
+def _splits(spec: RGLRUSpec, d_model: int) -> tuple:
+    """``wx`` / ``wy``'s and ``wo``'s splits over ``model`` (or None);
+    ``w_r`` / ``w_i`` split their columns with ``wx``'s."""
+    dr = spec.d_rnn
+    return (weight_split(("w_embed", "w_mlp"), (d_model, dr)),
+            # the tree's rule for a "wo" leaf (the reference's layer names
+            # w_mlp; both map onto model)
+            weight_split(("w_qkv", "w_embed"), (dr, d_model)))
+
+
 def rglru_block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, spec: RGLRUSpec,
                       cache: Optional[dict] = None, return_cache: bool = False):
     """Prefill (cache None; with ``return_cache`` the last CONV_K - 1 raw
     conv inputs and the final state become the decode cache) or one-token
-    decode (cache {"conv": (B, CONV_K-1, d_rnn), "h": (B, d_rnn)}).
-    Returns ``(out, new_cache)``."""
+    decode (cache {"conv": (B, CONV_K-1, D), "h": (B, D)}, D the rank's
+    channels of ``d_rnn``).  Returns ``(out, new_cache)``."""
     s = x.shape[1]
-    u = dense_apply(params["wx"], x, ctx)
-    y_gate = dense_apply(params["wy"], x, ctx)
+    sx, so = _splits(spec, x.shape[-1])
+    xin = column_input(x, sx)
+    u = dense_apply(params["wx"], xin, ctx, sx)
+    y_gate = dense_apply(params["wy"], xin, ctx, sx)
     # jax.nn.gelu is the tanh approximation
     y_gate = F.gelu(y_gate.to(torch.float32), approximate="tanh").to(x.dtype)
     w_r, w_i = params["w_r"]["kernel"], params["w_i"]["kernel"]
+    conv_w, conv_b, lam = params["conv_w"], params["conv_b"], params["lam"]
+    if sx is not None:  # the rank's channels of the whole leaves
+        conv_w, conv_b, lam = (copy_to_model(t).narrow(-1, sx.lo, sx.hi - sx.lo)
+                               for t in (conv_w, conv_b, lam))
+
+    def whole(t):  # w_r / w_i read every channel
+        return t if sx is None else gather_from_model(t, -1)
 
     if cache is None:
         u_raw = u
-        uf = _causal_conv(u, params["conv_w"], params["conv_b"]).to(torch.float32)
-        r = torch.sigmoid(torch.matmul(uf, w_r))
-        i = torch.sigmoid(torch.matmul(uf, w_i))
-        h = _rglru_scan(uf, r, i, params["lam"])
+        uf = _causal_conv(u, conv_w, conv_b).to(torch.float32)
+        uw = whole(uf)
+        r = torch.sigmoid(torch.matmul(uw, w_r))
+        i = torch.sigmoid(torch.matmul(uw, w_i))
+        h = _rglru_scan(uf, r, i, lam)
         new_cache = None
         if return_cache:
             new_cache = {"conv": u_raw[:, s - (CONV_K - 1):].to(torch.bfloat16),
@@ -135,22 +166,28 @@ def rglru_block_apply(params: dict, x: torch.Tensor, ctx: SpringContext, spec: R
     else:
         if s != 1:
             raise ValueError("decode processes one token per step")
-        conv_state = torch.cat([cache["conv"], u.to(cache["conv"].dtype)], dim=1)  # (B,K,dr)
-        uf = fixed_rows(lambda c: _conv_sum(c, params["conv_w"]),
-                        conv_state.to(torch.float32)) + params["conv_b"]  # (B, dr)
-        r = torch.sigmoid(fixed_rows(lambda t: torch.matmul(t, w_r), uf))
-        i = torch.sigmoid(fixed_rows(lambda t: torch.matmul(t, w_i), uf))
-        a, norm = _gates(params["lam"], r)
+        conv_state = torch.cat([cache["conv"], u.to(cache["conv"].dtype)], dim=1)  # (B,K,D)
+        uf = fixed_rows(lambda c: _conv_sum(c, conv_w),
+                        conv_state.to(torch.float32)) + conv_b  # (B, D)
+        uw = whole(uf)
+        r = torch.sigmoid(fixed_rows(lambda t: torch.matmul(t, w_r), uw))
+        i = torch.sigmoid(fixed_rows(lambda t: torch.matmul(t, w_i), uw))
+        a, norm = _gates(lam, r)
         h1 = a * cache["h"].to(torch.float32) + norm * (i * uf)
         h = h1[:, None, :]
         new_cache = {"conv": conv_state[:, 1:], "h": h1.to(cache["h"].dtype)}
 
-    out = dense_apply(params["wo"], h.to(x.dtype) * y_gate, ctx)
+    out = dense_apply(params["wo"], h.to(x.dtype) * y_gate, ctx, so)
     return out, new_cache
 
 
-def rglru_init_cache(batch: int, spec: RGLRUSpec, dtype=torch.bfloat16, *, device=None) -> dict:
+def rglru_init_cache(batch: int, spec: RGLRUSpec, dtype=torch.bfloat16, *, device=None,
+                     d_model: Optional[int] = None) -> dict:
+    """Zero decode state.  Given the layer's ``d_model``, under a mesh that
+    splits the layer over ``model`` it holds the rank's channels."""
+    sx = None if d_model is None else _splits(spec, d_model)[0]
+    dr = spec.d_rnn if sx is None else sx.hi - sx.lo
     return {
-        "conv": torch.zeros((batch, CONV_K - 1, spec.d_rnn), dtype=dtype, device=device),
-        "h": torch.zeros((batch, spec.d_rnn), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, CONV_K - 1, dr), dtype=dtype, device=device),
+        "h": torch.zeros((batch, dr), dtype=dtype, device=device),
     }

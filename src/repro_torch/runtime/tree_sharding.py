@@ -240,18 +240,82 @@ class KVHeadSplit:
 def kv_head_split(cfg, mesh) -> Optional[KVHeadSplit]:
     """The pool's :class:`KVHeadSplit` of a run of ``cfg`` on ``mesh`` under
     the active rules (None: every rank holds the whole pool), from its
-    attention layers' spec (every full-attention layer shares one).  An
+    attention layers' spec (every full-attention layer shares one; an arch
+    with windowed layers alone, recurrentgemma, takes its rings').  An
     MLA arch's latent pool (``ckv``, ``krope``) is whole on every rank:
     None."""
     from repro_torch.models.attention import cache_heads
     from repro_torch.models.lm import tensor_parallel
 
-    if (not tensor_parallel(cfg, mesh) or cfg.attn is None
-            or cache_heads(cfg.attn, cfg.d_model) is None):
+    spec = cfg.attn if cfg.attn is not None else cfg.local_attn
+    if (not tensor_parallel(cfg, mesh) or spec is None
+            or cache_heads(spec, cfg.d_model) is None):
         return None
     n = int(mesh.shape["model"])
-    return KVHeadSplit(mesh, cfg.attn.n_kv_heads,
-                       tuple(cache_heads(cfg.attn, cfg.d_model, rank=r) for r in range(n)))
+    return KVHeadSplit(mesh, spec.n_kv_heads,
+                       tuple(cache_heads(spec, cfg.d_model, rank=r) for r in range(n)))
+
+
+#: cache leaves whose dim -2 (of the dense form) holds the kv heads
+HEAD_LEAVES = ("k", "v", "k_ring", "v_ring")
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolSplit:
+    """How a serving pool splits over ``model``: its attention leaves
+    (:data:`HEAD_LEAVES`) by kv head (``heads``, a :class:`KVHeadSplit`, or
+    None), and its recurrent state leaves in equal parts in rank order
+    along a dim (``states``: ``{(cache key, leaf name): dim}``, the dim
+    from the end: the SSM's ``ssm`` by head, the RG-LRU's ``conv`` and
+    ``h`` by channel).  Every other leaf is whole on every rank (mamba2's
+    ``conv``, an MLA latent)."""
+
+    mesh: object
+    heads: Optional[KVHeadSplit]
+    states: dict
+
+    def whole(self, key: str, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf ``name`` of the cache subtree ``key`` from every
+        rank's ``x`` (a collective every rank joins where ``x`` is split)."""
+        if name in HEAD_LEAVES:
+            return x if self.heads is None else self.heads.whole(x)
+        dim = self.states.get((key, name))
+        if dim is None:
+            return x
+        parts = self.mesh.all_gather(x.contiguous().to(self.mesh.device), "model").to(x.device)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    def local(self, key: str, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole leaf."""
+        if name in HEAD_LEAVES:
+            return x if self.heads is None else self.heads.local(x)
+        dim = self.states.get((key, name))
+        if dim is None:
+            return x
+        size = x.shape[dim] // int(self.mesh.shape["model"])
+        return x.narrow(dim, self.mesh.axis_index("model") * size, size)
+
+
+def pool_split(cfg, mesh) -> Optional[PoolSplit]:
+    """The serving pool's :class:`PoolSplit` of a run of ``cfg`` on ``mesh``
+    under the active rules, or None where every rank holds the whole pool
+    (no split over ``model``, or an MLA arch's latent pool)."""
+    from repro_torch.models import recurrent as rec_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.lm import tensor_parallel
+
+    if not tensor_parallel(cfg, mesh):
+        return None
+    states: dict = {}
+    for key, _, (mixer, _) in cfg.layer_plan:
+        if mixer == "ssm" and ssm_mod._splits(cfg.ssm, cfg.d_model)[1] is not None:
+            states[key, "ssm"] = -3  # (..., B, H, N, P)
+        elif mixer == "rglru" and rec_mod._splits(cfg.rglru, cfg.d_model)[0] is not None:
+            states[key, "conv"] = states[key, "h"] = -1
+    heads = kv_head_split(cfg, mesh)
+    if heads is None and not states:
+        return None
+    return PoolSplit(mesh, heads, states)
 
 
 def _at(tree, path):

@@ -177,13 +177,15 @@ class ServingEngine:
 
     ``mesh``: the ranks of a mesh each run this engine, taking the same
     decisions.  Where ``models.lm.tensor_parallel(cfg, mesh)`` holds (the
-    dense family, olmoe and deepseek at ``model > 1``, ``data = 1``) each
-    rank holds its shards of the weights (``params`` may be whole or the
-    rank's shards; None draws the shards leaf by leaf) and the pool of its
-    own kv heads (``self.heads``; None for an MLA arch, whose latent pool
-    is whole and the same bits on every rank); the ticks run under
-    the default rules, and the wire figures, snapshots and spill costs are
-    the whole pool's.  Elsewhere every rank runs the whole engine,
+    dense family, olmoe, deepseek, mamba2 and recurrentgemma at ``model >
+    1``, ``data = 1``) each rank holds its shards of the weights
+    (``params`` may be whole or the rank's shards; None draws the shards
+    leaf by leaf) and its part of the pool (``self.pool_split``): its own
+    kv heads (``self.heads``; None for an MLA arch, whose latent pool is
+    whole and the same bits on every rank, and for mamba2), its SSM heads'
+    and RG-LRU channels' state (mamba2's conv state whole); the ticks run
+    under the default rules, and the wire figures, snapshots and spill
+    costs are the whole pool's.  Elsewhere every rank runs the whole engine,
     replicated.
     """
 
@@ -273,13 +275,15 @@ class ServingEngine:
 
         self._prefill = make_prefill_step(cfg, spring, prune_ratio=prune_ratio)
         self._decode = make_decode_step(cfg, spring, prune_ratio=prune_ratio)
-        from repro_torch.runtime.tree_sharding import kv_head_split
+        from repro_torch.runtime.tree_sharding import pool_split
 
         with self._context():
             if self.tp:
                 self.params = self._rank_params(self.params)
-            #: the pool's split by kv head (None: each rank holds the whole pool)
-            self.heads = kv_head_split(cfg, mesh) if self.tp else None
+            #: the pool's split over model (None: each rank holds the whole pool)
+            self.pool_split = pool_split(cfg, mesh) if self.tp else None
+            #: its attention leaves' split by kv head (the wire figures' sums)
+            self.heads = None if self.pool_split is None else self.pool_split.heads
             self._build_pool()
 
         self.decode_steps = 0
@@ -326,20 +330,20 @@ class ServingEngine:
 
     def _whole_payload(self, payload: dict) -> dict:
         """A spilled request's payload in the whole pool's layout (under a
-        kv-head split its heads gathered over ``model``): what a snapshot
-        holds."""
-        if self.heads is None:
+        pool split its heads and state parts gathered over ``model``): what
+        a snapshot holds."""
+        if self.pool_split is None:
             return payload
         return {**payload, "slot_state": kvpool.map_slot_heads(
-            payload["slot_state"], self.pool, self.heads.whole)}
+            payload["slot_state"], self.pool, self.pool_split.whole)}
 
     def _rank_payload(self, payload: dict) -> dict:
-        """A snapshot's payload as this engine holds it (under a kv-head
-        split, sliced to this rank's heads)."""
-        if self.heads is None:
+        """A snapshot's payload as this engine holds it (under a pool
+        split, sliced to this rank's part)."""
+        if self.pool_split is None:
             return payload
         return {**payload, "slot_state": kvpool.map_slot_heads(
-            payload["slot_state"], self.pool, self.heads.local)}
+            payload["slot_state"], self.pool, self.pool_split.local)}
 
     # -- backend construction (overridden by the paged engine) --------------
 
@@ -357,6 +361,10 @@ class ServingEngine:
     def pool_bytes(self) -> int:
         """The bytes of this rank's KV storage (its pool's leaves)."""
         return sum(t.numel() * t.element_size() for t in kvpool.pool_leaves(self.pool))
+
+    def state_bytes(self) -> int:
+        """The bytes of this rank's recurrent state leaves in its pool."""
+        return kvpool.state_bytes(self.pool)
 
     # -- submission ---------------------------------------------------------
 
@@ -649,11 +657,11 @@ class ServingEngine:
 
     def _check_backend(self, sig: dict, b: dict) -> None:
         """Refuse a snapshot's pool leaves that do not fit this engine's
-        pool (the whole pool's layout under a kv-head split) at the
+        pool (the whole pool's layout under a pool split) at the
         snapshot's slot count (before any state changes)."""
         from repro_torch.serving.elastic.snapshot import check_leaves
 
-        pool = self.pool if self.heads is None else self._whole_pool_template(1)
+        pool = self.pool if self.pool_split is None else self._whole_pool_template(1)
         check_leaves(kvpool.pool_shapes(pool, int(sig["n_slots"])), b["pool"], "kv pool")
 
     def _reconfigure(self, sig: dict) -> None:
@@ -664,25 +672,26 @@ class ServingEngine:
             self._build_pool()
 
     def _snapshot_backend(self) -> dict:
-        """The pool's leaves; under a kv-head split in the whole pool's
+        """The pool's leaves; under a pool split in the whole pool's
         layout (each rank's heads unpacked, gathered over ``model`` and
-        packed whole), so a snapshot restores at any ``model`` extent and
-        in the reference's engine."""
+        packed whole, its state parts gathered), so a snapshot restores at
+        any ``model`` extent and in the reference's engine."""
         from repro_torch.serving.elastic.snapshot import tree_to_host_leaves
 
-        pool = self.pool if self.heads is None else kvpool.map_heads(self.pool, self.heads.whole)
+        pool = (self.pool if self.pool_split is None
+                else kvpool.map_heads(self.pool, self.pool_split.whole))
         return {"pool": tree_to_host_leaves(pool)}
 
     def _restore_backend(self, b: dict) -> None:
-        """The snapshot's pool; a whole one sliced to this rank's heads under
-        a kv-head split."""
+        """The snapshot's pool; a whole one sliced to this rank's part under
+        a pool split."""
         from repro_torch.serving.elastic.snapshot import leaves_to_tree
 
-        if self.heads is None:
+        if self.pool_split is None:
             self.pool = leaves_to_tree(self.pool, b["pool"], "kv pool")
             return
         whole = leaves_to_tree(self._whole_pool_template(self.n_slots), b["pool"], "kv pool")
-        self.pool = kvpool.map_heads(whole, self.heads.local)
+        self.pool = kvpool.map_heads(whole, self.pool_split.local)
 
     def snapshot(self) -> dict:
         """Full engine state as one host tree (``serving/elastic/snapshot.py``
@@ -730,11 +739,11 @@ class ServingEngine:
         N ticks (crash recovery: ``restore_file`` + ``run`` again).  The
         ranks of a mesh each run this same engine, and rank 0 alone writes
         the file, as concurrent writers would truncate each other's; under
-        a kv-head split every rank takes the snapshot (the pool is gathered
+        a pool split every rank takes the snapshot (the pool is gathered
         whole, which every rank joins)."""
         from repro_torch.serving import elastic
 
-        every = self.snapshot_every if is_rank0() or self.heads is not None else 0
+        every = self.snapshot_every if is_rank0() or self.pool_split is not None else 0
         while self.sched.has_work():
             self.step()
             self.sched.check_invariants()

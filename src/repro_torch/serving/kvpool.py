@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core.masking import MASK_WORD_BITS, _n_words
 from repro_torch.kernels.kv_cache.ops import KV_VALUE_BITS, kv_pack, kv_unpack
+from repro_torch.runtime.tree_sharding import HEAD_LEAVES
 
 #: seq axis (negative, from the end) of each packable cache leaf; the slot
 #: axis is the one just before it
@@ -393,10 +394,22 @@ def pool_wire_stats(pool: dict, value_bits: int = KV_VALUE_BITS, heads=None) -> 
     }
 
 
-# -- tensor parallelism: the pool's leaves by kv head ---------------------------
+#: the recurrent state leaves of a cache (the SSM's, the RG-LRU's)
+STATE_LEAVES = ("conv", "ssm", "h")
 
-#: cache leaves whose dim -2 (of the dense form) holds the kv heads
-HEAD_LEAVES = ("k", "v", "k_ring", "v_ring")
+
+def state_bytes(tree) -> int:
+    """The bytes of a cache's (or pool's, or slot state's) recurrent state
+    leaves."""
+    from repro_torch.runtime.tree_sharding import map_with_path
+
+    sizes: list = []
+    map_with_path(lambda path, leaf: sizes.append(leaf.numel() * leaf.element_size())
+                  if path[-1] in STATE_LEAVES else None, tree)
+    return sum(sizes)
+
+
+# -- tensor parallelism: the pool's leaves by kv head, head and channel --------
 
 
 def repack(values: torch.Tensor, mask: torch.Tensor, shape: tuple, fn) -> dict:
@@ -420,22 +433,25 @@ def _dense_shape(leaf: PackedKV, name: str, values: torch.Tensor) -> tuple:
 
 
 def map_heads(pool: dict, fn) -> dict:
-    """``pool`` with every attention leaf's dense form mapped by ``fn`` (kv
-    heads at dim -2): a ``KVHeadSplit``'s ``whole`` (every rank's heads
-    gathered: the whole pool's layout, a collective per leaf) or ``local``
-    (this rank's heads of a whole pool).  PackedKV leaves are unpacked,
-    mapped and packed again; dense state leaves and ``pos`` without heads
-    pass through."""
+    """``pool`` with every leaf's dense form mapped by ``fn(key, name,
+    leaf)`` (``key`` the cache subtree, ``name`` the leaf): a
+    ``runtime.tree_sharding.PoolSplit``'s ``whole`` (every rank's heads
+    and state parts gathered: the whole pool's layout, a collective per
+    split leaf) or ``local`` (this rank's part of a whole pool).  A
+    PackedKV leaf that ``fn`` splits is unpacked, mapped and packed again;
+    ``pos`` passes through."""
     out = {"pos": pool["pos"]}
     for unit in _units(pool):
         out[unit] = {}
         for name, leaf in pool[unit].items():
             if isinstance(leaf, PackedKV):
-                r = repack(leaf.values, leaf.mask, _dense_shape(leaf, name, leaf.values), fn)
-                leaf = PackedKV(values=r["values"], mask=r["mask"], nnz=r["nnz"],
-                                shape=r["shape"], dtype=leaf.dtype)
-            elif name in HEAD_LEAVES:
-                leaf = fn(leaf)
+                if name in HEAD_LEAVES:
+                    r = repack(leaf.values, leaf.mask, _dense_shape(leaf, name, leaf.values),
+                               lambda x: fn(unit, name, x))
+                    leaf = PackedKV(values=r["values"], mask=r["mask"], nnz=r["nnz"],
+                                    shape=r["shape"], dtype=leaf.dtype)
+            else:
+                leaf = fn(unit, name, leaf)
             out[unit][name] = leaf
     return out
 
@@ -450,11 +466,13 @@ def map_slot_heads(payload: dict, pool: dict, fn) -> dict:
         for name, leaf in pool[unit].items():
             p = payload[unit][name]
             if isinstance(leaf, PackedKV):
-                values = as_tensor(p["values"])
-                r = repack(values, as_tensor(p["mask"]), _dense_shape(leaf, name, values), fn)
-                p = {part: host_copy(r[part]) for part in ("values", "mask", "nnz")}
-            elif name in HEAD_LEAVES:
-                p = host_copy(fn(as_tensor(p)))
+                if name in HEAD_LEAVES:
+                    values = as_tensor(p["values"])
+                    r = repack(values, as_tensor(p["mask"]), _dense_shape(leaf, name, values),
+                               lambda x: fn(unit, name, x))
+                    p = {part: host_copy(r[part]) for part in ("values", "mask", "nnz")}
+            else:
+                p = host_copy(fn(unit, name, as_tensor(p)))
             out[unit][name] = p
     return out
 

@@ -147,6 +147,10 @@ class PagedServingEngine(ServingEngine):
         return sum(t.numel() * t.element_size()
                    for t in kvpool.pool_leaves([self.store_arrays, self.state]))
 
+    def state_bytes(self) -> int:
+        """The bytes of this rank's recurrent state leaves (its slot state)."""
+        return kvpool.state_bytes(self.state)
+
     # -- submission ----------------------------------------------------------
 
     def submit(self, req) -> int:

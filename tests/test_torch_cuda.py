@@ -1261,6 +1261,39 @@ def test_two_gloo_ranks_on_one_card_serve_expert_parallel_as_the_cpu(card, tmp_p
             assert r["launches"][kname] > 0, r["launches"]
 
 
+def test_two_gloo_ranks_on_one_card_serve_the_ssm_and_rglru_blocks_as_the_cpu(card, tmp_path):
+    """The SSM and RG-LRU blocks over model on the card: two gloo ranks
+    sharing cuda:0 serve the reduced mamba2-780m (2 of its 4 SSM heads a
+    rank) and recurrentgemma-9b (32 of its 64 RG-LRU channels, 2 of its 4
+    local heads on the one kv head) at shape.mesh.model=2 (quant_sparse),
+    static and through the engine, each on its shards of one CPU init's
+    weights; both ranks' tokens are the CPU's unsharded tokens from the
+    same weights, and the blocks ran on the ssd_scan, masked_matmul and
+    flash_attention kernels."""
+    import _torch_ssm_tp_ranks as P
+    from repro_torch.api.sessions import ServeSession
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import launch
+    from repro_torch.kernels import cuda
+    from repro_torch.models.lm import lm_init
+
+    cuda.build()  # the ranks only load the libraries
+    params = {arch: lm_init(get_arch(arch).reduced(), 0, device="cpu") for arch in P.ARCHS}
+    ranks = launch.run(P.card_ssm_serve, 2, (params,), timeout_s=300, store_dir=str(tmp_path))
+    for arch in P.ARCHS:
+        for name, sets in (("static", P.STATIC_SETS), ("engine", P.ENGINE_SETS)):
+            want = P._tokens(ServeSession(P.spec("serve", arch,
+                                                 sets + ["numerics.mode=quant_sparse"]),
+                                          device="cpu", params=params[arch]).run())
+            for r in ranks:
+                report = r[f"{arch}/report"]
+                assert r["backend"] == "gloo" and report["staged_hops"] > 0, report
+                assert r[f"{arch}/{name}"] == want, (arch, name, r[f"{arch}/{name}"], want)
+    for r in ranks:
+        for kname in ("masked_matmul", "masked_matmul_skinny", "flash_attention", "ssd_scan"):
+            assert r["launches"][kname] > 0, r["launches"]
+
+
 def test_two_gloo_ranks_on_one_card_serve_their_card_init_as_the_card_unsharded(card, tmp_path):
     """Two model=2 ranks on cuda:0 drawing the session's own seeded init on
     the card serve the unsharded card session's tokens from that init.

@@ -231,13 +231,14 @@ def test_leaf_by_leaf_shards_are_the_whole_inits_slices(arch, n):
 
 
 @pytest.mark.parametrize("arch,tp", [("olmoe-1b-7b", True), ("deepseek-v2-lite-16b", True),
-                                     ("llama3.2-1b", True), ("mamba2-780m", False),
-                                     ("recurrentgemma-9b", False), ("whisper-medium", False),
+                                     ("llama3.2-1b", True), ("mamba2-780m", True),
+                                     ("recurrentgemma-9b", True), ("whisper-medium", False),
                                      ("internvl2-26b", False)])
 def test_tensor_parallel_covers_the_moe_family_and_no_more(arch, tp):
     """tensor_parallel holds for the dense family, olmoe and deepseek at
-    model 4 (data 1), not at data 2 x model 2, and never for mamba2,
-    recurrentgemma, whisper or internvl2 (replicated)."""
+    model 4 (data 1), and for mamba2 and recurrentgemma since their SSM and
+    RG-LRU blocks split (test_torch_ssm_parallel.py), not at data 2 x
+    model 2, and never for whisper or internvl2 (replicated)."""
     cfg = _cfg(arch)
     assert tensor_parallel(cfg, _Stub(4)) is tp
     assert tensor_parallel(cfg, _Stub(2, data=2)) is False
